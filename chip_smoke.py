@@ -5,13 +5,17 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
 builds every Hopper kernel from ``pydcop_tpu_torch/csrc/``, holds each one
-against its plain PyTorch version on the card, then drives the port's main
-path (MaxSum on the ELL layout) at bench config 4's size and at config 2's,
-and checks the results against the same solve on the CPU.  It prints one
-JSON object per phase, then the kernel table, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
-check raises, so the script exits nonzero; it also exits nonzero, with no
-result, when no CUDA device is present or the package is not beside it.
+against its plain PyTorch version on the card, then drives the port's
+paths through ``maxsum.solve``: the ELL layout at bench config 4's size
+and at config 2's, the lanes layout (``layout="pallas"``) at config 4's
+size, the lanes and edges layouts at config 2's, and ``layout="auto"`` on
+a mixed binary + ternary problem, which runs lanes.  Each path is checked
+against the same solve on the CPU, and for the kernels it should launch,
+counted from zero around it.  It prints one JSON object per phase, then
+the kernel table, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
+exits nonzero; it also exits nonzero, with no result, when no CUDA device
+is present or the package is not beside it.
 """
 
 import json
@@ -41,7 +45,12 @@ SMALL_CASES = {
     "clique12": (12, 3, dict(graph="random", p_edge=1.0, seed=3)),
     "grid36": (36, 3, dict(graph="grid", seed=4)),
     "scalefree2000_d16": (2000, 16, dict(graph="scalefree", m_edge=2, seed=1)),
+    # past the TPU kernels' domain limit of 16
+    "scalefree2000_d20": (2000, 20, dict(graph="scalefree", m_edge=2, seed=2)),
 }
+# a mixed binary + ternary problem (mixed_problem_fields) under
+# layout="auto", which runs lanes: ELL cannot represent it
+MIXED = dict(params={"damping": 0.5}, n_cycles=30, seed=3)
 
 
 def emit(obj) -> None:
@@ -70,9 +79,72 @@ def generate(spec):
     return generate_coloring_arrays(n, d, **kw)
 
 
+def mixed_problem_fields(
+    n_vars=3000, n_binary=6000, n_ternary=1500, d=3, seed=5
+):
+    """The fields of ``interop.compiled_from_numpy`` for a random problem
+    with binary and ternary constraints over distinct variables: soft
+    costs in [0, 10) with ~5% of the binary tuples forbidden (cost 1e9, a
+    hard constraint), unary costs in [0, 1), and edges sorted by variable
+    with the port's ``sort_edges_by_var``.  Made with numpy from ``seed``."""
+    import dataclasses
+
+    import numpy as np
+
+    from pydcop_tpu_torch.compile.core import ArityBucket, sort_edges_by_var
+    from pydcop_tpu_torch.dcop.objects import Domain
+
+    rng = np.random.default_rng(seed)
+    buckets, edge_var, edge_con = [], [], []
+    n_edges = n_cons = 0
+    for arity, n_c in ((2, n_binary), (3, n_ternary)):
+        draw = np.sort(rng.integers(0, n_vars, (2 * n_c + 16, arity)), axis=1)
+        distinct = np.all(draw[:, 1:] != draw[:, :-1], axis=1)
+        var_slots = rng.permuted(draw[distinct][:n_c], axis=1).astype(np.int32)
+        check(len(var_slots) == n_c, "mixed_problem_fields: too few scopes")
+        tables = (rng.random((n_c,) + (d,) * arity) * 10).astype(np.float32)
+        if arity == 2:
+            tables[rng.random(tables.shape) < 0.05] = 1e9
+        con_ids = np.arange(n_cons, n_cons + n_c, dtype=np.int32)
+        buckets.append(ArityBucket(
+            arity=arity, tables=tables, var_slots=var_slots,
+            edge_ids=(n_edges + np.arange(n_c * arity, dtype=np.int32))
+            .reshape(n_c, arity),
+            con_ids=con_ids, names=[f"c{i}" for i in con_ids],
+        ))
+        edge_var.append(var_slots.reshape(-1))
+        edge_con.append(np.repeat(con_ids, arity))
+        n_edges += n_c * arity
+        n_cons += n_c
+    edge_var, edge_con = sort_edges_by_var(
+        np.concatenate(edge_var), np.concatenate(edge_con), buckets
+    )
+    names = [f"v{i}" for i in range(n_vars)]
+    return dict(
+        objective="min",
+        var_names=names,
+        var_index={n: i for i, n in enumerate(names)},
+        domains=[Domain("levels", "level", range(d))] * n_vars,
+        n_vars=n_vars,
+        max_domain=d,
+        domain_size=np.full(n_vars, d, dtype=np.int32),
+        valid_mask=np.ones((n_vars, d), dtype=bool),
+        unary=rng.random((n_vars, d)).astype(np.float32),
+        constant_cost=0.0,
+        buckets=[dataclasses.asdict(b) for b in buckets],
+        n_edges=n_edges,
+        edge_var=edge_var,
+        edge_con=edge_con,
+        var_degree=np.bincount(edge_var, minlength=n_vars).astype(np.int32),
+        con_names=[f"c{i}" for i in range(n_cons)],
+        float_dtype=np.float32,
+    )
+
+
 def ell_inputs(compiled, device, seed=0):
-    """The ELL operands of ``compiled`` on ``device`` plus a random
-    variable->factor plane (zero on padding slots)."""
+    """(v2f_t, pair_perm, tabs_t, real_row): the ELL operands of
+    ``compiled`` on ``device`` and a random variable->factor plane (zero on
+    padding slots)."""
     import torch
 
     from pydcop_tpu_torch.compile.kernels import build_ell
@@ -83,29 +155,95 @@ def ell_inputs(compiled, device, seed=0):
     v2f = torch.randn(
         (compiled.max_domain, ell.n_pad), generator=g, device=device
     ) * real
-    return ell, (
+    return [
         v2f,
         torch.as_tensor(ell.pair_perm, device=device),
         torch.as_tensor(ell.tabs_t, device=device),
         real,
+    ]
+
+
+def lanes_inputs(compiled, device, seed=0):
+    """(v2f_t, e0, e1, tables_t): the lanes operands of ``compiled``'s
+    arity-2 bucket on ``device`` and a random [D, n_edges] plane."""
+    import torch
+
+    from pydcop_tpu_torch.compile.kernels import lanes_aux, to_device
+
+    dev = to_device(compiled, device)
+    aux = lanes_aux(dev)
+    bi = [b.arity for b in dev.buckets].index(2)
+    g = torch.Generator(device=device).manual_seed(seed)
+    v2f = torch.randn(
+        (dev.max_domain, dev.n_edges), generator=g, device=device
     )
+    return [v2f, *aux.edge_cols[bi], aux.tables_t[bi]]
 
 
-def ell_minplus_bound(ell, d: int):
-    """(bound_ms, bound_by, bytes, ops) of one ell_minplus call: each input
-    byte this data needs read once, each output written once (tables,
-    partner values and the index of real slots; mask and output of every
-    slot), against the H100's HBM rate and float32 rate."""
-    n_real = int(ell.real_row.sum())
-    nbytes = n_real * (d * d * 4 + d * 4 + 4) + ell.n_pad * (1 + d * 4)
-    ops = n_real * (2 * d * d - d)  # d*d adds, d*(d-1) mins per own value
+def _bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by) against the H100's HBM rate and float32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_OPS_PER_S
-    return (
-        1e3 * max(t_bytes, t_ops),
-        "bytes" if t_bytes >= t_ops else "operations",
-        nbytes, ops,
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations"
     )
+
+
+def ell_minplus_bytes_ops(args):
+    """(bytes, ops) one ell_minplus call needs: each input byte this data
+    needs read once, each output written once (tables, partner values and
+    the index of real slots; mask and output of every slot)."""
+    v2f, _, _, real_row = args
+    d, n_pad = v2f.shape
+    n_real = int(real_row.sum())
+    nbytes = n_real * (d * d * 4 + d * 4 + 4) + n_pad * (1 + d * 4)
+    ops = n_real * (2 * d * d - d)  # d*d adds, d*(d-1) mins per own value
+    return nbytes, ops
+
+
+def factor_arity2_minplus_bytes_ops(args):
+    """(bytes, ops) one factor_arity2_minplus call needs: per constraint
+    its D*D table floats, two int32 edge ids and 2*D gathered message
+    floats read once, and 2*D output floats written once; 2*D*D adds for
+    the joint total, 2*D*D subtracts and 2*D*(D-1) mins."""
+    v2f, e0, _, _ = args
+    d, n_c = v2f.shape[0], e0.shape[0]
+    nbytes = n_c * (d * d * 4 + 2 * 4 + 2 * d * 4 + 2 * d * 4)
+    ops = n_c * (4 * d * d + 2 * d * (d - 1))
+    return nbytes, ops
+
+
+def fan_in_check(c4):
+    """The lanes fan-in (a segmented sum over the variable-sorted edges)
+    at config 4's shape: run twice on the card it must give the same bits
+    (no atomics); beside it, how far it is from the CPU's sum."""
+    import torch
+
+    from pydcop_tpu_torch.compile.kernels import (
+        lanes_aux,
+        segment_sum,
+        to_device,
+    )
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        aux = lanes_aux(to_device(c4, device))
+        f2v = torch.randn(
+            (c4.max_domain, c4.n_edges),
+            generator=torch.Generator().manual_seed(1),
+        ).to(device)
+        out[device] = [
+            segment_sum(f2v, aux.fan_in_offsets_t, 1) for _ in range(2)
+        ]
+    torch.cuda.synchronize()
+    deterministic = torch.equal(*out["cuda"])
+    check(deterministic, "lanes fan-in differs between two runs on the card")
+    gpu = out["cuda"][0].cpu()
+    return {
+        "deterministic": deterministic,
+        "equal_to_cpu": torch.equal(gpu, out["cpu"][0]),
+        "max_abs_err_vs_cpu": float((gpu - out["cpu"][0]).abs().max()),
+    }
 
 
 def time_cuda_ms(fn, arg_sets, rounds: int = 8, reps: int = 5) -> float:
@@ -158,90 +296,120 @@ def phase_build():
 
 
 def phase_kernels(c4):
-    """ell_minplus against ell_minplus_plain on the card, exactly, at the
-    main path's shape (config 4), the small test cases and a D=16 layout;
-    timed at the main path's shape."""
+    """Each kernel against its plain version on the card, exactly, at the
+    main path's shape (config 4), the small test cases and the D=16 and
+    D=20 cases; timed at the main path's shape."""
     import torch
 
-    from pydcop_tpu_torch.compile.hopper_kernels import (
-        ell_minplus,
-        ell_minplus_plain,
-    )
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
 
     shapes = {"config4": c4}
     shapes.update({k: generate(v) for k, v in SMALL_CASES.items()})
-    checked = {}
-    max_err = 0.0
-    for name, compiled in shapes.items():
-        ell, args = ell_inputs(compiled, "cuda")
-        got = ell_minplus(*args)
-        want = ell_minplus_plain(*args)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, want)
-        err = float((got - want).abs().max())
-        checked[name] = {
-            "n_pad": ell.n_pad, "d": compiled.max_domain, "equal": equal,
-            "max_abs_err": err,
-        }
-        check(equal, f"ell_minplus != ell_minplus_plain on {name}: {err}")
-        max_err = max(max_err, err)
-        if name == "config4":
-            # 4 operand sets of ~33 MB each (inputs + output)
-            sets = [args] + [[a.clone() for a in args] for _ in range(3)]
-            kernel_ms = time_cuda_ms(ell_minplus, sets)
-            plain_ms = time_cuda_ms(ell_minplus_plain, sets)
-            bound_ms, bound_by, nbytes, ops = ell_minplus_bound(
-                ell, compiled.max_domain
-            )
-    emit({"phase": "kernels", "shapes": checked})
-    return {
-        "name": "ell_minplus",
-        "route": "cuda",
-        "source": "pydcop_tpu_torch/csrc/ell_minplus.cu",
-        "replaces": "pydcop_tpu/compile/pallas_kernels.py:167",
-        "launches": None,  # filled from the main path's run
-        "equal": True,
-        "tolerance": "exact (torch.equal)",
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "bound_bytes": nbytes,
-        "bound_ops": ops,
-        "library_ms": None,  # no one PyTorch call does gather+add+min+mask
-    }
+    kernels = [
+        # name, operands, bytes and operations, TPU kernel it replaces
+        ("ell_minplus", ell_inputs, ell_minplus_bytes_ops,
+         "pydcop_tpu/compile/pallas_kernels.py:167"),
+        ("factor_arity2_minplus", lanes_inputs,
+         factor_arity2_minplus_bytes_ops,
+         "pydcop_tpu/compile/pallas_kernels.py:83"),
+    ]
+    rows = []
+    for name, inputs, bytes_ops, replaces in kernels:
+        kernel, plain = getattr(hk, name), getattr(hk, f"{name}_plain")
+        checked = {}
+        max_err = 0.0
+        for shape, compiled in shapes.items():
+            args = inputs(compiled, "cuda")
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            checked[shape] = {
+                "shape": list(args[0].shape), "equal": equal,
+                "max_abs_err": err,
+            }
+            check(equal, f"{name} != {name}_plain on {shape}: {err}")
+            max_err = max(max_err, err)
+            if shape == "config4":
+                # 4 operand sets of ~18-33 MB each (inputs + output), so
+                # L2 holds none of them
+                sets = [args] + [[a.clone() for a in args] for _ in range(3)]
+                kernel_ms = time_cuda_ms(kernel, sets)
+                plain_ms = time_cuda_ms(plain, sets)
+                nbytes, ops = bytes_ops(args)
+                bound_ms, bound_by = _bound(nbytes, ops)
+        emit({"phase": "kernels", "kernel": name, "shapes": checked})
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pydcop_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": None,  # filled from its path's run
+            "equal": True,
+            "tolerance": "exact (torch.equal)",
+            "max_abs_err": max_err,
+            "ms": kernel_ms,
+            "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_bytes": nbytes,
+            "bound_ops": ops,
+            # no one PyTorch call does the gathers, adds, mins (and mask)
+            "library_ms": None,
+        })
+    emit({"phase": "fan_in", **fan_in_check(c4)})
+    return rows
 
 
-def phase_solve(name, compiled, spec):
-    """One config through ``maxsum.solve`` on the card, cold then warm,
-    counting ell_minplus launches, then the same solve on the CPU."""
+def phase_solve(name, compiled, spec, layout, per_cycle, against=None):
+    """One problem through ``maxsum.solve`` under ``layout`` on the card,
+    cold then warm, with every kernel's launches counted from zero around
+    each solve (``per_cycle``: the launches a cycle each should make),
+    then the same solve on the CPU; ``against``, another layout's solve on
+    the card, must give the same violations and cost within rel 1e-5."""
     import numpy as np
 
     from pydcop_tpu_torch.algorithms import maxsum
-    from pydcop_tpu_torch.compile.hopper_kernels import ell_minplus
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    params = dict(spec["params"], layout=layout)
+    counted = {k: getattr(hk, k) for k in per_cycle}
 
     def run(device):
-        ell_minplus.launches = 0
+        for k in counted.values():
+            k.launches = 0
         t0 = time.perf_counter()
         res = maxsum.solve(
-            compiled, spec["params"], n_cycles=spec["n_cycles"],
-            seed=spec["seed"], device=device,
+            compiled, params, n_cycles=spec["n_cycles"], seed=spec["seed"],
+            device=device,
         )
-        return res, time.perf_counter() - t0, ell_minplus.launches
+        wall = time.perf_counter() - t0
+        return res, wall, {n: k.launches for n, k in counted.items()}
+
+    def same(a, b):
+        return (
+            a.violations == b.violations
+            and abs(a.cost - b.cost) <= 1e-5 * abs(b.cost)
+        )
 
     cold, cold_s, launches = run("cuda")
-    check(
-        launches == cold.cycles > 0,
-        f"{name}: ell_minplus launched {launches} times in "
-        f"{cold.cycles} cycles",
-    )
+    check(cold.cycles > 0, f"{name}: no cycle ran")
+    want = {n: k * cold.cycles for n, k in per_cycle.items()}
+    check(launches == want, f"{name}: launches {launches}, want {want}")
     warm, warm_s, warm_launches = run("cuda")
-    check(warm_launches == warm.cycles, f"{name}: warm launch count")
+    check(
+        warm_launches == {n: k * warm.cycles for n, k in per_cycle.items()},
+        f"{name}: warm launches {warm_launches}",
+    )
     check(warm == cold, f"{name}: warm solve differs from cold solve")
     cpu, cpu_s, cpu_launches = run("cpu")
-    check(cpu_launches == 0, f"{name}: the CPU solve launched the kernel")
+    check(
+        not any(cpu_launches.values()),
+        f"{name}: the CPU solve launched a kernel",
+    )
     vals = np.array([cold.assignment[v] for v in compiled.var_names])
     check(
         len(vals) == compiled.n_vars
@@ -254,23 +422,35 @@ def phase_solve(name, compiled, spec):
         f"{name}: reported cost is not the assignment's cost",
     )
     check(
-        cold.violations == cpu.violations
-        and abs(cold.cost - cpu.cost) <= 1e-5 * abs(cpu.cost),
+        same(cold, cpu),
         f"{name}: cuda cost {cold.cost}/{cold.violations} vs cpu "
         f"{cpu.cost}/{cpu.violations}",
     )
-    emit({
-        "phase": name, "n_vars": compiled.n_vars,
+    out = {
+        "phase": name, "layout": layout, "n_vars": compiled.n_vars,
         "n_edges": compiled.n_edges, "params": spec["params"],
         "cold_s": cold_s, "warm_s": warm_s,
         "warm_ms_per_cycle": 1e3 * warm_s / warm.cycles,
         "cost": cold.cost, "violations": cold.violations,
-        "cycles": cold.cycles, "ell_minplus_launches": launches,
+        "cycles": cold.cycles, "launches": launches,
         "cpu_s": cpu_s, "cpu_cost": cpu.cost,
         "cpu_violations": cpu.violations, "cpu_cycles": cpu.cycles,
         "same_assignment_as_cpu": cold.assignment == cpu.assignment,
-    })
-    return launches
+    }
+    if against is not None:
+        check(
+            same(cold, against),
+            f"{name}: cost {cold.cost}/{cold.violations} vs the other "
+            f"layout's {against.cost}/{against.violations}",
+        )
+        out.update(
+            other_layout_cost=against.cost,
+            same_assignment_as_other_layout=(
+                cold.assignment == against.assignment
+            ),
+        )
+    emit(out)
+    return cold, launches
 
 
 def main() -> int:
@@ -289,13 +469,36 @@ def main() -> int:
         )
         return 1
     sys.path.insert(0, str(ROOT))
+    from pydcop_tpu_torch.interop import compiled_from_numpy
+
     smi = phase_device()
     phase_build()
     c4 = generate(CONFIG_4["gen"])
-    kernel = phase_kernels(c4)
-    kernel["launches"] = phase_solve("maxsum_100k", c4, CONFIG_4)
-    phase_solve("maxsum_1k", generate(CONFIG_2["gen"]), CONFIG_2)
-    emit({"kernels": [kernel]})
+    ell_row, lanes_row = phase_kernels(c4)
+    ell_only = {"ell_minplus": 1, "factor_arity2_minplus": 0}
+    lanes_only = {"ell_minplus": 0, "factor_arity2_minplus": 1}
+    no_kernel = {"ell_minplus": 0, "factor_arity2_minplus": 0}
+    ell4, launches = phase_solve("maxsum_100k", c4, CONFIG_4, "ell", ell_only)
+    ell_row["launches"] = launches["ell_minplus"]
+    _, launches = phase_solve(
+        "maxsum_100k_pallas", c4, CONFIG_4, "pallas", lanes_only,
+        against=ell4,
+    )
+    lanes_row["launches"] = launches["factor_arity2_minplus"]
+    c2 = generate(CONFIG_2["gen"])
+    ell2, _ = phase_solve("maxsum_1k", c2, CONFIG_2, "ell", ell_only)
+    phase_solve(
+        "maxsum_1k_lanes", c2, CONFIG_2, "lanes", lanes_only, against=ell2
+    )
+    phase_solve(
+        "maxsum_1k_edges", c2, CONFIG_2, "edges", no_kernel, against=ell2
+    )
+    # "auto" must resolve to lanes here: the kernel counts show it
+    phase_solve(
+        "maxsum_mixed", compiled_from_numpy(mixed_problem_fields()), MIXED,
+        "auto", lanes_only,
+    )
+    emit({"kernels": [ell_row, lanes_row]})
     print(smi, flush=True)
     emit({
         "ok": True,

@@ -1,19 +1,30 @@
 """Synchronous MaxSum (belief propagation on the factor graph), batched.
 
-Counterpart of ``pydcop_tpu/algorithms/maxsum.py`` on its ELL layout:
-factor->variable messages are min-marginals over the partner variable's
-values (``factor_step_ell``, the Hopper kernel ``ell_minplus`` on the
-card), variable->factor messages are the sum of the other factors' messages
-plus unary costs, mean-normalized, with damping and tie-breaking noise on
-the unary costs.  ``layout`` values ``"auto"``, ``"ell"`` and
-``"ell_pallas"`` all run this one path; the JAX package's other layouts,
-non-binary problems and bf16 planes raise NotImplementedError.
+Counterpart of ``pydcop_tpu/algorithms/maxsum.py``: factor->variable
+messages are min-marginals over the other variables' values,
+variable->factor messages are the sum of the other factors' messages plus
+unary costs, mean-normalized, with damping and tie-breaking noise on the
+unary costs.  Three physical layouts of the message planes, as in the JAX
+package, with identical math:
+
+- ``"ell"`` (and ``"ell_pallas"``): the degree-bucketed layout, binary
+  constraints only; its factor step is the Hopper kernel ``ell_minplus``
+  on the card;
+- ``"lanes"`` (and ``"pallas"``): ``[D, n_edges]`` planes, any arity;
+  every arity-2 bucket runs the Hopper kernel ``factor_arity2_minplus``
+  on the card;
+- ``"edges"``: ``[n_edges, D]`` planes, any arity, plain PyTorch.
+
+``"auto"`` runs ELL where it applies and lanes on problems ELL cannot
+represent (non-binary constraints, no edges), as do ``"ell"`` and
+``"ell_pallas"``.  bf16 planes and the timeout raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,15 +33,23 @@ from ..compile.core import CompiledDCOP
 from ..compile.kernels import (
     DeviceDCOP,
     EllLayout,
+    LanesAux,
     build_ell,
+    factor_step,
     factor_step_ell,
+    factor_step_lanes,
+    lanes_aux,
     masked_argmin,
     resolve_device,
     to_device,
+    variable_step_with_select,
     variable_step_with_select_ell,
+    variable_step_with_select_lanes,
 )
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import cached_const, extract_values, finalize, run_cycles
+
+logger = logging.getLogger(__name__)
 
 GRAPH_TYPE = "factor_graph"
 
@@ -47,8 +66,7 @@ algo_params = [
         "start_messages", "str", ["leafs", "leafs_vars", "all"], "leafs"
     ),
     AlgoParameterDef("stop_cycle", "int", None, 0),
-    # physical layout of the message planes, as in the JAX package; only
-    # the ELL layout is ported ("auto" and "ell_pallas" run it too)
+    # physical layout of the message planes, as in the JAX package
     AlgoParameterDef(
         "layout", "str",
         ["auto", "edges", "lanes", "pallas", "ell", "ell_pallas"],
@@ -63,10 +81,6 @@ algo_params = [
     AlgoParameterDef("precision", "str", ["f32", "bf16"], "f32"),
 ]
 
-#: layouts the port runs; every one reaches the ELL step and its kernel
-ELL_LAYOUTS = ("auto", "ell", "ell_pallas")
-
-
 @dataclass(frozen=True)
 class EllCarry:
     """The unary plane permuted to ell variable order, computed once at
@@ -77,19 +91,24 @@ class EllCarry:
 
 @dataclass(frozen=True)
 class MaxSumState:
-    v2f: torch.Tensor  # [D, n_pad] variable -> factor messages
-    f2v: torch.Tensor  # [D, n_pad] factor -> variable messages
+    # message planes: [D, n_pad] (ell), [D, n_edges] (lanes) or
+    # [n_edges, D] (edges)
+    v2f: torch.Tensor  # variable -> factor messages
+    f2v: torch.Tensor  # factor -> variable messages
     # [n_vars] current best value per variable: the argmin of the fan-in
     # total, a byproduct of the variable half-cycle
     values: torch.Tensor
     cycle: int  # cycles completed so far
-    aux: EllCarry
+    aux: Union[EllCarry, LanesAux, None]  # None on the edges layout
 
 
 def _make_step(
     damping: float, damp_vars: bool, damp_factors: bool, wavefront: bool,
-    ell_spans: Tuple[Tuple[int, int], ...],
+    layout: str, ell_spans: Tuple[Tuple[int, int], ...] = (),
 ):
+    """The cycle of ``layout`` ("ell", "lanes" or "edges")."""
+    var_damping = damping if damp_vars else 0.0
+
     def step_ell(
         dev: DeviceDCOP, state: MaxSumState,
         act_v, act_f, pair_perm, tabs_t, pos_of_var,
@@ -108,14 +127,50 @@ def _make_step(
         v2f, values = variable_step_with_select_ell(
             ell_spans, state.aux.unary_t, valid_ell_t, edge_valid_t,
             dsize_edges, pos_of_var, real_row, f2v,
-            damping=damping if damp_vars else 0.0,
-            prev_v2f_t=state.v2f,
+            damping=var_damping, prev_v2f_t=state.v2f,
         )
         if wavefront:
             v2f = torch.where((i + 1) >= act_v[None, :], v2f, 0.0)
         return replace(state, v2f=v2f, f2v=f2v, values=values, cycle=i + 1)
 
-    return step_ell
+    if layout == "ell":
+        return step_ell
+    lanes = layout == "lanes"
+
+    def edge_mask(mask):  # broadcast a per-edge mask over the domain axis
+        return mask[None, :] if lanes else mask[:, None]
+
+    def step(dev: DeviceDCOP, state: MaxSumState, act_v, act_f, *_):
+        # *_: the lanes layout's static aux const, which init put in state
+        i = state.cycle
+        if wavefront:
+            v2f_in = torch.where(edge_mask(i >= act_v), state.v2f, 0.0)
+        else:
+            v2f_in = state.v2f
+        if lanes:
+            f2v = factor_step_lanes(dev, state.aux, v2f_in)
+        else:
+            f2v = factor_step(dev, v2f_in)
+        if wavefront:
+            # a factor sends once any of its variables has
+            f2v = torch.where(edge_mask(i >= act_f), f2v, 0.0)
+        if damp_factors and damping:
+            f2v = damping * state.f2v + (1.0 - damping) * f2v
+        if lanes:
+            v2f, values = variable_step_with_select_lanes(
+                dev, state.aux, f2v, damping=var_damping,
+                prev_v2f_t=state.v2f,
+            )
+        else:
+            v2f, values = variable_step_with_select(
+                dev, f2v, damping=var_damping, prev_v2f=state.v2f,
+            )
+        if wavefront:
+            # a variable starts sending once any of its factors has sent
+            v2f = torch.where(edge_mask((i + 1) >= act_v), v2f, 0.0)
+        return replace(state, v2f=v2f, f2v=f2v, values=values, cycle=i + 1)
+
+    return step
 
 
 def init_ell(
@@ -134,6 +189,29 @@ def init_ell(
         cycle=0,
         # dev.unary is already noised here (run_cycles noises before init)
         aux=EllCarry(unary_t=dev.unary[var_perm].T.contiguous()),
+    )
+
+
+def init_lanes(dev: DeviceDCOP, act_v, act_f, aux: LanesAux) -> MaxSumState:
+    """Zero [D, n_edges] planes; ``aux`` is the problem's static
+    ``lanes_aux``, given the noised unary plane here."""
+    zeros = dev.unary.new_zeros((dev.max_domain, dev.n_edges))
+    return MaxSumState(
+        v2f=zeros, f2v=zeros,
+        values=masked_argmin(dev.unary, dev.valid_mask),
+        cycle=0,
+        aux=replace(aux, unary_t=dev.unary.T.contiguous()),
+    )
+
+
+def init_edges(dev: DeviceDCOP, act_v, act_f) -> MaxSumState:
+    """Zero [n_edges, D] planes."""
+    zeros = dev.unary.new_zeros((dev.n_edges, dev.max_domain))
+    return MaxSumState(
+        v2f=zeros, f2v=zeros,
+        values=masked_argmin(dev.unary, dev.valid_mask),
+        cycle=0,
+        aux=None,
     )
 
 
@@ -231,6 +309,10 @@ def activation_cycles(
     from scipy.sparse.csgraph import dijkstra
 
     def build():
+        if compiled.n_edges == 0:
+            # the one dummy edge of an edgeless problem (to_device)
+            z = np.zeros(1, dtype=np.int32)
+            return z, z
         starters = _var_starters(compiled, start_mode)
         n = compiled.n_vars
         if starters.all():
@@ -298,26 +380,47 @@ def _ell_dev_arrays(compiled, ell: EllLayout, device) -> Tuple:
     return cached_const(compiled, ("ell_dev", str(device)), build)
 
 
-def _check_supported(compiled: CompiledDCOP, params: Dict[str, Any]) -> None:
-    if params["layout"] not in ELL_LAYOUTS:
-        raise NotImplementedError(
-            f"maxsum layout={params['layout']!r} is not ported yet; the "
-            f"port runs the ELL layout ({', '.join(ELL_LAYOUTS)})"
+def _edge_activation(compiled, start_mode: str, device):
+    """The per-edge wavefront activation arrays on ``device`` (cached)."""
+
+    def build():
+        return tuple(
+            torch.as_tensor(a, device=device)
+            for a in activation_cycles(compiled, start_mode)
         )
+
+    return cached_const(compiled, ("edge_act", start_mode, str(device)), build)
+
+
+def _check_supported(params: Dict[str, Any], timeout) -> None:
     if params["precision"] != "f32":
         raise NotImplementedError(
             "maxsum precision='bf16' is not ported yet; use 'f32'"
         )
-    if compiled.n_edges == 0:
-        raise NotImplementedError(
-            "maxsum on a problem with no edges needs the lanes layout, "
-            "which is not ported yet"
-        )
-    if any(b.arity != 2 for b in compiled.buckets):
-        raise NotImplementedError(
-            "maxsum on non-binary constraints needs the lanes layout, "
-            "which is not ported yet"
-        )
+    if timeout is not None:
+        raise NotImplementedError("maxsum timeout is not ported yet")
+
+
+def resolve_layout(compiled: CompiledDCOP, layout: str) -> str:
+    """The cycle a ``layout`` parameter runs: "ell", "lanes" or "edges".
+    ``auto``, ``ell`` and ``ell_pallas`` run ELL where it applies and
+    lanes where ELL cannot represent the problem; ``pallas`` is lanes
+    (its arity-2 kernel runs on every lanes solve)."""
+    if layout in ("auto", "ell", "ell_pallas"):
+        if compiled.n_edges == 0:
+            logger.info(
+                "maxsum layout=%r runs as 'lanes' because the problem has "
+                "no edges", layout,
+            )
+            return "lanes"
+        if any(b.arity != 2 for b in compiled.buckets):
+            logger.info(
+                "maxsum layout=%r runs as 'lanes' because the problem has "
+                "non-binary constraints", layout,
+            )
+            return "lanes"
+        return "ell"
+    return "lanes" if layout == "pallas" else layout
 
 
 def solve(
@@ -332,9 +435,7 @@ def solve(
     caller asks for the CPU).  Reports the best assignment seen across
     cycles and the cycles actually run."""
     params = prepare_algo_params(params or {}, algo_params)
-    _check_supported(compiled, params)
-    if timeout is not None:
-        raise NotImplementedError("maxsum timeout is not ported yet")
+    _check_supported(params, timeout)
     device = resolve_device(device)
     if params["stop_cycle"]:
         n_cycles = params["stop_cycle"]
@@ -343,20 +444,45 @@ def solve(
     damp_factors = params["damping_nodes"] in ("factors", "both")
     start_mode = params["start_messages"]
     wavefront = start_mode != "all"
+    layout = resolve_layout(compiled, params["layout"])
 
     dev = cached_const(
         compiled, ("dev", str(device)), lambda: to_device(compiled, device)
     )
-    ell = cached_const(compiled, ("ell_host",), lambda: build_ell(compiled))
-    if wavefront:
-        act_v, act_f = _ell_activation(compiled, ell, start_mode, device)
+    inert = torch.zeros(1, dtype=torch.int32, device=device)
+    if layout == "ell":
+        ell = cached_const(
+            compiled, ("ell_host",), lambda: build_ell(compiled)
+        )
+        if wavefront:
+            act_v, act_f = _ell_activation(compiled, ell, start_mode, device)
+        else:
+            act_v = act_f = inert
+        consts = (act_v, act_f) + _ell_dev_arrays(compiled, ell, device)
+        init = init_ell
+        spans = ell.spans
     else:
-        act_v = act_f = torch.zeros(1, dtype=torch.int32, device=device)
-    consts = (act_v, act_f) + _ell_dev_arrays(compiled, ell, device)
-    step = _make_step(damping, damp_vars, damp_factors, wavefront, ell.spans)
+        if wavefront:
+            act_v, act_f = _edge_activation(compiled, start_mode, device)
+        else:
+            act_v = act_f = inert
+        consts = (act_v, act_f)
+        init = init_edges
+        if layout == "lanes":
+            consts += (
+                cached_const(
+                    compiled, ("lanes_aux", str(device)),
+                    lambda: lanes_aux(dev),
+                ),
+            )
+            init = init_lanes
+        spans = ()
+    step = _make_step(
+        damping, damp_vars, damp_factors, wavefront, layout, spans
+    )
 
     values, extras = run_cycles(
-        dev, init_ell, step, extract_values,
+        dev, init, step, extract_values,
         n_cycles=n_cycles,
         seed=seed,
         consts=consts,

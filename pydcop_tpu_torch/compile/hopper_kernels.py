@@ -14,18 +14,34 @@ factor half-cycle.  It is bound by bytes (65 B per slot at D=3 for 15
 adds and mins).  It folds the pair gather, which the TPU path left to XLA
 outside its kernel, into the kernel, so the partner plane is never
 written and read back.  See the source for the rest of its design.
+
+``factor_arity2_minplus`` (``csrc/factor_arity2_minplus.cu``) replaces
+``factor_arity2_minplus`` at ``pallas_kernels.py:83`` (body
+``_minplus_kernel``, ``:60``): both outgoing message planes of every
+binary factor on the lanes layout.  It is bound by bytes (92 B per
+constraint at D=3 for 48 adds, subtracts and mins).  It folds the two
+slot gathers ``v2f_t[:, edge_ids[:, s]]``, which the TPU path ran as XLA
+gathers outside its kernel, into the kernel: one thread per constraint
+reads its two partners' messages itself.  See the source for the rest.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["ell_minplus", "ell_minplus_plain"]
+__all__ = [
+    "ell_minplus",
+    "ell_minplus_plain",
+    "factor_arity2_minplus",
+    "factor_arity2_minplus_plain",
+    "minplus_marginals_plain",
+]
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,3 +121,99 @@ def ell_minplus(
 
 
 ell_minplus.launches = 0
+
+
+# v2f_t, e0, e1, tables_t, out0, out1, d, n_edges, n_c, stream
+_FACTOR_ARITY2_ARGS = (ctypes.c_void_p,) * 6 + (
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+)
+
+
+def minplus_marginals_plain(
+    tables_t: torch.Tensor,  # [D**a, n_c] lane-major flat tables
+    in_msgs: Sequence[torch.Tensor],  # a planes [D, n_c], one per slot
+) -> List[torch.Tensor]:
+    """The a outgoing [D, n_c] planes of every arity-a factor, on
+    lane-major planes: the broadcast-add ``((T + m_0) + m_1) + ...`` into
+    the joint table, then per slot s the min over the other slots of
+    ``total - m_s``.  The same ops in the same order as the JAX package's
+    jnp lanes factor step."""
+    a = len(in_msgs)
+    d, n_c = in_msgs[0].shape
+    msgs = []  # slot s's messages along axis s of [D]*a + [n_c]
+    for s, m in enumerate(in_msgs):
+        shape = [1] * a + [n_c]
+        shape[s] = d
+        msgs.append(m.reshape(shape))
+    total = tables_t.reshape((d,) * a + (n_c,))
+    for m in msgs:
+        total = total + m
+    outs = []
+    for s in range(a):
+        marg = total - msgs[s]
+        axes = tuple(t for t in range(a) if t != s)
+        outs.append(
+            torch.amin(marg, dim=axes) if axes else marg.reshape(d, n_c)
+        )
+    return outs
+
+
+def factor_arity2_minplus_plain(
+    v2f_t: torch.Tensor,  # [D, n_edges] f32 variable->factor plane
+    e0: torch.Tensor,  # [n_c] int32 edge id of each constraint's slot 0
+    e1: torch.Tensor,  # [n_c] int32 edge id of each constraint's slot 1
+    tables_t: torch.Tensor,  # [D*D, n_c] f32, row i*D+j = cost(i, j)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out0, out1)``, each [D, n_c]: with ``a = v2f_t[:, e0]`` and
+    ``b = v2f_t[:, e1]`` and ``t = (T[i*D+j, c] + a[i, c]) + b[j, c]``,
+    ``out0[i, c] = min_j(t - a[i, c])`` and
+    ``out1[j, c] = min_i(t - b[j, c])``."""
+    a = torch.index_select(v2f_t, 1, e0)
+    b = torch.index_select(v2f_t, 1, e1)
+    out0, out1 = minplus_marginals_plain(tables_t, [a, b])
+    return out0, out1
+
+
+def factor_arity2_minplus(
+    v2f_t: torch.Tensor,
+    e0: torch.Tensor,
+    e1: torch.Tensor,
+    tables_t: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both outgoing planes of every binary factor on the lanes layout:
+    the two slot gathers, the table adds and the two min-marginals.  On
+    CPU tensors this is :func:`factor_arity2_minplus_plain`; on CUDA
+    tensors it launches ``csrc/factor_arity2_minplus.cu`` (float32 only)
+    on the current stream."""
+    tensors = (v2f_t, e0, e1, tables_t)
+    if all(t.device.type == "cpu" for t in tensors):
+        return factor_arity2_minplus_plain(v2f_t, e0, e1, tables_t)
+    device = v2f_t.device
+    if device.type != "cuda":
+        raise ValueError(
+            f"factor_arity2_minplus runs on cpu or cuda, not {device}"
+        )
+    d, n_edges = v2f_t.shape
+    n_c = e0.shape[0]
+    _check(v2f_t, "v2f_t", torch.float32, (d, n_edges), device)
+    _check(e0, "e0", torch.int32, (n_c,), device)
+    _check(e1, "e1", torch.int32, (n_c,), device)
+    _check(tables_t, "tables_t", torch.float32, (d * d, n_c), device)
+    out0 = v2f_t.new_empty((d, n_c))
+    out1 = v2f_t.new_empty((d, n_c))
+    fn = _c_function("factor_arity2_minplus", _FACTOR_ARITY2_ARGS)
+    with torch.cuda.device(device):
+        rc = fn(
+            v2f_t.data_ptr(), e0.data_ptr(), e1.data_ptr(),
+            tables_t.data_ptr(), out0.data_ptr(), out1.data_ptr(),
+            d, n_edges, n_c, torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"factor_arity2_minplus launch failed: CUDA error {rc}"
+        )
+    factor_arity2_minplus.launches += 1
+    return out0, out1
+
+
+factor_arity2_minplus.launches = 0

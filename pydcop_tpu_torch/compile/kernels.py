@@ -1,21 +1,35 @@
-"""Device representation and the device ops of the MaxSum ELL cycle.
+"""Device representation and the device ops of the MaxSum cycle.
 
 Counterpart of ``pydcop_tpu/compile/kernels.py``:
 
 - ``DeviceDCOP``/``DeviceBucket``: the compiled arrays as tensors on one
-  torch device (``to_device``).
+  torch device (``to_device``), with ``f2v_perm`` (``build_f2v_perm``),
+  the one gather that takes factor-side blocks back to global edge order.
 - ``evaluate``: the total cost of a full assignment, run once per cycle
   for anytime-best tracking.
-- the ELL ("degree-bucketed") layout: ``build_ell`` (host, numpy) orders
-  edge slots by variable and pads each variable to a power-of-two degree
-  class, so the variable fan-in is a dense reshape-sum per class, the
-  fan-out a broadcast, and the factor exchange ONE permutation gather to
-  the partner slot.  ``factor_step_ell`` is that gather plus the min-plus
-  marginalization, run by the Hopper kernel ``hopper_kernels.ell_minplus``
-  on the card; ``variable_step_with_select_ell`` is the variable half.
+- the edges layout: ``[n_edges, D]`` message planes; ``factor_step``
+  (any arity) and ``variable_step_with_select``, whose fan-in is a sorted
+  segmented sum over the edges of each variable.
+- the lanes layout: the same cycle on ``[D, n_edges]`` planes
+  (``factor_step_lanes``, ``variable_step_with_select_lanes``).  Every
+  arity-2 bucket's min-plus marginalization runs as the Hopper kernel
+  ``hopper_kernels.factor_arity2_minplus`` on the card; other arities run
+  the plain broadcast-add-min.
+- the ELL ("degree-bucketed") layout, binary constraints only:
+  ``build_ell`` (host, numpy) orders edge slots by variable and pads each
+  variable to a power-of-two degree class, so the variable fan-in is a
+  dense reshape-sum per class, the fan-out a broadcast, and the factor
+  exchange ONE permutation gather to the partner slot.
+  ``factor_step_ell`` is that gather plus the min-plus marginalization,
+  run by the Hopper kernel ``hopper_kernels.ell_minplus`` on the card;
+  ``variable_step_with_select_ell`` is the variable half.  Padding slots
+  carry exact zeros in both message planes every cycle, so fan-in sums
+  and convergence checks never see them.
 
-Binary constraints only.  Padding slots carry exact zeros in both message
-planes every cycle, so fan-in sums and convergence checks never see them.
+The fan-in sums of the edges and lanes layouts are ``segment_sum``, a
+``torch.segment_reduce`` over the variable-sorted edges: each segment is
+summed in edge order, which is deterministic on the card (no atomics)
+and bitwise equal to the JAX package's sorted ``segment_sum`` on the CPU.
 """
 
 from __future__ import annotations
@@ -27,16 +41,30 @@ import numpy as np
 import torch
 
 from .core import BIG, CompiledDCOP
-from .hopper_kernels import ell_minplus
+from .hopper_kernels import (
+    ell_minplus,
+    factor_arity2_minplus,
+    minplus_marginals_plain,
+)
 
 __all__ = [
     "DeviceBucket",
     "DeviceDCOP",
     "resolve_device",
+    "build_f2v_perm",
     "to_device",
     "take_rows",
     "masked_argmin",
     "evaluate",
+    "factor_step",
+    "variable_step",
+    "variable_step_with_select",
+    "select_values",
+    "segment_sum",
+    "LanesAux",
+    "lanes_aux",
+    "factor_step_lanes",
+    "variable_step_with_select_lanes",
     "EllLayout",
     "build_ell",
     "factor_step_ell",
@@ -61,25 +89,72 @@ class DeviceBucket:
     arity: int
     tables_flat: torch.Tensor  # [n_c, D**arity]
     var_slots: torch.Tensor  # [n_c, arity] int64
+    edge_ids: torch.Tensor  # [n_c, arity] int64
+    con_ids: torch.Tensor  # [n_c] int64
 
 
 @dataclass(frozen=True)
 class DeviceDCOP:
-    """The arrays of a ``CompiledDCOP`` that the ELL cycle reads on the
-    device (the edge-list arrays serve only the host-side ELL build)."""
+    """The arrays of a ``CompiledDCOP`` as tensors on one device.  An
+    edgeless problem gets one dummy edge on variable 0 (``n_edges`` 1,
+    ``edge_var``/``edge_con`` ``zeros(1)``), as in the JAX package."""
 
     n_vars: int
     max_domain: int
+    n_edges: int  # max(compiled.n_edges, 1)
+    n_constraints: int  # max(compiled.n_constraints, 1)
+    domain_size: torch.Tensor  # [n_vars] int64
     valid_mask: torch.Tensor  # [n_vars, D] bool
     unary: torch.Tensor  # [n_vars, D] float32
     constant_cost: torch.Tensor  # scalar float32
+    edge_var: torch.Tensor  # [n_edges] int64, sorted
+    edge_con: torch.Tensor  # [n_edges] int64
+    var_degree: torch.Tensor  # [n_vars] int64
     buckets: Tuple[DeviceBucket, ...]
+    # [n_edges] int64: gather map from the stacked (bucket, slot) factor
+    # blocks, plus their sentinel zero row, to global edge order
+    f2v_perm: torch.Tensor
+    # [n_vars + 1] int64: variable v's edges are edge_var[off[v]:off[v+1]]
+    # (the dummy edge of an edgeless problem counts for variable 0)
+    fan_in_offsets: torch.Tensor
+
+
+def build_f2v_perm(
+    bucket_edge_ids: List[np.ndarray], n_edges: int
+) -> np.ndarray:
+    """[n_edges] int32 gather indices from factor-kernel output order to
+    global edge order.
+
+    Factor-side kernels emit one block per (bucket, slot), stacked
+    bucket-major then slot-major, plus one all-zero sentinel row at the
+    end; ``stacked[perm]`` is then the plane in global edge order.  Edges
+    absent from every bucket map to the sentinel."""
+    total = sum(e.shape[0] * e.shape[1] for e in bucket_edge_ids)
+    perm = np.full(n_edges, total, dtype=np.int32)  # default: sentinel row
+    base = 0
+    for edge_ids in bucket_edge_ids:
+        n_c, a = edge_ids.shape
+        for s in range(a):
+            perm[edge_ids[:, s]] = base + s * n_c + np.arange(n_c)
+        base += n_c * a
+    return perm
 
 
 def to_device(c: CompiledDCOP, device="cuda") -> DeviceDCOP:
     """The compiled arrays as tensors on ``device``."""
+    if c.n_edges and not np.all(np.diff(c.edge_var) >= 0):
+        # the fan-in sums each variable's edges as one contiguous segment:
+        # an unsorted edge list would corrupt every fan-in (run it through
+        # compile.core.sort_edges_by_var)
+        raise ValueError(
+            "CompiledDCOP.edge_var must be sorted by variable id"
+        )
     device = resolve_device(device)
     fdt = torch.float32
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
     buckets = tuple(
         DeviceBucket(
             arity=b.arity,
@@ -87,19 +162,36 @@ def to_device(c: CompiledDCOP, device="cuda") -> DeviceDCOP:
                 b.tables.reshape(b.tables.shape[0], -1), dtype=fdt,
                 device=device,
             ),
-            var_slots=torch.as_tensor(
-                b.var_slots.astype(np.int64), device=device
-            ),
+            var_slots=idx(b.var_slots),
+            edge_ids=idx(b.edge_ids),
+            con_ids=idx(b.con_ids),
         )
         for b in c.buckets
     )
+    n_edges = max(c.n_edges, 1)
+    dummy = np.zeros(1, dtype=np.int32)
+    edge_var = c.edge_var if c.n_edges else dummy
     return DeviceDCOP(
         n_vars=c.n_vars,
         max_domain=c.max_domain,
+        n_edges=n_edges,
+        n_constraints=max(c.n_constraints, 1),
+        domain_size=idx(c.domain_size),
         valid_mask=torch.as_tensor(c.valid_mask, device=device),
         unary=torch.as_tensor(c.unary, dtype=fdt, device=device),
         constant_cost=torch.tensor(c.constant_cost, dtype=fdt, device=device),
+        edge_var=idx(edge_var),
+        edge_con=idx(c.edge_con if c.n_edges else dummy),
+        var_degree=idx(c.var_degree),
         buckets=buckets,
+        f2v_perm=idx(
+            build_f2v_perm([b.edge_ids for b in c.buckets], n_edges)
+        ),
+        fan_in_offsets=idx(
+            np.concatenate(
+                [[0], np.cumsum(np.bincount(edge_var, minlength=c.n_vars))]
+            )
+        ),
     )
 
 
@@ -143,6 +235,204 @@ def masked_argmin(
     index on ties)."""
     masked = torch.where(valid_mask, costs, torch.inf)
     return torch.argmin(masked, dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Edges layout: message planes [n_edges, D]
+# ---------------------------------------------------------------------------
+
+
+def _stack_to_edges(
+    dev: DeviceDCOP, outs: List[torch.Tensor], width: int
+) -> torch.Tensor:
+    """Per-(bucket, slot) [n_c, width] blocks in global edge order: the
+    ``f2v_perm`` gather over the blocks plus their sentinel zero row."""
+    stacked = torch.cat(outs + [outs[0].new_zeros((1, width))])
+    return stacked[dev.f2v_perm]
+
+
+def factor_step(dev: DeviceDCOP, v2f: torch.Tensor) -> torch.Tensor:
+    """One factor half-cycle on [n_edges, D] planes: for each constraint
+    and target slot s, ``out[c, s, x] = min over the other slots' values
+    of (cost + sum over the other slots' messages)``, computed as one
+    broadcast-add into the joint table, ``((T + m_0) + m_1) + ...``, and
+    per slot the min over the others of ``total - m_s``.  Fan-out to edge
+    order is the ``f2v_perm`` gather."""
+    d = dev.max_domain
+    outs = []
+    for bucket in dev.buckets:
+        a = bucket.arity
+        n_c = bucket.tables_flat.shape[0]
+        in_msgs = v2f[bucket.edge_ids]  # [n_c, a, D]
+        msgs = []  # slot s's messages along axis 1 + s of [n_c] + [D]*a
+        for s in range(a):
+            shape = [n_c] + [1] * a
+            shape[1 + s] = d
+            msgs.append(in_msgs[:, s].reshape(shape))
+        total = bucket.tables_flat.reshape((n_c,) + (d,) * a)
+        for m in msgs:
+            total = total + m
+        for s in range(a):
+            marg = total - msgs[s]
+            axes = tuple(1 + t for t in range(a) if t != s)
+            outs.append(
+                torch.amin(marg, dim=axes) if axes else marg.reshape(n_c, d)
+            )
+    if not outs:
+        return torch.zeros_like(v2f)
+    return _stack_to_edges(dev, outs, d)
+
+
+def _normalize_v2f(
+    v2f: torch.Tensor, mask: torch.Tensor, dsize: torch.Tensor, dim: int,
+    damping: float, prev: torch.Tensor,
+) -> torch.Tensor:
+    """Mean-normalize variable->factor messages over the valid domain
+    slots (``dim`` is the domain axis), BIG on invalid slots, then damp
+    against the previous plane."""
+    mean = torch.where(mask, v2f, 0.0).sum(dim=dim, keepdim=True) / (
+        torch.clamp(dsize, min=1)
+    )
+    v2f = torch.where(mask, v2f - mean, BIG)
+    if damping and prev is not None:
+        v2f = damping * prev + (1.0 - damping) * v2f
+    return v2f
+
+
+def segment_sum(
+    x: torch.Tensor, offsets: torch.Tensor, axis: int
+) -> torch.Tensor:
+    """The fan-in: sums of ``x`` along ``axis`` over the contiguous
+    segments that ``offsets`` bound (one per variable), each summed in
+    order, with no atomics: the same bits on every run on the card, and
+    bitwise equal to XLA's sorted ``segment_sum`` on the CPU.  ``offsets``
+    is precomputed, so no call rescans segment lengths."""
+    return torch.segment_reduce(x, "sum", offsets=offsets, axis=axis)
+
+
+def variable_step_with_select(
+    dev: DeviceDCOP,
+    f2v: torch.Tensor,
+    damping: float = 0.0,
+    prev_v2f: torch.Tensor = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Variable half-cycle on [n_edges, D] planes: fan-in (sorted
+    segmented sum) plus unary costs, the argmin of that total as the
+    per-variable values, and the variable->factor messages
+    ``total[edge_var] - f2v``, mean-normalized and damped."""
+    fan_in = segment_sum(f2v, dev.fan_in_offsets, 0)  # [n_vars, D]
+    total = fan_in + dev.unary
+    values = masked_argmin(total, dev.valid_mask)
+    v2f = _normalize_v2f(
+        total[dev.edge_var] - f2v, dev.valid_mask[dev.edge_var],
+        dev.domain_size[dev.edge_var][:, None], 1, damping, prev_v2f,
+    )
+    return v2f, values
+
+
+def variable_step(
+    dev: DeviceDCOP,
+    f2v: torch.Tensor,
+    damping: float = 0.0,
+    prev_v2f: torch.Tensor = None,
+) -> torch.Tensor:
+    """``variable_step_with_select`` without the values."""
+    return variable_step_with_select(dev, f2v, damping, prev_v2f)[0]
+
+
+def select_values(dev: DeviceDCOP, f2v: torch.Tensor) -> torch.Tensor:
+    """Best value index per variable from [n_edges, D] factor->variable
+    messages."""
+    fan_in = segment_sum(f2v, dev.fan_in_offsets, 0)
+    return masked_argmin(fan_in + dev.unary, dev.valid_mask)
+
+
+# ---------------------------------------------------------------------------
+# Lanes layout: message planes [D, n_edges]
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LanesAux:
+    """Static lane-major companions of a DeviceDCOP (built once per
+    problem; ``unary_t`` is replaced by the noised plane at init)."""
+
+    tables_t: Tuple[torch.Tensor, ...]  # per bucket [D**arity, n_c]
+    # per bucket, per slot: the [n_c] int32 edge-id column (contiguous,
+    # as the kernel takes it)
+    edge_cols: Tuple[Tuple[torch.Tensor, ...], ...]
+    unary_t: torch.Tensor  # [D, n_vars]
+    valid_t: torch.Tensor  # [D, n_vars] bool
+    fan_in_offsets_t: torch.Tensor  # [D, n_vars + 1] int64, a row a lane
+
+
+def lanes_aux(dev: DeviceDCOP) -> LanesAux:
+    d = dev.max_domain
+    return LanesAux(
+        tables_t=tuple(b.tables_flat.T.contiguous() for b in dev.buckets),
+        edge_cols=tuple(
+            tuple(
+                b.edge_ids[:, s].to(torch.int32).contiguous()
+                for s in range(b.arity)
+            )
+            for b in dev.buckets
+        ),
+        unary_t=dev.unary.T.contiguous(),
+        valid_t=dev.valid_mask.T.contiguous(),
+        fan_in_offsets_t=dev.fan_in_offsets.expand(d, -1).contiguous(),
+    )
+
+
+def _gather_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[:, idx]``."""
+    return torch.index_select(x, 1, idx)
+
+
+def factor_step_lanes(
+    dev: DeviceDCOP, aux: LanesAux, v2f_t: torch.Tensor
+) -> torch.Tensor:
+    """``factor_step`` on [D, n_edges] planes.  Arity-2 buckets go through
+    ``factor_arity2_minplus`` (the Hopper kernel on the card), other
+    arities through the plain broadcast-add-min; both keep the
+    association ``((T + m_0) + m_1) + ... - m_s``, so the result equals
+    the JAX package's lanes step with or without its Pallas kernel."""
+    d = dev.max_domain
+    outs = []  # [D, n_c] blocks in (bucket, slot) order
+    for bi, bucket in enumerate(dev.buckets):
+        cols = aux.edge_cols[bi]
+        if bucket.arity == 2:
+            outs.extend(factor_arity2_minplus(v2f_t, *cols, aux.tables_t[bi]))
+        else:
+            outs.extend(
+                minplus_marginals_plain(
+                    aux.tables_t[bi], [_gather_cols(v2f_t, e) for e in cols]
+                )
+            )
+    if not outs:
+        return torch.zeros_like(v2f_t)
+    stacked = torch.cat(outs + [v2f_t.new_zeros((d, 1))], dim=1)
+    return _gather_cols(stacked, dev.f2v_perm)
+
+
+def variable_step_with_select_lanes(
+    dev: DeviceDCOP,
+    aux: LanesAux,
+    f2v_t: torch.Tensor,
+    damping: float = 0.0,
+    prev_v2f_t: torch.Tensor = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``variable_step_with_select`` on [D, n_edges] planes."""
+    fan_in = segment_sum(f2v_t, aux.fan_in_offsets_t, 1)  # [D, n_vars]
+    total = fan_in + aux.unary_t
+    values = torch.argmin(
+        torch.where(aux.valid_t, total, torch.inf), dim=0
+    ).to(torch.int32)
+    v2f_t = _normalize_v2f(
+        _gather_cols(total, dev.edge_var) - f2v_t,
+        _gather_cols(aux.valid_t, dev.edge_var),
+        dev.domain_size[dev.edge_var][None, :], 0, damping, prev_v2f_t,
+    )
+    return v2f_t, values
 
 
 # ---------------------------------------------------------------------------

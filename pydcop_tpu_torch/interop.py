@@ -16,7 +16,7 @@ import torch
 from .compile.core import ArityBucket, CompiledDCOP
 from .dcop.objects import Domain
 
-__all__ = ["compiled_from_numpy", "ell_planes_from_numpy"]
+__all__ = ["compiled_from_numpy", "planes_from_numpy"]
 
 
 def compiled_from_numpy(fields: Mapping[str, Any]) -> CompiledDCOP:
@@ -60,11 +60,12 @@ def compiled_from_numpy(fields: Mapping[str, Any]) -> CompiledDCOP:
     )
 
 
-def ell_planes_from_numpy(
+def planes_from_numpy(
     v2f: np.ndarray, f2v: np.ndarray, device
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MaxSum's two ``[D, n_pad]`` ELL message planes as float32 tensors
-    on ``device``."""
+    """MaxSum's two message planes as float32 tensors on ``device``, in
+    the layout they come in: ``[D, n_pad]`` (ELL), ``[D, n_edges]``
+    (lanes) or ``[n_edges, D]`` (edges)."""
     return tuple(
         torch.as_tensor(np.asarray(p, dtype=np.float32), device=device)
         for p in (v2f, f2v)

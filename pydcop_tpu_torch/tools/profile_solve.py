@@ -1,11 +1,12 @@
 """Where a warm MaxSum solve's time goes on the card.
 
     python -m pydcop_tpu_torch.tools.profile_solve [--config 4|2] [--reps N]
-        [--trace FILE]
+        [--layout auto|ell|lanes|pallas|edges] [--trace FILE]
 
 Generates bench config 4 (100k-variable scale-free coloring, damping 0.7,
 30 cycles, seed 7) or config 2 (1k random, damping 0.5, stop_cycle 60),
-solves it once cold, then:
+solves it once cold under ``--layout`` (MaxSum's ``layout`` parameter;
+default ``auto``, which runs ELL on these binary problems), then:
 
 - times ``--reps`` warm solves on the host clock (each ends in a
   read-back, so the device has finished), with the stop-on-stable test on
@@ -52,11 +53,16 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", type=int, choices=sorted(CONFIGS), default=4)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument(
+        "--layout", default="auto",
+        choices=["auto", "ell", "ell_pallas", "lanes", "pallas", "edges"],
+    )
     ap.add_argument("--trace", help="write the chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
     (n, d, kw), params, n_cycles, seed = CONFIGS[args.config]
+    params = dict(params, layout=args.layout)
     compiled = generate_coloring_arrays(n, d, **kw)
     cold = _wall(compiled, params, n_cycles, seed)
     res = maxsum.solve(compiled, params, n_cycles=n_cycles, seed=seed)
@@ -87,6 +93,7 @@ def main(argv=None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     out = {
         "config": args.config,
+        "layout": args.layout,
         "device": torch.cuda.get_device_name(0),
         "cycles": res.cycles,
         "cost": res.cost,

@@ -12,10 +12,16 @@ from pydcop_tpu.commands.generators.graphcoloring import (
     generate_coloring_arrays as jax_generate,
 )
 from pydcop_tpu.compile.kernels import build_ell as jax_build_ell
+from pydcop_tpu.compile.kernels import build_f2v_perm as jax_build_f2v_perm
+from pydcop_tpu.compile.kernels import to_device as jax_to_device
 from pydcop_tpu_torch.commands.generators.graphcoloring import (
     generate_coloring_arrays,
 )
-from pydcop_tpu_torch.compile.kernels import build_ell
+from pydcop_tpu_torch.compile.kernels import (
+    build_ell,
+    build_f2v_perm,
+    to_device,
+)
 from pydcop_tpu_torch.interop import compiled_from_numpy
 
 # the JAX package's TestEllPallas.CASES (scalefree 150, clique 12, grid
@@ -117,3 +123,82 @@ def test_compiled_from_numpy_rejects_object_level_dcops():
     fields["dcop"] = object()
     with pytest.raises(NotImplementedError):
         compiled_from_numpy(fields)
+
+
+def _mixed_and_edgeless():
+    """A binary + ternary problem and one with no edges, compiled by the
+    JAX package and carried across (only their arrays)."""
+    from pydcop_tpu.commands.generators.mixedproblem import (
+        generate_mixed_problem,
+    )
+    from pydcop_tpu.compile.core import compile_dcop
+
+    out = {}
+    for name, arity, seed in (("mixed", 3, 1), ("edgeless", 1, 2)):
+        n = 30 if arity == 3 else 10
+        ref = compile_dcop(
+            generate_mixed_problem(n, 20 if arity == 3 else n, 0.3,
+                                   arity=arity, seed=seed)
+        )
+        fields = _fields(ref)
+        fields["dcop"] = None
+        out[name] = (compiled_from_numpy(fields), ref)
+    return out
+
+
+DEVICE_FIELDS = [
+    "n_vars", "max_domain", "n_edges", "n_constraints", "domain_size",
+    "valid_mask", "unary", "constant_cost", "edge_var", "edge_con",
+    "var_degree", "f2v_perm",
+]
+DEVICE_BUCKET_FIELDS = [
+    "arity", "tables_flat", "var_slots", "edge_ids", "con_ids",
+]
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["edgeless", "mixed"])
+def test_to_device_fields_match(case):
+    if case in ("edgeless", "mixed"):
+        port, ref = _mixed_and_edgeless()[case]
+    else:
+        port, ref = _make(case)
+    pdev, rdev = to_device(port, "cpu"), jax_to_device(ref)
+    for f in DEVICE_FIELDS:
+        assert np.array_equal(
+            np.asarray(getattr(pdev, f)), np.asarray(getattr(rdev, f))
+        ), f
+    assert len(pdev.buckets) == len(rdev.buckets)
+    for pb, rb in zip(pdev.buckets, rdev.buckets):
+        for f in DEVICE_BUCKET_FIELDS:
+            assert np.array_equal(
+                np.asarray(getattr(pb, f)), np.asarray(getattr(rb, f))
+            ), f"bucket.{f}"
+    # every variable's fan-in segment: its edges, and the dummy edge of an
+    # edgeless problem on variable 0
+    offsets = pdev.fan_in_offsets.numpy()
+    assert offsets[0] == 0 and offsets[-1] == pdev.n_edges
+    assert np.array_equal(
+        np.repeat(np.arange(pdev.n_vars), np.diff(offsets)),
+        pdev.edge_var.numpy(),
+    )
+
+
+@pytest.mark.parametrize("case", ["mixed", "random1k"])
+def test_build_f2v_perm_matches(case):
+    if case == "mixed":
+        port, ref = _mixed_and_edgeless()[case]
+    else:
+        port, ref = _make(case)
+    for n_edges in (port.n_edges, port.n_edges + 3):  # + edges on no bucket
+        got = build_f2v_perm([b.edge_ids for b in port.buckets], n_edges)
+        want = jax_build_f2v_perm([b.edge_ids for b in ref.buckets], n_edges)
+        assert _equal(got, want)
+    # the sentinel row sits past every block
+    assert got[-1] == sum(b.edge_ids.size for b in port.buckets)
+
+
+def test_to_device_rejects_unsorted_edges():
+    port, _ = _make("grid")
+    port.edge_var = port.edge_var[::-1].copy()
+    with pytest.raises(ValueError, match="sorted"):
+        to_device(port, "cpu")

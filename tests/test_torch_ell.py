@@ -30,7 +30,7 @@ from pydcop_tpu_torch.commands.generators.graphcoloring import (
 )
 from pydcop_tpu_torch.compile import hopper_kernels as hk
 from pydcop_tpu_torch.compile import kernels as tk
-from pydcop_tpu_torch.interop import ell_planes_from_numpy
+from pydcop_tpu_torch.interop import planes_from_numpy
 from pydcop_tpu_torch.random import PRNGKey
 
 CASES = {
@@ -73,7 +73,7 @@ def test_factor_step_equals_jax(case, use_pallas, fn):
         jnp.asarray(re_.tabs_t), jnp.asarray(re_.pair_perm),
         jnp.asarray(re_.real_row), jnp.asarray(v2f), use_pallas=use_pallas,
     )
-    v2f_t, _ = ell_planes_from_numpy(v2f, v2f, CPU)
+    v2f_t, _ = planes_from_numpy(v2f, v2f, CPU)
     args = (_t(pe.tabs_t), _t(pe.pair_perm), _t(pe.real_row), v2f_t)
     if fn == "factor_step_ell":
         got = tk.factor_step_ell(*args)
@@ -96,7 +96,7 @@ def test_variable_step_matches_jax(case):
         jnp.asarray(re_.pos_of_var), jnp.asarray(re_.real_row),
         jnp.asarray(f2v), damping=0.5, prev_v2f_t=jnp.asarray(prev),
     )
-    f2v_t, prev_t = ell_planes_from_numpy(f2v, prev, CPU)
+    f2v_t, prev_t = planes_from_numpy(f2v, prev, CPU)
     v2f, vals = tk.variable_step_with_select_ell(
         pe.spans, _t(unary), _t(pe.valid_ell_t), _t(pe.edge_valid_t),
         _t(pe.dsize_edges), _t(pe.pos_of_var, torch.int64),

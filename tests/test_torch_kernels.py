@@ -18,7 +18,7 @@ from pydcop_tpu_torch.commands.generators.graphcoloring import (
     generate_coloring_arrays,
 )
 from pydcop_tpu_torch.compile import hopper_kernels as hk
-from pydcop_tpu_torch.compile.kernels import build_ell
+from pydcop_tpu_torch.compile.kernels import build_ell, lanes_aux, to_device
 
 # the small ELL cases of the JAX package's TestEllPallas, plus a D=16 one
 CASES = {
@@ -27,6 +27,11 @@ CASES = {
     "grid": (36, 3, dict(graph="grid", seed=4)),
     "scalefree_d16": (300, 16, dict(graph="scalefree", m_edge=2, seed=1)),
 }
+# the lanes kernel's cases: the same, plus D=20, past the TPU kernel's
+# domain limit of 16
+LANES_CASES = dict(
+    CASES, scalefree_d20=(300, 20, dict(graph="scalefree", m_edge=2, seed=2))
+)
 
 
 def _args(case, device="cpu"):
@@ -90,3 +95,79 @@ def test_ell_minplus_checks_its_operands_on_card():
         hk.ell_minplus(v2f.t().contiguous().t(), pair_perm, tabs_t, real_row)
     with pytest.raises(ValueError):
         hk.ell_minplus(v2f, pair_perm.cpu(), tabs_t, real_row)
+
+
+def _lanes_args(case, device="cpu"):
+    """(v2f_t, e0, e1, tables_t) of the case's one arity-2 bucket on the
+    lanes layout, with a random [D, n_edges] plane."""
+    n, d, kw = LANES_CASES[case]
+    dev = to_device(generate_coloring_arrays(n, d, **kw), device)
+    aux = lanes_aux(dev)
+    rng = np.random.default_rng(12)
+    v2f = torch.as_tensor(
+        rng.normal(size=(d, dev.n_edges)).astype(np.float32), device=device
+    )
+    return [v2f, *aux.edge_cols[0], aux.tables_t[0]]
+
+
+@pytest.mark.parametrize("case", sorted(LANES_CASES))
+def test_factor_arity2_minplus_on_cpu_is_the_plain_version_and_uncounted(
+    case,
+):
+    args = _lanes_args(case)
+    before = hk.factor_arity2_minplus.launches
+    got = hk.factor_arity2_minplus(*args)
+    want = hk.factor_arity2_minplus_plain(*args)
+    assert hk.factor_arity2_minplus.launches == before
+    d, n_c = args[0].shape[0], args[1].shape[0]
+    for g, w in zip(got, want):
+        assert g.shape == (d, n_c) and g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+def test_factor_arity2_minplus_plain_is_the_min_marginal():
+    # the definition, one constraint at a time: min over the partner of
+    # table + partner message (the own message cancels exactly here,
+    # since these small integers add and subtract without rounding)
+    v2f, e0, e1, tables_t = _lanes_args("grid")
+    v2f = v2f.round()
+    out0, out1 = hk.factor_arity2_minplus_plain(v2f, e0, e1, tables_t)
+    d = v2f.shape[0]
+    for c in range(0, e0.shape[0], 7):
+        t = tables_t[:, c].reshape(d, d)
+        a, b = v2f[:, e0[c]], v2f[:, e1[c]]
+        assert torch.equal(out0[:, c], torch.amin(t + b[None, :], dim=1))
+        assert torch.equal(out1[:, c], torch.amin(t + a[:, None], dim=0))
+
+
+def test_factor_arity2_minplus_refuses_other_devices():
+    with pytest.raises(ValueError):
+        hk.factor_arity2_minplus(*[a.to("meta") for a in _lanes_args("grid")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LANES_CASES))
+def test_factor_arity2_minplus_kernel_equals_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _lanes_args(case, "cuda")
+    before = hk.factor_arity2_minplus.launches
+    got = hk.factor_arity2_minplus(*args)
+    torch.cuda.synchronize()
+    assert hk.factor_arity2_minplus.launches == before + 1
+    # adds, one subtract and mins in one association: exactly equal
+    for g, w in zip(got, hk.factor_arity2_minplus_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_factor_arity2_minplus_checks_its_operands_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    v2f, e0, e1, tables_t = _lanes_args("grid", "cuda")
+    with pytest.raises(TypeError):
+        hk.factor_arity2_minplus(v2f, e0.long(), e1, tables_t)
+    with pytest.raises(ValueError):
+        hk.factor_arity2_minplus(v2f, e0, e1, tables_t[:, :-1])
+    with pytest.raises(ValueError):
+        hk.factor_arity2_minplus(v2f, e0, e1.cpu(), tables_t)

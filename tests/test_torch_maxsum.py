@@ -100,9 +100,6 @@ def test_every_ell_layout_runs_the_one_path(layout):
 @pytest.mark.parametrize(
     "params, kwargs",
     [
-        ({"layout": "edges"}, {}),
-        ({"layout": "lanes"}, {}),
-        ({"layout": "pallas"}, {}),
         ({"precision": "bf16"}, {}),
         ({}, {"timeout": 1.0}),
     ],
@@ -111,6 +108,72 @@ def test_unported_options_raise(params, kwargs):
     port_c, _ = _pair("grid")
     with pytest.raises(NotImplementedError):
         maxsum.solve(port_c, params, n_cycles=3, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize(
+    "layout, want",
+    [
+        ("auto", "ell"), ("ell", "ell"), ("ell_pallas", "ell"),
+        ("lanes", "lanes"), ("pallas", "lanes"), ("edges", "edges"),
+    ],
+)
+def test_resolve_layout_on_a_binary_problem(layout, want):
+    port_c, _ = _pair("grid")
+    assert maxsum.resolve_layout(port_c, layout) == want
+
+
+@pytest.mark.parametrize("layout", ["lanes", "pallas", "edges"])
+def test_every_layout_gives_the_ell_result_on_grid(layout):
+    # the grid's sums are exact in every layout: one trajectory
+    port_c, _ = _pair("grid")
+    params = {"damping": 0.5}
+    ell = maxsum.solve(port_c, params, n_cycles=30, seed=5, device="cpu")
+    got = maxsum.solve(
+        port_c, dict(params, layout=layout), n_cycles=30, seed=5,
+        device="cpu",
+    )
+    assert got == ell
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` loaded by path, for its problem generator."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _jax_compiled(fields):
+    """The JAX package's CompiledDCOP of the same arrays."""
+    from pydcop_tpu.compile.core import ArityBucket, CompiledDCOP
+    from pydcop_tpu.dcop.objects import Domain
+
+    fields = dict(fields)
+    fields["buckets"] = [ArityBucket(**b) for b in fields["buckets"]]
+    fields["domains"] = [
+        Domain(d.name, d.type, d.values) for d in fields["domains"]
+    ]
+    return CompiledDCOP(dcop=None, **fields)
+
+
+@pytest.mark.parametrize("start", ["leafs", "all"])
+def test_chip_smoke_mixed_problem_solves_like_jax(start):
+    fields = _chip_smoke().mixed_problem_fields(
+        n_vars=120, n_binary=240, n_ternary=60, seed=3
+    )
+    port_c = compiled_from_numpy(fields)
+    assert sorted(b.arity for b in port_c.buckets) == [2, 3]
+    assert np.all(np.diff(port_c.edge_var) >= 0)
+    params = {"damping": 0.5, "start_messages": start}
+    ref = jax_maxsum.solve(_jax_compiled(fields), params, n_cycles=30, seed=4)
+    got = maxsum.solve(port_c, params, n_cycles=30, seed=4, device="cpu")
+    assert got.violations == ref.violations
+    assert got.cost == pytest.approx(ref.cost, rel=1e-5)
+    assert got.cycles == ref.cycles
 
 
 def test_warm_solve_reuses_cached_operands():
@@ -145,12 +208,15 @@ def _scripted_engine(costs, n_cycles, convergence=None):
 
     State = namedtuple("State", "values k")
     d = len(costs)
+    zero = torch.zeros(1, dtype=torch.int64)
     dev = DeviceDCOP(
-        n_vars=1, max_domain=d,
+        n_vars=1, max_domain=d, n_edges=1, n_constraints=1,
+        domain_size=torch.tensor([d]),
         valid_mask=torch.ones((1, d), dtype=torch.bool),
         unary=torch.tensor([costs], dtype=torch.float32),
         constant_cost=torch.tensor(0.0),
-        buckets=(),
+        edge_var=zero, edge_con=zero, var_degree=zero,
+        buckets=(), f2v_perm=zero, fan_in_offsets=torch.tensor([0, 1]),
     )
 
     def init(dev):
