@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``pydcop_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR [DIR ...]]
 
 Run from the root of a checkout on a machine with an NVIDIA H100.  It
-builds every Hopper kernel from ``pydcop_tpu_torch/csrc/``, holds each one
-against its plain PyTorch version on the card, then drives the port's
+builds every Hopper kernel from ``pydcop_tpu_torch/csrc/`` (printing each
+instantiation's registers and spills as ``ptxas`` reports them), holds
+each one against its plain PyTorch version on the card, times both by
+CUDA-graph replay at the main path's shape, then drives the port's
 paths through ``maxsum.solve``: the ELL layout at bench config 4's size
 and at config 2's, the lanes layout (``layout="pallas"``) at config 4's
 size, the lanes and edges layouts at config 2's, and ``layout="auto"`` on
@@ -16,8 +18,16 @@ the kernel table, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits nonzero; it also exits nonzero, with no result, when no CUDA device
 is present or the package is not beside it.
+
+``--against DIR ...`` adds one phase before the solves: the kernels of
+each other checkout (another commit unpacked with ``git archive``, or a
+variant of ``csrc/``; same ``*_launch`` signatures) are built, held
+equal to this checkout's and timed against them on the same operand
+sets, in turns: theirs, ours, ours, theirs.
 """
 
+import argparse
+import functools
 import json
 import statistics
 import subprocess
@@ -47,7 +57,19 @@ SMALL_CASES = {
     "scalefree2000_d16": (2000, 16, dict(graph="scalefree", m_edge=2, seed=1)),
     # past the TPU kernels' domain limit of 16
     "scalefree2000_d20": (2000, 20, dict(graph="scalefree", m_edge=2, seed=2)),
+    # the kernels' cut points: D=2 (several slots a thread), 5 (the last D
+    # with two), 8 (the last with whole-table loads); D=17 is the first D
+    # of the runtime-D kernels
+    "scalefree2000_d2": (2000, 2, dict(graph="scalefree", m_edge=2, seed=3)),
+    "scalefree2000_d5": (2000, 5, dict(graph="scalefree", m_edge=2, seed=4)),
+    "scalefree2000_d8": (2000, 8, dict(graph="scalefree", m_edge=2, seed=5)),
+    "scalefree2000_d17": (2000, 17, dict(graph="scalefree", m_edge=2, seed=6)),
 }
+# random operands (not a generated problem) whose element count is no
+# multiple of the slots a thread takes times the block size, and above
+# the threads the card holds at once, so the grid-stride loop makes
+# several passes and the last one is ragged: (elements, D)
+RAGGED = (2_500_001, 3)
 # a mixed binary + ternary problem (mixed_problem_fields) under
 # layout="auto", which runs lanes: ELL cannot represent it
 MIXED = dict(params={"damping": 0.5}, n_cycles=30, seed=3)
@@ -180,6 +202,40 @@ def lanes_inputs(compiled, device, seed=0):
     return [v2f, *aux.edge_cols[bi], aux.tables_t[bi]]
 
 
+def ell_ragged_inputs(n, d, device, seed=0):
+    """Random ELL operands of ``n`` slots: a v2f plane zero on the ~20%
+    padding slots, partners drawn at random, tables in [0, 10)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    real = torch.rand((1, n), generator=g, device=device) < 0.8
+    return [
+        torch.randn((d, n), generator=g, device=device) * real,
+        torch.randint(
+            0, n, (n,), generator=g, device=device, dtype=torch.int32
+        ),
+        torch.rand((d, d, n), generator=g, device=device) * 10,
+        real,
+    ]
+
+
+def lanes_ragged_inputs(n, d, device, seed=0):
+    """Random arity-2 operands of ``n`` constraints over ``2 n`` edges."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [
+        torch.randn((d, 2 * n), generator=g, device=device),
+        *(
+            torch.randint(
+                0, 2 * n, (n,), generator=g, device=device, dtype=torch.int32
+            )
+            for _ in range(2)
+        ),
+        torch.rand((d * d, n), generator=g, device=device) * 10,
+    ]
+
+
 def _bound(nbytes: int, ops: int):
     """(bound_ms, bound_by) against the H100's HBM rate and float32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -247,28 +303,52 @@ def fan_in_check(c4):
 
 
 def time_cuda_ms(fn, arg_sets, rounds: int = 8, reps: int = 5) -> float:
-    """Median device time of one ``fn(*args)`` call.  Each of ``reps``
-    batches launches ``fn`` on every operand set in turn, ``rounds`` times,
-    between one pair of CUDA events.  The sets together exceed the 50 MB
+    """Median device time of one ``fn(*args)`` call.  One CUDA graph holds
+    ``rounds`` passes of ``fn`` over every operand set in turn; each of
+    ``reps`` replays runs between one pair of CUDA events.  A replay is
+    one launch from the host, so the host's work for each call (a
+    wrapper's checks, allocation and ctypes call) cannot set the pace;
+    what is left besides the kernels is the graph's own gap between
+    nodes (see ``timer_floor_ms``).  The sets together exceed the 50 MB
     L2, so each call reads its operands from device memory, as in the
     solve, where the other passes of a cycle evict them."""
     import torch
 
-    for args in arg_sets:  # warm-up
-        fn(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream
+        for args in arg_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for args in arg_sets:
+                fn(*args)
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(rounds):
-            for args in arg_sets:
-                fn(*args)
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / (rounds * len(arg_sets)))
+    graph.reset()
     return statistics.median(times)
+
+
+def timer_floor_ms() -> float:
+    """What :func:`time_cuda_ms` reads for a call that launches one
+    one-element kernel: the graph's gap between nodes plus the smallest
+    kernel, the least any timed call can read."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    return time_cuda_ms(lambda t: t.add_(1), [[x]] * 4)
 
 
 def phase_device():
@@ -293,33 +373,47 @@ def phase_build():
         "phase": "build", "seconds": time.perf_counter() - t0,
         "libraries": {k: str(p.relative_to(ROOT)) for k, p in paths.items()},
     })
+    for name, path in paths.items():
+        emit({
+            "phase": "ptxas", "library": name,
+            "kernels": _build.resource_usage(path),
+        })
 
 
 def phase_kernels(c4):
     """Each kernel against its plain version on the card, exactly, at the
-    main path's shape (config 4), the small test cases and the D=16 and
-    D=20 cases; timed at the main path's shape."""
+    main path's shape (config 4), the small cases (D = 2..20) and the
+    ragged shape; both timed at the main path's shape.  Returns the
+    kernel rows and, by kernel, the config-4 operand sets they were timed
+    on."""
     import torch
 
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
-    shapes = {"config4": c4}
-    shapes.update({k: generate(v) for k, v in SMALL_CASES.items()})
+    problems = {"config4": c4}
+    problems.update({k: generate(v) for k, v in SMALL_CASES.items()})
     kernels = [
-        # name, operands, bytes and operations, TPU kernel it replaces
-        ("ell_minplus", ell_inputs, ell_minplus_bytes_ops,
+        # name, operands of a problem, random ragged operands, bytes and
+        # operations, TPU kernel it replaces
+        ("ell_minplus", ell_inputs, ell_ragged_inputs, ell_minplus_bytes_ops,
          "pydcop_tpu/compile/pallas_kernels.py:167"),
-        ("factor_arity2_minplus", lanes_inputs,
+        ("factor_arity2_minplus", lanes_inputs, lanes_ragged_inputs,
          factor_arity2_minplus_bytes_ops,
          "pydcop_tpu/compile/pallas_kernels.py:83"),
     ]
-    rows = []
-    for name, inputs, bytes_ops, replaces in kernels:
+    emit({"phase": "timer", "floor_ms": timer_floor_ms()})
+    rows, timed_sets = [], {}
+    for name, inputs, ragged, bytes_ops, replaces in kernels:
         kernel, plain = getattr(hk, name), getattr(hk, f"{name}_plain")
+        operands = {
+            k: functools.partial(inputs, c, "cuda")
+            for k, c in problems.items()
+        }
+        operands["ragged"] = functools.partial(ragged, *RAGGED, "cuda")
         checked = {}
         max_err = 0.0
-        for shape, compiled in shapes.items():
-            args = inputs(compiled, "cuda")
+        for shape, make in operands.items():
+            args = make()
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             if isinstance(got, torch.Tensor):
@@ -336,8 +430,16 @@ def phase_kernels(c4):
                 # 4 operand sets of ~18-33 MB each (inputs + output), so
                 # L2 holds none of them
                 sets = [args] + [[a.clone() for a in args] for _ in range(3)]
+                timed_sets[name] = sets
                 kernel_ms = time_cuda_ms(kernel, sets)
                 plain_ms = time_cuda_ms(plain, sets)
+                # yardsticks: the kernel on one set, which L2 mostly
+                # holds, and a copy of the largest operand (the tables),
+                # which streams like the kernel's table reads
+                l2_warm_ms = time_cuda_ms(kernel, sets[:1])
+                copy_ms = time_cuda_ms(
+                    lambda *a: max(a, key=torch.Tensor.numel).clone(), sets
+                )
                 nbytes, ops = bytes_ops(args)
                 bound_ms, bound_by = _bound(nbytes, ops)
         emit({"phase": "kernels", "kernel": name, "shapes": checked})
@@ -355,13 +457,95 @@ def phase_kernels(c4):
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "bound_share": bound_ms / kernel_ms,
+            "l2_warm_ms": l2_warm_ms,
+            "copy_ms": copy_ms,
             "bound_bytes": nbytes,
             "bound_ops": ops,
             # no one PyTorch call does the gathers, adds, mins (and mask)
             "library_ms": None,
         })
     emit({"phase": "fan_in", **fan_in_check(c4)})
-    return rows
+    return rows, timed_sets
+
+
+def _launcher(library, name):
+    """A wrapper of another build's ``<name>_launch`` with this
+    checkout's calling convention: outputs allocated like the port's
+    wrappers allocate them, launched on the current stream."""
+    import ctypes
+
+    import torch
+
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    fn = getattr(ctypes.CDLL(str(library)), f"{name}_launch")
+    fn.restype = ctypes.c_int
+    if name == "ell_minplus":
+        fn.argtypes = list(hk._ELL_MINPLUS_ARGS)
+
+        def call(v2f, pair_perm, tabs, real_row):
+            out = torch.empty_like(v2f)
+            rc = fn(
+                v2f.data_ptr(), pair_perm.data_ptr(), tabs.data_ptr(),
+                real_row.data_ptr(), out.data_ptr(), *v2f.shape,
+                torch.cuda.current_stream().cuda_stream,
+            )
+            check(rc == 0, f"{library}: {name} launch failed: {rc}")
+            return out
+    else:
+        fn.argtypes = list(hk._FACTOR_ARITY2_ARGS)
+
+        def call(v2f, e0, e1, tables):
+            d, n_c = v2f.shape[0], e0.shape[0]
+            out0, out1 = v2f.new_empty((d, n_c)), v2f.new_empty((d, n_c))
+            rc = fn(
+                v2f.data_ptr(), e0.data_ptr(), e1.data_ptr(),
+                tables.data_ptr(), out0.data_ptr(), out1.data_ptr(), d,
+                v2f.shape[1], n_c, torch.cuda.current_stream().cuda_stream,
+            )
+            check(rc == 0, f"{library}: {name} launch failed: {rc}")
+            return out0, out1
+    return call
+
+
+def phase_against(other: Path, timed_sets):
+    """Another checkout's kernels (built from ``other``) against this
+    one's on the same config-4 operand sets: equal outputs, then times in
+    turns, theirs, ours, ours, theirs."""
+    import torch
+
+    from pydcop_tpu_torch.compile import _build
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    pkg = other / "pydcop_tpu_torch"
+    t0 = time.perf_counter()
+    libs = _build.build_all(
+        _build.KERNELS, csrc=pkg / "csrc", build_dir=pkg / "_build"
+    )
+    build_s = time.perf_counter() - t0
+    for name, sets in timed_sets.items():
+        theirs, ours = _launcher(libs[name], name), getattr(hk, name)
+        got, want = theirs(*sets[0]), ours(*sets[0])
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        check(
+            all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"{name}: {other}'s kernel differs from this one's",
+        )
+        order = [("theirs", theirs), ("ours", ours), ("ours", ours),
+                 ("theirs", theirs)]
+        times = {"theirs": [], "ours": []}
+        for who, fn in order:
+            times[who].append(time_cuda_ms(fn, sets))
+        emit({
+            "phase": "against", "kernel": name, "other": str(other),
+            "build_s": build_s, "equal": True, "order": [w for w, _ in order],
+            "theirs_ms": times["theirs"], "ours_ms": times["ours"],
+            "speedup": statistics.mean(times["theirs"])
+            / statistics.mean(times["ours"]),
+        })
 
 
 def phase_solve(name, compiled, spec, layout, per_cycle, against=None):
@@ -454,6 +638,12 @@ def phase_solve(name, compiled, spec, layout, per_cycle, against=None):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument(
+        "--against", type=Path, nargs="+", default=[],
+        help="checkouts of other commits whose kernels to time against",
+    )
+    args = ap.parse_args()
     if not (ROOT / "pydcop_tpu_torch" / "compile").is_dir():
         print(
             "chip_smoke.py: pydcop_tpu_torch/ is not beside this script; "
@@ -474,7 +664,10 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     c4 = generate(CONFIG_4["gen"])
-    ell_row, lanes_row = phase_kernels(c4)
+    (ell_row, lanes_row), timed_sets = phase_kernels(c4)
+    for other in args.against:
+        phase_against(other.resolve(), timed_sets)
+    del timed_sets
     ell_only = {"ell_minplus": 1, "factor_arity2_minplus": 0}
     lanes_only = {"ell_minplus": 0, "factor_arity2_minplus": 1}
     no_kernel = {"ell_minplus": 0, "factor_arity2_minplus": 0}

@@ -8,6 +8,17 @@ a failed build or launch to the plain version.  Each wrapper counts its
 launches in a ``launches`` attribute, so a run can show that its path went
 through the kernel.
 
+Both kernels share one design for this card (``csrc/grid.cuh``): D is a
+template parameter for D = 1..16, so each instantiation is fully unrolled
+and starts a slot's loads ahead of its arithmetic, each message value
+read once into registers; a thread takes up to four slots a pass, strided
+by the grid's width so every stream stays coalesced; the grid is sized to
+the card and walks the rest with a grid-stride loop; the read-once
+streams are streaming loads, so they leave the scattered gathers' plane
+in L2.  D > 16 runs a runtime-D kernel.  Neither falls back to the plain
+version, and both give its bits exactly (adds, subtracts and mins in its
+order; no fast-math).
+
 ``ell_minplus`` (``csrc/ell_minplus.cu``) replaces ``ell_minplus`` at
 ``pallas_kernels.py:167`` (body ``_ell_kernel``, ``:148``): MaxSum's ELL
 factor half-cycle.  It is bound by bytes (65 B per slot at D=3 for 15
@@ -21,8 +32,8 @@ written and read back.  See the source for the rest of its design.
 binary factor on the lanes layout.  It is bound by bytes (92 B per
 constraint at D=3 for 48 adds, subtracts and mins).  It folds the two
 slot gathers ``v2f_t[:, edge_ids[:, s]]``, which the TPU path ran as XLA
-gathers outside its kernel, into the kernel: one thread per constraint
-reads its two partners' messages itself.  See the source for the rest.
+gathers outside its kernel, into the kernel, and makes one pass over the
+table for both output planes.  See the source for the rest.
 """
 
 from __future__ import annotations

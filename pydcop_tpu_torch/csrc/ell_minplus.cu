@@ -12,38 +12,133 @@
 // D partner floats, one int32 index and one mask byte, and writes D floats:
 // 65 B per slot at D=3, against D*D adds and D*(D-1) mins (15), about 0.2
 // operations per byte, far under the H100's ratio of peak float32
-// operations to memory bandwidth (~20).
+// operations to memory bandwidth (~20).  So the design is about keeping
+// enough bytes in flight and moving no byte twice:
 //
-// What the design does about it:
 // - the pair gather `v2f_t[:, pair_perm]`, which the TPU path ran as a
 //   separate XLA gather writing a [D, n_pad] partner plane, is folded in:
 //   each thread reads its partner's D values directly, saving one plane
 //   write and one plane read per cycle;
-// - one thread per slot with the slot axis fastest in every plane, so the
-//   table stream, the mask, the index and the output stores are coalesced;
-//   only the partner reads scatter, which is inherent to the gather;
-// - the body is adds and mins only, so no FMA contraction can change a bit:
-//   the result equals the plain PyTorch version by value.
+// - D is a template parameter for D = 1..16 (the TPU kernel's own range,
+//   MAX_PALLAS_DOMAIN), so every loop is unrolled and each slot's work is
+//   one batch of independent loads: the mask, the index and the table rows
+//   first (none depends on another), then the D partner values (which wait
+//   for the index only), each read once into registers; then the adds and
+//   mins.  Up to D=8 all D*D table values of a slot are loaded before any
+//   arithmetic; above that, one row of D at a time, to stay in registers;
+// - a thread takes slots_per_pass<D, 2>() slots at once (2 at D <= 5, else
+//   1), strided by the grid's width so every stream stays coalesced: the
+//   slot axis is fastest in every plane.  Loads are scalar: row starts
+//   k*n_pad are not 16-byte aligned for most n_pad;
+// - the grid is sized to the card (SMs times resident blocks per SM, or
+//   fewer when the slots run out first) and walks the slots with a
+//   grid-stride loop, so there is no ragged last wave;
+// - the read-once streams (tables, index, mask) are streaming loads
+//   (`ld.global.cs`), so they do not evict the v2f plane that the
+//   scattered partner reads need from L2; the partner reads take the
+//   read-only path (`__ldg`); the output uses plain stores, since the
+//   variable step reads it next;
+// - padding slots load their tables like real ones (within a warp real and
+//   padding slots interleave, so skipping them would save no 32-byte
+//   sector), skip their partner gathers, and store exact 0;
+// - the body is adds and mins only, in the plain version's order, so no
+//   FMA contraction can change a bit (keep fast-math and flush-to-zero out
+//   of the flags): the result equals the plain PyTorch version by value.
 //
-// D is a runtime loop bound with no upper limit.  The partner values are
-// re-read per own value i; those reads hit L1 after the first pass.
+// What is left between it and its bound: each partner value is a 4-byte
+// read from its own 32-byte sector (the plane is [D, n_pad], so a slot's D
+// values lie n_pad apart), so the gathers move about 8x the bytes they use
+// between L2 and the SMs.  The time barely changes when the operands sit
+// in L2, so that on-chip traffic, not device memory, sets it; staging the
+// tables through shared memory with cp.async, more or fewer slots a
+// thread, and an L2 prefetch of the plane were each tried and were no
+// faster (PERF.md).
 //
-// Plain C interface (loaded with ctypes): returns cudaGetLastError() after
-// the launch, 0 on success.  The caller owns every buffer and the stream.
+// D > 16 runs `ell_minplus_any`, one thread per slot with D a runtime loop
+// bound and no upper limit; it re-reads the partner values per own value
+// (they hit L1 after the first pass).
+//
+// Plain C interface (loaded with ctypes): returns the first CUDA error of
+// the launch (cudaGetLastError() after it), 0 on success.  The caller owns
+// every buffer and the stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+template <int D, int K>
+__global__ void __launch_bounds__(kThreads)
+    ell_minplus_fixed(const float* __restrict__ v2f_t,
+                      const int32_t* __restrict__ pair_perm,
+                      const float* __restrict__ tabs_t,
+                      const uint8_t* __restrict__ real_row,
+                      float* __restrict__ out, int64_t n_pad) {
+  constexpr bool kWhole = D <= kWholeTableD;
+  constexpr int kTabRegs = kWhole ? D * D : 1;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       base < n_pad; base += K * stride) {
+    int64_t e[K];
+    bool live[K];
+    bool real[K];
+    int64_t p[K];
+    float tab[K][kTabRegs];
+    float m[K][D];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      e[k] = base + k * stride;
+      live[k] = e[k] < n_pad;
+      real[k] = live[k] && __ldcs(real_row + e[k]) != 0;
+      p[k] = live[k] ? __ldcs(pair_perm + e[k]) : 0;
+    }
+    if constexpr (kWhole) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int r = 0; r < kTabRegs; ++r) {
+          tab[k][r] = live[k] ? __ldcs(tabs_t + r * n_pad + e[k]) : 0.0f;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        m[k][j] = real[k] ? __ldg(v2f_t + j * n_pad + p[k]) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!live[k]) continue;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        float row[D];
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          if constexpr (kWhole) {
+            row[j] = tab[k][i * D + j];
+          } else {
+            row[j] = __ldcs(tabs_t + (i * D + j) * n_pad + e[k]);
+          }
+        }
+        float acc = row[0] + m[k][0];
+#pragma unroll
+        for (int j = 1; j < D; ++j) acc = fminf(acc, row[j] + m[k][j]);
+        out[i * n_pad + e[k]] = real[k] ? acc : 0.0f;
+      }
+    }
+  }
+}
 
-__global__ void ell_minplus_kernel(const float* __restrict__ v2f_t,
-                                   const int32_t* __restrict__ pair_perm,
-                                   const float* __restrict__ tabs_t,
-                                   const uint8_t* __restrict__ real_row,
-                                   float* __restrict__ out, int d,
-                                   int64_t n_pad) {
+__global__ void __launch_bounds__(kThreads)
+    ell_minplus_any(const float* __restrict__ v2f_t,
+                    const int32_t* __restrict__ pair_perm,
+                    const float* __restrict__ tabs_t,
+                    const uint8_t* __restrict__ real_row,
+                    float* __restrict__ out, int d, int64_t n_pad) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n_pad) return;
   if (!real_row[e]) {
@@ -61,6 +156,42 @@ __global__ void ell_minplus_kernel(const float* __restrict__ v2f_t,
   }
 }
 
+struct Args {
+  const float* v2f_t;
+  const int32_t* pair_perm;
+  const float* tabs_t;
+  const uint8_t* real_row;
+  float* out;
+  int d;
+  int64_t n_pad;
+  cudaStream_t stream;
+};
+
+template <int D>
+cudaError_t launch_fixed(const Args& x) {
+  constexpr int K = slots_per_pass<D, 2>();
+  static const int per_sm = resident_blocks(ell_minplus_fixed<D, K>);
+  unsigned int blocks = 0;
+  const cudaError_t err = grid_for(per_sm, x.n_pad, &blocks);
+  if (err != cudaSuccess) return err;
+  ell_minplus_fixed<D, K><<<blocks, kThreads, 0, x.stream>>>(
+      x.v2f_t, x.pair_perm, x.tabs_t, x.real_row, x.out, x.n_pad);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch(const Args& x) {
+  if constexpr (D > kMaxFixedD) {
+    const int64_t blocks = (x.n_pad + kThreads - 1) / kThreads;
+    ell_minplus_any<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                      x.stream>>>(x.v2f_t, x.pair_perm, x.tabs_t, x.real_row,
+                                  x.out, x.d, x.n_pad);
+    return cudaGetLastError();
+  } else {
+    return x.d == D ? launch_fixed<D>(x) : dispatch<D + 1>(x);
+  }
+}
+
 }  // namespace
 
 extern "C" int ell_minplus_launch(const void* v2f_t, const void* pair_perm,
@@ -68,11 +199,13 @@ extern "C" int ell_minplus_launch(const void* v2f_t, const void* pair_perm,
                                   void* out, int d, long long n_pad,
                                   void* stream) {
   if (n_pad <= 0 || d <= 0) return 0;
-  const long long blocks = (n_pad + kThreads - 1) / kThreads;
-  ell_minplus_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v2f_t), static_cast<const int32_t*>(pair_perm),
-      static_cast<const float*>(tabs_t), static_cast<const uint8_t*>(real_row),
-      static_cast<float*>(out), d, static_cast<int64_t>(n_pad));
-  return static_cast<int>(cudaGetLastError());
+  const Args x{static_cast<const float*>(v2f_t),
+               static_cast<const int32_t*>(pair_perm),
+               static_cast<const float*>(tabs_t),
+               static_cast<const uint8_t*>(real_row),
+               static_cast<float*>(out),
+               d,
+               static_cast<int64_t>(n_pad),
+               static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dispatch<1>(x));
 }

@@ -38,6 +38,11 @@ CASES = {
     "clique": (12, dict(graph="random", p_edge=1.0, seed=3)),
     "grid": (36, dict(graph="grid", seed=4)),
 }
+# the CUDA kernel's cut points in D: 2 (two slots a thread), 5 (the last D
+# with two), 8 (the last with whole-table loads); 17 is the first D of its
+# runtime-D kernel, past the TPU kernel's MAX_PALLAS_DOMAIN of 16, where
+# the JAX package runs jnp
+DOMAINS = (2, 5, 8, 17)
 CPU = torch.device("cpu")
 
 
@@ -79,6 +84,29 @@ def test_factor_step_equals_jax(case, use_pallas, fn):
         got = tk.factor_step_ell(*args)
     else:
         got = hk.ell_minplus_plain(args[3], args[1], args[0], args[2])
+    # mins and adds only: equal by value, exactly
+    assert torch.equal(got, torch.as_tensor(np.asarray(ref)))
+
+
+@pytest.mark.parametrize(
+    "d, use_pallas",
+    [(d, False) for d in DOMAINS] + [(d, True) for d in DOMAINS if d <= 16],
+)
+def test_ell_minplus_plain_equals_jax_at_domain_cut_points(d, use_pallas):
+    kw = dict(graph="scalefree", m_edge=2, seed=d)
+    pe, re_ = (
+        tk.build_ell(generate_coloring_arrays(200, d, **kw)),
+        jk.build_ell(jax_generate(200, d, **kw)),
+    )
+    v2f, _ = _planes(pe, seed=d)
+    ref = jk.factor_step_ell(
+        jnp.asarray(re_.tabs_t), jnp.asarray(re_.pair_perm),
+        jnp.asarray(re_.real_row), jnp.asarray(v2f), use_pallas=use_pallas,
+    )
+    got = hk.ell_minplus_plain(
+        _t(v2f), _t(pe.pair_perm), _t(pe.tabs_t), _t(pe.real_row)
+    )
+    assert got.shape == (d, pe.n_pad)
     # mins and adds only: equal by value, exactly
     assert torch.equal(got, torch.as_tensor(np.asarray(ref)))
 

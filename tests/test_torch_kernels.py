@@ -20,13 +20,25 @@ from pydcop_tpu_torch.commands.generators.graphcoloring import (
 from pydcop_tpu_torch.compile import hopper_kernels as hk
 from pydcop_tpu_torch.compile.kernels import build_ell, lanes_aux, to_device
 
-# the small ELL cases of the JAX package's TestEllPallas, plus a D=16 one
+# the small ELL cases of the JAX package's TestEllPallas, a D=16 one, and
+# the kernels' cut points in D: 2 (several slots a thread), 5 (the last D
+# with two), 8 (the last with whole-table loads); 17 is the first D of
+# their runtime-D kernels
 CASES = {
     "scalefree": (150, 3, dict(graph="scalefree", m_edge=2, seed=13)),
     "clique": (12, 3, dict(graph="random", p_edge=1.0, seed=3)),
     "grid": (36, 3, dict(graph="grid", seed=4)),
     "scalefree_d16": (300, 16, dict(graph="scalefree", m_edge=2, seed=1)),
+    "scalefree_d2": (200, 2, dict(graph="scalefree", m_edge=2, seed=2)),
+    "scalefree_d5": (200, 5, dict(graph="scalefree", m_edge=2, seed=5)),
+    "scalefree_d8": (200, 8, dict(graph="scalefree", m_edge=2, seed=8)),
+    "scalefree_d17": (200, 17, dict(graph="scalefree", m_edge=2, seed=17)),
 }
+# element counts no multiple of the slots a thread takes times the block
+# size (256), and above the threads an H100 holds at once (132 SMs x 2048),
+# so the kernels' grid-stride loops make several passes and the last one
+# is ragged; a thread takes two to four slots a pass at these D
+RAGGED = {"d3": (2_500_001, 3), "d5": (1_300_001, 5)}
 # the lanes kernel's cases: the same, plus D=20, past the TPU kernel's
 # domain limit of 16
 LANES_CASES = dict(
@@ -95,6 +107,33 @@ def test_ell_minplus_checks_its_operands_on_card():
         hk.ell_minplus(v2f.t().contiguous().t(), pair_perm, tabs_t, real_row)
     with pytest.raises(ValueError):
         hk.ell_minplus(v2f, pair_perm.cpu(), tabs_t, real_row)
+
+
+def _ragged_ell_args(case):
+    """Random ELL operands on the card: ~20% padding slots, partners drawn
+    at random, a v2f plane zero on padding slots."""
+    n, d = RAGGED[case]
+    g = torch.Generator(device="cuda").manual_seed(n)
+    real = torch.rand((1, n), generator=g, device="cuda") < 0.8
+    return [
+        torch.randn((d, n), generator=g, device="cuda") * real,
+        torch.randint(
+            0, n, (n,), generator=g, device="cuda", dtype=torch.int32
+        ),
+        torch.rand((d, d, n), generator=g, device="cuda") * 10,
+        real,
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_ell_minplus_kernel_equals_plain_on_ragged_tail(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ragged_ell_args(case)
+    got = hk.ell_minplus(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hk.ell_minplus_plain(*args))
 
 
 def _lanes_args(case, device="cpu"):
@@ -171,3 +210,32 @@ def test_factor_arity2_minplus_checks_its_operands_on_card():
         hk.factor_arity2_minplus(v2f, e0, e1, tables_t[:, :-1])
     with pytest.raises(ValueError):
         hk.factor_arity2_minplus(v2f, e0, e1.cpu(), tables_t)
+
+
+def _ragged_lanes_args(case):
+    """Random arity-2 operands on the card: ``n`` constraints over ``2 n``
+    edges drawn at random."""
+    n, d = RAGGED[case]
+    g = torch.Generator(device="cuda").manual_seed(n)
+    return [
+        torch.randn((d, 2 * n), generator=g, device="cuda"),
+        *(
+            torch.randint(
+                0, 2 * n, (n,), generator=g, device="cuda", dtype=torch.int32
+            )
+            for _ in range(2)
+        ),
+        torch.rand((d * d, n), generator=g, device="cuda") * 10,
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_factor_arity2_minplus_kernel_equals_plain_on_ragged_tail(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ragged_lanes_args(case)
+    got = hk.factor_arity2_minplus(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, hk.factor_arity2_minplus_plain(*args)):
+        assert torch.equal(g, w)

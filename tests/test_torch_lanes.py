@@ -46,11 +46,19 @@ from pydcop_tpu_torch.interop import compiled_from_numpy, planes_from_numpy
 # the JAX package's TestEllPallas cases, a D=20 coloring (past the TPU
 # kernel's MAX_PALLAS_DOMAIN of 16) and a mixed binary + ternary problem
 CASES = ("clique", "d20", "grid", "mixed", "scalefree")
+# the factor step's cases add the CUDA kernel's cut points in D: 2 (four
+# constraints a thread), 5 (the last D with two), 8 (the last with
+# whole-table loads); 17 is the first D of its runtime-D kernel
+FACTOR_CASES = CASES + ("d2", "d5", "d8", "d17")
 COLORING = {
     "scalefree": (150, 3, dict(graph="scalefree", m_edge=2, seed=13)),
     "clique": (12, 3, dict(graph="random", p_edge=1.0, seed=3)),
     "grid": (36, 3, dict(graph="grid", seed=4)),
     "d20": (60, 20, dict(graph="scalefree", m_edge=2, seed=1)),
+    "d2": (200, 2, dict(graph="scalefree", m_edge=2, seed=2)),
+    "d5": (200, 5, dict(graph="scalefree", m_edge=2, seed=5)),
+    "d8": (200, 8, dict(graph="scalefree", m_edge=2, seed=8)),
+    "d17": (200, 17, dict(graph="scalefree", m_edge=2, seed=17)),
 }
 CPU = torch.device("cpu")
 # The JAX steps as one compiled program each (eager dispatch compiles
@@ -112,9 +120,12 @@ def test_mixed_case_has_an_arity3_bucket():
 
 
 # the cases within the TPU kernel's MAX_PALLAS_DOMAIN: past it the JAX
-# package never runs its kernel (pallas_supported), and the D=20 case is
-# held against the jnp branch it runs by test_factor_step_lanes_equals_jax
-@pytest.mark.parametrize("case", [c for c in CASES if c != "d20"])
+# package never runs its kernel (pallas_supported), and the D=17 and D=20
+# cases are held against the jnp branch it runs by
+# test_factor_step_lanes_equals_jax
+@pytest.mark.parametrize(
+    "case", [c for c in FACTOR_CASES if c not in ("d17", "d20")]
+)
 def test_factor_arity2_minplus_plain_equals_pallas_interpret(case):
     pdev, paux, rdev, raux = _devs(case)
     v2f = _plane((pdev.max_domain, pdev.n_edges), seed=3)
@@ -135,7 +146,7 @@ def test_factor_arity2_minplus_plain_equals_pallas_interpret(case):
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", FACTOR_CASES)
 def test_factor_step_lanes_equals_jax(case, use_pallas):
     pdev, paux, rdev, raux = _devs(case)
     v2f = _plane((pdev.max_domain, pdev.n_edges), seed=4)
