@@ -8,16 +8,28 @@ builds every Hopper kernel from ``pydcop_tpu_torch/csrc/`` (printing each
 instantiation's registers and spills as ``ptxas`` reports them), holds
 each one against its plain PyTorch version on the card, times both by
 CUDA-graph replay at the main path's shape, then drives the port's
-paths through ``maxsum.solve``: the ELL layout at bench config 4's size
-and at config 2's, the lanes layout (``layout="pallas"``) at config 4's
-size, the lanes and edges layouts at config 2's, and ``layout="auto"`` on
-a mixed binary + ternary problem, which runs lanes.  Each path is checked
-against the same solve on the CPU, and for the kernels it should launch,
-counted from zero around it.  It prints one JSON object per phase, then
-the kernel table, the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
-exits nonzero; it also exits nonzero, with no result, when no CUDA device
-is present or the package is not beside it.
+solvers through their entry points, each solve running as replays of its
+captured CUDA graphs:
+
+- ``maxsum.solve``: the ELL layout at bench config 4's size (the main
+  path) and at config 2's, the lanes layout (``layout="pallas"``) at
+  config 4's size, the lanes and edges layouts at config 2's, and
+  ``layout="auto"`` on a mixed binary + ternary problem, which runs
+  lanes; each must give the result recorded before the graphs;
+- ``dsa``, ``mgm`` and ``mgm2.solve`` at config 4's problem, MGM-2 at
+  bench config 3 (the 100x100 Ising grid) and on the mixed problem;
+- the timeout: MaxSum at config 4 with a budget it does not reach, and
+  DSA with one it does.
+
+Each solve runs cold (it captures its graphs) and warm (it must capture
+nothing), is checked against the same solve on the CPU, and counts from
+zero each kernel's launches (launches an iteration times the iterations
+its graphs replayed), its replays and its host syncs (O(log n_cycles)).
+It prints one JSON object per phase, then the kernel table, the card's
+name and power limit, and as its last line ``{"ok": true, "device":
+{...}}``.  Any failed check raises, so the script exits nonzero; it also
+exits nonzero, with no result, when no CUDA device is present or the
+package is not beside it.
 
 ``--against DIR ...`` adds one phase before the solves: the kernels of
 each other checkout (another commit unpacked with ``git archive``, or a
@@ -73,6 +85,28 @@ RAGGED = (2_500_001, 3)
 # a mixed binary + ternary problem (mixed_problem_fields) under
 # layout="auto", which runs lanes: ELL cannot represent it
 MIXED = dict(params={"damping": 0.5}, n_cycles=30, seed=3)
+# bench config 3: MGM-2 on the 100x100 periodic Ising grid of seed 3
+CONFIG_3 = dict(gen=(100, 100, 1.6, 0.05, 3), n_cycles=30, seed=0)
+# MaxSum's (cost, violations, cycles) on these problems before its cycle
+# loop ran as captured graphs, on the card (configs 4 and 2, exact) and on
+# the CPU (mixed, held within rel 1e-5 as the card is to the CPU): the
+# graphs must not move them
+MAXSUM_RECORDED = {
+    "config4": (18768.492959813426, 0, 30),
+    "config2": (176.00823494198994, 0, 60),
+    "mixed": (25877.82552429683, 22, 30),
+}
+# the local-search solves: (phase, algo, problem, params, n_cycles, seed);
+# their default params (DSA variant B, MGM lexic, MGM-2 unilateral)
+LOCAL_SEARCH = [
+    ("dsa_100k", "dsa", "config4", {}, 30, 7),
+    ("mgm_100k", "mgm", "config4", {}, 30, 7),
+    ("mgm2_100k", "mgm2", "config4", {}, 30, 7),
+    ("mgm2_ising", "mgm2", "config3", {}, CONFIG_3["n_cycles"],
+     CONFIG_3["seed"]),
+    ("mgm2_mixed", "mgm2", "mixed", {}, 30, 3),
+]
+ENGINE_COUNTERS = ("captures", "replays", "iterations", "host_syncs")
 
 
 def emit(obj) -> None:
@@ -548,50 +582,111 @@ def phase_against(other: Path, timed_sets):
         })
 
 
-def phase_solve(name, compiled, spec, layout, per_cycle, against=None):
-    """One problem through ``maxsum.solve`` under ``layout`` on the card,
-    cold then warm, with every kernel's launches counted from zero around
-    each solve (``per_cycle``: the launches a cycle each should make),
-    then the same solve on the CPU; ``against``, another layout's solve on
-    the card, must give the same violations and cost within rel 1e-5."""
+def _engine_counts():
+    from pydcop_tpu_torch.algorithms import base
+
+    return {k: getattr(base.run_cycles, k) for k in ENGINE_COUNTERS}
+
+
+def _profiled_launches(solve, names):
+    """Each kernel's launches in one solve as the profiler sees them on
+    the device (kernel events whose name holds the kernel's), beside the
+    device events it saw in all: a cross-check of the counts."""
+    import torch
+
+    acts = [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA,
+    ]
+    with torch.profiler.profile(activities=acts) as prof:
+        solve()
+    events = [
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    out = {n: sum(n in e for e in events) for n in names}
+    out["device_events"] = len(events)
+    return out
+
+
+def phase_solve(name, compiled, run, per_cycle, *, cpu_bar="exact",
+                recorded=None, recorded_rel=0.0, against=None,
+                profile=False):
+    """One problem through a solver's entry point on the card, cold then
+    warm, then the same solve on the CPU.  ``run`` = (algo, params,
+    n_cycles, seed).  Around each solve every kernel's launches and the
+    engine's counters are counted from zero: the cold solve captures the
+    solve's two graphs (and its warm-up launches each kernel once an
+    iteration), the warm one captures nothing, launches ``per_cycle``
+    (launches an iteration, by kernel) times the iterations it replayed,
+    and looks at the device O(log n_cycles) times.  ``cpu_bar`` is
+    "exact" (the same assignment, cycles and cost as the CPU) or "cost"
+    (MaxSum's: equal violations, cost within rel 1e-5); ``recorded`` is
+    (cost, violations, cycles) the solve must give, the cost within
+    ``recorded_rel``; ``against`` another solve of the problem on the card
+    that must agree likewise."""
+    import math
+
     import numpy as np
 
-    from pydcop_tpu_torch.algorithms import maxsum
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
-    params = dict(spec["params"], layout=layout)
+    algo, params, n_cycles, seed = run
+    mod = load_algorithm_module(algo)
     counted = {k: getattr(hk, k) for k in per_cycle}
 
-    def run(device):
+    def solve(device):
+        return mod.solve(
+            compiled, params, n_cycles=n_cycles, seed=seed, device=device
+        )
+
+    def counted_solve(device):
         for k in counted.values():
             k.launches = 0
+        engine = _engine_counts()
         t0 = time.perf_counter()
-        res = maxsum.solve(
-            compiled, params, n_cycles=spec["n_cycles"], seed=spec["seed"],
-            device=device,
-        )
+        res = solve(device)
         wall = time.perf_counter() - t0
-        return res, wall, {n: k.launches for n, k in counted.items()}
+        counts = {
+            k: v - engine[k] for k, v in _engine_counts().items()
+        }
+        counts.update({n: k.launches for n, k in counted.items()})
+        return res, wall, counts
 
     def same(a, b):
+        if cpu_bar == "exact":
+            return (a.assignment, a.cycles, a.cost, a.violations) == (
+                b.assignment, b.cycles, b.cost, b.violations
+            )
         return (
             a.violations == b.violations
             and abs(a.cost - b.cost) <= 1e-5 * abs(b.cost)
         )
 
-    cold, cold_s, launches = run("cuda")
+    cold, cold_s, cold_counts = counted_solve("cuda")
     check(cold.cycles > 0, f"{name}: no cycle ran")
-    want = {n: k * cold.cycles for n, k in per_cycle.items()}
-    check(launches == want, f"{name}: launches {launches}, want {want}")
-    warm, warm_s, warm_launches = run("cuda")
-    check(
-        warm_launches == {n: k * warm.cycles for n, k in per_cycle.items()},
-        f"{name}: warm launches {warm_launches}",
-    )
+    warm_up = 1 if cold_counts["captures"] else 0
+    want = {
+        n: k * (cold_counts["iterations"] + warm_up)
+        for n, k in per_cycle.items()
+    }
+    got = {n: cold_counts[n] for n in per_cycle}
+    check(got == want, f"{name}: cold launches {got}, want {want}")
+    warm, warm_s, warm_counts = counted_solve("cuda")
     check(warm == cold, f"{name}: warm solve differs from cold solve")
-    cpu, cpu_s, cpu_launches = run("cpu")
+    check(warm_counts["captures"] == 0, f"{name}: the warm solve captured")
+    want = {n: k * warm_counts["iterations"] for n, k in per_cycle.items()}
+    got = {n: warm_counts[n] for n in per_cycle}
+    check(got == want, f"{name}: warm launches {got}, want {want}")
+    chunks = max(1, math.ceil(math.log2(n_cycles / 16 + 1)))
     check(
-        not any(cpu_launches.values()),
+        warm_counts["host_syncs"] <= chunks,
+        f"{name}: {warm_counts['host_syncs']} host syncs, over {chunks}",
+    )
+    cpu, cpu_s, cpu_counts = counted_solve("cpu")
+    check(
+        not any(cpu_counts[n] for n in per_cycle),
         f"{name}: the CPU solve launched a kernel",
     )
     vals = np.array([cold.assignment[v] for v in compiled.var_names])
@@ -607,34 +702,96 @@ def phase_solve(name, compiled, spec, layout, per_cycle, against=None):
     )
     check(
         same(cold, cpu),
-        f"{name}: cuda cost {cold.cost}/{cold.violations} vs cpu "
-        f"{cpu.cost}/{cpu.violations}",
+        f"{name}: cuda {cold.cost}/{cold.violations}/{cold.cycles} vs cpu "
+        f"{cpu.cost}/{cpu.violations}/{cpu.cycles}",
     )
     out = {
-        "phase": name, "layout": layout, "n_vars": compiled.n_vars,
-        "n_edges": compiled.n_edges, "params": spec["params"],
+        "phase": name, "algo": algo, "params": params,
+        "n_vars": compiled.n_vars, "n_edges": compiled.n_edges,
+        "n_cycles": n_cycles, "seed": seed,
         "cold_s": cold_s, "warm_s": warm_s,
         "warm_ms_per_cycle": 1e3 * warm_s / warm.cycles,
         "cost": cold.cost, "violations": cold.violations,
-        "cycles": cold.cycles, "launches": launches,
+        "cycles": cold.cycles, "status": cold.status,
+        "cold_counts": cold_counts, "warm_counts": warm_counts,
         "cpu_s": cpu_s, "cpu_cost": cpu.cost,
         "cpu_violations": cpu.violations, "cpu_cycles": cpu.cycles,
         "same_assignment_as_cpu": cold.assignment == cpu.assignment,
     }
+    if recorded is not None:
+        cost, violations, cycles = recorded
+        check(
+            (cold.violations, cold.cycles) == (violations, cycles)
+            and abs(cold.cost - cost) <= recorded_rel * abs(cost),
+            f"{name}: {(cold.cost, cold.violations, cold.cycles)} is not "
+            f"the recorded {recorded}",
+        )
+        out["recorded"] = list(recorded)
     if against is not None:
         check(
             same(cold, against),
             f"{name}: cost {cold.cost}/{cold.violations} vs the other "
-            f"layout's {against.cost}/{against.violations}",
+            f"solve's {against.cost}/{against.violations}",
         )
         out.update(
-            other_layout_cost=against.cost,
-            same_assignment_as_other_layout=(
-                cold.assignment == against.assignment
-            ),
+            other_cost=against.cost,
+            same_assignment_as_other=cold.assignment == against.assignment,
+        )
+    if profile:
+        out["profiler_launches"] = _profiled_launches(
+            lambda: solve("cuda"), list(per_cycle)
         )
     emit(out)
-    return cold, launches
+    return cold, warm_counts
+
+
+def phase_timeouts(c4, ell4):
+    """The timeout path on the card: MaxSum at config 4 with a budget it
+    does not reach gives the same result as without one, FINISHED; DSA
+    with a budget that ends before its first look reports TIMEOUT after
+    its first whole chunk, as the same solve does on the CPU."""
+    from pydcop_tpu_torch.algorithms import base, dsa, maxsum
+
+    spec = CONFIG_4
+    t0 = time.perf_counter()
+    res = maxsum.solve(
+        c4, dict(spec["params"], layout="ell"), n_cycles=spec["n_cycles"],
+        seed=spec["seed"], timeout=600.0,
+    )
+    finished_s = time.perf_counter() - t0
+    check(res.status == "FINISHED", f"maxsum timeout: {res.status}")
+    check(res == ell4, "maxsum with a timeout differs from without one")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[device] = dsa.solve(
+            c4, {}, n_cycles=100_000, seed=7, timeout=1e-3, device=device
+        )
+        runs[device + "_s"] = time.perf_counter() - t0
+    out = runs["cuda"]
+    boundaries = {base.TIMEOUT_CHUNK * (2 ** k - 1) for k in range(1, 8)}
+    check(
+        out.status == "TIMEOUT" and out.cycles in boundaries,
+        f"dsa timeout: {out.status} after {out.cycles} cycles",
+    )
+    check(
+        (out.assignment, out.cycles, out.cost)
+        == (runs["cpu"].assignment, runs["cpu"].cycles, runs["cpu"].cost),
+        "dsa timeout: the card and the CPU differ",
+    )
+    emit({
+        "phase": "timeouts",
+        "maxsum_100k": {
+            "timeout_s": 600.0, "status": res.status, "cycles": res.cycles,
+            "cost": res.cost, "same_as_without": True, "wall_s": finished_s,
+        },
+        "dsa_100k": {
+            "timeout_s": 1e-3, "n_cycles": 100_000, "status": out.status,
+            "cycles": out.cycles, "cost": out.cost,
+            "same_as_cpu": True, "wall_s": runs["cuda_s"],
+            "cpu_wall_s": runs["cpu_s"],
+        },
+    })
 
 
 def main() -> int:
@@ -659,6 +816,9 @@ def main() -> int:
         )
         return 1
     sys.path.insert(0, str(ROOT))
+    from pydcop_tpu_torch.commands.generators.ising import (
+        generate_ising_arrays,
+    )
     from pydcop_tpu_torch.interop import compiled_from_numpy
 
     smi = phase_device()
@@ -671,26 +831,52 @@ def main() -> int:
     ell_only = {"ell_minplus": 1, "factor_arity2_minplus": 0}
     lanes_only = {"ell_minplus": 0, "factor_arity2_minplus": 1}
     no_kernel = {"ell_minplus": 0, "factor_arity2_minplus": 0}
-    ell4, launches = phase_solve("maxsum_100k", c4, CONFIG_4, "ell", ell_only)
-    ell_row["launches"] = launches["ell_minplus"]
-    _, launches = phase_solve(
-        "maxsum_100k_pallas", c4, CONFIG_4, "pallas", lanes_only,
+
+    def maxsum_run(spec, layout):
+        return ("maxsum", dict(spec["params"], layout=layout),
+                spec["n_cycles"], spec["seed"])
+
+    # the main path: MaxSum at config 4 on the ELL layout
+    ell4, warm = phase_solve(
+        "maxsum_100k", c4, maxsum_run(CONFIG_4, "ell"), ell_only,
+        cpu_bar="cost", recorded=MAXSUM_RECORDED["config4"], profile=True,
+    )
+    ell_row["launches"] = warm["ell_minplus"]
+    _, warm = phase_solve(
+        "maxsum_100k_pallas", c4, maxsum_run(CONFIG_4, "pallas"),
+        lanes_only, cpu_bar="cost", recorded=MAXSUM_RECORDED["config4"],
         against=ell4,
     )
-    lanes_row["launches"] = launches["factor_arity2_minplus"]
+    lanes_row["launches"] = warm["factor_arity2_minplus"]
     c2 = generate(CONFIG_2["gen"])
-    ell2, _ = phase_solve("maxsum_1k", c2, CONFIG_2, "ell", ell_only)
-    phase_solve(
-        "maxsum_1k_lanes", c2, CONFIG_2, "lanes", lanes_only, against=ell2
+    ell2, _ = phase_solve(
+        "maxsum_1k", c2, maxsum_run(CONFIG_2, "ell"), ell_only,
+        cpu_bar="cost", recorded=MAXSUM_RECORDED["config2"],
     )
-    phase_solve(
-        "maxsum_1k_edges", c2, CONFIG_2, "edges", no_kernel, against=ell2
-    )
+    for layout, kernels in (("lanes", lanes_only), ("edges", no_kernel)):
+        phase_solve(
+            f"maxsum_1k_{layout}", c2, maxsum_run(CONFIG_2, layout),
+            kernels, cpu_bar="cost", recorded=MAXSUM_RECORDED["config2"],
+            against=ell2,
+        )
     # "auto" must resolve to lanes here: the kernel counts show it
+    mixed = compiled_from_numpy(mixed_problem_fields())
     phase_solve(
-        "maxsum_mixed", compiled_from_numpy(mixed_problem_fields()), MIXED,
-        "auto", lanes_only,
+        "maxsum_mixed", mixed, maxsum_run(MIXED, "auto"), lanes_only,
+        cpu_bar="cost", recorded=MAXSUM_RECORDED["mixed"],
+        recorded_rel=1e-5,
     )
+    # the local-search solvers: no hand-written kernel on their path
+    problems = {
+        "config4": c4, "mixed": mixed,
+        "config3": generate_ising_arrays(*CONFIG_3["gen"]),
+    }
+    for name, algo, problem, params, n_cycles, seed in LOCAL_SEARCH:
+        phase_solve(
+            name, problems[problem], (algo, params, n_cycles, seed),
+            no_kernel,
+        )
+    phase_timeouts(c4, ell4)
     emit({"kernels": [ell_row, lanes_row]})
     print(smi, flush=True)
     emit({

@@ -1,19 +1,22 @@
-"""Algorithm parameter definitions and the solve result.
+"""Algorithm parameter definitions, the solve result and the registry.
 
 Counterpart of ``pydcop_tpu/algorithms/__init__.py`` (``AlgoParameterDef``,
-``check_param_value``, ``prepare_algo_params``, ``SolveResult``).  An
-algorithm module exports ``algo_params`` and ``solve(compiled, params,
-n_cycles, seed, device=...)``.
+``check_param_value``, ``prepare_algo_params``, ``SolveResult``,
+``load_algorithm_module``).  An algorithm module exports ``GRAPH_TYPE``,
+``algo_params`` and ``solve(compiled, params, n_cycles, seed, ...,
+device=...)``.
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 __all__ = [
     "AlgoParameterDef",
     "SolveResult",
     "check_param_value",
+    "load_algorithm_module",
     "prepare_algo_params",
 ]
 
@@ -98,3 +101,19 @@ class SolveResult(NamedTuple):
     msg_size: int
     cost_curve: Optional[List[float]] = None
     status: str = "FINISHED"
+
+
+def load_algorithm_module(algo_name: str):
+    """Import an algorithm module of the port and check its contract."""
+    try:
+        mod = importlib.import_module(f"{__name__}.{algo_name}")
+    except ImportError as e:
+        raise ImportError(
+            f"no algorithm module named {algo_name!r}: {e}"
+        ) from e
+    for attr in ("GRAPH_TYPE", "algo_params", "solve"):
+        if not hasattr(mod, attr):
+            raise AttributeError(
+                f"algorithm module {algo_name} does not export {attr}"
+            )
+    return mod

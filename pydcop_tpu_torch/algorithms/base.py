@@ -1,38 +1,72 @@
-"""The cycle-loop engine shared by the solvers.
+"""The cycle engine shared by the solvers.
 
-Counterpart of the fused path of ``pydcop_tpu/algorithms/base.py``
-(``_noised``, ``_track_best``, ``_fused_core``/``_while_chunk`` as driven
-by ``run_cycles``, and ``finalize``).  A solver is a pair of functions
-``init(dev, *consts) -> state`` and ``step(dev, state, *consts) -> state``
-that the engine advances once per synchronous cycle of the whole
-multi-agent system, with the same semantics as the JAX engine:
+Counterpart of ``pydcop_tpu/algorithms/base.py``: ``run_cycles`` with
+the semantics of ``_fused_core``/``_solve_fused`` (the whole solve, one
+read-back) and of ``_while_chunk`` and its timeout chunks.  A solver is a
+pair of functions ``init(dev, key, *consts) -> state`` and
+``step(dev, state, key, *consts) -> state`` that the engine advances once
+per synchronous cycle of the whole multi-agent system:
 
 - tie-breaking noise is added to the unary plane first (one threefry draw
-  of shape ``(n_vars, D)`` from ``PRNGKey(seed)``, bit-equal to jax's);
-- the anytime best starts at the initial state's assignment and moves on a
-  strict ``<`` improvement, with a 1-based ``best_cycle``;
-- with a ``convergence`` test, the loop stops before a step once
-  ``same_count`` consecutive cycles were stable.
+  of shape ``(n_vars, D)`` from the solve key ``PRNGKey(seed)``);
+- ``init`` gets the solve key; cycle ``c`` (absolute, 0-based) gets
+  ``fold_in(fold_in(key, 1), c)``, so a run in chunks follows the same
+  trajectory as a whole one;
+- the anytime best starts at the initial assignment and moves on a strict
+  ``<`` improvement, with a 1-based ``best_cycle``;
+- with a ``convergence`` test (and no curve), an iteration is live while
+  ``(i < n_cycles) & (stable < same_count)``: the solve stops stepping
+  once ``same_count`` consecutive cycles were stable;
+- ``timeout`` runs chunks of ``TIMEOUT_CHUNK`` cycles growing to
+  ``MAX_CHUNK``, with the clock read between chunks.
 
-The loop is a Python loop of eager device ops; the stability counter costs
-one scalar read-back per cycle.  Timeout chunking, checkpoints and the
-health telemetry of the JAX engine are not ported.
+The loop is masked, as ``_while_chunk``'s: every iteration runs the step,
+and a dead one keeps the old carry with ``torch.where`` (the masked form
+of its ``lax.cond``).  One chunk of ``L`` iterations is one function of
+the carry.  On the card, the solve's prologue (noise, init, first
+evaluation) and the chunk are each captured once into a CUDA graph per
+(problem, solver, params, ``L``), cached on the compiled problem; a solve
+writes its key and cycle budget into the graphs' input buffers and
+replays them, and a chunk's output carry is its next replay's input,
+with no host round trip.  Between replays the host reads back the cycles
+run and the stability counter only at growing intervals (after 16, 48,
+112, ... cycles), so a solve pays O(log n_cycles) host syncs, then one
+read-back of the packed result.  A warm solve captures nothing.  On the
+CPU the same prologue and chunk run eagerly: both devices run the same
+masked arithmetic, so they follow one trajectory.
+
+``run_cycles`` counts, as the kernels count their launches, its graph
+captures, chunk replays, the iterations those replays ran (live or
+masked) and its host syncs in attributes (``captures``, ``replays``,
+``iterations``, ``host_syncs``).  Checkpoints and the pulse health hooks of
+the JAX engine are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..compile import hopper_kernels
 from ..compile.core import CompiledDCOP
 from ..compile.kernels import DeviceDCOP, evaluate
-from ..random import PRNGKey, uniform
+from ..random import PRNGKey, fold_in, uniform
 from . import SolveResult
 
-__all__ = ["cached_const", "run_cycles", "finalize", "extract_values"]
+__all__ = [
+    "TIMEOUT_CHUNK", "MAX_CHUNK", "cached_const", "run_cycles", "finalize",
+    "extract_values", "neighbor_pairs_dev", "pad_rows_np",
+]
+
+# chunk schedule: start small for early clock granularity, grow
+# geometrically so a long run pays O(log n) host syncs
+TIMEOUT_CHUNK = 16
+MAX_CHUNK = 1024
 
 
 def extract_values(dev: DeviceDCOP, state) -> torch.Tensor:
@@ -41,89 +75,498 @@ def extract_values(dev: DeviceDCOP, state) -> torch.Tensor:
 
 
 def cached_const(compiled, key: Tuple, build: Callable[[], Any]):
-    """Per-compiled-problem cache of solver constants (host layouts and
-    device-resident operands): a warm solve rebuilds and uploads nothing.
-    ``key`` must include every input the built value depends on beyond
-    the compiled problem itself (params, the device)."""
+    """Per-compiled-problem cache of solver constants (host layouts,
+    device-resident operands and captured graphs): a warm solve rebuilds,
+    uploads and captures nothing.  ``key`` must include every input the
+    built value depends on beyond the compiled problem itself (params,
+    the device)."""
     cache = compiled.__dict__.setdefault("_device_consts", {})
     if key not in cache:
         cache[key] = build()
     return cache[key]
 
 
-def _noised(dev: DeviceDCOP, key, level: float) -> DeviceDCOP:
+def neighbor_pairs_dev(compiled, device) -> Tuple[torch.Tensor, ...]:
+    """``(src, dst)``: the directed neighbour pairs on ``device`` (int64,
+    sorted by ``src``), cached per problem under one key that MGM and
+    MGM-2 share."""
+
+    def build():
+        return tuple(
+            torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+            for a in compiled.neighbor_pairs()
+        )
+
+    return cached_const(compiled, ("neighbor_pairs_dev", str(device)), build)
+
+
+def pad_rows_np(arr: np.ndarray, n: int, value) -> np.ndarray:
+    """Pad a host array's leading axis to ``n`` rows with ``value``."""
+    arr = np.asarray(arr)
+    if arr.shape[0] >= n:
+        return arr
+    pad = np.full((n - arr.shape[0],) + arr.shape[1:], value, dtype=arr.dtype)
+    return np.concatenate([arr, pad])
+
+
+# ---------------------------------------------------------------------------
+# Carries as trees of tensors (dataclasses, named tuples and tuples)
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree, out: List) -> List:
+    """The leaves of ``tree`` in order: tensors and plain values."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            _flatten(getattr(tree, f.name), out)
+    elif isinstance(tree, tuple):
+        for x in tree:
+            _flatten(x, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _unflatten(tree, leaves):
+    """``tree`` with its leaves replaced, in order, from the iterator
+    ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _unflatten(getattr(tree, f.name), leaves)
+            for f in dataclasses.fields(tree)
+        })
+    if isinstance(tree, tuple):
+        items = [_unflatten(x, leaves) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return next(leaves)
+
+
+def _select(live: torch.Tensor, new, old):
+    """``new`` where ``live``, else ``old``, leaf by leaf; a leaf the step
+    passed through unchanged is kept as is."""
+    out = []
+    for n, o in zip(_flatten(new, []), _flatten(old, [])):
+        if n is o:
+            out.append(o)
+        elif isinstance(n, torch.Tensor):
+            out.append(torch.where(live, n, o))
+        elif n == o:
+            out.append(o)
+        else:
+            raise TypeError(
+                "a solver state leaf that changes from cycle to cycle must "
+                f"be a tensor, got {type(n).__name__}"
+            )
+    return _unflatten(old, iter(out))
+
+
+# ---------------------------------------------------------------------------
+# The solve as two functions of device tensors: prologue and chunk
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Solver:
+    """What a solve runs, fixed for its captured graphs."""
+
+    init: Callable
+    step: Callable
+    extract: Callable
+    convergence: Optional[Callable]
+    same_count: int
+    collect_curve: bool
+    has_noise: bool
+    length: int  # iterations per chunk
+
+    @property
+    def use_stability(self) -> bool:
+        return self.convergence is not None and not self.collect_curve
+
+
+@dataclasses.dataclass(frozen=True)
+class _Carry:
+    """The state one chunk hands the next."""
+
+    unary: torch.Tensor  # the noised unary plane
+    run_key: torch.Tensor  # [2] fold_in(key, 1)
+    state: Any
+    best_vals: torch.Tensor
+    best_cost: torch.Tensor
+    best_cycle: torch.Tensor  # int32, 1-based, 0 = never improved on
+    stable: torch.Tensor  # int32 consecutive stable cycles
+    ran: torch.Tensor  # int32 live iterations so far
+    cycle: torch.Tensor  # int64 absolute index of the next iteration
+
+
+def _noised(dev: DeviceDCOP, key, level) -> DeviceDCOP:
     """Add ``level * uniform`` tie-breaking noise to the valid slots of the
     unary plane (the reference's VariableNoisyCostFunc)."""
-    draw = uniform(
-        key, (dev.n_vars, dev.max_domain), device=dev.unary.device
-    )
+    draw = uniform(key, (dev.n_vars, dev.max_domain), device=dev.unary.device)
     noise = torch.where(dev.valid_mask, draw * level, 0.0)
     return dataclasses.replace(dev, unary=dev.unary + noise)
 
 
-def _track_best(dev, state, extract, best_vals, best_cost, best_cycle,
-                cycle: int):
-    """Anytime-best update: this cycle's assignment replaces the best on a
-    strict improvement, and ``best_cycle`` records the 1-based cycle at
-    which the best was first attained (0 = never improved on)."""
-    vals = extract(dev, state)
-    cost = evaluate(dev, vals)
-    better = cost < best_cost
-    return (
-        torch.where(better, vals, best_vals),
-        torch.where(better, cost, best_cost),
-        torch.where(better, cycle, best_cycle),
+def _prologue(
+    solver: _Solver, dev: DeviceDCOP, consts: Tuple, key: torch.Tensor,
+    level: torch.Tensor,
+) -> _Carry:
+    """Noise, init and the initial assignment's cost: the carry of cycle
+    0.  ``key`` is the solve key as a [2] int64 tensor."""
+    if solver.has_noise:
+        dev = _noised(dev, key, level)
+    unary = dev.unary
+    state = solver.init(dev, key, *consts)
+    vals = solver.extract(dev, state)
+    zero = torch.zeros((), dtype=torch.int32, device=unary.device)
+    return _Carry(
+        unary=unary, run_key=fold_in(key, 1), state=state, best_vals=vals,
+        best_cost=evaluate(dev, vals), best_cycle=zero, stable=zero,
+        ran=zero, cycle=torch.zeros((), dtype=torch.int64,
+                                    device=unary.device),
+    )
+
+
+def _chunk(
+    solver: _Solver, dev: DeviceDCOP, consts: Tuple, carry: _Carry,
+    n_limit: torch.Tensor, length: int,
+) -> Tuple[_Carry, Optional[torch.Tensor]]:
+    """``length`` masked iterations from ``carry``: the body of
+    ``_while_chunk``.  Returns the next carry and, with a curve, each
+    iteration's cost."""
+    dev = dataclasses.replace(dev, unary=carry.unary)
+    state, bv, bc, bcyc = (
+        carry.state, carry.best_vals, carry.best_cost, carry.best_cycle
+    )
+    stable, ran = carry.stable, carry.ran
+    cycles = carry.cycle + torch.arange(length, device=carry.cycle.device)
+    keys = fold_in(carry.run_key, cycles)  # [length, 2]
+    costs = []
+    for i in range(length):
+        live = cycles[i] < n_limit
+        if solver.use_stability:
+            live = live & (stable < solver.same_count)
+        new_state = solver.step(dev, state, keys[i], *consts)
+        vals = solver.extract(dev, new_state)
+        cost = evaluate(dev, vals)
+        better = live & (cost < bc)
+        bv = torch.where(better, vals, bv)
+        bc = torch.where(better, cost, bc)
+        bcyc = torch.where(better, (cycles[i] + 1).to(torch.int32), bcyc)
+        if solver.use_stability:
+            same = solver.convergence(dev, state, new_state)
+            stable = torch.where(
+                live, torch.where(same, stable + 1, 0), stable
+            )
+        state = _select(live, new_state, state)
+        ran = ran + live.to(torch.int32)
+        if solver.collect_curve:
+            costs.append(torch.where(live, cost, bc))
+    carry = dataclasses.replace(
+        carry, state=state, best_vals=bv, best_cost=bc, best_cycle=bcyc,
+        stable=stable, ran=ran, cycle=carry.cycle + length,
+    )
+    return carry, torch.stack(costs) if costs else None
+
+
+def _pack(solver: _Solver, dev: DeviceDCOP, carry: _Carry) -> torch.Tensor:
+    """Everything the host reads, as one int32 vector:
+    ``[final values | best values | best_cycle | ran | stable | best_cost
+    (float32 bits)]``; a look between chunks reads ``ran`` and
+    ``stable``."""
+    dev = dataclasses.replace(dev, unary=carry.unary)
+    final = solver.extract(dev, carry.state)
+    return torch.cat([
+        final.to(torch.int32), carry.best_vals.to(torch.int32),
+        carry.best_cycle.reshape(1), carry.ran.reshape(1),
+        carry.stable.reshape(1),
+        carry.best_cost.to(torch.float32).reshape(1).view(torch.int32),
+    ])
+
+
+def _unpack(packed: np.ndarray, n_vars: int) -> Dict[str, Any]:
+    n = n_vars
+    return {
+        "final": packed[:n],
+        "best": packed[n:2 * n],
+        "best_cycle": int(packed[2 * n]),
+        "ran": int(packed[2 * n + 1]),
+        "best_cost": float(packed[2 * n + 3:].view(np.float32)[0]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Runners: the eager chunk on the CPU, captured graphs on the card
+# ---------------------------------------------------------------------------
+
+
+class _Eager:
+    """The prologue and chunk run as eager ops (the CPU)."""
+
+    def __init__(self, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
+        self.solver, self.dev, self.consts = solver, dev, consts
+
+    def start(self, key, n_cycles: int, level: float) -> None:
+        device = self.dev.unary.device
+        self.n_limit = torch.tensor(n_cycles, dtype=torch.int64, device=device)
+        self.carry = _prologue(
+            self.solver, self.dev, self.consts,
+            torch.tensor(key, dtype=torch.int64, device=device),
+            torch.tensor(level, dtype=torch.float32, device=device),
+        )
+        self.curves = []
+
+    def replay(self) -> None:
+        self.carry, curve = _chunk(
+            self.solver, self.dev, self.consts, self.carry, self.n_limit,
+            self.solver.length,
+        )
+        if curve is not None:
+            self.curves.append(curve)
+
+    def packed(self) -> torch.Tensor:
+        return _pack(self.solver, self.dev, self.carry)
+
+    def status(self) -> Tuple[int, int]:
+        """(cycles run, stability counter)."""
+        return int(self.carry.ran), int(self.carry.stable)
+
+    def curve(self) -> np.ndarray:
+        return torch.cat(self.curves).cpu().numpy() if self.curves else (
+            np.zeros(0, dtype=np.float32)
+        )
+
+
+class _Graphs:
+    """The prologue and the chunk of one solver on one problem, each
+    captured once into a CUDA graph; a solve replays them.
+
+    The graphs read and write static buffers allocated before capture:
+    ``solve_in`` (the key's two words and the cycle budget) and ``level``
+    are written by the host per solve, the carry buffers hold every carry
+    tensor that is not a constant of the problem, ``packed`` the result.
+    Both graphs share one memory pool: they never run at once."""
+
+    def __init__(self, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
+        self.solver, self.dev, self.consts = solver, dev, consts
+        device = dev.unary.device
+        self.solve_in = torch.zeros(3, dtype=torch.int64, device=device)
+        self.level = torch.zeros((), dtype=torch.float32, device=device)
+        fixed = {id(t) for t in _flatten((dev, consts), [])
+                 if isinstance(t, torch.Tensor)}
+
+        # warm-up off the capturing stream: lazy kernel builds, library
+        # handles and the allocator's first blocks happen here, and one
+        # iteration shows which state leaves the step rewrites
+        with _side_stream(device):
+            first = _prologue(
+                solver, dev, consts, self.solve_in[:2], self.level
+            )
+            after, _ = _chunk(solver, dev, consts, first, self.n_limit(), 1)
+            _pack(solver, dev, after)
+        leaves = _flatten(first, [])
+        moved = [a is not b for a, b in zip(_flatten(after, []), leaves)]
+        # a carry tensor gets a buffer unless it is a constant of the
+        # problem that the step passes through
+        self.buffers = [
+            torch.empty_like(leaf)
+            if isinstance(leaf, torch.Tensor)
+            and (id(leaf) not in fixed or m) else None
+            for leaf, m in zip(leaves, moved)
+        ]
+        # the carry the chunk graph reads: buffers where there are
+        # buffers, the problem's constants elsewhere
+        self.carry_in = _unflatten(first, iter([
+            leaf if buf is None else buf
+            for buf, leaf in zip(self.buffers, leaves)
+        ]))
+        self.packed_buf = torch.empty_like(_pack(solver, dev, first))
+        self.curve_buf = torch.empty(
+            solver.length, dtype=torch.float32, device=device
+        )
+        del first, after, leaves
+
+        with hopper_kernels.capture_tally() as self.launches_per_start:
+            self.prologue = _capture(lambda: self._store(_prologue(
+                solver, dev, consts, self.solve_in[:2], self.level
+            )))
+        with hopper_kernels.capture_tally() as self.launches_per_replay:
+            self.chunk = _capture(self._run_chunk, pool=self.prologue.pool())
+        run_cycles.captures += 2
+
+    def n_limit(self) -> torch.Tensor:
+        return self.solve_in[2]
+
+    def _run_chunk(self) -> None:
+        carry, curve = _chunk(
+            self.solver, self.dev, self.consts, self.carry_in,
+            self.n_limit(), self.solver.length,
+        )
+        self._store(carry)
+        if curve is not None:
+            self.curve_buf.copy_(curve)
+
+    def _store(self, carry: _Carry) -> None:
+        """Copy ``carry`` into the buffers (inside a capture), and the
+        packed result beside it."""
+        for buf, leaf in zip(self.buffers, _flatten(carry, [])):
+            if buf is not None and leaf is not buf:
+                buf.copy_(leaf)
+        self.packed_buf.copy_(_pack(self.solver, self.dev, carry))
+
+    def start(self, key, n_cycles: int, level: float) -> None:
+        self.solve_in.copy_(torch.tensor([*key, n_cycles]))
+        self.level.fill_(level)
+        self.prologue.replay()
+        hopper_kernels.count_replay(self.launches_per_start)
+        self.curves = []
+
+    def replay(self) -> None:
+        self.chunk.replay()
+        hopper_kernels.count_replay(self.launches_per_replay)
+        if self.solver.collect_curve:
+            self.curves.append(self.curve_buf.clone())
+
+    def packed(self) -> torch.Tensor:
+        return self.packed_buf
+
+    def status(self) -> Tuple[int, int]:
+        ran, stable = self.packed_buf[-3:-1].tolist()
+        return ran, stable
+
+    def curve(self) -> np.ndarray:
+        return torch.cat(self.curves).cpu().numpy() if self.curves else (
+            np.zeros(0, dtype=np.float32)
+        )
+
+
+@contextlib.contextmanager
+def _side_stream(device):
+    """Run the block on a fresh stream and wait for it: work before a
+    capture that must not land on the capturing stream."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        yield
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+
+
+def _capture(body: Callable[[], None], pool=None) -> torch.cuda.CUDAGraph:
+    """``body``'s device work captured into a CUDA graph (in ``pool``)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        body()
+    return graph
+
+
+def _runner(compiled, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
+    device = dev.unary.device
+    if device.type == "cpu":
+        return _Eager(solver, dev, consts)
+    if device.type != "cuda":
+        raise ValueError(f"run_cycles runs on cpu or cuda, not {device}")
+    return _graphs(compiled, solver, dev, consts)
+
+
+def _graphs(compiled, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
+    """The cached ``_Graphs`` of this solver on this problem.  The graphs
+    bake in the addresses of ``dev`` and the constants: their identities
+    key the cache, and the cached graphs keep them alive."""
+    ids = tuple(
+        id(t) for t in _flatten((dev, consts), [])
+        if isinstance(t, torch.Tensor)
+    )
+    return cached_const(
+        compiled, ("cycle_graphs", solver, ids),
+        lambda: _Graphs(solver, dev, consts),
     )
 
 
 def run_cycles(
+    compiled: CompiledDCOP,
     dev: DeviceDCOP,
     init: Callable,
     step: Callable,
     extract: Callable,
     n_cycles: int,
     seed: int = 0,
+    collect_curve: bool = False,
+    return_final: bool = True,
     convergence: Optional[Callable] = None,
     same_count: int = 4,
+    timeout: Optional[float] = None,
     consts: Tuple = (),
     noise: float = 0.0,
-) -> Tuple[np.ndarray, Dict[str, Any]]:
-    """Drive a solver on ``dev``: noise, init, then up to ``n_cycles``
-    steps with anytime-best tracking.  Returns the best value indices seen
-    (on the host) and extras: ``best_cost`` (min-form, on the noised
-    costs), ``cycles`` (steps run) and ``cycles_to_best``.
+) -> Tuple[np.ndarray, Optional[np.ndarray], Dict[str, Any]]:
+    """Drive a solver on ``dev``, the device form of ``compiled``.
 
-    ``convergence(dev, old_state, new_state) -> bool tensor``: when given,
-    the loop stops once ``same_count`` consecutive steps were stable."""
-    if noise:
-        dev = _noised(dev, PRNGKey(seed), noise)
-    state = init(dev, *consts)
-    best_vals = extract(dev, state)
-    best_cost = evaluate(dev, best_vals)
-    best_cycle = torch.zeros((), dtype=torch.int32, device=best_cost.device)
-    stable = 0
-    cycles = 0
-    while cycles < n_cycles:
-        if convergence is not None and stable >= same_count:
+    ``init``, ``step``, ``extract`` and ``convergence`` must be stable
+    function objects (module-level, or from a cached factory): with the
+    chunk length and the flags they key the captured graphs, so a warm
+    solve captures nothing.  Per-problem tensors go in ``consts``.
+
+    Returns the value indices (the final cycle's with ``return_final``,
+    else the best seen), the per-cycle cost curve (``collect_curve``,
+    which turns the stability exit off) and extras: ``best_cost``
+    (min-form, on the noised costs), ``cycles`` (cycles run),
+    ``cycles_to_best`` and ``timed_out``.
+
+    ``convergence(dev, old_state, new_state) -> bool tensor``: the solve
+    stops stepping after ``same_count`` consecutive stable cycles.
+    ``timeout`` (seconds of wall): the clock is read after each chunk, and
+    a solve out of time reports the whole chunks it ran with
+    ``timed_out``; the trajectory is the same with or without it."""
+    n_cycles = int(n_cycles)
+    n_pad = max(8, 1 << max(0, n_cycles - 1).bit_length())
+    solver = _Solver(
+        init=init, step=step, extract=extract, convergence=convergence,
+        same_count=int(same_count), collect_curve=bool(collect_curve),
+        has_noise=bool(noise), length=min(TIMEOUT_CHUNK, n_pad),
+    )
+    runner = _runner(compiled, solver, dev, tuple(consts))
+    deadline = None if timeout is None else time.perf_counter() + timeout
+    runner.start(PRNGKey(seed), n_cycles, float(noise or 0.0))
+    issued = 0  # iterations replayed, live or not
+    chunk = TIMEOUT_CHUNK
+    timed_out = False
+    while issued < n_cycles:
+        reps = -(-min(chunk, n_cycles - issued) // solver.length)
+        for _ in range(reps):
+            runner.replay()
+        run_cycles.replays += reps
+        run_cycles.iterations += reps * solver.length
+        issued += reps * solver.length
+        chunk = min(2 * chunk, MAX_CHUNK)
+        if issued >= n_cycles:
+            break  # every cycle ran or the stop rule fired: nothing to ask
+        ran, stable = runner.status()
+        run_cycles.host_syncs += 1
+        if solver.use_stability and stable >= same_count:
             break
-        new_state = step(dev, state, *consts)
-        cycles += 1
-        best_vals, best_cost, best_cycle = _track_best(
-            dev, new_state, extract, best_vals, best_cost, best_cycle,
-            cycles,
-        )
-        if convergence is not None:
-            # the one host read-back of a cycle
-            stable = stable + 1 if bool(
-                convergence(dev, state, new_state)
-            ) else 0
-        state = new_state
+        if deadline is not None and time.perf_counter() >= deadline:
+            timed_out = ran < n_cycles
+            break
+    out = _unpack(runner.packed().cpu().numpy(), dev.n_vars)
+    run_cycles.host_syncs += 1
     extras = {
-        "best_cost": float(best_cost),
-        "cycles": cycles,
-        "cycles_to_best": int(best_cycle),
+        "best_cost": out["best_cost"],
+        "cycles": out["ran"],
+        "cycles_to_best": out["best_cycle"],
+        "timed_out": timed_out,
     }
-    return best_vals.cpu().numpy(), extras
+    values = out["final"] if return_final else out["best"]
+    curve = runner.curve()[:out["ran"]] if collect_curve else None
+    return values, curve, extras
+
+
+run_cycles.captures = 0
+run_cycles.replays = 0
+run_cycles.iterations = 0  # replays times their chunks' length
+run_cycles.host_syncs = 0
 
 
 def finalize(
@@ -132,11 +575,16 @@ def finalize(
     cycles: int,
     msg_count: int,
     msg_size: int,
+    curve: Optional[np.ndarray] = None,
+    status: str = "FINISHED",
 ) -> SolveResult:
     """Decode indices, compute the exact host-side cost (float64, with the
-    reference's violation counting) and build the result."""
+    reference's violation counting) and build the result; the curve is
+    reported in the problem's own sense (un-negated for max problems)."""
+    values_idx = np.asarray(values_idx)[: compiled.n_vars]
     assignment = compiled.assignment_from_indices(values_idx)
     cost, violations = compiled.host_cost(values_idx)
+    sign = 1.0 if compiled.objective == "min" else -1.0
     return SolveResult(
         assignment=assignment,
         cost=cost,
@@ -144,4 +592,8 @@ def finalize(
         cycles=cycles,
         msg_count=msg_count,
         msg_size=msg_size,
+        cost_curve=(
+            [float(sign * c) for c in curve] if curve is not None else None
+        ),
+        status=status,
     )

@@ -17,11 +17,14 @@ package, with identical math:
 
 ``"auto"`` runs ELL where it applies and lanes on problems ELL cannot
 represent (non-binary constraints, no edges), as do ``"ell"`` and
-``"ell_pallas"``.  bf16 planes and the timeout raise NotImplementedError.
+``"ell_pallas"``.  bf16 planes raise NotImplementedError.  The solve
+runs on the cycle engine of ``base.py``: on the card, as replays of a
+captured CUDA graph, the kernels inside it.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple, Union
@@ -98,19 +101,21 @@ class MaxSumState:
     # [n_vars] current best value per variable: the argmin of the fan-in
     # total, a byproduct of the variable half-cycle
     values: torch.Tensor
-    cycle: int  # cycles completed so far
+    cycle: torch.Tensor  # int32 cycles completed so far
     aux: Union[EllCarry, LanesAux, None]  # None on the edges layout
 
 
+@functools.lru_cache(maxsize=None)
 def _make_step(
     damping: float, damp_vars: bool, damp_factors: bool, wavefront: bool,
     layout: str, ell_spans: Tuple[Tuple[int, int], ...] = (),
 ):
-    """The cycle of ``layout`` ("ell", "lanes" or "edges")."""
+    """The cycle of ``layout`` ("ell", "lanes" or "edges"); cached, so a
+    warm solve finds its captured graphs under the same step."""
     var_damping = damping if damp_vars else 0.0
 
     def step_ell(
-        dev: DeviceDCOP, state: MaxSumState,
+        dev: DeviceDCOP, state: MaxSumState, key,
         act_v, act_f, pair_perm, tabs_t, pos_of_var,
         edge_valid_t, valid_ell_t, dsize_edges, real_row, var_perm,
     ) -> MaxSumState:
@@ -140,7 +145,7 @@ def _make_step(
     def edge_mask(mask):  # broadcast a per-edge mask over the domain axis
         return mask[None, :] if lanes else mask[:, None]
 
-    def step(dev: DeviceDCOP, state: MaxSumState, act_v, act_f, *_):
+    def step(dev: DeviceDCOP, state: MaxSumState, key, act_v, act_f, *_):
         # *_: the lanes layout's static aux const, which init put in state
         i = state.cycle
         if wavefront:
@@ -173,8 +178,12 @@ def _make_step(
     return step
 
 
+def _cycle_zero(dev: DeviceDCOP) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=dev.unary.device)
+
+
 def init_ell(
-    dev: DeviceDCOP,
+    dev: DeviceDCOP, key,
     act_v, act_f, pair_perm, tabs_t, pos_of_var,
     edge_valid_t, valid_ell_t, dsize_edges, real_row, var_perm,
 ) -> MaxSumState:
@@ -186,31 +195,33 @@ def init_ell(
     return MaxSumState(
         v2f=zeros, f2v=zeros,
         values=masked_argmin(dev.unary, dev.valid_mask),
-        cycle=0,
+        cycle=_cycle_zero(dev),
         # dev.unary is already noised here (run_cycles noises before init)
         aux=EllCarry(unary_t=dev.unary[var_perm].T.contiguous()),
     )
 
 
-def init_lanes(dev: DeviceDCOP, act_v, act_f, aux: LanesAux) -> MaxSumState:
+def init_lanes(
+    dev: DeviceDCOP, key, act_v, act_f, aux: LanesAux
+) -> MaxSumState:
     """Zero [D, n_edges] planes; ``aux`` is the problem's static
     ``lanes_aux``, given the noised unary plane here."""
     zeros = dev.unary.new_zeros((dev.max_domain, dev.n_edges))
     return MaxSumState(
         v2f=zeros, f2v=zeros,
         values=masked_argmin(dev.unary, dev.valid_mask),
-        cycle=0,
+        cycle=_cycle_zero(dev),
         aux=replace(aux, unary_t=dev.unary.T.contiguous()),
     )
 
 
-def init_edges(dev: DeviceDCOP, act_v, act_f) -> MaxSumState:
+def init_edges(dev: DeviceDCOP, key, act_v, act_f) -> MaxSumState:
     """Zero [n_edges, D] planes."""
     zeros = dev.unary.new_zeros((dev.n_edges, dev.max_domain))
     return MaxSumState(
         v2f=zeros, f2v=zeros,
         values=masked_argmin(dev.unary, dev.valid_mask),
-        cycle=0,
+        cycle=_cycle_zero(dev),
         aux=None,
     )
 
@@ -229,6 +240,7 @@ def plane_stable(old: torch.Tensor, new: torch.Tensor, stability: float):
     return torch.all(both_zero | (within & (old != 0.0)))
 
 
+@functools.lru_cache(maxsize=None)
 def _make_convergence(stability: float):
     """Checked on both message planes: the assignment is read from f2v,
     which under damping can keep drifting after v2f stabilizes."""
@@ -392,13 +404,11 @@ def _edge_activation(compiled, start_mode: str, device):
     return cached_const(compiled, ("edge_act", start_mode, str(device)), build)
 
 
-def _check_supported(params: Dict[str, Any], timeout) -> None:
+def _check_supported(params: Dict[str, Any]) -> None:
     if params["precision"] != "f32":
         raise NotImplementedError(
             "maxsum precision='bf16' is not ported yet; use 'f32'"
         )
-    if timeout is not None:
-        raise NotImplementedError("maxsum timeout is not ported yet")
 
 
 def resolve_layout(compiled: CompiledDCOP, layout: str) -> str:
@@ -428,14 +438,16 @@ def solve(
     params: Optional[Dict[str, Any]] = None,
     n_cycles: int = 100,
     seed: int = 0,
+    collect_curve: bool = False,
     timeout: Optional[float] = None,
     device="cuda",
 ) -> SolveResult:
     """Solve ``compiled`` with MaxSum on ``device`` (the card unless the
     caller asks for the CPU).  Reports the best assignment seen across
-    cycles and the cycles actually run."""
+    cycles and the cycles actually run; ``status`` is ``"TIMEOUT"`` when
+    ``timeout`` (seconds) ran out first."""
     params = prepare_algo_params(params or {}, algo_params)
-    _check_supported(params, timeout)
+    _check_supported(params)
     device = resolve_device(device)
     if params["stop_cycle"]:
         n_cycles = params["stop_cycle"]
@@ -449,7 +461,10 @@ def solve(
     dev = cached_const(
         compiled, ("dev", str(device)), lambda: to_device(compiled, device)
     )
-    inert = torch.zeros(1, dtype=torch.int32, device=device)
+    inert = cached_const(
+        compiled, ("inert_act", str(device)),
+        lambda: torch.zeros(1, dtype=torch.int32, device=device),
+    )
     if layout == "ell":
         ell = cached_const(
             compiled, ("ell_host",), lambda: build_ell(compiled)
@@ -481,12 +496,16 @@ def solve(
         damping, damp_vars, damp_factors, wavefront, layout, spans
     )
 
-    values, extras = run_cycles(
-        dev, init, step, extract_values,
+    values, curve, extras = run_cycles(
+        compiled, dev, init, step, extract_values,
         n_cycles=n_cycles,
         seed=seed,
+        collect_curve=collect_curve,
+        timeout=timeout,
         consts=consts,
         noise=params["noise"],
+        # report the best assignment seen across cycles: BP oscillates
+        return_final=False,
         # early exit once messages are stable for SAME_COUNT cycles (the
         # reference's approx_match termination), unless stop_cycle is set
         convergence=(
@@ -500,4 +519,7 @@ def solve(
     # 2 messages per edge per cycle (var->factor and factor->var), size = 2*D
     msg_count = 2 * compiled.n_edges * cycles
     msg_size = msg_count * 2 * compiled.max_domain
-    return finalize(compiled, values, cycles, msg_count, msg_size)
+    return finalize(
+        compiled, values, cycles, msg_count, msg_size, curve,
+        status="TIMEOUT" if extras["timed_out"] else "FINISHED",
+    )

@@ -4,9 +4,12 @@ Each kernel here replaces one Pallas TPU kernel of the JAX package
 (``pydcop_tpu/compile/pallas_kernels.py``).  Its wrapper runs the plain
 PyTorch version for tensors on the CPU, launches the CUDA kernel for
 tensors on a card, and raises for anything else; there is no fallback from
-a failed build or launch to the plain version.  Each wrapper counts its
-launches in a ``launches`` attribute, so a run can show that its path went
-through the kernel.
+a failed build or launch to the plain version.  Each kernel's launches are
+counted in its wrapper's ``launches`` attribute, so a run can show that
+its path went through the kernel.  A call made while a CUDA graph is
+being captured launches nothing: it records one launch into the graph,
+which ``capture_tally`` counts, and each replay of that graph adds the
+tally to ``launches`` (``count_replay``).
 
 Both kernels share one design for this card (``csrc/grid.cuh``): D is a
 template parameter for D = 1..16, so each instantiation is fully unrolled
@@ -38,15 +41,18 @@ table for both output planes.  See the source for the rest.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 __all__ = [
+    "capture_tally",
+    "count_replay",
     "ell_minplus",
     "ell_minplus_plain",
     "factor_arity2_minplus",
@@ -64,6 +70,39 @@ def _c_function(name: str, argtypes: tuple):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+# the tallies of the graph captures in progress (capture_tally)
+_tallies: List[Dict] = []
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """A dict that counts, by wrapper, the launches the wrappers record
+    into CUDA graphs captured inside the ``with`` block."""
+    tally: Dict = {}
+    _tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.remove(tally)
+
+
+def count_replay(tally: Dict) -> None:
+    """Add one replay's launches (a ``capture_tally`` of its graph) to
+    the wrappers' ``launches`` counts."""
+    for wrapper, n in tally.items():
+        wrapper.launches += n
+
+
+def _count_launch(wrapper) -> None:
+    """One call of ``wrapper`` on the card: a launch now, or one recorded
+    into the graph being captured on the current stream."""
+    if torch.cuda.is_current_stream_capturing():
+        for tally in _tallies:
+            tally[wrapper] = tally.get(wrapper, 0) + 1
+    else:
+        wrapper.launches += 1
 
 
 # v2f_t, pair_perm, tabs_t, real_row, out, d, n_pad, stream
@@ -127,7 +166,7 @@ def ell_minplus(
         )
     if rc != 0:
         raise RuntimeError(f"ell_minplus launch failed: CUDA error {rc}")
-    ell_minplus.launches += 1
+    _count_launch(ell_minplus)
     return out
 
 
@@ -223,7 +262,7 @@ def factor_arity2_minplus(
         raise RuntimeError(
             f"factor_arity2_minplus launch failed: CUDA error {rc}"
         )
-    factor_arity2_minplus.launches += 1
+    _count_launch(factor_arity2_minplus)
     return out0, out1
 
 

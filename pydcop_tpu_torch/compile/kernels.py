@@ -1,4 +1,4 @@
-"""Device representation and the device ops of the MaxSum cycle.
+"""Device representation and the device ops of the solvers' cycles.
 
 Counterpart of ``pydcop_tpu/compile/kernels.py``:
 
@@ -7,6 +7,10 @@ Counterpart of ``pydcop_tpu/compile/kernels.py``:
   the one gather that takes factor-side blocks back to global edge order.
 - ``evaluate``: the total cost of a full assignment, run once per cycle
   for anytime-best tracking.
+- the local-cost layer of DSA, MGM and MGM-2: ``local_costs`` (every
+  candidate value's cost for every variable, others held fixed),
+  ``edge_constraint_costs``, ``constraint_costs``, ``violation_count``,
+  and the ``segment_max`` the neighbourhood reductions use.
 - the edges layout: ``[n_edges, D]`` message planes; ``factor_step``
   (any arity) and ``variable_step_with_select``, whose fan-in is a sorted
   segmented sum over the edges of each variable.
@@ -30,6 +34,9 @@ The fan-in sums of the edges and lanes layouts are ``segment_sum``, a
 ``torch.segment_reduce`` over the variable-sorted edges: each segment is
 summed in edge order, which is deterministic on the card (no atomics)
 and bitwise equal to the JAX package's sorted ``segment_sum`` on the CPU.
+
+Every op here runs inside a CUDA graph capture on the card: no host
+read-back, no host-to-device copy, no shape that depends on values.
 """
 
 from __future__ import annotations
@@ -56,11 +63,18 @@ __all__ = [
     "take_rows",
     "masked_argmin",
     "evaluate",
+    "local_costs",
+    "per_slot_to_edges",
+    "constraint_costs",
+    "edge_constraint_costs",
+    "violation_count",
     "factor_step",
     "variable_step",
     "variable_step_with_select",
     "select_values",
     "segment_sum",
+    "segment_max",
+    "segment_offsets",
     "LanesAux",
     "lanes_aux",
     "factor_step_lanes",
@@ -187,11 +201,7 @@ def to_device(c: CompiledDCOP, device="cuda") -> DeviceDCOP:
         f2v_perm=idx(
             build_f2v_perm([b.edge_ids for b in c.buckets], n_edges)
         ),
-        fan_in_offsets=idx(
-            np.concatenate(
-                [[0], np.cumsum(np.bincount(edge_var, minlength=c.n_vars))]
-            )
-        ),
+        fan_in_offsets=idx(segment_offsets(edge_var, c.n_vars)),
     )
 
 
@@ -205,16 +215,23 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -1, idx.long())
 
 
+def _flat_index(vals: torch.Tensor, strides: List[int]) -> torch.Tensor:
+    """``sum_t vals[:, t] * strides[t]``: the flat table index of each row
+    of slot values (integer, so exact in any order).  The strides stay
+    Python ints: no host-to-device copy, so it runs inside a CUDA graph
+    capture."""
+    flat = vals[:, 0] * strides[0]
+    for t in range(1, len(strides)):
+        flat = flat + vals[:, t] * strides[t]
+    return flat
+
+
 def _bucket_costs(
     bucket: DeviceBucket, d: int, values: torch.Tensor
 ) -> torch.Tensor:
     """[n_c] cost of each constraint in the bucket under ``values``."""
-    strides = torch.tensor(
-        _strides(bucket.arity, d), dtype=torch.int64,
-        device=values.device,
-    )
     vals = values.long()[bucket.var_slots]  # [n_c, a]
-    flat = (vals * strides).sum(dim=1)
+    flat = _flat_index(vals, _strides(bucket.arity, d))
     return take_rows(bucket.tables_flat, flat[:, None])[:, 0]
 
 
@@ -226,6 +243,107 @@ def evaluate(dev: DeviceDCOP, values: torch.Tensor) -> torch.Tensor:
         _bucket_costs(b, dev.max_domain, values).sum() for b in dev.buckets
     )
     return unary_cost + cons + dev.constant_cost
+
+
+# ---------------------------------------------------------------------------
+# The local-cost layer of the local-search solvers (DSA, MGM, MGM-2)
+# ---------------------------------------------------------------------------
+
+
+def _slot_costs(
+    bucket: DeviceBucket, d: int, values: torch.Tensor
+) -> torch.Tensor:
+    """[n_c, arity, D]: cost of the bucket's constraints when slot s takes
+    each candidate value and every other slot keeps its current value."""
+    a = bucket.arity
+    strides = _strides(a, d)
+    vals = values.long()[bucket.var_slots]  # [n_c, a]
+    flat_full = _flat_index(vals, strides)  # the full current assignment
+    cand = torch.arange(d, device=values.device)
+    out = []
+    for s in range(a):
+        offset = flat_full - vals[:, s] * strides[s]  # slot s zeroed
+        idx = offset[:, None] + cand * strides[s]  # [n_c, D]
+        out.append(take_rows(bucket.tables_flat, idx))
+    return torch.stack(out, dim=1)
+
+
+def per_slot_to_edges(
+    dev: DeviceDCOP, blocks: List[torch.Tensor]
+) -> torch.Tensor:
+    """[n_edges, width]: each bucket's ``[n_c, arity, width]`` block of
+    per-(constraint, slot) data placed at its global edge rows, flattened
+    slot-major and stacked bucket-major (the ``build_f2v_perm`` contract),
+    then the one ``f2v_perm`` gather; edges of no bucket read zeros."""
+    width = blocks[0].shape[-1]
+    outs = [b.transpose(0, 1).reshape(-1, width) for b in blocks]
+    return _stack_to_edges(dev, outs, width)
+
+
+def local_costs(dev: DeviceDCOP, values: torch.Tensor) -> torch.Tensor:
+    """[n_vars, D]: for each variable, the total cost of each candidate
+    value while every other variable keeps its current ``values``
+    (invalid candidates cost >= BIG).  The per-slot costs are per-edge
+    data in the variable-sorted edge order, so the fan-in is the sorted
+    ``segment_sum``: deterministic on the card, and bitwise equal to the
+    JAX package's on the CPU."""
+    blocks = [
+        _slot_costs(bucket, dev.max_domain, values)
+        for bucket in dev.buckets
+    ]
+    if not blocks:
+        return dev.unary
+    per_edge = per_slot_to_edges(dev, blocks)  # [n_edges, D]
+    return dev.unary + segment_sum(per_edge, dev.fan_in_offsets, 0)
+
+
+def constraint_costs(
+    dev: DeviceDCOP, values: torch.Tensor
+) -> torch.Tensor:
+    """[n_constraints]: cost of every (arity >= 2) constraint under
+    ``values``, placed by global constraint id (folded arity <= 1 entries
+    are zero)."""
+    out = dev.unary.new_zeros(dev.n_constraints)
+    for bucket in dev.buckets:
+        out.index_copy_(
+            0, bucket.con_ids, _bucket_costs(bucket, dev.max_domain, values)
+        )
+    return out
+
+
+def edge_constraint_costs(
+    dev: DeviceDCOP, values: torch.Tensor
+) -> torch.Tensor:
+    """[n_edges]: the cost of each edge's constraint under ``values``
+    (every slot of a constraint sees its cost; edges of no bucket see
+    0), without a scatter."""
+    blocks = [
+        _bucket_costs(b, dev.max_domain, values)[:, None, None].expand(
+            -1, b.arity, 1
+        )
+        for b in dev.buckets
+    ]
+    if not blocks:
+        return dev.unary.new_zeros(dev.n_edges)
+    return per_slot_to_edges(dev, blocks)[:, 0]
+
+
+#: min-form cost magnitude from which an entry counts as a hard-constraint
+#: violation on the device: half of BIG, which no noise or few summed soft
+#: costs reach and every BIG-encoded forbidden tuple does
+VIOLATION_BAND = BIG * 0.5
+
+
+def violation_count(dev: DeviceDCOP, values: torch.Tensor) -> torch.Tensor:
+    """Scalar count of the entries (unary and every bucket) in the BIG
+    forbidden band at ``values``."""
+    unary_cost = take_rows(dev.unary, values[:, None])[:, 0]
+    count = (unary_cost.abs() >= VIOLATION_BAND).sum()
+    for b in dev.buckets:
+        count = count + (
+            _bucket_costs(b, dev.max_domain, values).abs() >= VIOLATION_BAND
+        ).sum()
+    return count
 
 
 def masked_argmin(
@@ -306,8 +424,41 @@ def segment_sum(
     segments that ``offsets`` bound (one per variable), each summed in
     order, with no atomics: the same bits on every run on the card, and
     bitwise equal to XLA's sorted ``segment_sum`` on the CPU.  ``offsets``
-    is precomputed, so no call rescans segment lengths."""
-    return torch.segment_reduce(x, "sum", offsets=offsets, axis=axis)
+    is precomputed, so no call rescans segment lengths, and ``unsafe``
+    skips the offsets' checks, which read values back to the host (a
+    sync that a CUDA graph capture forbids)."""
+    return torch.segment_reduce(
+        x, "sum", offsets=offsets, axis=axis, unsafe=True
+    )
+
+
+def segment_max(
+    x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int
+) -> torch.Tensor:
+    """[n_segments] maxima of the 1-D ``x`` grouped by ``seg_ids``: the
+    JAX package's ``segment_max``.  An empty segment gives the dtype's
+    lowest value, as in JAX: ``-inf`` for floats, ``INT32_MIN`` for int32
+    (so an int32 flag cast to bool reads True there).  A scatter-max into
+    the lowest value: exact in any order (only the sign of a zero maximum
+    may vary, which no comparison sees), and one pass over ``x`` where a
+    segmented reduction takes a thread block per segment."""
+    lowest = (
+        -torch.inf if x.is_floating_point() else torch.iinfo(x.dtype).min
+    )
+    out = x.new_full((n_segments,), lowest)
+    return out.scatter_reduce_(
+        0, seg_ids.long(), x, "amax", include_self=True
+    )
+
+
+def segment_offsets(seg_ids: np.ndarray, n_segments: int) -> np.ndarray:
+    """[n_segments + 1] int64 bounds of the segments of sorted
+    ``seg_ids`` (host, numpy): segment ``k`` is rows
+    ``off[k]:off[k + 1]``."""
+    counts = np.bincount(
+        np.asarray(seg_ids, dtype=np.int64), minlength=n_segments
+    )
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
 
 
 def variable_step_with_select(

@@ -1,20 +1,31 @@
-"""Where a warm MaxSum solve's time goes on the card.
+"""Where a warm solve's time goes on the card.
 
-    python -m pydcop_tpu_torch.tools.profile_solve [--config 4|2] [--reps N]
-        [--layout auto|ell|lanes|pallas|edges] [--trace FILE]
+    python -m pydcop_tpu_torch.tools.profile_solve [--algo ALGO]
+        [--config 4|3|2] [--reps N] [--layout LAYOUT] [--trace FILE]
 
-Generates bench config 4 (100k-variable scale-free coloring, damping 0.7,
-30 cycles, seed 7) or config 2 (1k random, damping 0.5, stop_cycle 60),
-solves it once cold under ``--layout`` (MaxSum's ``layout`` parameter;
-default ``auto``, which runs ELL on these binary problems), then:
+``--algo`` is ``maxsum`` (default), ``dsa``, ``mgm`` or ``mgm2``.
+``--config`` picks the problem and run of a bench config: 4 (100k-variable
+scale-free coloring, 30 cycles, seed 7; MaxSum with damping 0.7), 3
+(the 100x100 Ising grid of seed 3, 30 cycles, seed 0) or 2 (1k random
+coloring, 60 cycles, seed 0; MaxSum with damping 0.5 and stop_cycle 60).
+The local-search solvers run their default params.  ``--layout`` is
+MaxSum's ``layout`` (default ``auto``).
 
-- times ``--reps`` warm solves on the host clock (each ends in a
-  read-back, so the device has finished), with the stop-on-stable test on
-  (the main path) and off (``stop_cycle`` = the same cycle count), which
-  prices the one scalar read-back per cycle;
-- traces one warm solve with ``torch.profiler`` and reports the device's
-  busy and idle share of the solve's wall, kernel launches per cycle, and
-  device time by kernel name.
+The tool solves once cold, then:
+
+- times ``--reps`` warm solves on the host clock (each ends in its
+  result's read-back, so the device has finished); for MaxSum also with
+  the stop-on-stable test off (``stop_cycle`` = the cycles run);
+- counts what a warm solve does: graph captures (0 when warm), chunk
+  replays, iterations replayed, host syncs, and each kernel's launches;
+- times the solve's captured graphs alone by CUDA events (the prologue
+  once, the chunk over back-to-back replays), so the device's busy time
+  of a warm solve is ``prologue + replays x chunk`` without a tracer,
+  and its idle share is the rest of the warm wall;
+- traces one warm solve with ``torch.profiler``: kernel time by name and
+  the device's busy share as the tracer sees it;
+- profiles one warm solve's host side with ``cProfile``: the functions
+  with the most cumulative time (waits on the device included).
 
 Prints one JSON object.  Needs a CUDA device; it raises without one.
 """
@@ -22,35 +33,76 @@ Prints one JSON object.  Needs a CUDA device; it raises without one.
 from __future__ import annotations
 
 import argparse
+import cProfile
+import io
 import json
+import pstats
 import statistics
 import time
 
 import torch
 
-from ..algorithms import maxsum
+from ..algorithms import base, load_algorithm_module
 from ..commands.generators.graphcoloring import generate_coloring_arrays
+from ..commands.generators.ising import generate_ising_arrays
+from ..compile import hopper_kernels
 
+# config: (problem, n_cycles, seed, MaxSum's params)
 CONFIGS = {
     4: (
-        (100_000, 3, dict(graph="scalefree", m_edge=2, seed=7)),
-        {"damping": 0.7}, 30, 7,
+        lambda: generate_coloring_arrays(
+            100_000, 3, graph="scalefree", m_edge=2, seed=7
+        ),
+        30, 7, {"damping": 0.7},
     ),
+    3: (lambda: generate_ising_arrays(100, 100, seed=3), 30, 0, {}),
     2: (
-        (1000, 3, dict(graph="random", p_edge=0.005, seed=11)),
-        {"damping": 0.5, "stop_cycle": 60}, 60, 0,
+        lambda: generate_coloring_arrays(
+            1000, 3, graph="random", p_edge=0.005, seed=11
+        ),
+        60, 0, {"damping": 0.5, "stop_cycle": 60},
     ),
 }
+KERNELS = ("ell_minplus", "factor_arity2_minplus")
+COUNTERS = ("captures", "replays", "iterations", "host_syncs")
 
 
-def _wall(compiled, params, n_cycles, seed) -> float:
+def _counted(solve):
+    """(result, wall seconds, engine and kernel counts) of one solve."""
+    before = {k: getattr(base.run_cycles, k) for k in COUNTERS}
+    before.update(
+        {k: getattr(hopper_kernels, k).launches for k in KERNELS}
+    )
     t0 = time.perf_counter()
-    maxsum.solve(compiled, params, n_cycles=n_cycles, seed=seed)
-    return time.perf_counter() - t0
+    res = solve()
+    wall = time.perf_counter() - t0
+    counts = {k: getattr(base.run_cycles, k) - before[k] for k in COUNTERS}
+    counts.update({
+        k: getattr(hopper_kernels, k).launches - before[k] for k in KERNELS
+    })
+    return res, wall, counts
+
+
+def _graph_ms(graph, reps: int = 20) -> float:
+    """Device time of one replay of ``graph``, by CUDA events around
+    ``reps`` back-to-back replays."""
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument(
+        "--algo", default="maxsum", choices=["maxsum", "dsa", "mgm", "mgm2"]
+    )
     ap.add_argument("--config", type=int, choices=sorted(CONFIGS), default=4)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument(
@@ -61,24 +113,71 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
-    (n, d, kw), params, n_cycles, seed = CONFIGS[args.config]
-    params = dict(params, layout=args.layout)
-    compiled = generate_coloring_arrays(n, d, **kw)
-    cold = _wall(compiled, params, n_cycles, seed)
-    res = maxsum.solve(compiled, params, n_cycles=n_cycles, seed=seed)
-    no_stop = dict(params, stop_cycle=res.cycles)
-    _wall(compiled, no_stop, n_cycles, seed)  # warm its cached operands
-    walls = [_wall(compiled, params, n_cycles, seed) for _ in range(args.reps)]
-    walls_no_stop = [
-        _wall(compiled, no_stop, n_cycles, seed) for _ in range(args.reps)
-    ]
+    make, n_cycles, seed, maxsum_params = CONFIGS[args.config]
+    mod = load_algorithm_module(args.algo)
+    params = (
+        dict(maxsum_params, layout=args.layout) if args.algo == "maxsum"
+        else {}
+    )
+    compiled = make()
+
+    def solve(p=params):
+        return mod.solve(compiled, p, n_cycles=n_cycles, seed=seed)
+
+    res, cold, cold_counts = _counted(solve)
+    warm = [_counted(solve) for _ in range(args.reps)]
+    walls = [w for _, w, _ in warm]
+    warm_counts = warm[-1][2]
+    out = {
+        "algo": args.algo,
+        "config": args.config,
+        "layout": args.layout if args.algo == "maxsum" else None,
+        "device": torch.cuda.get_device_name(0),
+        "n_vars": compiled.n_vars,
+        "cycles": res.cycles,
+        "cost": res.cost,
+        "violations": res.violations,
+        "cold_s": cold,
+        "cold_counts": cold_counts,
+        "warm_s_median": statistics.median(walls),
+        "warm_s_all": walls,
+        "warm_counts": warm_counts,
+        "warm_solves_equal": all(r == res for r, _, _ in warm),
+    }
+    if args.algo == "maxsum":
+        no_stop = dict(params, stop_cycle=res.cycles)
+        solve(no_stop)  # cold: its own graphs
+        out["warm_no_stop_test_s_median"] = statistics.median(
+            _counted(lambda: solve(no_stop))[1] for _ in range(args.reps)
+        )
+
+    # the device's busy time of a warm solve, untraced: its graphs alone
+    # (the ones captured first; MaxSum's run without the stop test has
+    # its own when the main solve has the test)
+    graphs = next(
+        v for k, v in compiled._device_consts.items()
+        if k[0] == "cycle_graphs"
+    )
+    prologue_ms = _graph_ms(graphs.prologue)
+    chunk_ms = _graph_ms(graphs.chunk)
+    busy_ms = prologue_ms + warm_counts["replays"] * chunk_ms
+    out.update({
+        "chunk_length": graphs.solver.length,
+        "prologue_ms": prologue_ms,
+        "chunk_ms": chunk_ms,
+        "iteration_ms": chunk_ms / graphs.solver.length,
+        "device_busy_ms_untraced": busy_ms,
+        "device_idle_share_untraced": (
+            1.0 - busy_ms * 1e-3 / out["warm_s_median"]
+        ),
+    })
 
     acts = [
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA,
     ]
     with torch.profiler.profile(activities=acts) as prof:
-        traced = _wall(compiled, params, n_cycles, seed)
+        _, traced, _ = _counted(solve)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     kernels = [
@@ -91,25 +190,27 @@ def main(argv=None) -> dict:
         t, k = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), k + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    out = {
-        "config": args.config,
-        "layout": args.layout,
-        "device": torch.cuda.get_device_name(0),
-        "cycles": res.cycles,
-        "cost": res.cost,
-        "cold_s": cold,
-        "warm_s_median": statistics.median(walls),
-        "warm_s_all": walls,
-        "warm_no_stop_test_s_median": statistics.median(walls_no_stop),
+    out.update({
         "traced_wall_s": traced,
-        "device_busy_us": busy_us,
-        "device_busy_share": busy_us * 1e-6 / traced,
-        "kernels_per_cycle": len(kernels) / res.cycles,
+        "traced_device_events": len(kernels),
+        "traced_device_busy_us": busy_us,
+        "traced_device_busy_share": busy_us * 1e-6 / traced,
+        "traced_kernels_per_iteration": (
+            len(kernels) / max(warm_counts["iterations"], 1)
+        ),
         "top_kernels": [
             {"name": name[:120], "us": t, "count": k}
             for name, (t, k) in top
         ],
-    }
+    })
+    host = cProfile.Profile()
+    host.runcall(solve)
+    text = io.StringIO()
+    pstats.Stats(host, stream=text).sort_stats("cumulative").print_stats(14)
+    out["host_profile"] = [
+        line.strip() for line in text.getvalue().splitlines()
+        if line.strip()[:1].isdigit()
+    ]
     print(json.dumps(out))
     return out
 

@@ -239,3 +239,48 @@ def test_factor_arity2_minplus_kernel_equals_plain_on_ragged_tail(case):
     torch.cuda.synchronize()
     for g, w in zip(got, hk.factor_arity2_minplus_plain(*args)):
         assert torch.equal(g, w)
+
+
+def _eager_runner(compiled, solver, dev, consts):
+    from pydcop_tpu_torch.algorithms import base
+
+    return base._Eager(solver, dev, consts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "algo, params",
+    [
+        ("maxsum", {"layout": "ell"}),
+        ("maxsum", {"layout": "pallas"}),
+        ("dsa", {}),
+        ("mgm", {"break_mode": "random"}),
+        ("mgm2", {}),
+    ],
+)
+def test_captured_chunks_equal_eager_chunks_on_card(algo, params,
+                                                    monkeypatch):
+    # the same solve as replays of its captured graphs and as the same
+    # chunk function run eagerly on the card: one trajectory, the same
+    # bits; the kernels launch inside the graphs
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    import importlib
+
+    from pydcop_tpu_torch.algorithms import base
+
+    mod = importlib.import_module(f"pydcop_tpu_torch.algorithms.{algo}")
+    compiled = generate_coloring_arrays(300, 3, graph="scalefree", m_edge=2,
+                                        seed=21)
+    captures = base.run_cycles.captures
+    graphs = mod.solve(compiled, params, n_cycles=37, seed=3,
+                       collect_curve=True, device="cuda")
+    assert base.run_cycles.captures == captures + 2
+    again = mod.solve(compiled, params, n_cycles=37, seed=3,
+                      collect_curve=True, device="cuda")
+    assert base.run_cycles.captures == captures + 2  # warm: no capture
+    monkeypatch.setattr(base, "_runner", _eager_runner)
+    eager = mod.solve(compiled, params, n_cycles=37, seed=3,
+                      collect_curve=True, device="cuda")
+    assert graphs == again == eager
+    assert graphs.cycles == 37 and len(graphs.cost_curve) == 37

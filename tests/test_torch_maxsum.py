@@ -101,7 +101,8 @@ def test_every_ell_layout_runs_the_one_path(layout):
     "params, kwargs",
     [
         ({"precision": "bf16"}, {}),
-        ({}, {"timeout": 1.0}),
+        # the timeout is ported: bf16 is refused with or without one
+        ({"precision": "bf16"}, {"timeout": 1.0}),
     ],
 )
 def test_unported_options_raise(params, kwargs):
@@ -200,6 +201,7 @@ def _scripted_engine(costs, n_cycles, convergence=None):
     """run_cycles over a one-variable problem whose unary costs are
     ``costs``: init picks value 0, step k picks value k (mod len)."""
     from collections import namedtuple
+    from types import SimpleNamespace
 
     import torch
 
@@ -219,17 +221,20 @@ def _scripted_engine(costs, n_cycles, convergence=None):
         buckets=(), f2v_perm=zero, fan_in_offsets=torch.tensor([0, 1]),
     )
 
-    def init(dev):
-        return State(torch.zeros(1, dtype=torch.int32), 0)
+    def init(dev, key):
+        return State(
+            torch.zeros(1, dtype=torch.int32), torch.zeros((), dtype=torch.int32)
+        )
 
-    def step(dev, state):
+    def step(dev, state, key):
         k = state.k + 1
-        return State(torch.full((1,), k % d, dtype=torch.int32), k)
+        return State((k % d).reshape(1), k)
 
-    return run_cycles(
-        dev, init, step, extract_values, n_cycles=n_cycles,
-        convergence=convergence,
+    values, _, extras = run_cycles(
+        SimpleNamespace(), dev, init, step, extract_values,
+        n_cycles=n_cycles, convergence=convergence, return_final=False,
     )
+    return values, extras
 
 
 def test_anytime_best_is_strict_and_one_based():
@@ -237,7 +242,10 @@ def test_anytime_best_is_strict_and_one_based():
     # cost:   5  3  3  4  2  5   -> best 2, first reached at cycle 4
     vals, extras = _scripted_engine([5.0, 3.0, 3.0, 4.0, 2.0], n_cycles=5)
     assert vals.tolist() == [4]
-    assert extras == {"best_cost": 2.0, "cycles": 5, "cycles_to_best": 4}
+    assert extras == {
+        "best_cost": 2.0, "cycles": 5, "cycles_to_best": 4,
+        "timed_out": False,
+    }
     # a tie with the incumbent never moves it: cost 3 first at cycle 1
     vals, extras = _scripted_engine([5.0, 3.0, 3.0], n_cycles=2)
     assert vals.tolist() == [1] and extras["cycles_to_best"] == 1
