@@ -19,9 +19,26 @@ captured CUDA graphs:
 - ``dsa``, ``mgm`` and ``mgm2.solve`` at config 4's problem, MGM-2 at
   bench config 3 (the 100x100 Ising grid) and on the mixed problem;
 - the timeout: MaxSum at config 4 with a budget it does not reach, and
-  DSA with one it does.
+  DSA with one it does;
+- the object-level front door (``front_door_yaml``): two YAML instances
+  of ``tests/instances/`` and the README's 1,000-variable problem,
+  written with ``dcop_yaml``, solved by ``python -m pydcop_tpu_torch
+  solve`` on the card (a subprocess, whose JSON must equal the CPU's
+  in-process ``solve_result``) and in process on the card, under
+  ``auto`` (``ell_minplus``) and once under ``layout:pallas``
+  (``factor_arity2_minplus``); skipped, with one line saying so, only
+  when PyYAML cannot be imported;
+- the object path at config-4 scale (``front_door_objects``):
+  ``generate_graph_coloring`` -> ``compile_dcop`` -> ``solve_result``
+  (MaxSum) on the card, cold and warm, against the CPU, with the host
+  seconds of each stage;
+- DPOP (``dpop_config5``): bench config 5 (meeting scheduling), whose
+  UTIL wave is one captured graph (1 capture cold, 0 warm), against the
+  CPU and the JAX package's result; and (``dpop_wide``) the wider
+  instances of the same generator, its streaming path and its chunked
+  path, against the JAX package's results pinned here.
 
-Each solve runs cold (it captures its graphs) and warm (it must capture
+Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
 zero each kernel's launches (launches an iteration times the iterations
 its graphs replayed), its replays and its host syncs (O(log n_cycles)).
@@ -107,6 +124,29 @@ LOCAL_SEARCH = [
     ("mgm2_mixed", "mgm2", "mixed", {}, 30, 3),
 ]
 ENGINE_COUNTERS = ("captures", "replays", "iterations", "host_syncs")
+# the front door: MaxSum as the README runs it on a YAML file, and the
+# README's generated problem (the JAX ``generate graph_coloring -v 1000 -c
+# 3 --soft`` defaults, at a fixed seed)
+FRONT_DOOR_ARGS = ["-a", "maxsum", "-p", "damping:0.7", "-n", "50"]
+FRONT_DOOR_YAML = ["tests/instances/graph_coloring.yaml",
+                   "tests/instances/ising_4x4.yaml"]
+README_PROBLEM = (1000, 3, dict(
+    graph="random", p_edge=None, m_edge=None, soft=True, extensive=False,
+    noise_level=0.02, seed=0, allow_subgraph=False,
+))
+# the object path at config 4's size: generate_graph_coloring's arguments
+OBJECTS_100K = (100_000, 3, dict(graph="scalefree", m_edge=2, soft=True,
+                                 seed=7))
+# DPOP on generate_meeting_scheduling(slots_count=8, events_count=30,
+# max_resources_event=2, seed=5) by resources_count: (cost, violations,
+# msg_count, msg_size) of the JAX package on a CPU (JAX_PLATFORMS=cpu).
+# 30 is bench config 5 (bench_all.py); 20 (induced width 7) runs the
+# streaming path, 15 (width 8, a 9^9 joint) the chunked one.
+DPOP_JAX = {
+    30: (248.0, 0, 78, 67_261),
+    20: (217.0, 0, 96, 13_170_020),
+    15: (216.0, 0, 96, 59_581_009),
+}
 
 
 def emit(obj) -> None:
@@ -794,6 +834,282 @@ def phase_timeouts(c4, ell4):
     })
 
 
+def _zero_launches():
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    hk.ell_minplus.launches = 0
+    hk.factor_arity2_minplus.launches = 0
+
+
+def _launch_counts():
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    return {
+        "ell_minplus": hk.ell_minplus.launches,
+        "factor_arity2_minplus": hk.factor_arity2_minplus.launches,
+    }
+
+
+def _same_result(got, want, name):
+    """MaxSum's bar between the card and the CPU on result dicts: the
+    same assignment, violations, cycles, messages and status, the cost
+    within rel 1e-5.  Returns whether the costs are also bit-equal."""
+    for key in ("assignment", "violation", "cycle", "msg_count",
+                "msg_size", "status"):
+        check(got[key] == want[key], f"{name}: {key} {got[key]!r} != "
+              f"{want[key]!r}")
+    check(
+        abs(got["cost"] - want["cost"]) <= 1e-5 * abs(want["cost"]),
+        f"{name}: cost {got['cost']} vs {want['cost']}",
+    )
+    return got["cost"] == want["cost"]
+
+
+def phase_front_door_yaml():
+    """YAML on the card, through the CLI and the library: each file is
+    solved by ``python -m pydcop_tpu_torch solve`` on the card (a
+    subprocess) and must print the CPU's in-process result; the library's
+    card solve launches ``ell_minplus`` (``auto`` resolves to ELL on these
+    binary problems), and one ``layout:pallas`` solve launches
+    ``factor_arity2_minplus``."""
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+    from pydcop_tpu_torch.api import solve_result
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, load_dcop_from_file
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n, d, kw = README_PROBLEM
+        readme = Path(tmp) / "gc1000.yaml"
+        readme.write_text(dcop_yaml(generate_graph_coloring(n, d, **kw)))
+        write_s = time.perf_counter() - t0
+        files = [ROOT / f for f in FRONT_DOOR_YAML] + [readme]
+        for path in files:
+            t0 = time.perf_counter()
+            cli = subprocess.run(
+                [sys.executable, "-m", "pydcop_tpu_torch", "solve",
+                 *FRONT_DOOR_ARGS, str(path)],
+                cwd=ROOT, capture_output=True, text=True, timeout=900,
+            )
+            cli_s = time.perf_counter() - t0
+            check(cli.returncode == 0,
+                  f"{path.name}: the CLI exited {cli.returncode}: "
+                  f"{cli.stderr[-2000:]}")
+            printed = json.loads(cli.stdout)
+            t0 = time.perf_counter()
+            dcop = load_dcop_from_file(str(path))
+            load_s = time.perf_counter() - t0
+            algo = AlgorithmDef.build_with_default_param(
+                "maxsum", {"damping": 0.7}, mode=dcop.objective
+            )
+            run = dict(distribution="oneagent", n_cycles=50, seed=0)
+            cpu = json.loads(json.dumps(
+                solve_result(dcop, algo, device="cpu", **run), default=str
+            ))
+            cost_equal = _same_result(printed, cpu, f"{path.name} CLI")
+            _zero_launches()
+            card = solve_result(dcop, algo, device="cuda", **run)
+            launches = _launch_counts()
+            check(launches["ell_minplus"] > 0,
+                  f"{path.name}: the card solve launched no ell_minplus")
+            _same_result(json.loads(json.dumps(card, default=str)), cpu,
+                         f"{path.name} library")
+            out = {
+                "phase": "front_door_yaml", "file": path.name,
+                "n_vars": len(dcop.variables),
+                "n_constraints": len(dcop.constraints),
+                "cli_s": cli_s, "load_s": load_s, "card_s": card["time"],
+                "cost": printed["cost"], "violation": printed["violation"],
+                "cycle": printed["cycle"], "msg_count": printed["msg_count"],
+                "cli_equals_cpu": True, "cost_bit_equal": cost_equal,
+                "launches": launches,
+            }
+            if path == readme:
+                out["dcop_yaml_s"] = write_s
+                algo = AlgorithmDef.build_with_default_param(
+                    "maxsum", {"damping": 0.7, "layout": "pallas"},
+                    mode=dcop.objective,
+                )
+                _zero_launches()
+                pallas = solve_result(dcop, algo, device="cuda", **run)
+                out["pallas_launches"] = _launch_counts()
+                check(out["pallas_launches"]["factor_arity2_minplus"] > 0,
+                      "layout:pallas launched no factor_arity2_minplus")
+                _same_result(
+                    json.loads(json.dumps(pallas, default=str)),
+                    json.loads(json.dumps(solve_result(
+                        dcop, algo, device="cpu", **run), default=str)),
+                    "layout:pallas",
+                )
+            emit(out)
+
+
+def phase_front_door_objects():
+    """The object path at config 4's size: generate the DCOP objects,
+    ``compile_dcop``, then MaxSum through ``solve_result`` on the card,
+    cold and warm, against the CPU; the host seconds of each stage,
+    ``solution_cost`` (which evaluates every relation in Python) among
+    them."""
+    from pydcop_tpu_torch.algorithms import AlgorithmDef, base
+    from pydcop_tpu_torch.api import solve_result
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    n, d, kw = OBJECTS_100K
+    t0 = time.perf_counter()
+    dcop = generate_graph_coloring(n, d, **kw)
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compiled = compile_dcop(dcop)
+    compile_s = time.perf_counter() - t0
+    algo = AlgorithmDef.build_with_default_param(
+        "maxsum", {"damping": 0.7}, mode=dcop.objective
+    )
+    run = dict(n_cycles=30, seed=7, compiled=compiled)
+    walls, counts, results = {}, {}, {}
+    for which, device in (("cold", "cuda"), ("warm", "cuda"),
+                          ("cpu", "cpu")):
+        _zero_launches()
+        engine = _engine_counts()
+        t0 = time.perf_counter()
+        results[which] = solve_result(dcop, algo, device=device, **run)
+        walls[which] = time.perf_counter() - t0
+        counts[which] = {
+            k: v - engine[k] for k, v in _engine_counts().items()
+        }
+        counts[which].update(_launch_counts())
+    check(counts["warm"]["captures"] == 0, "objects: the warm solve captured")
+    check(counts["warm"]["ell_minplus"] > 0,
+          "objects: the warm solve launched no ell_minplus")
+    warm = dict(results["warm"], time=None)
+    check(warm == dict(results["cold"], time=None),
+          "objects: warm differs from cold")
+    cost_equal = _same_result(results["cold"], results["cpu"], "objects")
+    t0 = time.perf_counter()
+    cost = dcop.solution_cost(results["warm"]["assignment"])
+    solution_cost_s = time.perf_counter() - t0
+    check(cost == (results["warm"]["cost"], results["warm"]["violation"]),
+          "objects: the reported cost is not solution_cost's")
+    emit({
+        "phase": "front_door_objects", "n_vars": compiled.n_vars,
+        "n_constraints": compiled.n_constraints,
+        "n_edges": compiled.n_edges,
+        "generate_s": generate_s, "compile_dcop_s": compile_s,
+        "solution_cost_s": solution_cost_s,
+        "cold_s": walls["cold"], "warm_s": walls["warm"],
+        "cpu_s": walls["cpu"],
+        "solve_time_warm_s": results["warm"]["time"],
+        "cost": results["cold"]["cost"],
+        "violation": results["cold"]["violation"],
+        "cycle": results["cold"]["cycle"], "cost_bit_equal": cost_equal,
+        "host_syncs_warm": counts["warm"]["host_syncs"],
+        "cold_counts": counts["cold"], "warm_counts": counts["warm"],
+    })
+
+
+def _meetings(resources_count):
+    from pydcop_tpu_torch.commands.generators.meetingscheduling import (
+        generate_meeting_scheduling,
+    )
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    return compile_dcop(generate_meeting_scheduling(
+        slots_count=8, resources_count=resources_count, events_count=30,
+        max_resources_event=2, seed=5,
+    ))
+
+
+def _dpop_checked(res, resources_count, name):
+    want = DPOP_JAX[resources_count]
+    got = (res.cost, res.violations, res.msg_count, res.msg_size)
+    check(got == want, f"{name}: {got}, the JAX package gives {want}")
+
+
+def phase_dpop_config5():
+    """Bench config 5 as ``bench_all.py`` builds it: DPOP on the card,
+    cold (its fused UTIL wave captured into one graph) and warm (a
+    replay, no capture), against the CPU and the JAX package's result."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import dpop
+
+    compiled = _meetings(30)
+    walls, counts, results = {}, {}, {}
+    for which, device in (("cold", "cuda"), ("warm", "cuda"),
+                          ("cpu", "cpu")):
+        before = (dpop.solve.captures, dpop.solve.replays)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[which] = dpop.solve(compiled, {}, n_cycles=1, seed=0,
+                                    device=device)
+        walls[which] = time.perf_counter() - t0
+        counts[which] = {
+            "captures": dpop.solve.captures - before[0],
+            "replays": dpop.solve.replays - before[1],
+        }
+        _dpop_checked(results[which], 30, f"dpop config 5 {which}")
+    check(counts["cold"] == {"captures": 1, "replays": 1},
+          f"dpop cold: {counts['cold']}")
+    check(counts["warm"] == {"captures": 0, "replays": 1},
+          f"dpop warm: {counts['warm']}")
+    check(results["cold"] == results["cpu"] == results["warm"],
+          "dpop config 5: the card and the CPU differ")
+    res = results["cold"]
+    emit({
+        "phase": "dpop_config5", "n_vars": compiled.n_vars,
+        "max_domain": compiled.max_domain,
+        "n_constraints": compiled.n_constraints,
+        "cold_s": walls["cold"], "warm_s": walls["warm"],
+        "cpu_s": walls["cpu"], "cost": res.cost,
+        "violations": res.violations, "msg_count": res.msg_count,
+        "msg_size": res.msg_size, "same_assignment_as_cpu": True,
+        "counts": counts,
+    })
+
+
+def phase_dpop_wide():
+    """The wider meeting instances on the card, against the JAX package's
+    results pinned in ``DPOP_JAX``: 20 resources (induced width 7, over
+    the fused budget: the streaming path) and 15 (width 8, a 9^9 joint:
+    the chunked path).  Prints each wall, the chunks contracted and the
+    peak device memory."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import dpop
+
+    for resources_count in (20, 15):
+        t0 = time.perf_counter()
+        compiled = _meetings(resources_count)
+        compile_s = time.perf_counter() - t0
+        before = (dpop.solve.chunks, dpop.solve.captures)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = dpop.solve(compiled, {}, n_cycles=1, seed=0, device="cuda")
+        wall = time.perf_counter() - t0
+        chunks = dpop.solve.chunks - before[0]
+        _dpop_checked(res, resources_count, f"dpop {resources_count}")
+        check(dpop.solve.captures == before[1],
+              f"dpop {resources_count}: the wave was captured, not streamed")
+        check((chunks > 0) == (resources_count == 15),
+              f"dpop {resources_count}: {chunks} chunks")
+        emit({
+            "phase": "dpop_wide", "resources_count": resources_count,
+            "n_vars": compiled.n_vars,
+            "n_constraints": compiled.n_constraints,
+            "compile_s": compile_s, "wall_s": wall, "chunks": chunks,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "cost": res.cost, "violations": res.violations,
+            "msg_count": res.msg_count, "msg_size": res.msg_size,
+        })
+        del compiled, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -877,6 +1193,16 @@ def main() -> int:
             no_kernel,
         )
     phase_timeouts(c4, ell4)
+    del c4, c2, mixed, problems
+    try:
+        import yaml  # noqa: F401  (the YAML loader's one dependency)
+    except ImportError as e:
+        emit({"phase": "front_door_yaml", "skipped": f"no PyYAML: {e}"})
+    else:
+        phase_front_door_yaml()
+    phase_front_door_objects()
+    phase_dpop_config5()
+    phase_dpop_wide()
     emit({"kernels": [ell_row, lanes_row]})
     print(smi, flush=True)
     emit({

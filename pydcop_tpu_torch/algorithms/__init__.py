@@ -1,8 +1,8 @@
 """Algorithm parameter definitions, the solve result and the registry.
 
 Counterpart of ``pydcop_tpu/algorithms/__init__.py`` (``AlgoParameterDef``,
-``check_param_value``, ``prepare_algo_params``, ``SolveResult``,
-``load_algorithm_module``).  An algorithm module exports ``GRAPH_TYPE``,
+``check_param_value``, ``prepare_algo_params``, ``AlgorithmDef``,
+``SolveResult``, ``load_algorithm_module``).  An algorithm module exports ``GRAPH_TYPE``,
 ``algo_params`` and ``solve(compiled, params, n_cycles, seed, ...,
 device=...)``.
 """
@@ -12,8 +12,11 @@ from __future__ import annotations
 import importlib
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
+from ..utils.simple_repr import SimpleRepr
+
 __all__ = [
     "AlgoParameterDef",
+    "AlgorithmDef",
     "SolveResult",
     "check_param_value",
     "load_algorithm_module",
@@ -88,6 +91,65 @@ def prepare_algo_params(
         name: check_param_value(params.get(name), p)
         for name, p in defs.items()
     }
+
+
+class AlgorithmDef(SimpleRepr):
+    """An algorithm selection: name + mode (min/max) + validated params."""
+
+    _repr_fields = ("algo", "mode", "params")
+
+    def __init__(
+        self,
+        algo: str,
+        params: Optional[Dict[str, Any]] = None,
+        mode: str = "min",
+    ) -> None:
+        self._algo = algo
+        self._mode = mode
+        self._params = dict(params or {})
+
+    @classmethod
+    def build_with_default_param(
+        cls,
+        algo: str,
+        params: Optional[Dict[str, Any]] = None,
+        mode: str = "min",
+        parameters_definitions: Optional[Sequence[AlgoParameterDef]] = None,
+    ) -> "AlgorithmDef":
+        if parameters_definitions is None:
+            parameters_definitions = load_algorithm_module(algo).algo_params
+        full = prepare_algo_params(params or {}, parameters_definitions)
+        return cls(algo, full, mode)
+
+    @property
+    def algo(self) -> str:
+        return self._algo
+
+    @property
+    def mode(self) -> str:
+        return self._mode
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return dict(self._params)
+
+    def param_value(self, name: str) -> Any:
+        return self._params[name]
+
+    @classmethod
+    def _from_repr(cls, algo, mode, params):
+        return cls(algo, params, mode)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, AlgorithmDef)
+            and other.algo == self.algo
+            and other.mode == self.mode
+            and other.params == self.params
+        )
+
+    def __repr__(self) -> str:
+        return f"AlgorithmDef({self._algo}, {self._mode}, {self._params})"
 
 
 class SolveResult(NamedTuple):

@@ -576,15 +576,24 @@ def finalize(
     msg_count: int,
     msg_size: int,
     curve: Optional[np.ndarray] = None,
+    infinity: float = 10000,
     status: str = "FINISHED",
 ) -> SolveResult:
     """Decode indices, compute the exact host-side cost (float64, with the
     reference's violation counting) and build the result; the curve is
-    reported in the problem's own sense (un-negated for max problems)."""
+    reported in the problem's own sense (un-negated for max problems).
+
+    A problem with a ``DCOP`` object is costed by its relations
+    (``DCOP.solution_cost``): expression constraints and hard costs at or
+    above ``infinity`` as written, not their clamped tables.  An
+    array-only problem is costed by its tables (``host_cost``)."""
     values_idx = np.asarray(values_idx)[: compiled.n_vars]
     assignment = compiled.assignment_from_indices(values_idx)
-    cost, violations = compiled.host_cost(values_idx)
     sign = 1.0 if compiled.objective == "min" else -1.0
+    if compiled.dcop is not None:
+        cost, violations = compiled.dcop.solution_cost(assignment, infinity)
+    else:
+        cost, violations = compiled.host_cost(values_idx, infinity)
     return SolveResult(
         assignment=assignment,
         cost=cost,

@@ -1,1 +1,1 @@
-"""Command-line layer (only the problem generators are ported so far)."""
+"""Command-line layer: the ``solve`` verb and the problem generators."""

@@ -1,9 +1,11 @@
-"""Graph-coloring benchmark problem generator (array level).
+"""Graph-coloring benchmark problem generator.
 
-Counterpart of ``pydcop_tpu/commands/generators/graphcoloring.py``'s
-array path: the same graph models and the same numpy RNG calls in the
-same order, so one seed gives identical arrays in both packages.  The
-object-level (YAML-able) generator is a later slice of the port.
+Counterpart of ``pydcop_tpu/commands/generators/graphcoloring.py``: the
+same graph models and the same numpy RNG calls in the same order, so one
+seed gives identical problems in both packages.  ``generate_graph_coloring``
+builds an object-level (YAML-able) ``DCOP``; ``generate_coloring_arrays``
+lowers the same problem family straight to a ``CompiledDCOP``, with no
+python objects, for sizes where building them would dominate.
 """
 
 from __future__ import annotations
@@ -14,11 +16,15 @@ import numpy as np
 
 from ...compile.core import CompiledDCOP
 from ...compile.direct import compile_from_edges
+from ...dcop.dcop import DCOP
+from ...dcop.objects import AgentDef, Domain, Variable
+from ...dcop.relations import NAryMatrixRelation
 
 __all__ = [
     "random_edges",
     "scale_free_edges",
     "grid_edges",
+    "generate_graph_coloring",
     "generate_coloring_arrays",
 ]
 
@@ -84,6 +90,15 @@ def grid_edges(side: int) -> np.ndarray:
     return np.concatenate([right, down]).astype(np.int32)
 
 
+def _coloring_table(n_colors: int, hard: bool) -> np.ndarray:
+    """Cost table for one edge: equal colors cost 1 (soft) or inf (hard);
+    random unary preferences are added by the caller in soft mode."""
+    # np.where, not eye * inf: 0 * inf is NaN
+    return np.where(
+        np.eye(n_colors, dtype=bool), np.inf if hard else 1.0, 0.0
+    )
+
+
 def _build_edges(
     n: int,
     graph: str,
@@ -120,6 +135,60 @@ def _connect_isolated(
         )
         edges = np.concatenate([edges, extra])
     return edges
+
+
+def generate_graph_coloring(
+    variables_count: int,
+    colors_count: int,
+    graph: str = "random",
+    p_edge: Optional[float] = None,
+    m_edge: Optional[int] = None,
+    soft: bool = True,
+    extensive: bool = False,
+    noise_level: float = 0.02,
+    seed: Optional[int] = None,
+    allow_subgraph: bool = False,
+    n_agents: Optional[int] = None,
+) -> DCOP:
+    """Object-level generator (a YAML-able DCOP).
+
+    Soft problems add random unary preference costs scaled by
+    ``noise_level``; hard problems make equal colors infeasible.
+    """
+    rng = np.random.default_rng(seed)
+    edges = _build_edges(variables_count, graph, p_edge, m_edge, rng)
+    if not allow_subgraph and variables_count > 1:
+        edges = _connect_isolated(edges, variables_count, rng)
+
+    dom = Domain("colors", "d", list(range(colors_count)))
+    dcop = DCOP(f"graph_coloring_{variables_count}", objective="min")
+    variables = []
+    for i in range(variables_count):
+        v = Variable(f"v{i:05d}", dom)
+        variables.append(v)
+        dcop.add_variable(v)
+
+    table = _coloring_table(colors_count, hard=not soft)
+    for k, (i, j) in enumerate(edges):
+        c = NAryMatrixRelation(
+            [variables[i], variables[j]],
+            table,
+            name=f"cost_{k}",
+        )
+        dcop.add_constraint(c)
+
+    if soft and noise_level:
+        for i, v in enumerate(variables):
+            prefs = rng.random(colors_count) * noise_level
+            c = NAryMatrixRelation([v], prefs, name=f"pref_{i}")
+            dcop.add_constraint(c)
+
+    if n_agents is None:
+        n_agents = variables_count
+    dcop.add_agents(
+        [AgentDef(f"a{a:05d}", capacity=100) for a in range(n_agents)]
+    )
+    return dcop
 
 
 def generate_coloring_arrays(

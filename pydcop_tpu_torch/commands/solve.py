@@ -1,0 +1,148 @@
+"""``solve``: a static DCOP from YAML files, solved on the device.
+
+Counterpart of ``pydcop_tpu/commands/solve.py`` in its ``--mode direct``:
+load the problem, compile it, solve it on the card (or the CPU with the
+global ``--device cpu``) and print the result JSON, the same schema and
+the same text as the JAX package's.  The options of its other modes (the
+thread/process agent runtime, telemetry, memory guard, chaos, durability,
+CSV metrics) are parsed, so a command written for the JAX package gets a
+clear refusal naming the option instead of a usage error.
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+import time
+
+from ..constants import INFINITY
+from ..dcop.yamldcop import load_dcop_from_file
+from ._utils import build_algo_def, write_output
+
+logger = logging.getLogger("pydcop_tpu_torch.cli.solve")
+
+# (flags, argparse keywords, what the option belongs to): options of the
+# JAX package's ``solve`` that the port does not run yet.  Each refuses
+# when given a value other than its default.
+_NOT_PORTED = (
+    (("-m", "--mode"), dict(choices=["direct", "thread", "process"],
+                            default="direct"), "the agent runtime"),
+    (("-c", "--collect_on"),
+     dict(choices=["value_change", "cycle_change", "period"],
+          default="value_change"), "the agent runtime"),
+    (("--period",), dict(type=float, default=None), "the agent runtime"),
+    (("--delay",), dict(type=float, default=None), "the agent runtime"),
+    (("--uiport",), dict(type=int, default=None), "the agent runtime"),
+    (("--run_metrics",), dict(default=None), "CSV metrics"),
+    (("--end_metrics",), dict(default=None), "CSV metrics"),
+    (("--profile",), dict(default=None), "telemetry"),
+    (("--trace-out",), dict(default=None), "telemetry"),
+    (("--metrics-out",), dict(default=None), "telemetry"),
+    (("--metrics-port",), dict(type=int, default=None), "telemetry"),
+    (("--profile-out",), dict(default=None), "telemetry"),
+    (("--dump-hlo",), dict(default=None), "telemetry"),
+    (("--pulse-out",), dict(default=None), "telemetry"),
+    (("--mem-guard",), dict(action="store_true"), "the memory guard"),
+    (("--mem-reserve-pct",), dict(type=float, default=None),
+     "the memory guard"),
+    (("--mem-limit-bytes",), dict(type=int, default=None),
+     "the memory guard"),
+    (("--fault-schedule",), dict(default=None), "chaos"),
+    (("--checkpoint",), dict(nargs="?", const="", default=None),
+     "durability"),
+    (("--checkpoint-every",), dict(type=int, default=None), "durability"),
+    (("--checkpoint-every-seconds",), dict(type=float, default=None),
+     "durability"),
+    (("--checkpoint-keep",), dict(type=int, default=None), "durability"),
+    (("--resume",), dict(default=None), "durability"),
+)
+
+
+def set_parser(subparsers) -> None:
+    parser = subparsers.add_parser(
+        "solve", help="solve a static DCOP on the device"
+    )
+    parser.set_defaults(func=run_cmd)
+    parser.add_argument("dcop_files", nargs="+", help="dcop yaml file(s)")
+    parser.add_argument(
+        "-a", "--algo", required=True, help="algorithm name"
+    )
+    parser.add_argument(
+        "-p",
+        "--algo_params",
+        action="append",
+        default=None,
+        help="algorithm parameter as name:value (repeatable)",
+    )
+    parser.add_argument(
+        "-d",
+        "--distribution",
+        default="oneagent",
+        help="distribution method, reported in the result",
+    )
+    parser.add_argument(
+        "-n", "--n_cycles", type=int, default=100,
+        help="number of synchronous cycles to run",
+    )
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--collect_curve", action="store_true",
+        help="include the per-cycle cost curve in the result",
+    )
+    parser.add_argument(
+        "-i", "--infinity", type=float, default=INFINITY,
+        help="value standing in for symbolic infinity when reporting "
+        f"hard-constraint costs (default {INFINITY})",
+    )
+    for flags, kwargs, _what in _NOT_PORTED:
+        parser.add_argument(*flags, help="not ported yet", **kwargs)
+
+
+def _refused_option(args):
+    """(flag, what it belongs to) of the first option given that the port
+    does not run, or None."""
+    for flags, kwargs, what in _NOT_PORTED:
+        dest = flags[-1].lstrip("-").replace("-", "_")
+        default = kwargs.get("default", False)
+        if getattr(args, dest) != default:
+            return flags[-1], what
+    return None
+
+
+def run_cmd(args, timeout: float = None) -> int:
+    refused = _refused_option(args)
+    if refused is not None:
+        flag, what = refused
+        print(
+            f"error: solve {flag} ({what}) is not ported yet; the port runs "
+            f"--mode direct only",
+            file=sys.stderr,
+        )
+        return 2
+    t_load = time.perf_counter()
+    dcop = load_dcop_from_file(args.dcop_files)
+    logger.info(
+        "loaded %s in %.3fs", args.dcop_files,
+        time.perf_counter() - t_load,
+    )
+    algo_def = build_algo_def(
+        args.algo, args.algo_params, mode=dcop.objective
+    )
+    from ..api import solve_result
+
+    result = solve_result(
+        dcop,
+        algo_def,
+        distribution=args.distribution,
+        n_cycles=args.n_cycles,
+        seed=args.seed,
+        collect_curve=bool(args.collect_curve),
+        timeout=timeout,
+        infinity=args.infinity,
+        device=args.device,
+    )
+    if not args.collect_curve:
+        result.pop("cost_curve", None)
+    write_output(args, result)
+    # TIMEOUT exits 0: the anytime incumbent is a usable result
+    return 0 if result.get("status") in ("FINISHED", "TIMEOUT") else 1

@@ -23,10 +23,13 @@ def compiled_from_numpy(fields: Mapping[str, Any]) -> CompiledDCOP:
     """The port's ``CompiledDCOP`` from the fields of the JAX package's
     (``dataclasses.asdict``-style: buckets as mappings of their fields,
     domains as objects with ``name``, ``type`` and ``values``).  Only
-    array-level problems carry over: an object-level ``dcop`` raises."""
+    array-level problems carry over as arrays: an object-level ``dcop``
+    raises; carry it as YAML text (``dcop_yaml``, then the port's
+    ``load_dcop``) and compile it with the port's ``compile_dcop``."""
     if fields.get("dcop") is not None:
         raise NotImplementedError(
-            "compiled_from_numpy: object-level DCOPs are not ported yet"
+            "compiled_from_numpy carries arrays only: carry an object-level "
+            "DCOP across as YAML text and compile it with compile_dcop"
         )
     buckets = [
         ArityBucket(

@@ -1,15 +1,24 @@
 """Where a warm solve's time goes on the card.
 
     python -m pydcop_tpu_torch.tools.profile_solve [--algo ALGO]
-        [--config 4|3|2] [--reps N] [--layout LAYOUT] [--trace FILE]
+        [--config 4|3|2|5] [--reps N] [--layout LAYOUT] [--trace FILE]
+        [--resources N]
 
-``--algo`` is ``maxsum`` (default), ``dsa``, ``mgm`` or ``mgm2``.
-``--config`` picks the problem and run of a bench config: 4 (100k-variable
-scale-free coloring, 30 cycles, seed 7; MaxSum with damping 0.7), 3
-(the 100x100 Ising grid of seed 3, 30 cycles, seed 0) or 2 (1k random
-coloring, 60 cycles, seed 0; MaxSum with damping 0.5 and stop_cycle 60).
+``--algo`` is ``maxsum`` (default), ``dsa``, ``mgm``, ``mgm2`` or
+``dpop``.  ``--config`` picks the problem and run of a bench config: 4
+(100k-variable scale-free coloring, 30 cycles, seed 7; MaxSum with
+damping 0.7), 3 (the 100x100 Ising grid of seed 3, 30 cycles, seed 0) or
+2 (1k random coloring, 60 cycles, seed 0; MaxSum with damping 0.5 and
+stop_cycle 60); DPOP runs config 5, meeting scheduling with 8 slots, 30
+events of up to 2 resources, seed 5, and ``--resources`` resources (30,
+the default, is bench config 5; fewer share more and widen the tree).
 The local-search solvers run their default params.  ``--layout`` is
 MaxSum's ``layout`` (default ``auto``).
+
+For DPOP, whose solve is one UTIL wave and not a cycle loop, the tool
+times the cold and warm solves, the fused wave's graph alone by CUDA
+events (when the problem takes the fused path), a ``torch.profiler``
+trace and a ``cProfile`` of one warm solve.
 
 The tool solves once cold, then:
 
@@ -45,7 +54,11 @@ import torch
 from ..algorithms import base, load_algorithm_module
 from ..commands.generators.graphcoloring import generate_coloring_arrays
 from ..commands.generators.ising import generate_ising_arrays
+from ..commands.generators.meetingscheduling import (
+    generate_meeting_scheduling,
+)
 from ..compile import hopper_kernels
+from ..compile.core import compile_dcop
 
 # config: (problem, n_cycles, seed, MaxSum's params)
 CONFIGS = {
@@ -98,12 +111,109 @@ def _graph_ms(graph, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _traced(solve, trace=None) -> dict:
+    """One solve under ``torch.profiler``: its device busy share and the
+    kernels with the most device time."""
+    acts = [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA,
+    ]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        solve()
+        traced = time.perf_counter() - t0
+    if trace:
+        prof.export_chrome_trace(trace)
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "traced_wall_s": traced,
+        "traced_device_events": len(kernels),
+        "traced_device_busy_us": busy_us,
+        "traced_device_busy_share": busy_us * 1e-6 / traced,
+        "top_kernels": [
+            {"name": name[:120], "us": t, "count": k}
+            for name, (t, k) in top
+        ],
+    }
+
+
+def _host_profile(solve) -> list:
+    """The functions with the most cumulative host time in one solve
+    (waits on the device included)."""
+    host = cProfile.Profile()
+    host.runcall(solve)
+    text = io.StringIO()
+    pstats.Stats(host, stream=text).sort_stats("cumulative").print_stats(14)
+    return [
+        line.strip() for line in text.getvalue().splitlines()
+        if line.strip()[:1].isdigit()
+    ]
+
+
+def _profile_dpop(args) -> dict:
+    from ..algorithms import dpop
+
+    compiled = compile_dcop(generate_meeting_scheduling(
+        slots_count=8, resources_count=args.resources, events_count=30,
+        max_resources_event=2, seed=5,
+    ))
+
+    def solve():
+        return dpop.solve(compiled, {}, device="cuda")
+
+    t0 = time.perf_counter()
+    res = solve()
+    cold = time.perf_counter() - t0
+    walls, chunks = [], dpop.solve.chunks
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        again = solve()
+        walls.append(time.perf_counter() - t0)
+    out = {
+        "algo": "dpop", "config": 5, "resources": args.resources,
+        "device": torch.cuda.get_device_name(0),
+        "n_vars": compiled.n_vars, "max_domain": compiled.max_domain,
+        "cost": res.cost, "violations": res.violations,
+        "msg_count": res.msg_count, "msg_size": res.msg_size,
+        "cold_s": cold, "warm_s_median": statistics.median(walls),
+        "warm_s_all": walls, "warm_solves_equal": again == res,
+        "chunks_per_solve": (dpop.solve.chunks - chunks) // args.reps,
+        "fused": compiled._device_consts[("dpop_fused_plan",)] is not None,
+    }
+    if out["fused"]:
+        wave = compiled._device_consts[("dpop_fused_wave", "cuda")]
+        busy_ms = _graph_ms(wave.graph)
+        out.update({
+            "batches": len(wave.ops),
+            "wave_graph_ms": busy_ms,
+            "device_idle_share_untraced": (
+                1.0 - busy_ms * 1e-3 / out["warm_s_median"]
+            ),
+        })
+    out.update(_traced(solve, args.trace))
+    out["host_profile"] = _host_profile(solve)
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
-        "--algo", default="maxsum", choices=["maxsum", "dsa", "mgm", "mgm2"]
+        "--algo", default="maxsum",
+        choices=["maxsum", "dsa", "mgm", "mgm2", "dpop"],
     )
-    ap.add_argument("--config", type=int, choices=sorted(CONFIGS), default=4)
+    ap.add_argument(
+        "--config", type=int, choices=sorted(CONFIGS) + [5], default=4
+    )
+    ap.add_argument("--resources", type=int, default=30)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument(
         "--layout", default="auto",
@@ -113,6 +223,12 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
+    if (args.algo == "dpop") != (args.config == 5):
+        ap.error("config 5 is DPOP's, and DPOP runs config 5 only")
+    if args.algo == "dpop":
+        out = _profile_dpop(args)
+        print(json.dumps(out))
+        return out
     make, n_cycles, seed, maxsum_params = CONFIGS[args.config]
     mod = load_algorithm_module(args.algo)
     params = (
@@ -172,45 +288,12 @@ def main(argv=None) -> dict:
         ),
     })
 
-    acts = [
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA,
-    ]
-    with torch.profiler.profile(activities=acts) as prof:
-        _, traced, _ = _counted(solve)
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
-    kernels = [
-        e for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        t, k = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), k + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    out.update({
-        "traced_wall_s": traced,
-        "traced_device_events": len(kernels),
-        "traced_device_busy_us": busy_us,
-        "traced_device_busy_share": busy_us * 1e-6 / traced,
-        "traced_kernels_per_iteration": (
-            len(kernels) / max(warm_counts["iterations"], 1)
-        ),
-        "top_kernels": [
-            {"name": name[:120], "us": t, "count": k}
-            for name, (t, k) in top
-        ],
-    })
-    host = cProfile.Profile()
-    host.runcall(solve)
-    text = io.StringIO()
-    pstats.Stats(host, stream=text).sort_stats("cumulative").print_stats(14)
-    out["host_profile"] = [
-        line.strip() for line in text.getvalue().splitlines()
-        if line.strip()[:1].isdigit()
-    ]
+    traced = _traced(solve, args.trace)
+    traced["traced_kernels_per_iteration"] = (
+        traced["traced_device_events"] / max(warm_counts["iterations"], 1)
+    )
+    out.update(traced)
+    out["host_profile"] = _host_profile(solve)
     print(json.dumps(out))
     return out
 

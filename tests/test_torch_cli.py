@@ -1,0 +1,98 @@
+"""The port's CLI against the JAX package's, on the CPU.
+
+``python -m pydcop_tpu_torch --device cpu solve`` must print the JAX
+CLI's JSON (``python -m pydcop_tpu solve`` under ``JAX_PLATFORMS=cpu``),
+``time`` excepted, under the bar of ``test_torch_api.py`` (MaxSum's cost
+within rel 1e-5, a cost curve within rel 1e-6, every other field equal).
+Without a card and without ``--device cpu`` it refuses; the options of
+the JAX CLI's other modes are refused as not ported.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+from test_torch_api import ROOT, _path, assert_same_result
+
+import pydcop_tpu_torch as P
+from pydcop_tpu_torch import dcop_cli
+
+
+def _run(cmd, env=None):
+    return subprocess.run(
+        cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, **(env or {})),
+    )
+
+
+# (algo, extra solve options) the CLIs are run with
+CLI_CASES = [
+    ("maxsum", ["-p", "damping:0.7", "-n", "50"]),
+    ("dsa", ["-n", "30", "--seed", "4", "--collect_curve"]),
+    ("mgm", ["-n", "20", "-d", "adhoc"]),
+    ("mgm2", ["-n", "20", "-i", "0.5"]),
+    ("dpop", []),
+]
+
+
+@pytest.mark.parametrize("algo, opts", CLI_CASES)
+def test_cli_prints_the_jax_cli_json(algo, opts, tmp_path):
+    args = ["solve", "-a", algo, *opts, _path("graph_coloring")]
+    port = subprocess.Popen(
+        [sys.executable, "-m", "pydcop_tpu_torch", "--device", "cpu",
+         "--output", str(tmp_path / "port.json"), *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    ref = _run([sys.executable, "-m", "pydcop_tpu", *args],
+               env={"JAX_PLATFORMS": "cpu"})
+    out, err = port.communicate(timeout=300)
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    assert port.returncode == 0, err[-2000:]
+    assert_same_result(
+        json.loads((tmp_path / "port.json").read_text()),
+        json.loads(ref.stdout), algo,
+    )
+
+
+def test_cli_stdout_is_the_json_text():
+    port = _run([sys.executable, "-m", "pydcop_tpu_torch", "--device",
+                 "cpu", "solve", "-a", "dpop", _path("ising_4x4")])
+    assert port.returncode == 0, port.stderr[-2000:]
+    got = json.loads(port.stdout)
+    want = P.solve_result(P.load_dcop_from_file(_path("ising_4x4")), "dpop",
+                          distribution="oneagent", device="cpu")
+    assert_same_result(got, want, "dpop")
+    assert port.stdout == json.dumps(
+        dict(got), indent=2, default=str, sort_keys=True
+    ) + "\n"
+
+
+def test_cli_without_a_card_exits_nonzero():
+    # no card visible and no --device cpu: a clear refusal, no result
+    port = _run([sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a",
+                 "dpop", _path("graph_coloring")],
+                env={"CUDA_VISIBLE_DEVICES": ""})
+    assert port.returncode != 0
+    assert "--device cpu" in port.stderr
+    assert port.stdout == ""
+
+
+@pytest.mark.parametrize("option", [
+    ["-m", "thread"], ["--trace-out", "t.json"], ["--mem-guard"],
+    ["--fault-schedule", "f.yaml"], ["--checkpoint", "ck"], ["--resume", "ck"],
+    ["--run_metrics", "m.csv"], ["--delay", "0.1"],
+])
+def test_cli_refuses_options_not_ported(option, capsys):
+    rc = dcop_cli.main(["--device", "cpu", "solve", "-a", "dsa", *option,
+                        _path("graph_coloring")])
+    assert rc == 2
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_cli_refuses_global_options_not_ported(capsys):
+    rc = dcop_cli.main(["--device", "cpu", "--platform", "cpu", "solve",
+                        "-a", "dsa", _path("graph_coloring")])
+    assert rc == 2
+    assert "--platform is not ported yet" in capsys.readouterr().err

@@ -2,8 +2,10 @@
 
 On CPU tensors a wrapper is its plain PyTorch version and counts no
 launch; on other non-CUDA devices it raises.  The tests marked ``cuda``
-hold each kernel against its plain version on the card, exactly, and skip
-where there is no card: a CUDA kernel has no CPU mode.  This file imports
+hold each kernel against its plain version on the card, exactly, and the
+solvers' captured graphs (the cycle engine's, DPOP's UTIL wave) against
+the same solves run eagerly or on the CPU; they skip where there is no
+card: a CUDA kernel or graph has no CPU mode.  This file imports
 nothing of jax, so on the card it runs without the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -284,3 +286,58 @@ def test_captured_chunks_equal_eager_chunks_on_card(algo, params,
                       collect_curve=True, device="cuda")
     assert graphs == again == eager
     assert graphs.cycles == 37 and len(graphs.cost_curve) == 37
+
+
+# DPOP on the card: its fused UTIL wave as one captured graph, and its
+# streaming and chunked paths, each against the CPU
+DPOP_CONFIG_5 = dict(slots_count=8, resources_count=30, events_count=30,
+                     max_resources_event=2, seed=5)
+DPOP_SMALL = dict(slots_count=4, resources_count=10, events_count=10,
+                  max_resources_event=2, seed=5)
+
+
+def _meetings(kw):
+    from pydcop_tpu_torch.commands.generators.meetingscheduling import (
+        generate_meeting_scheduling,
+    )
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    return compile_dcop(generate_meeting_scheduling(**kw))
+
+
+@pytest.mark.cuda
+def test_config5_on_the_card_like_the_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from pydcop_tpu_torch.algorithms import dpop
+
+    c = _meetings(DPOP_CONFIG_5)
+    cpu = dpop.solve(c, {}, device="cpu")
+    captures, replays = dpop.solve.captures, dpop.solve.replays
+    cold = dpop.solve(c, {}, device="cuda")
+    assert (dpop.solve.captures, dpop.solve.replays) == (
+        captures + 1, replays + 1
+    )
+    warm = dpop.solve(c, {}, device="cuda")
+    assert (dpop.solve.captures, dpop.solve.replays) == (
+        captures + 1, replays + 2
+    )
+    assert cold == warm == cpu
+    assert cold.cost == 248.0
+
+
+@pytest.mark.cuda
+def test_streaming_and_chunked_on_the_card_like_the_cpu(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from pydcop_tpu_torch.algorithms import dpop
+
+    c = _meetings(DPOP_SMALL)
+    want = dpop.solve(c, {}, device="cpu")
+    monkeypatch.setattr(dpop, "_plan_fused_wave", lambda *a: None)
+    assert dpop.solve(_meetings(DPOP_SMALL), {}, device="cuda") == want
+    monkeypatch.setattr(dpop, "MAX_JOINT_ELEMS", 9 ** 2)
+    monkeypatch.setattr(dpop, "CHUNK_ELEMS", 9)
+    chunks = dpop.solve.chunks
+    assert dpop.solve(_meetings(DPOP_SMALL), {}, device="cuda") == want
+    assert dpop.solve.chunks > chunks
