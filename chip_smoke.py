@@ -16,8 +16,18 @@ captured CUDA graphs:
   config 4's size, the lanes and edges layouts at config 2's, and
   ``layout="auto"`` on a mixed binary + ternary problem, which runs
   lanes; each must give the result recorded before the graphs;
+- ``maxsum.solve`` with ``precision="bf16"`` (both message planes in
+  bfloat16, both kernels given a bf16 plane): config 4 on ``ell`` and
+  ``pallas``, config 2 on ``ell``, ``lanes`` and ``edges``, each giving
+  the JAX package's pinned cost;
 - ``dsa``, ``mgm`` and ``mgm2.solve`` at config 4's problem, MGM-2 at
   bench config 3 (the 100x100 Ising grid) and on the mixed problem;
+- ``mixeddsa``, ``dba`` and ``gdba.solve`` at bench config 7 (2,000
+  variables, 5,050 constraints, 40% hard), DBA and GDBA on a
+  10,000-variable hard coloring, and DSA on the 80-variable hard coloring
+  whose anytime best needs ``evaluate``'s sums in XLA's order: each
+  identical to the CPU, assignment included, and to the JAX package's
+  pinned result;
 - the timeout: MaxSum at config 4 with a budget it does not reach, and
   DSA with one it does;
 - the object-level front door (``front_door_yaml``): two YAML instances
@@ -42,7 +52,11 @@ Each solve of the cycle engine runs cold (it captures its graphs) and warm (it m
 nothing), is checked against the same solve on the CPU, and counts from
 zero each kernel's launches (launches an iteration times the iterations
 its graphs replayed), its replays and its host syncs (O(log n_cycles)).
-It prints one JSON object per phase, then the kernel table, the card's
+Every solve also launches the port's own kernel ``xla_tree_sum``: the
+anytime-best total of ``evaluate`` (and MaxSum's ELL fan-in) summed in
+XLA-CPU's order, one launch a level of each sum.  It prints one JSON
+object per phase, then the kernel table (five rows: both TPU kernels
+with a float32 and with a bf16 plane, and ``xla_tree_sum``), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
 exits nonzero, with no result, when no CUDA device is present or the
@@ -105,14 +119,54 @@ MIXED = dict(params={"damping": 0.5}, n_cycles=30, seed=3)
 # bench config 3: MGM-2 on the 100x100 periodic Ising grid of seed 3
 CONFIG_3 = dict(gen=(100, 100, 1.6, 0.05, 3), n_cycles=30, seed=0)
 # MaxSum's (cost, violations, cycles) on these problems before its cycle
-# loop ran as captured graphs, on the card (configs 4 and 2, exact) and on
-# the CPU (mixed, held within rel 1e-5 as the card is to the CPU): the
-# graphs must not move them
+# loop ran as captured graphs, on the card (configs 4 and 2, exact), and
+# the JAX package's on the mixed problem (JAX_PLATFORMS=cpu; held within
+# rel 1e-5 as the card is to the CPU): the graphs must not move them.  The
+# mixed problem has forbidden tuples; its earlier record, (25877.82552429683,
+# 22, 30), was another cycle's, kept while evaluate summed in torch's order
+# (tests/test_torch_maxsum.py::test_chip_smoke_mixed_record_is_jaxs solves
+# it with both packages)
 MAXSUM_RECORDED = {
     "config4": (18768.492959813426, 0, 30),
     "config2": (176.00823494198994, 0, 60),
-    "mixed": (25877.82552429683, 22, 30),
+    "mixed": (25513.102097259267, 20, 30),
 }
+# MaxSum with precision="bf16": (cost, violations, cycles) of the JAX
+# package on a CPU (JAX_PLATFORMS=cpu, jax 0.9.0); config 2's is the same
+# on every layout
+MAXSUM_BF16_JAX = {
+    "config4_ell": (18801.9568355224, 0, 30),
+    "config4_pallas": (18799.51088023531, 0, 30),
+    "config2": (176.9906821902914, 0, 60),
+}
+# bench config 7 (bench_all.py): generate_mixed_problem's arguments; it
+# makes 5,050 constraints (the density's graph), 40% of them hard
+CONFIG_7 = ((2000, 2000, 0.4), dict(arity=2, domain_range=5, density=0.0025,
+                                     seed=13))
+# a hard scale-free coloring of 10,000 variables, and the 80-variable hard
+# coloring whose anytime best differed from JAX's while evaluate summed in
+# torch's order: generate_graph_coloring's arguments
+HARD_10K = (10_000, 3, dict(graph="scalefree", m_edge=2, soft=False, seed=7))
+HARD_80 = (80, 3, dict(graph="random", p_edge=0.07, soft=False, seed=1))
+# the breakout and mixed solves: (phase, algo, problem, params, n_cycles,
+# seed, the JAX package's (cost, violations, cycles) on a CPU)
+BREAKOUT = [
+    ("mixeddsa_config7", "mixeddsa", "config7", {}, 50, 0,
+     (1925.9599999999969, 0, 50)),
+    ("dba_config7", "dba", "config7", {}, 50, 0,
+     (3908.4600000000037, 0, 50)),
+    ("gdba_config7", "gdba", "config7", {}, 50, 0,
+     (2189.669999999992, 0, 50)),
+    ("dba_hard10k", "dba", "hard10k", {}, 100, 0, (0.0, 101, 100)),
+    ("gdba_hard10k", "gdba", "hard10k", {}, 100, 0, (0.0, 556, 100)),
+    ("dsa_hard80", "dsa", "hard80", {}, 60, 0, (0.0, 12, 60)),
+]
+# the JAX package's assignment of dsa_hard80, as value indices in
+# variable order
+DSA_HARD80_JAX_VALUES = (
+    "21110220021122102211122101022120200221000002100021112120101202012020"
+    "001201100200"
+)
 # the local-search solves: (phase, algo, problem, params, n_cycles, seed);
 # their default params (DSA variant B, MGM lexic, MGM-2 unilateral)
 LOCAL_SEARCH = [
@@ -124,6 +178,15 @@ LOCAL_SEARCH = [
     ("mgm2_mixed", "mgm2", "mixed", {}, 30, 3),
 ]
 ENGINE_COUNTERS = ("captures", "replays", "iterations", "host_syncs")
+# the rows of the kernel table: both TPU kernels with a float32 and with a
+# bf16 message plane, and the port's own tree sum
+KERNEL_ROWS = ("ell_minplus", "ell_minplus_bf16", "factor_arity2_minplus",
+               "factor_arity2_minplus_bf16", "xla_tree_sum")
+# the kernel wrappers of compile/hopper_kernels.py, each with a launch count
+KERNEL_WRAPPERS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum")
+# xla_tree_sum's sizes: one value, one window plus one, config 4's unary
+# and constraint totals, a million
+TREE_SIZES = (1, 33, 100_000, 199_996, 1_000_000)
 # the front door: MaxSum as the README runs it on a YAML file, and the
 # README's generated problem (the JAX ``generate graph_coloring -v 1000 -c
 # 3 --soft`` defaults, at a fixed seed)
@@ -321,12 +384,14 @@ def _bound(nbytes: int, ops: int):
 
 def ell_minplus_bytes_ops(args):
     """(bytes, ops) one ell_minplus call needs: each input byte this data
-    needs read once, each output written once (tables, partner values and
-    the index of real slots; mask and output of every slot)."""
+    needs read once, each output written once (tables, partner values in
+    the plane's type and the index of real slots; mask and output of every
+    slot)."""
     v2f, _, _, real_row = args
     d, n_pad = v2f.shape
     n_real = int(real_row.sum())
-    nbytes = n_real * (d * d * 4 + d * 4 + 4) + n_pad * (1 + d * 4)
+    isz = v2f.element_size()
+    nbytes = n_real * (d * d * 4 + d * isz + 4) + n_pad * (1 + d * 4)
     ops = n_real * (2 * d * d - d)  # d*d adds, d*(d-1) mins per own value
     return nbytes, ops
 
@@ -334,13 +399,69 @@ def ell_minplus_bytes_ops(args):
 def factor_arity2_minplus_bytes_ops(args):
     """(bytes, ops) one factor_arity2_minplus call needs: per constraint
     its D*D table floats, two int32 edge ids and 2*D gathered message
-    floats read once, and 2*D output floats written once; 2*D*D adds for
-    the joint total, 2*D*D subtracts and 2*D*(D-1) mins."""
+    values (in the plane's type) read once, and 2*D output floats written
+    once; 2*D*D adds for the joint total, 2*D*D subtracts and 2*D*(D-1)
+    mins."""
     v2f, e0, _, _ = args
     d, n_c = v2f.shape[0], e0.shape[0]
-    nbytes = n_c * (d * d * 4 + 2 * 4 + 2 * d * 4 + 2 * d * 4)
+    isz = v2f.element_size()
+    nbytes = n_c * (d * d * 4 + 2 * 4 + 2 * d * isz + 2 * d * 4)
     ops = n_c * (4 * d * d + 2 * d * (d - 1))
     return nbytes, ops
+
+
+def xla_tree_sum_bytes_ops(args):
+    """(bytes, ops) of one sum: its n floats read once, one written; n - 1
+    adds."""
+    (x,) = args
+    return x.numel() * 4 + 4, max(x.numel() - 1, 0)
+
+
+def bf16_plane(make):
+    """An operand maker whose message plane (the first operand) is
+    rounded to bfloat16, as MaxSum's precision="bf16" stores it."""
+
+    def made(*args, **kwargs):
+        import torch
+
+        ops = make(*args, **kwargs)
+        return [ops[0].to(torch.bfloat16)] + list(ops[1:])
+
+    return made
+
+
+def tree_inputs(n, device, seed=0):
+    """[x]: n float32 costs as evaluate sums them, ~30% at 1e9."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.where(
+        torch.rand(n, generator=g, device=device) < 0.3, 1e9,
+        torch.rand(n, generator=g, device=device) * 10,
+    )]
+
+
+def tree_levels(n: int) -> int:
+    """xla_tree_sum's launches for a sum of n values."""
+    from pydcop_tpu_torch.compile.hopper_kernels import xla_tree_levels
+
+    return len(xla_tree_levels(n))
+
+
+def evaluate_launches(compiled) -> int:
+    """xla_tree_sum's launches in one evaluate: the unary total and each
+    bucket's."""
+    return tree_levels(compiled.n_vars) + sum(
+        tree_levels(b.tables.shape[0]) for b in compiled.buckets
+    )
+
+
+def ell_fan_in_launches(compiled) -> int:
+    """xla_tree_sum's launches in one ELL variable step: the fan-in of
+    each degree class."""
+    from pydcop_tpu_torch.compile.kernels import build_ell
+
+    return sum(tree_levels(db) for _, db in build_ell(compiled).spans if db)
 
 
 def fan_in_check(c4):
@@ -456,91 +577,170 @@ def phase_build():
 
 def phase_kernels(c4):
     """Each kernel against its plain version on the card, exactly, at the
-    main path's shape (config 4), the small cases (D = 2..20) and the
-    ragged shape; both timed at the main path's shape.  Returns the
-    kernel rows and, by kernel, the config-4 operand sets they were timed
-    on."""
+    main path's shapes (config 4), the small cases (D = 2..20) and the
+    ragged shape, the min-plus kernels with a float32 and with a bf16
+    plane; ``xla_tree_sum`` at evaluate's sizes and on config 4's ELL
+    fan-in classes.  Each timed at the main path's shape.  Returns the
+    kernel rows by name and, by kernel, the config-4 operand sets the
+    float32 min-plus kernels were timed on."""
     import torch
 
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
     problems = {"config4": c4}
     problems.update({k: generate(v) for k, v in SMALL_CASES.items()})
+    pallas = "pydcop_tpu/compile/pallas_kernels.py"
     kernels = [
-        # name, operands of a problem, random ragged operands, bytes and
-        # operations, TPU kernel it replaces
-        ("ell_minplus", ell_inputs, ell_ragged_inputs, ell_minplus_bytes_ops,
-         "pydcop_tpu/compile/pallas_kernels.py:167"),
-        ("factor_arity2_minplus", lanes_inputs, lanes_ragged_inputs,
-         factor_arity2_minplus_bytes_ops,
-         "pydcop_tpu/compile/pallas_kernels.py:83"),
+        # row name, wrapper, operands of a problem, random ragged
+        # operands, bytes and operations, the TPU kernel it replaces
+        ("ell_minplus", "ell_minplus", ell_inputs, ell_ragged_inputs,
+         ell_minplus_bytes_ops, f"{pallas}:167"),
+        ("ell_minplus_bf16", "ell_minplus", bf16_plane(ell_inputs),
+         bf16_plane(ell_ragged_inputs), ell_minplus_bytes_ops,
+         f"{pallas}:167"),
+        ("factor_arity2_minplus", "factor_arity2_minplus", lanes_inputs,
+         lanes_ragged_inputs, factor_arity2_minplus_bytes_ops,
+         f"{pallas}:83"),
+        ("factor_arity2_minplus_bf16", "factor_arity2_minplus",
+         bf16_plane(lanes_inputs), bf16_plane(lanes_ragged_inputs),
+         factor_arity2_minplus_bytes_ops, f"{pallas}:83"),
     ]
     emit({"phase": "timer", "floor_ms": timer_floor_ms()})
-    rows, timed_sets = [], {}
-    for name, inputs, ragged, bytes_ops, replaces in kernels:
-        kernel, plain = getattr(hk, name), getattr(hk, f"{name}_plain")
+    rows, timed_sets = {}, {}
+    for name, wrapper, inputs, ragged, bytes_ops, replaces in kernels:
+        kernel, plain = getattr(hk, wrapper), getattr(hk, f"{wrapper}_plain")
         operands = {
             k: functools.partial(inputs, c, "cuda")
             for k, c in problems.items()
         }
         operands["ragged"] = functools.partial(ragged, *RAGGED, "cuda")
-        checked = {}
-        max_err = 0.0
-        for shape, make in operands.items():
-            args = make()
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            if isinstance(got, torch.Tensor):
-                got, want = (got,), (want,)
-            equal = all(torch.equal(g, w) for g, w in zip(got, want))
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            checked[shape] = {
-                "shape": list(args[0].shape), "equal": equal,
-                "max_abs_err": err,
-            }
-            check(equal, f"{name} != {name}_plain on {shape}: {err}")
-            max_err = max(max_err, err)
-            if shape == "config4":
-                # 4 operand sets of ~18-33 MB each (inputs + output), so
-                # L2 holds none of them
-                sets = [args] + [[a.clone() for a in args] for _ in range(3)]
-                timed_sets[name] = sets
-                kernel_ms = time_cuda_ms(kernel, sets)
-                plain_ms = time_cuda_ms(plain, sets)
-                # yardsticks: the kernel on one set, which L2 mostly
-                # holds, and a copy of the largest operand (the tables),
-                # which streams like the kernel's table reads
-                l2_warm_ms = time_cuda_ms(kernel, sets[:1])
-                copy_ms = time_cuda_ms(
-                    lambda *a: max(a, key=torch.Tensor.numel).clone(), sets
-                )
-                nbytes, ops = bytes_ops(args)
-                bound_ms, bound_by = _bound(nbytes, ops)
+        checked, max_err = _check_equal(name, kernel, plain, operands)
+        args = operands["config4"]()
+        # 4 operand sets of ~16-33 MB each (inputs + output), so L2
+        # holds none of them
+        sets = [args] + [[a.clone() for a in args] for _ in range(3)]
+        if not name.endswith("_bf16"):
+            timed_sets[name] = sets
+        kernel_ms = time_cuda_ms(kernel, sets)
+        plain_ms = time_cuda_ms(plain, sets)
+        # yardsticks: the kernel on one set, which L2 mostly holds, and a
+        # copy of the largest operand (the tables), which streams like the
+        # kernel's table reads
+        l2_warm_ms = time_cuda_ms(kernel, sets[:1])
+        copy_ms = time_cuda_ms(
+            lambda *a: max(a, key=torch.Tensor.numel).clone(), sets
+        )
+        nbytes, ops = bytes_ops(args)
         emit({"phase": "kernels", "kernel": name, "shapes": checked})
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"pydcop_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces,
-            "launches": None,  # filled from its path's run
-            "equal": True,
-            "tolerance": "exact (torch.equal)",
-            "max_abs_err": max_err,
-            "ms": kernel_ms,
-            "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "bound_share": bound_ms / kernel_ms,
-            "l2_warm_ms": l2_warm_ms,
-            "copy_ms": copy_ms,
-            "bound_bytes": nbytes,
-            "bound_ops": ops,
+        rows[name] = _kernel_row(
+            name, wrapper, replaces, max_err, kernel_ms, plain_ms, nbytes,
+            ops,
             # no one PyTorch call does the gathers, adds, mins (and mask)
-            "library_ms": None,
-        })
+            library_ms=None, l2_warm_ms=l2_warm_ms, copy_ms=copy_ms,
+        )
+    rows["xla_tree_sum"] = _tree_sum_row(c4)
     emit({"phase": "fan_in", **fan_in_check(c4)})
     return rows, timed_sets
+
+
+def _check_equal(name, kernel, plain, operands):
+    """The kernel against its plain version on each operand set, exactly
+    (``torch.equal``); raises on any difference."""
+    import torch
+
+    checked, max_err = {}, 0.0
+    for shape, make in operands.items():
+        args = make()
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(
+            float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+            for g, w in zip(got, want)
+        )
+        checked[shape] = {
+            "shape": list(args[0].shape),
+            "dtype": str(args[0].dtype).replace("torch.", ""),
+            "equal": equal, "max_abs_err": err,
+        }
+        check(equal, f"{name} != its plain version on {shape}: {err}")
+        max_err = max(max_err, err)
+    return checked, max_err
+
+
+def _kernel_row(name, wrapper, replaces, max_err, kernel_ms, plain_ms,
+                nbytes, ops, library_ms, **extra):
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"pydcop_tpu_torch/csrc/{wrapper}.cu",
+        "replaces": replaces,
+        "launches": None,  # filled from its path's run
+        "equal": True,
+        "tolerance": "exact (torch.equal)",
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_share": bound_ms / kernel_ms,
+        "bound_bytes": nbytes,
+        "bound_ops": ops,
+        "library_ms": library_ms,
+        **extra,
+    }
+
+
+def _tree_sum_row(c4):
+    """``xla_tree_sum`` against its plain version, exactly: 1-D sums of
+    TREE_SIZES values and, as strided [D, nb, db] views of a random plane,
+    each degree class of config 4's ELL fan-in.  Timed on config 4's
+    constraint total (199,996 values: evaluate's largest sum), beside
+    ``torch.sum``, the one PyTorch call that sums the same values (in
+    another order)."""
+    import torch
+
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+    from pydcop_tpu_torch.compile.kernels import build_ell
+
+    operands = {
+        f"n{n}": functools.partial(tree_inputs, n, "cuda", n)
+        for n in TREE_SIZES
+    }
+    ell = build_ell(c4)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    plane = torch.randn((c4.max_domain, ell.n_pad), generator=g,
+                        device="cuda")
+    off = 0
+    for nb, db in ell.spans:
+        if db:
+            seg = plane[:, off:off + nb * db].reshape(-1, nb, db)
+            operands[f"ell_class_{db}"] = lambda seg=seg: [seg]
+        off += nb * db
+    checked, max_err = _check_equal(
+        "xla_tree_sum", hk.xla_tree_sum, hk.xla_tree_sum_plain, operands
+    )
+    emit({"phase": "kernels", "kernel": "xla_tree_sum", "shapes": checked})
+    n_total = sum(b.tables.shape[0] for b in c4.buckets)
+    sets = [tree_inputs(n_total, "cuda", seed) for seed in range(4)]
+    nbytes, ops = xla_tree_sum_bytes_ops(sets[0])
+    kernel_ms = time_cuda_ms(hk.xla_tree_sum, sets)
+    plain_ms = time_cuda_ms(hk.xla_tree_sum_plain, sets)
+    library_ms = time_cuda_ms(torch.sum, sets)
+    # the launches of the one timed call, counted as it runs
+    hk.xla_tree_sum.launches = 0
+    hk.xla_tree_sum(*sets[0])
+    torch.cuda.synchronize()
+    return _kernel_row(
+        "xla_tree_sum", "xla_tree_sum",
+        "none: the port's own kernel (evaluate's totals in XLA-CPU's order)",
+        max_err, kernel_ms, plain_ms, nbytes, ops, library_ms=library_ms,
+        n=n_total, launches_per_call=hk.xla_tree_sum.launches,
+    )
 
 
 def _launcher(library, name):
@@ -584,9 +784,9 @@ def _launcher(library, name):
 
 
 def phase_against(other: Path, timed_sets):
-    """Another checkout's kernels (built from ``other``) against this
-    one's on the same config-4 operand sets: equal outputs, then times in
-    turns, theirs, ours, ours, theirs."""
+    """Another checkout's float32 min-plus kernels (built from ``other``)
+    against this one's on the same config-4 operand sets: equal outputs,
+    then times in turns, theirs, ours, ours, theirs."""
     import torch
 
     from pydcop_tpu_torch.compile import _build
@@ -595,7 +795,7 @@ def phase_against(other: Path, timed_sets):
     pkg = other / "pydcop_tpu_torch"
     t0 = time.perf_counter()
     libs = _build.build_all(
-        _build.KERNELS, csrc=pkg / "csrc", build_dir=pkg / "_build"
+        list(timed_sets), csrc=pkg / "csrc", build_dir=pkg / "_build"
     )
     build_s = time.perf_counter() - t0
     for name, sets in timed_sets.items():
@@ -620,6 +820,30 @@ def phase_against(other: Path, timed_sets):
             "speedup": statistics.mean(times["theirs"])
             / statistics.mean(times["ours"]),
         })
+
+
+def breakout_problems():
+    """The problems of BREAKOUT, compiled from the object generators."""
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.commands.generators.mixedproblem import (
+        generate_mixed_problem,
+    )
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    t0 = time.perf_counter()
+    args, kw = CONFIG_7
+    config7 = compile_dcop(generate_mixed_problem(*args, **kw))
+    check(config7.n_constraints == 5050,
+          f"config 7 has {config7.n_constraints} constraints, not 5050")
+    out = {"config7": config7}
+    for name, (n, d, kw) in (("hard10k", HARD_10K), ("hard80", HARD_80)):
+        out[name] = compile_dcop(generate_graph_coloring(n, d, **kw))
+    emit({"phase": "breakout_problems", "seconds": time.perf_counter() - t0,
+          **{k: {"n_vars": c.n_vars, "n_constraints": c.n_constraints}
+             for k, c in out.items()}})
+    return out
 
 
 def _engine_counts():
@@ -649,22 +873,25 @@ def _profiled_launches(solve, names):
     return out
 
 
-def phase_solve(name, compiled, run, per_cycle, *, cpu_bar="exact",
-                recorded=None, recorded_rel=0.0, against=None,
-                profile=False):
+def phase_solve(name, compiled, run, per_cycle, *, per_start=None,
+                cpu_bar="exact", recorded=None, recorded_rel=0.0,
+                recorded_values=None, against=None, profile=False):
     """One problem through a solver's entry point on the card, cold then
     warm, then the same solve on the CPU.  ``run`` = (algo, params,
     n_cycles, seed).  Around each solve every kernel's launches and the
     engine's counters are counted from zero: the cold solve captures the
     solve's two graphs (and its warm-up launches each kernel once an
     iteration), the warm one captures nothing, launches ``per_cycle``
-    (launches an iteration, by kernel) times the iterations it replayed,
-    and looks at the device O(log n_cycles) times.  ``cpu_bar`` is
-    "exact" (the same assignment, cycles and cost as the CPU) or "cost"
-    (MaxSum's: equal violations, cost within rel 1e-5); ``recorded`` is
-    (cost, violations, cycles) the solve must give, the cost within
-    ``recorded_rel``; ``against`` another solve of the problem on the card
-    that must agree likewise."""
+    (launches an iteration, by kernel) times the iterations it replayed
+    plus ``per_start`` (launches of the prologue, which evaluates the
+    initial assignment; the cold solve runs it twice, in its warm-up and
+    as a graph), and looks at the device O(log n_cycles) times.
+    ``cpu_bar`` is "exact" (the same assignment, cycles and cost as the
+    CPU) or "cost" (MaxSum's: equal violations, cost within rel 1e-5);
+    ``recorded`` is (cost, violations, cycles) the solve must give, the
+    cost within ``recorded_rel``, and ``recorded_values`` its value
+    indices in variable order (a string of digits); ``against`` another
+    solve of the problem on the card that must agree likewise."""
     import math
 
     import numpy as np
@@ -675,6 +902,7 @@ def phase_solve(name, compiled, run, per_cycle, *, cpu_bar="exact",
     algo, params, n_cycles, seed = run
     mod = load_algorithm_module(algo)
     counted = {k: getattr(hk, k) for k in per_cycle}
+    per_start = {n: (per_start or {}).get(n, 0) for n in per_cycle}
 
     def solve(device):
         return mod.solve(
@@ -709,6 +937,7 @@ def phase_solve(name, compiled, run, per_cycle, *, cpu_bar="exact",
     warm_up = 1 if cold_counts["captures"] else 0
     want = {
         n: k * (cold_counts["iterations"] + warm_up)
+        + per_start[n] * (1 + warm_up)
         for n, k in per_cycle.items()
     }
     got = {n: cold_counts[n] for n in per_cycle}
@@ -716,7 +945,10 @@ def phase_solve(name, compiled, run, per_cycle, *, cpu_bar="exact",
     warm, warm_s, warm_counts = counted_solve("cuda")
     check(warm == cold, f"{name}: warm solve differs from cold solve")
     check(warm_counts["captures"] == 0, f"{name}: the warm solve captured")
-    want = {n: k * warm_counts["iterations"] for n, k in per_cycle.items()}
+    want = {
+        n: k * warm_counts["iterations"] + per_start[n]
+        for n, k in per_cycle.items()
+    }
     got = {n: warm_counts[n] for n in per_cycle}
     check(got == want, f"{name}: warm launches {got}, want {want}")
     chunks = max(1, math.ceil(math.log2(n_cycles / 16 + 1)))
@@ -736,8 +968,14 @@ def phase_solve(name, compiled, run, per_cycle, *, cpu_bar="exact",
         f"{name}: assignment out of domain",
     )
     check(np.isfinite(cold.cost), f"{name}: cost not finite")
+    # finalize's costing: the relations of a problem built from a DCOP,
+    # the tables of an array-only one
+    cost = (
+        compiled.dcop.solution_cost(cold.assignment, 10000)
+        if compiled.dcop is not None else compiled.host_cost(vals)
+    )
     check(
-        (cold.cost, cold.violations) == compiled.host_cost(vals),
+        (cold.cost, cold.violations) == cost,
         f"{name}: reported cost is not the assignment's cost",
     )
     check(
@@ -767,6 +1005,14 @@ def phase_solve(name, compiled, run, per_cycle, *, cpu_bar="exact",
             f"the recorded {recorded}",
         )
         out["recorded"] = list(recorded)
+    if recorded_values is not None:
+        got = "".join(
+            str(int(i))
+            for i in compiled.indices_from_assignment(cold.assignment)
+        )
+        check(got == recorded_values,
+              f"{name}: the assignment is not the recorded one")
+        out["recorded_assignment"] = True
     if against is not None:
         check(
             same(cold, against),
@@ -837,17 +1083,14 @@ def phase_timeouts(c4, ell4):
 def _zero_launches():
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
-    hk.ell_minplus.launches = 0
-    hk.factor_arity2_minplus.launches = 0
+    for name in KERNEL_WRAPPERS:
+        getattr(hk, name).launches = 0
 
 
 def _launch_counts():
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
-    return {
-        "ell_minplus": hk.ell_minplus.launches,
-        "factor_arity2_minplus": hk.factor_arity2_minplus.launches,
-    }
+    return {name: getattr(hk, name).launches for name in KERNEL_WRAPPERS}
 
 
 def _same_result(got, want, name):
@@ -1140,57 +1383,121 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     c4 = generate(CONFIG_4["gen"])
-    (ell_row, lanes_row), timed_sets = phase_kernels(c4)
+    rows, timed_sets = phase_kernels(c4)
     for other in args.against:
         phase_against(other.resolve(), timed_sets)
     del timed_sets
-    ell_only = {"ell_minplus": 1, "factor_arity2_minplus": 0}
-    lanes_only = {"ell_minplus": 0, "factor_arity2_minplus": 1}
-    no_kernel = {"ell_minplus": 0, "factor_arity2_minplus": 0}
 
-    def maxsum_run(spec, layout):
-        return ("maxsum", dict(spec["params"], layout=layout),
-                spec["n_cycles"], spec["seed"])
+    def counts(compiled, minplus=None, ell=False, maxsum=False):
+        """(launches an iteration, launches in the prologue) by kernel of
+        a solve on ``compiled``: ``minplus`` once an iteration (MaxSum's
+        factor step), and xla_tree_sum for every evaluate (the prologue
+        evaluates the initial assignment), for MaxSum's sum over the
+        domain in its variable step and, on the ELL layout, for every
+        degree class's fan-in."""
+        ev = evaluate_launches(compiled)
+        per_cycle = {
+            "ell_minplus": 0, "factor_arity2_minplus": 0, "xla_tree_sum": ev,
+        }
+        if minplus:
+            per_cycle[minplus] = 1
+        if maxsum:
+            per_cycle["xla_tree_sum"] += tree_levels(compiled.max_domain)
+        if ell:
+            per_cycle["xla_tree_sum"] += ell_fan_in_launches(compiled)
+        return per_cycle, {"xla_tree_sum": ev}
+
+    def maxsum_run(spec, layout, precision="f32"):
+        params = dict(spec["params"], layout=layout)
+        if precision != "f32":
+            params["precision"] = precision
+        return ("maxsum", params, spec["n_cycles"], spec["seed"])
+
+    def maxsum_phase(name, compiled, run, minplus, cpu_bar="cost", **kw):
+        per_cycle, per_start = counts(
+            compiled, minplus, ell=run[1]["layout"] == "ell", maxsum=True
+        )
+        return phase_solve(name, compiled, run, per_cycle,
+                           per_start=per_start, cpu_bar=cpu_bar, **kw)
 
     # the main path: MaxSum at config 4 on the ELL layout
-    ell4, warm = phase_solve(
-        "maxsum_100k", c4, maxsum_run(CONFIG_4, "ell"), ell_only,
-        cpu_bar="cost", recorded=MAXSUM_RECORDED["config4"], profile=True,
+    ell4, warm = maxsum_phase(
+        "maxsum_100k", c4, maxsum_run(CONFIG_4, "ell"), "ell_minplus",
+        recorded=MAXSUM_RECORDED["config4"], profile=True,
     )
-    ell_row["launches"] = warm["ell_minplus"]
-    _, warm = phase_solve(
+    rows["ell_minplus"]["launches"] = warm["ell_minplus"]
+    rows["xla_tree_sum"]["launches"] = warm["xla_tree_sum"]
+    _, warm = maxsum_phase(
         "maxsum_100k_pallas", c4, maxsum_run(CONFIG_4, "pallas"),
-        lanes_only, cpu_bar="cost", recorded=MAXSUM_RECORDED["config4"],
+        "factor_arity2_minplus", recorded=MAXSUM_RECORDED["config4"],
         against=ell4,
     )
-    lanes_row["launches"] = warm["factor_arity2_minplus"]
+    rows["factor_arity2_minplus"]["launches"] = warm["factor_arity2_minplus"]
     c2 = generate(CONFIG_2["gen"])
-    ell2, _ = phase_solve(
-        "maxsum_1k", c2, maxsum_run(CONFIG_2, "ell"), ell_only,
-        cpu_bar="cost", recorded=MAXSUM_RECORDED["config2"],
+    ell2, _ = maxsum_phase(
+        "maxsum_1k", c2, maxsum_run(CONFIG_2, "ell"), "ell_minplus",
+        recorded=MAXSUM_RECORDED["config2"],
     )
-    for layout, kernels in (("lanes", lanes_only), ("edges", no_kernel)):
-        phase_solve(
-            f"maxsum_1k_{layout}", c2, maxsum_run(CONFIG_2, layout),
-            kernels, cpu_bar="cost", recorded=MAXSUM_RECORDED["config2"],
-            against=ell2,
+    for layout, kernel in (("lanes", "factor_arity2_minplus"),
+                           ("edges", None)):
+        maxsum_phase(
+            f"maxsum_1k_{layout}", c2, maxsum_run(CONFIG_2, layout), kernel,
+            recorded=MAXSUM_RECORDED["config2"], against=ell2,
         )
     # "auto" must resolve to lanes here: the kernel counts show it
     mixed = compiled_from_numpy(mixed_problem_fields())
+    per_cycle, per_start = counts(mixed, "factor_arity2_minplus", maxsum=True)
     phase_solve(
-        "maxsum_mixed", mixed, maxsum_run(MIXED, "auto"), lanes_only,
-        cpu_bar="cost", recorded=MAXSUM_RECORDED["mixed"],
-        recorded_rel=1e-5,
+        "maxsum_mixed", mixed, maxsum_run(MIXED, "auto"), per_cycle,
+        per_start=per_start, cpu_bar="cost",
+        recorded=MAXSUM_RECORDED["mixed"], recorded_rel=1e-5,
     )
-    # the local-search solvers: no hand-written kernel on their path
+    # MaxSum's bf16 planes through both kernels: the JAX package's costs,
+    # and the CPU's assignment
+    _, warm = maxsum_phase(
+        "maxsum_100k_bf16", c4, maxsum_run(CONFIG_4, "ell", "bf16"),
+        "ell_minplus", cpu_bar="exact",
+        recorded=MAXSUM_BF16_JAX["config4_ell"],
+    )
+    rows["ell_minplus_bf16"]["launches"] = warm["ell_minplus"]
+    _, warm = maxsum_phase(
+        "maxsum_100k_pallas_bf16", c4,
+        maxsum_run(CONFIG_4, "pallas", "bf16"), "factor_arity2_minplus",
+        cpu_bar="exact", recorded=MAXSUM_BF16_JAX["config4_pallas"],
+    )
+    rows["factor_arity2_minplus_bf16"]["launches"] = warm[
+        "factor_arity2_minplus"
+    ]
+    for layout, kernel in (("ell", "ell_minplus"),
+                           ("lanes", "factor_arity2_minplus"),
+                           ("edges", None)):
+        maxsum_phase(
+            f"maxsum_1k_bf16_{layout}", c2,
+            maxsum_run(CONFIG_2, layout, "bf16"), kernel, cpu_bar="exact",
+            recorded=MAXSUM_BF16_JAX["config2"],
+        )
+    # the local-search solvers: xla_tree_sum (evaluate) on their path
     problems = {
         "config4": c4, "mixed": mixed,
         "config3": generate_ising_arrays(*CONFIG_3["gen"]),
     }
     for name, algo, problem, params, n_cycles, seed in LOCAL_SEARCH:
+        per_cycle, per_start = counts(problems[problem])
         phase_solve(
             name, problems[problem], (algo, params, n_cycles, seed),
-            no_kernel,
+            per_cycle, per_start=per_start,
+        )
+    # the mixed and breakout solvers and the hard colorings: identical to
+    # the CPU and to the JAX package's pinned results
+    problems.update(breakout_problems())
+    for name, algo, problem, params, n_cycles, seed, pinned in BREAKOUT:
+        per_cycle, per_start = counts(problems[problem])
+        phase_solve(
+            name, problems[problem], (algo, params, n_cycles, seed),
+            per_cycle, per_start=per_start, recorded=pinned,
+            recorded_values=(
+                DSA_HARD80_JAX_VALUES if name == "dsa_hard80" else None
+            ),
         )
     phase_timeouts(c4, ell4)
     del c4, c2, mixed, problems
@@ -1203,7 +1510,9 @@ def main() -> int:
     phase_front_door_objects()
     phase_dpop_config5()
     phase_dpop_wide()
-    emit({"kernels": [ell_row, lanes_row]})
+    for name, row in rows.items():
+        check(row["launches"], f"{name}: no launch on its path")
+    emit({"kernels": [rows[name] for name in KERNEL_ROWS]})
     print(smi, flush=True)
     emit({
         "ok": True,

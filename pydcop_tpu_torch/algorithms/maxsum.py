@@ -17,9 +17,14 @@ package, with identical math:
 
 ``"auto"`` runs ELL where it applies and lanes on problems ELL cannot
 represent (non-binary constraints, no edges), as do ``"ell"`` and
-``"ell_pallas"``.  bf16 planes raise NotImplementedError.  The solve
-runs on the cycle engine of ``base.py``: on the card, as replays of a
-captured CUDA graph, the kernels inside it.
+``"ell_pallas"``.  ``precision="bf16"`` stores both message planes in
+bfloat16 on every layout, as the JAX package's jitted step does: the
+planes start as bf16 zeros, every op that reads them widens them to
+float32 (both kernels take the bf16 plane and widen as they load), and
+each step's new planes are rounded to bf16 (to nearest even) once, as
+they are stored; tables, unary costs and ``evaluate`` stay float32.  The
+solve runs on the cycle engine of ``base.py``: on the card, as replays
+of a captured CUDA graph, the kernels inside it.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ from ..compile.kernels import (
     DeviceDCOP,
     EllLayout,
     LanesAux,
+    bf16_scalar,
     build_ell,
+    damp,
     factor_step,
     factor_step_ell,
     factor_step_lanes,
@@ -105,14 +112,28 @@ class MaxSumState:
     aux: Union[EllCarry, LanesAux, None]  # None on the edges layout
 
 
+#: the message-plane dtype of each ``precision``
+PLANE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
 @functools.lru_cache(maxsize=None)
 def _make_step(
     damping: float, damp_vars: bool, damp_factors: bool, wavefront: bool,
     layout: str, ell_spans: Tuple[Tuple[int, int], ...] = (),
+    precision: str = "f32",
 ):
-    """The cycle of ``layout`` ("ell", "lanes" or "edges"); cached, so a
-    warm solve finds its captured graphs under the same step."""
+    """The cycle of ``layout`` ("ell", "lanes" or "edges") with message
+    planes stored in ``precision``; cached, so a warm solve finds its
+    captured graphs under the same step."""
     var_damping = damping if damp_vars else 0.0
+    plane_dtype = PLANE_DTYPES[precision]
+
+    def store(state, v2f, f2v, values, i):
+        # the store rounds (bf16); the computation above ran in float32
+        return replace(
+            state, v2f=v2f.to(plane_dtype), f2v=f2v.to(plane_dtype),
+            values=values, cycle=i + 1,
+        )
 
     def step_ell(
         dev: DeviceDCOP, state: MaxSumState, key,
@@ -128,7 +149,7 @@ def _make_step(
         if wavefront:
             f2v = torch.where(i >= act_f[None, :], f2v, 0.0)
         if damp_factors and damping:
-            f2v = damping * state.f2v + (1.0 - damping) * f2v
+            f2v = damp(damping, state.f2v, f2v)
         v2f, values = variable_step_with_select_ell(
             ell_spans, state.aux.unary_t, valid_ell_t, edge_valid_t,
             dsize_edges, pos_of_var, real_row, f2v,
@@ -136,7 +157,7 @@ def _make_step(
         )
         if wavefront:
             v2f = torch.where((i + 1) >= act_v[None, :], v2f, 0.0)
-        return replace(state, v2f=v2f, f2v=f2v, values=values, cycle=i + 1)
+        return store(state, v2f, f2v, values, i)
 
     if layout == "ell":
         return step_ell
@@ -160,7 +181,7 @@ def _make_step(
             # a factor sends once any of its variables has
             f2v = torch.where(edge_mask(i >= act_f), f2v, 0.0)
         if damp_factors and damping:
-            f2v = damping * state.f2v + (1.0 - damping) * f2v
+            f2v = damp(damping, state.f2v, f2v)
         if lanes:
             v2f, values = variable_step_with_select_lanes(
                 dev, state.aux, f2v, damping=var_damping,
@@ -173,7 +194,7 @@ def _make_step(
         if wavefront:
             # a variable starts sending once any of its factors has sent
             v2f = torch.where(edge_mask((i + 1) >= act_v), v2f, 0.0)
-        return replace(state, v2f=v2f, f2v=f2v, values=values, cycle=i + 1)
+        return store(state, v2f, f2v, values, i)
 
     return step
 
@@ -182,48 +203,52 @@ def _cycle_zero(dev: DeviceDCOP) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=dev.unary.device)
 
 
-def init_ell(
-    dev: DeviceDCOP, key,
-    act_v, act_f, pair_perm, tabs_t, pos_of_var,
-    edge_valid_t, valid_ell_t, dsize_edges, real_row, var_perm,
-) -> MaxSumState:
-    """Zero message planes; the selection is the unary argmin."""
-    zeros = torch.zeros(
-        (dev.max_domain, tabs_t.shape[2]), dtype=dev.unary.dtype,
-        device=dev.unary.device,
-    )
-    return MaxSumState(
-        v2f=zeros, f2v=zeros,
-        values=masked_argmin(dev.unary, dev.valid_mask),
-        cycle=_cycle_zero(dev),
-        # dev.unary is already noised here (run_cycles noises before init)
-        aux=EllCarry(unary_t=dev.unary[var_perm].T.contiguous()),
-    )
+@functools.lru_cache(maxsize=None)
+def _make_init(layout: str, precision: str = "f32"):
+    """The initial state of ``layout``: zero message planes of
+    ``precision``, and the unary argmin as the selection.  Cached, so a
+    warm solve finds its captured graphs under the same function."""
+    plane_dtype = PLANE_DTYPES[precision]
 
+    def zeros(dev: DeviceDCOP, shape):
+        return dev.unary.new_zeros(shape, dtype=plane_dtype)
 
-def init_lanes(
-    dev: DeviceDCOP, key, act_v, act_f, aux: LanesAux
-) -> MaxSumState:
-    """Zero [D, n_edges] planes; ``aux`` is the problem's static
-    ``lanes_aux``, given the noised unary plane here."""
-    zeros = dev.unary.new_zeros((dev.max_domain, dev.n_edges))
-    return MaxSumState(
-        v2f=zeros, f2v=zeros,
-        values=masked_argmin(dev.unary, dev.valid_mask),
-        cycle=_cycle_zero(dev),
-        aux=replace(aux, unary_t=dev.unary.T.contiguous()),
-    )
+    def init_ell(
+        dev: DeviceDCOP, key,
+        act_v, act_f, pair_perm, tabs_t, pos_of_var,
+        edge_valid_t, valid_ell_t, dsize_edges, real_row, var_perm,
+    ) -> MaxSumState:
+        z = zeros(dev, (dev.max_domain, tabs_t.shape[2]))
+        return MaxSumState(
+            v2f=z, f2v=z,
+            values=masked_argmin(dev.unary, dev.valid_mask),
+            cycle=_cycle_zero(dev),
+            # dev.unary is already noised here (run_cycles noises first)
+            aux=EllCarry(unary_t=dev.unary[var_perm].T.contiguous()),
+        )
 
+    def init_lanes(
+        dev: DeviceDCOP, key, act_v, act_f, aux: LanesAux
+    ) -> MaxSumState:
+        # aux is the problem's static lanes_aux, given the noised unary
+        z = zeros(dev, (dev.max_domain, dev.n_edges))
+        return MaxSumState(
+            v2f=z, f2v=z,
+            values=masked_argmin(dev.unary, dev.valid_mask),
+            cycle=_cycle_zero(dev),
+            aux=replace(aux, unary_t=dev.unary.T.contiguous()),
+        )
 
-def init_edges(dev: DeviceDCOP, key, act_v, act_f) -> MaxSumState:
-    """Zero [n_edges, D] planes."""
-    zeros = dev.unary.new_zeros((dev.n_edges, dev.max_domain))
-    return MaxSumState(
-        v2f=zeros, f2v=zeros,
-        values=masked_argmin(dev.unary, dev.valid_mask),
-        cycle=_cycle_zero(dev),
-        aux=None,
-    )
+    def init_edges(dev: DeviceDCOP, key, act_v, act_f) -> MaxSumState:
+        z = zeros(dev, (dev.n_edges, dev.max_domain))
+        return MaxSumState(
+            v2f=z, f2v=z,
+            values=masked_argmin(dev.unary, dev.valid_mask),
+            cycle=_cycle_zero(dev),
+            aux=None,
+        )
+
+    return {"ell": init_ell, "lanes": init_lanes, "edges": init_edges}[layout]
 
 
 # SAME_COUNT: stop after this many consecutive stable cycles (reference
@@ -234,9 +259,19 @@ SAME_COUNT = 4
 def plane_stable(old: torch.Tensor, new: torch.Tensor, stability: float):
     """approx_match on one message plane: an entry is stable when
     unchanged at zero, or within ``stability`` relative change of its
-    previous value; a change away from exactly zero is never stable."""
+    previous value; a change away from exactly zero is never stable.
+
+    bf16 planes compare as the JAX package's jitted check does: in bf16
+    arithmetic, each op computed in float32 and rounded to bf16, with
+    ``stability`` rounded to bf16."""
     both_zero = (old == 0.0) & (new == 0.0)
-    within = (new - old).abs() <= stability * old.abs()
+    if old.dtype == torch.bfloat16:
+        o = old.float()
+        diff = (new.float() - o).to(torch.bfloat16).float().abs()
+        bound = (o.abs() * bf16_scalar(stability)).to(torch.bfloat16)
+        within = diff <= bound.float()
+    else:
+        within = (new - old).abs() <= stability * old.abs()
     return torch.all(both_zero | (within & (old != 0.0)))
 
 
@@ -404,13 +439,6 @@ def _edge_activation(compiled, start_mode: str, device):
     return cached_const(compiled, ("edge_act", start_mode, str(device)), build)
 
 
-def _check_supported(params: Dict[str, Any]) -> None:
-    if params["precision"] != "f32":
-        raise NotImplementedError(
-            "maxsum precision='bf16' is not ported yet; use 'f32'"
-        )
-
-
 def resolve_layout(compiled: CompiledDCOP, layout: str) -> str:
     """The cycle a ``layout`` parameter runs: "ell", "lanes" or "edges".
     ``auto``, ``ell`` and ``ell_pallas`` run ELL where it applies and
@@ -447,7 +475,6 @@ def solve(
     cycles and the cycles actually run; ``status`` is ``"TIMEOUT"`` when
     ``timeout`` (seconds) ran out first."""
     params = prepare_algo_params(params or {}, algo_params)
-    _check_supported(params)
     device = resolve_device(device)
     if params["stop_cycle"]:
         n_cycles = params["stop_cycle"]
@@ -474,7 +501,6 @@ def solve(
         else:
             act_v = act_f = inert
         consts = (act_v, act_f) + _ell_dev_arrays(compiled, ell, device)
-        init = init_ell
         spans = ell.spans
     else:
         if wavefront:
@@ -482,7 +508,6 @@ def solve(
         else:
             act_v = act_f = inert
         consts = (act_v, act_f)
-        init = init_edges
         if layout == "lanes":
             consts += (
                 cached_const(
@@ -490,10 +515,12 @@ def solve(
                     lambda: lanes_aux(dev),
                 ),
             )
-            init = init_lanes
         spans = ()
+    precision = params["precision"]
+    init = _make_init(layout, precision)
     step = _make_step(
-        damping, damp_vars, damp_factors, wavefront, layout, spans
+        damping, damp_vars, damp_factors, wavefront, layout, spans,
+        precision,
     )
 
     values, curve, extras = run_cycles(

@@ -58,15 +58,19 @@ __all__ = [
     "factor_arity2_minplus",
     "factor_arity2_minplus_plain",
     "minplus_marginals_plain",
+    "xla_tree_levels",
+    "xla_tree_sum",
+    "xla_tree_sum_plain",
 ]
 
 
 @functools.lru_cache(maxsize=None)
-def _c_function(name: str, argtypes: tuple):
-    """``<name>_launch`` of ``csrc/<name>.cu``, built at first use and
-    loaded with ctypes; every launch function returns cudaGetLastError()."""
+def _c_function(name: str, argtypes: tuple, variant: str = ""):
+    """``<name><variant>_launch`` of ``csrc/<name>.cu``, built at first
+    use and loaded with ctypes; every launch function returns
+    cudaGetLastError()."""
     lib = ctypes.CDLL(str(_build.build_all((name,))[name]))
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{name}{variant}_launch")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -105,6 +109,10 @@ def _count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
+# the message planes a kernel takes, and the suffix of its launch function
+_PLANE_DTYPES = (torch.float32, torch.bfloat16)
+_PLANE_VARIANT = {torch.float32: "", torch.bfloat16: "_bf16"}
+
 # v2f_t, pair_perm, tabs_t, real_row, out, d, n_pad, stream
 _ELL_MINPLUS_ARGS = (ctypes.c_void_p,) * 5 + (
     ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
@@ -119,15 +127,19 @@ def ell_minplus_plain(
 ) -> torch.Tensor:
     """``f2v[i, e] = min_j(tabs_t[i, j, e] + v2f_t[j, pair_perm[e]])``,
     exact 0 on padding slots: the same ops as the JAX package's jnp ELL
-    factor step."""
+    factor step.  A bf16 ``v2f_t`` promotes exactly in the add; the
+    result is float32."""
     f2v = torch.amin(tabs_t + v2f_t[:, pair_perm][None], dim=1)
     return torch.where(real_row, f2v, f2v.new_zeros(()))
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is on ``device``, of ``dtype`` (or one of a
+    tuple of dtypes) and ``shape``, and contiguous."""
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
         raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {shape}")
@@ -144,7 +156,8 @@ def ell_minplus(
     """The ELL factor half-cycle: pair gather + table add + min over the
     partner's value + pad mask.  On CPU tensors this is
     :func:`ell_minplus_plain`; on CUDA tensors it launches
-    ``csrc/ell_minplus.cu`` (float32 only) on the current stream."""
+    ``csrc/ell_minplus.cu`` on the current stream (float32 tables, a
+    float32 or bfloat16 plane, a float32 result)."""
     tensors = (v2f_t, pair_perm, tabs_t, real_row)
     if all(t.device.type == "cpu" for t in tensors):
         return ell_minplus_plain(v2f_t, pair_perm, tabs_t, real_row)
@@ -152,12 +165,14 @@ def ell_minplus(
     if device.type != "cuda":
         raise ValueError(f"ell_minplus runs on cpu or cuda, not {device}")
     d, n_pad = v2f_t.shape
-    _check(v2f_t, "v2f_t", torch.float32, (d, n_pad), device)
+    _check(v2f_t, "v2f_t", _PLANE_DTYPES, (d, n_pad), device)
     _check(pair_perm, "pair_perm", torch.int32, (n_pad,), device)
     _check(tabs_t, "tabs_t", torch.float32, (d, d, n_pad), device)
     _check(real_row, "real_row", torch.bool, (1, n_pad), device)
-    out = torch.empty_like(v2f_t)
-    fn = _c_function("ell_minplus", _ELL_MINPLUS_ARGS)
+    out = tabs_t.new_empty((d, n_pad))
+    fn = _c_function(
+        "ell_minplus", _ELL_MINPLUS_ARGS, _PLANE_VARIANT[v2f_t.dtype]
+    )
     with torch.cuda.device(device):
         rc = fn(
             v2f_t.data_ptr(), pair_perm.data_ptr(), tabs_t.data_ptr(),
@@ -217,7 +232,8 @@ def factor_arity2_minplus_plain(
     """``(out0, out1)``, each [D, n_c]: with ``a = v2f_t[:, e0]`` and
     ``b = v2f_t[:, e1]`` and ``t = (T[i*D+j, c] + a[i, c]) + b[j, c]``,
     ``out0[i, c] = min_j(t - a[i, c])`` and
-    ``out1[j, c] = min_i(t - b[j, c])``."""
+    ``out1[j, c] = min_i(t - b[j, c])``.  A bf16 plane promotes exactly
+    in the adds and subtracts; the outputs are float32."""
     a = torch.index_select(v2f_t, 1, e0)
     b = torch.index_select(v2f_t, 1, e1)
     out0, out1 = minplus_marginals_plain(tables_t, [a, b])
@@ -233,8 +249,9 @@ def factor_arity2_minplus(
     """Both outgoing planes of every binary factor on the lanes layout:
     the two slot gathers, the table adds and the two min-marginals.  On
     CPU tensors this is :func:`factor_arity2_minplus_plain`; on CUDA
-    tensors it launches ``csrc/factor_arity2_minplus.cu`` (float32 only)
-    on the current stream."""
+    tensors it launches ``csrc/factor_arity2_minplus.cu`` on the current
+    stream (float32 tables, a float32 or bfloat16 plane, float32
+    outputs)."""
     tensors = (v2f_t, e0, e1, tables_t)
     if all(t.device.type == "cpu" for t in tensors):
         return factor_arity2_minplus_plain(v2f_t, e0, e1, tables_t)
@@ -245,13 +262,16 @@ def factor_arity2_minplus(
         )
     d, n_edges = v2f_t.shape
     n_c = e0.shape[0]
-    _check(v2f_t, "v2f_t", torch.float32, (d, n_edges), device)
+    _check(v2f_t, "v2f_t", _PLANE_DTYPES, (d, n_edges), device)
     _check(e0, "e0", torch.int32, (n_c,), device)
     _check(e1, "e1", torch.int32, (n_c,), device)
     _check(tables_t, "tables_t", torch.float32, (d * d, n_c), device)
-    out0 = v2f_t.new_empty((d, n_c))
-    out1 = v2f_t.new_empty((d, n_c))
-    fn = _c_function("factor_arity2_minplus", _FACTOR_ARITY2_ARGS)
+    out0 = tables_t.new_empty((d, n_c))
+    out1 = tables_t.new_empty((d, n_c))
+    fn = _c_function(
+        "factor_arity2_minplus", _FACTOR_ARITY2_ARGS,
+        _PLANE_VARIANT[v2f_t.dtype],
+    )
     with torch.cuda.device(device):
         rc = fn(
             v2f_t.data_ptr(), e0.data_ptr(), e1.data_ptr(),
@@ -267,3 +287,108 @@ def factor_arity2_minplus(
 
 
 factor_arity2_minplus.launches = 0
+
+
+# x, out, outer, inner, s_outer, s_inner, n, k, lo, width, stream
+_XLA_TREE_SUM_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) * 7 + (
+    ctypes.c_int, ctypes.c_void_p,
+)
+
+#: XLA-CPU's window: a float sum over more elements than this is tree-summed
+XLA_WINDOW = 32
+
+
+def xla_tree_levels(n: int) -> List[Tuple[int, int, int, int]]:
+    """The launches of a sum of ``n`` elements in XLA-CPU's tree order,
+    each ``(n_in, k, lo, width)``: ``k`` windows of ``width`` over the
+    ``n_in`` inputs padded with ``lo`` zeros in front (and the rest
+    behind).  While more than 32 values are left, one level of windows of
+    32 with symmetric padding (``lo = pad // 2``); then one window over
+    the at most 32 values left, the final sequential reduce.  A single
+    value is its own sum, with no launch (XLA folds a one-element reduce
+    away, so a -0.0 stays -0.0)."""
+    if n == 1:
+        return []
+    levels = []
+    while n > XLA_WINDOW:
+        k = -(-n // XLA_WINDOW)
+        levels.append((n, k, (k * XLA_WINDOW - n) // 2, XLA_WINDOW))
+        n = k
+    levels.append((n, 1, 0, n))
+    return levels
+
+
+def _tree_level_plain(
+    x: torch.Tensor, k: int, lo: int, width: int
+) -> torch.Tensor:
+    """One level on the last axis: ``[..., n] -> [..., k]``, each window
+    summed in index order from 0.0 by elementwise adds (exact IEEE
+    operations, so the order is the one written)."""
+    n = x.shape[-1]
+    cols = torch.nn.functional.pad(x, (lo, k * width - lo - n)).reshape(
+        *x.shape[:-1], k, width
+    )
+    acc = x.new_zeros((*x.shape[:-1], k))
+    for i in range(width):
+        acc = acc + cols[..., i]
+    return acc
+
+
+def xla_tree_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis of a float32 tensor in XLA-CPU's tree
+    order (:func:`xla_tree_levels`)."""
+    for _, k, lo, width in xla_tree_levels(x.shape[-1]):
+        x = _tree_level_plain(x, k, lo, width)
+    return x[..., 0]
+
+
+def _row_layout(x: torch.Tensor) -> Tuple[int, int, int, int]:
+    """``(outer, inner, s_outer, s_inner)`` of the rows of a tensor of at
+    most 3 dimensions whose last axis is unit-stride (the kernel's strided
+    stack of rows)."""
+    if x.dim() > 3 or (x.dim() and x.stride(-1) != 1 and x.shape[-1] > 1):
+        raise ValueError(
+            "xla_tree_sum takes at most 3 dimensions with a unit-stride "
+            f"last axis, got shape {tuple(x.shape)} strides {x.stride()}"
+        )
+    if x.dim() <= 1:
+        return 1, 1, 0, 0
+    if x.dim() == 2:
+        return 1, x.shape[0], 0, x.stride(0)
+    return x.shape[0], x.shape[1], x.stride(0), x.stride(1)
+
+
+def xla_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis of a float32 tensor, in XLA-CPU's tree
+    order.  On a CPU tensor this is :func:`xla_tree_sum_plain`; on a CUDA
+    tensor (at most 3 dimensions, the last unit-stride, the others of any
+    stride) it launches ``csrc/xla_tree_sum.cu`` once a level of
+    :func:`xla_tree_levels` (the last launch is the final reduce), on the
+    current stream."""
+    if x.device.type == "cpu":
+        return xla_tree_sum_plain(x)
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"xla_tree_sum runs on cpu or cuda, not {device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x has dtype {x.dtype}, expected torch.float32")
+    lead = tuple(x.shape[:-1])
+    outer, inner, s_outer, s_inner = _row_layout(x)
+    fn = _c_function("xla_tree_sum", _XLA_TREE_SUM_ARGS)
+    for n, k, lo, width in xla_tree_levels(x.shape[-1]):
+        out = x.new_empty(lead + (k,))
+        with torch.cuda.device(device):
+            rc = fn(
+                x.data_ptr(), out.data_ptr(), outer, inner, s_outer, s_inner,
+                n, k, lo, width, torch.cuda.current_stream(device).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"xla_tree_sum launch failed: CUDA error {rc}")
+        _count_launch(xla_tree_sum)
+        # the next level reads this contiguous [rows, k] output
+        x = out
+        outer, inner, s_outer, s_inner = 1, outer * inner, 0, k
+    return x[..., 0]
+
+
+xla_tree_sum.launches = 0

@@ -6,11 +6,14 @@ Counterpart of ``pydcop_tpu/compile/kernels.py``:
   torch device (``to_device``), with ``f2v_perm`` (``build_f2v_perm``),
   the one gather that takes factor-side blocks back to global edge order.
 - ``evaluate``: the total cost of a full assignment, run once per cycle
-  for anytime-best tracking.
-- the local-cost layer of DSA, MGM and MGM-2: ``local_costs`` (every
-  candidate value's cost for every variable, others held fixed),
-  ``edge_constraint_costs``, ``constraint_costs``, ``violation_count``,
-  and the ``segment_max`` the neighbourhood reductions use.
+  for anytime-best tracking, summed by ``xla_sum`` in the JAX package's
+  order (XLA-CPU's tree of windows of 32).
+- the local-cost layer of the local-search solvers (DSA, MGM, MGM-2,
+  MixedDSA, DBA, GDBA): ``local_costs`` (every candidate value's cost for
+  every variable, others held fixed), ``_slot_costs`` and
+  ``per_slot_to_edges`` (per-edge slot data), ``edge_constraint_costs``,
+  ``constraint_costs``, ``violation_count``, and the ``segment_max`` and
+  ``segment_min`` the neighbourhood reductions use.
 - the edges layout: ``[n_edges, D]`` message planes; ``factor_step``
   (any arity) and ``variable_step_with_select``, whose fan-in is a sorted
   segmented sum over the edges of each variable.
@@ -30,10 +33,17 @@ Counterpart of ``pydcop_tpu/compile/kernels.py``:
   carry exact zeros in both message planes every cycle, so fan-in sums
   and convergence checks never see them.
 
-The fan-in sums of the edges and lanes layouts are ``segment_sum``, a
-``torch.segment_reduce`` over the variable-sorted edges: each segment is
-summed in edge order, which is deterministic on the card (no atomics)
-and bitwise equal to the JAX package's sorted ``segment_sum`` on the CPU.
+Every float sum whose rounding can decide a result runs in the order XLA's
+CPU compiler gives the JAX package's jitted program, on the CPU and on
+the card alike: ``xla_sum`` (windows of 32, level after level; the
+``xla_tree_sum`` kernel on the card) for ``evaluate``'s totals and the
+ELL fan-in; ``segment_sum_onto`` for a fan-in that XLA folds, with the
+``base +`` around it, into one scatter onto the base (the edges and
+lanes fan-ins, ``local_costs``); ``domain_sum`` for the mean over the
+domain axis.  ``segment_sum`` is ``torch.segment_reduce`` over the
+variable-sorted edges: each segment summed in edge order, deterministic
+on the card (no atomics) and bitwise equal to XLA's sorted
+``segment_sum`` on the CPU.
 
 Every op here runs inside a CUDA graph capture on the card: no host
 read-back, no host-to-device copy, no shape that depends on values.
@@ -52,6 +62,7 @@ from .hopper_kernels import (
     ell_minplus,
     factor_arity2_minplus,
     minplus_marginals_plain,
+    xla_tree_sum,
 )
 
 __all__ = [
@@ -62,6 +73,8 @@ __all__ = [
     "to_device",
     "take_rows",
     "masked_argmin",
+    "xla_sum",
+    "domain_sum",
     "evaluate",
     "local_costs",
     "per_slot_to_edges",
@@ -73,7 +86,13 @@ __all__ = [
     "variable_step_with_select",
     "select_values",
     "segment_sum",
+    "segment_sum_onto",
+    "fan_in_onto",
+    "onto_layout",
     "segment_max",
+    "segment_min",
+    "bf16_scalar",
+    "damp",
     "segment_offsets",
     "LanesAux",
     "lanes_aux",
@@ -131,6 +150,12 @@ class DeviceDCOP:
     # [n_vars + 1] int64: variable v's edges are edge_var[off[v]:off[v+1]]
     # (the dummy edge of an edgeless problem counts for variable 0)
     fan_in_offsets: torch.Tensor
+    # the fan-in onto a per-variable base (``segment_sum_onto``): [n_vars +
+    # n_edges] int64 gather map from ``cat([base, per_edge])`` to each
+    # variable's base followed by its edges, and the [n_vars + 1] bounds
+    # of those segments (``to_device`` builds both)
+    fan_in_onto_perm: torch.Tensor
+    fan_in_onto_offsets: torch.Tensor
 
 
 def build_f2v_perm(
@@ -185,6 +210,8 @@ def to_device(c: CompiledDCOP, device="cuda") -> DeviceDCOP:
     n_edges = max(c.n_edges, 1)
     dummy = np.zeros(1, dtype=np.int32)
     edge_var = c.edge_var if c.n_edges else dummy
+    offsets = segment_offsets(edge_var, c.n_vars)
+    onto_perm, onto_offsets = onto_layout(offsets)
     return DeviceDCOP(
         n_vars=c.n_vars,
         max_domain=c.max_domain,
@@ -201,7 +228,9 @@ def to_device(c: CompiledDCOP, device="cuda") -> DeviceDCOP:
         f2v_perm=idx(
             build_f2v_perm([b.edge_ids for b in c.buckets], n_edges)
         ),
-        fan_in_offsets=idx(segment_offsets(edge_var, c.n_vars)),
+        fan_in_offsets=idx(offsets),
+        fan_in_onto_perm=idx(onto_perm),
+        fan_in_onto_offsets=idx(onto_offsets),
     )
 
 
@@ -235,12 +264,39 @@ def _bucket_costs(
     return take_rows(bucket.tables_flat, flat[:, None])[:, 0]
 
 
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum over the last axis in the order XLA's CPU compiler
+    gives the JAX package's jitted ``jnp.sum``: windows of 32 summed in
+    order, symmetrically zero-padded, level after level until at most 32
+    partial sums are left, then those in order (``hopper_kernels.
+    xla_tree_levels``).  A bf16 ``x`` is summed in float32 and rounded to
+    bf16 once, as XLA does.  On the card it runs the ``xla_tree_sum``
+    kernel, on the CPU its plain version: one order on both."""
+    if x.dtype == torch.bfloat16:
+        return xla_tree_sum(x.float()).to(torch.bfloat16)
+    if x.dim() and x.stride(-1) != 1:
+        x = x.contiguous()
+    return xla_tree_sum(x)
+
+
+def domain_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over the domain axis ``dim`` (kept, of size 1) in XLA's
+    order: ``xla_sum`` over that axis (in index order from 0.0 up to 32
+    values; a single value is its own sum)."""
+    return xla_sum(x.movedim(dim, -1)).unsqueeze(dim)
+
+
 def evaluate(dev: DeviceDCOP, values: torch.Tensor) -> torch.Tensor:
     """Scalar total cost (min-form) of a full assignment: unary +
-    constraints + constant, summed per bucket (no scatter)."""
-    unary_cost = take_rows(dev.unary, values[:, None])[:, 0].sum()
+    constraints + constant, summed per bucket (no scatter).  Each sum is
+    ``xla_sum``, and the totals combine as the JAX package's do, ``unary
+    + (0 + b0 + b1 + ...) + constant``: the total is the JAX package's to
+    the bit, so the anytime best's strict ``<`` keeps the same cycle where
+    cycles with forbidden (1e9) entries tie in true cost."""
+    unary_cost = xla_sum(take_rows(dev.unary, values[:, None])[:, 0])
     cons = sum(
-        _bucket_costs(b, dev.max_domain, values).sum() for b in dev.buckets
+        xla_sum(_bucket_costs(b, dev.max_domain, values))
+        for b in dev.buckets
     )
     return unary_cost + cons + dev.constant_cost
 
@@ -293,8 +349,17 @@ def local_costs(dev: DeviceDCOP, values: torch.Tensor) -> torch.Tensor:
     ]
     if not blocks:
         return dev.unary
-    per_edge = per_slot_to_edges(dev, blocks)  # [n_edges, D]
-    return dev.unary + segment_sum(per_edge, dev.fan_in_offsets, 0)
+    return fan_in_onto(dev, dev.unary, per_slot_to_edges(dev, blocks))
+
+
+def fan_in_onto(
+    dev: DeviceDCOP, base: torch.Tensor, per_edge: torch.Tensor
+) -> torch.Tensor:
+    """[n_vars, width]: ``base`` plus each variable's per-edge rows,
+    summed in the JAX package's jitted order (``segment_sum_onto``)."""
+    return segment_sum_onto(
+        base, per_edge, dev.fan_in_onto_perm, dev.fan_in_onto_offsets, 0
+    )
 
 
 def constraint_costs(
@@ -401,6 +466,24 @@ def factor_step(dev: DeviceDCOP, v2f: torch.Tensor) -> torch.Tensor:
     return _stack_to_edges(dev, outs, d)
 
 
+def bf16_scalar(x: float) -> float:
+    """``x`` rounded to bfloat16 (to nearest even): the constant XLA
+    multiplies a bf16 plane by when a Python float scales it."""
+    return float(torch.tensor(x, dtype=torch.bfloat16))
+
+
+def damp(damping: float, prev: torch.Tensor, new: torch.Tensor):
+    """``damping * prev + (1 - damping) * new``, with the float32 ``new``.
+    A bfloat16 ``prev`` (MaxSum's precision="bf16") is scaled as the JAX
+    package's jitted step scales it: widened to float32 and multiplied by
+    ``damping`` rounded to bf16, in float32, with no rounding of the
+    product back to bf16 (XLA's CPU compiler keeps the excess precision
+    where the product feeds a float32 add)."""
+    if prev.dtype == torch.bfloat16:
+        return prev.float() * bf16_scalar(damping) + (1.0 - damping) * new
+    return damping * prev + (1.0 - damping) * new
+
+
 def _normalize_v2f(
     v2f: torch.Tensor, mask: torch.Tensor, dsize: torch.Tensor, dim: int,
     damping: float, prev: torch.Tensor,
@@ -408,12 +491,12 @@ def _normalize_v2f(
     """Mean-normalize variable->factor messages over the valid domain
     slots (``dim`` is the domain axis), BIG on invalid slots, then damp
     against the previous plane."""
-    mean = torch.where(mask, v2f, 0.0).sum(dim=dim, keepdim=True) / (
+    mean = domain_sum(torch.where(mask, v2f, 0.0), dim) / (
         torch.clamp(dsize, min=1)
     )
     v2f = torch.where(mask, v2f - mean, BIG)
     if damping and prev is not None:
-        v2f = damping * prev + (1.0 - damping) * v2f
+        v2f = damp(damping, prev, v2f)
     return v2f
 
 
@@ -451,6 +534,51 @@ def segment_max(
     )
 
 
+def segment_min(
+    x: torch.Tensor, seg_ids: torch.Tensor, n_segments: int
+) -> torch.Tensor:
+    """[n_segments] minima of the 1-D ``x`` grouped by ``seg_ids``: the
+    JAX package's ``segment_min``.  An empty segment gives the dtype's
+    largest value, as in JAX (``inf``, ``INT32_MAX``).  A scatter-min,
+    exact in any order, as ``segment_max``."""
+    largest = (
+        torch.inf if x.is_floating_point() else torch.iinfo(x.dtype).max
+    )
+    out = x.new_full((n_segments,), largest)
+    return out.scatter_reduce_(
+        0, seg_ids.long(), x, "amin", include_self=True
+    )
+
+
+def onto_layout(offsets: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(perm, onto_offsets)`` of ``segment_sum_onto`` for the segments
+    that ``offsets`` bound (host, numpy): segment ``k`` of ``cat([base,
+    x])[perm]`` is ``base[k]`` followed by ``x[off[k]:off[k + 1]]``."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    n_seg, n_x = len(offsets) - 1, int(offsets[-1])
+    onto_offsets = offsets + np.arange(n_seg + 1)
+    perm = np.empty(n_seg + n_x, dtype=np.int64)
+    is_base = np.zeros(n_seg + n_x, dtype=bool)
+    is_base[onto_offsets[:-1]] = True
+    perm[is_base] = np.arange(n_seg)
+    perm[~is_base] = n_seg + np.arange(n_x)
+    return perm, onto_offsets
+
+
+def segment_sum_onto(
+    base: torch.Tensor, x: torch.Tensor, perm: torch.Tensor,
+    onto_offsets: torch.Tensor, axis: int,
+) -> torch.Tensor:
+    """``base + segment sums of x`` along ``axis``, each segment summed in
+    order starting from its base value: ``((base[k] + x[o]) + x[o + 1])
+    ...``.  This is the order of the JAX package's jitted fan-ins: XLA
+    folds ``base + segment_sum(x)`` into one scatter-add whose operand is
+    ``base``.  ``perm`` and ``onto_offsets`` are ``onto_layout``'s (the
+    offsets shaped for ``segment_reduce``: one row a lane on axis 1)."""
+    ext = torch.index_select(torch.cat([base, x], dim=axis), axis, perm)
+    return segment_sum(ext, onto_offsets, axis)
+
+
 def segment_offsets(seg_ids: np.ndarray, n_segments: int) -> np.ndarray:
     """[n_segments + 1] int64 bounds of the segments of sorted
     ``seg_ids`` (host, numpy): segment ``k`` is rows
@@ -459,6 +587,22 @@ def segment_offsets(seg_ids: np.ndarray, n_segments: int) -> np.ndarray:
         np.asarray(seg_ids, dtype=np.int64), minlength=n_segments
     )
     return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+
+def _fan_in_total(
+    dev: DeviceDCOP, unary: torch.Tensor, f2v: torch.Tensor,
+    offsets: torch.Tensor, onto_offsets: torch.Tensor, axis: int,
+) -> torch.Tensor:
+    """MaxSum's fan-in plus the unary costs (``axis`` is the edge axis;
+    the offsets shaped for ``segment_reduce`` on it), in the JAX
+    package's jitted order: a float32 plane summed onto the unary costs;
+    a bf16 plane (undamped under precision="bf16") summed on its own in
+    bf16, each partial sum rounded, then added."""
+    if f2v.dtype == torch.bfloat16:
+        return segment_sum(f2v, offsets, axis) + unary
+    return segment_sum_onto(
+        unary, f2v, dev.fan_in_onto_perm, onto_offsets, axis
+    )
 
 
 def variable_step_with_select(
@@ -471,8 +615,9 @@ def variable_step_with_select(
     segmented sum) plus unary costs, the argmin of that total as the
     per-variable values, and the variable->factor messages
     ``total[edge_var] - f2v``, mean-normalized and damped."""
-    fan_in = segment_sum(f2v, dev.fan_in_offsets, 0)  # [n_vars, D]
-    total = fan_in + dev.unary
+    total = _fan_in_total(
+        dev, dev.unary, f2v, dev.fan_in_offsets, dev.fan_in_onto_offsets, 0
+    )  # [n_vars, D]
     values = masked_argmin(total, dev.valid_mask)
     v2f = _normalize_v2f(
         total[dev.edge_var] - f2v, dev.valid_mask[dev.edge_var],
@@ -494,8 +639,10 @@ def variable_step(
 def select_values(dev: DeviceDCOP, f2v: torch.Tensor) -> torch.Tensor:
     """Best value index per variable from [n_edges, D] factor->variable
     messages."""
-    fan_in = segment_sum(f2v, dev.fan_in_offsets, 0)
-    return masked_argmin(fan_in + dev.unary, dev.valid_mask)
+    total = _fan_in_total(
+        dev, dev.unary, f2v, dev.fan_in_offsets, dev.fan_in_onto_offsets, 0
+    )
+    return masked_argmin(total, dev.valid_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +662,7 @@ class LanesAux:
     unary_t: torch.Tensor  # [D, n_vars]
     valid_t: torch.Tensor  # [D, n_vars] bool
     fan_in_offsets_t: torch.Tensor  # [D, n_vars + 1] int64, a row a lane
+    fan_in_onto_offsets_t: torch.Tensor  # [D, n_vars + 1], the same
 
 
 def lanes_aux(dev: DeviceDCOP) -> LanesAux:
@@ -531,6 +679,9 @@ def lanes_aux(dev: DeviceDCOP) -> LanesAux:
         unary_t=dev.unary.T.contiguous(),
         valid_t=dev.valid_mask.T.contiguous(),
         fan_in_offsets_t=dev.fan_in_offsets.expand(d, -1).contiguous(),
+        fan_in_onto_offsets_t=dev.fan_in_onto_offsets.expand(
+            d, -1
+        ).contiguous(),
     )
 
 
@@ -561,7 +712,7 @@ def factor_step_lanes(
             )
     if not outs:
         return torch.zeros_like(v2f_t)
-    stacked = torch.cat(outs + [v2f_t.new_zeros((d, 1))], dim=1)
+    stacked = torch.cat(outs + [outs[0].new_zeros((d, 1))], dim=1)
     return _gather_cols(stacked, dev.f2v_perm)
 
 
@@ -573,8 +724,10 @@ def variable_step_with_select_lanes(
     prev_v2f_t: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``variable_step_with_select`` on [D, n_edges] planes."""
-    fan_in = segment_sum(f2v_t, aux.fan_in_offsets_t, 1)  # [D, n_vars]
-    total = fan_in + aux.unary_t
+    total = _fan_in_total(
+        dev, aux.unary_t, f2v_t, aux.fan_in_offsets_t,
+        aux.fan_in_onto_offsets_t, 1,
+    )  # [D, n_vars]
     values = torch.argmin(
         torch.where(aux.valid_t, total, torch.inf), dim=0
     ).to(torch.int32)
@@ -741,7 +894,7 @@ def variable_step_with_select_ell(
             tot_parts.append(u)
         else:
             seg = f2v_t[:, off_e:off_e + nb * db].reshape(d, nb, db)
-            tot_b = seg.sum(dim=2) + u
+            tot_b = xla_sum(seg) + u
             tot_parts.append(tot_b)
             v2f_parts.append((tot_b[:, :, None] - seg).reshape(d, nb * db))
         off_e += nb * db
@@ -752,9 +905,9 @@ def variable_step_with_select_ell(
     ).to(torch.int32)
     values = values_ell[pos_of_var]
     v2f_t = torch.cat(v2f_parts, dim=1)
-    mean = torch.where(edge_valid_t, v2f_t, 0.0).sum(
-        dim=0, keepdim=True
-    ) / torch.clamp(dsize_edges[None, :], min=1)
+    mean = domain_sum(torch.where(edge_valid_t, v2f_t, 0.0), 0) / (
+        torch.clamp(dsize_edges[None, :], min=1)
+    )
     # invalid lanes of real slots block the partner min-plus with BIG;
     # padding slots stay exactly zero so fan-in sums and convergence
     # checks never see them
@@ -762,5 +915,5 @@ def variable_step_with_select_ell(
         edge_valid_t, v2f_t - mean, real_row.to(v2f_t.dtype) * BIG
     )
     if damping and prev_v2f_t is not None:
-        v2f_t = damping * prev_v2f_t + (1.0 - damping) * v2f_t
+        v2f_t = damp(damping, prev_v2f_t, v2f_t)
     return v2f_t, values

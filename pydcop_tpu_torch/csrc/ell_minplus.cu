@@ -6,7 +6,12 @@
 //
 //     out[i, e] = min_j ( tabs_t[i, j, e] + v2f_t[j, pair_perm[e]] )
 //
-// and out[:, e] = 0 exactly on padding slots (real_row[e] == 0).
+// and out[:, e] = 0 exactly on padding slots (real_row[e] == 0).  v2f_t is
+// float32 or, under MaxSum's precision="bf16", bfloat16 (the kernel is a
+// template on the plane type; ell_minplus_bf16_launch): a bf16 value is
+// widened exactly to float32 as it is loaded, as the TPU kernel's add
+// promotes it, and tables, arithmetic and output stay float32.  A bf16
+// plane halves the partner bytes: 59 B a slot at D=3 instead of 65.
 //
 // What bounds it on the card: bytes.  Per slot it reads D*D table floats,
 // D partner floats, one int32 index and one mask byte, and writes D floats:
@@ -69,9 +74,9 @@
 
 namespace {
 
-template <int D, int K>
+template <typename P, int D, int K>
 __global__ void __launch_bounds__(kThreads)
-    ell_minplus_fixed(const float* __restrict__ v2f_t,
+    ell_minplus_fixed(const P* __restrict__ v2f_t,
                       const int32_t* __restrict__ pair_perm,
                       const float* __restrict__ tabs_t,
                       const uint8_t* __restrict__ real_row,
@@ -107,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        m[k][j] = real[k] ? __ldg(v2f_t + j * n_pad + p[k]) : 0.0f;
+        m[k][j] = real[k] ? load_plane(v2f_t + j * n_pad + p[k]) : 0.0f;
       }
     }
 #pragma unroll
@@ -133,8 +138,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename P>
 __global__ void __launch_bounds__(kThreads)
-    ell_minplus_any(const float* __restrict__ v2f_t,
+    ell_minplus_any(const P* __restrict__ v2f_t,
                     const int32_t* __restrict__ pair_perm,
                     const float* __restrict__ tabs_t,
                     const uint8_t* __restrict__ real_row,
@@ -148,16 +154,17 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t p = pair_perm[e];
   for (int i = 0; i < d; ++i) {
     const float* row = tabs_t + static_cast<int64_t>(i) * d * n_pad + e;
-    float acc = row[0] + __ldg(v2f_t + p);
+    float acc = row[0] + load_plane(v2f_t + p);
     for (int j = 1; j < d; ++j) {
-      acc = fminf(acc, row[j * n_pad] + __ldg(v2f_t + j * n_pad + p));
+      acc = fminf(acc, row[j * n_pad] + load_plane(v2f_t + j * n_pad + p));
     }
     out[i * n_pad + e] = acc;
   }
 }
 
+template <typename P>
 struct Args {
-  const float* v2f_t;
+  const P* v2f_t;
   const int32_t* pair_perm;
   const float* tabs_t;
   const uint8_t* real_row;
@@ -167,29 +174,45 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
-cudaError_t launch_fixed(const Args& x) {
+template <typename P, int D>
+cudaError_t launch_fixed(const Args<P>& x) {
   constexpr int K = slots_per_pass<D, 2>();
-  static const int per_sm = resident_blocks(ell_minplus_fixed<D, K>);
+  static const int per_sm = resident_blocks(ell_minplus_fixed<P, D, K>);
   unsigned int blocks = 0;
   const cudaError_t err = grid_for(per_sm, x.n_pad, &blocks);
   if (err != cudaSuccess) return err;
-  ell_minplus_fixed<D, K><<<blocks, kThreads, 0, x.stream>>>(
+  ell_minplus_fixed<P, D, K><<<blocks, kThreads, 0, x.stream>>>(
       x.v2f_t, x.pair_perm, x.tabs_t, x.real_row, x.out, x.n_pad);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch(const Args& x) {
+template <typename P, int D>
+cudaError_t dispatch(const Args<P>& x) {
   if constexpr (D > kMaxFixedD) {
     const int64_t blocks = (x.n_pad + kThreads - 1) / kThreads;
-    ell_minplus_any<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                      x.stream>>>(x.v2f_t, x.pair_perm, x.tabs_t, x.real_row,
-                                  x.out, x.d, x.n_pad);
+    ell_minplus_any<P><<<static_cast<unsigned int>(blocks), kThreads, 0,
+                         x.stream>>>(x.v2f_t, x.pair_perm, x.tabs_t,
+                                     x.real_row, x.out, x.d, x.n_pad);
     return cudaGetLastError();
   } else {
-    return x.d == D ? launch_fixed<D>(x) : dispatch<D + 1>(x);
+    return x.d == D ? launch_fixed<P, D>(x) : dispatch<P, D + 1>(x);
   }
+}
+
+template <typename P>
+int launch(const void* v2f_t, const void* pair_perm, const void* tabs_t,
+           const void* real_row, void* out, int d, long long n_pad,
+           void* stream) {
+  if (n_pad <= 0 || d <= 0) return 0;
+  const Args<P> x{static_cast<const P*>(v2f_t),
+                  static_cast<const int32_t*>(pair_perm),
+                  static_cast<const float*>(tabs_t),
+                  static_cast<const uint8_t*>(real_row),
+                  static_cast<float*>(out),
+                  d,
+                  static_cast<int64_t>(n_pad),
+                  static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dispatch<P, 1>(x));
 }
 
 }  // namespace
@@ -198,14 +221,18 @@ extern "C" int ell_minplus_launch(const void* v2f_t, const void* pair_perm,
                                   const void* tabs_t, const void* real_row,
                                   void* out, int d, long long n_pad,
                                   void* stream) {
-  if (n_pad <= 0 || d <= 0) return 0;
-  const Args x{static_cast<const float*>(v2f_t),
-               static_cast<const int32_t*>(pair_perm),
-               static_cast<const float*>(tabs_t),
-               static_cast<const uint8_t*>(real_row),
-               static_cast<float*>(out),
-               d,
-               static_cast<int64_t>(n_pad),
-               static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dispatch<1>(x));
+  return launch<float>(v2f_t, pair_perm, tabs_t, real_row, out, d, n_pad,
+                       stream);
+}
+
+// The same with a bfloat16 v2f_t (MaxSum's precision="bf16"): each partner
+// value is widened exactly to float32 as it is loaded; tables, arithmetic
+// and the output stay float32.
+extern "C" int ell_minplus_bf16_launch(const void* v2f_t,
+                                       const void* pair_perm,
+                                       const void* tabs_t,
+                                       const void* real_row, void* out, int d,
+                                       long long n_pad, void* stream) {
+  return launch<__nv_bfloat16>(v2f_t, pair_perm, tabs_t, real_row, out, d,
+                               n_pad, stream);
 }

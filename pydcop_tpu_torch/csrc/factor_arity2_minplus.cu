@@ -9,6 +9,13 @@
 //     out0[i, c] = min_j ( ((T[i*D+j, c] + a[i]) + b[j]) - a[i] )
 //     out1[j, c] = min_i ( ((T[i*D+j, c] + a[i]) + b[j]) - b[j] )
 //
+// v2f_t is float32 or, under MaxSum's precision="bf16", bfloat16 (the
+// kernel is a template on the plane type;
+// factor_arity2_minplus_bf16_launch): a and b are widened exactly to
+// float32 as they are loaded, as the TPU kernel's adds promote them, and
+// table, arithmetic and outputs stay float32.  A bf16 plane halves the
+// gathered message bytes: 80 B a constraint at D=3 instead of 92.
+//
 // What bounds it on the card: bytes.  Per constraint it reads D*D table
 // floats, two int32 edge ids and 2*D gathered message floats, and writes
 // 2*D floats: 92 B at D=3, against 4*D*D adds and subtracts and 2*D*(D-1)
@@ -67,9 +74,9 @@
 
 namespace {
 
-template <int D, int K>
+template <typename P, int D, int K>
 __global__ void __launch_bounds__(kThreads) factor_arity2_minplus_fixed(
-    const float* __restrict__ v2f_t, const int32_t* __restrict__ e0,
+    const P* __restrict__ v2f_t, const int32_t* __restrict__ e0,
     const int32_t* __restrict__ e1, const float* __restrict__ tables_t,
     float* __restrict__ out0, float* __restrict__ out1, int64_t n_edges,
     int64_t n_c) {
@@ -105,8 +112,8 @@ __global__ void __launch_bounds__(kThreads) factor_arity2_minplus_fixed(
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        a[k][i] = live[k] ? __ldg(v2f_t + i * n_edges + ia[k]) : 0.0f;
-        b[k][i] = live[k] ? __ldg(v2f_t + i * n_edges + ib[k]) : 0.0f;
+        a[k][i] = live[k] ? load_plane(v2f_t + i * n_edges + ia[k]) : 0.0f;
+        b[k][i] = live[k] ? load_plane(v2f_t + i * n_edges + ib[k]) : 0.0f;
       }
     }
 #pragma unroll
@@ -141,33 +148,37 @@ __global__ void __launch_bounds__(kThreads) factor_arity2_minplus_fixed(
   }
 }
 
+template <typename P>
 __global__ void __launch_bounds__(kThreads) factor_arity2_minplus_any(
-    const float* __restrict__ v2f_t, const int32_t* __restrict__ e0,
+    const P* __restrict__ v2f_t, const int32_t* __restrict__ e0,
     const int32_t* __restrict__ e1, const float* __restrict__ tables_t,
     float* __restrict__ out0, float* __restrict__ out1, int d,
     int64_t n_edges, int64_t n_c) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (c >= n_c) return;
-  const float* a = v2f_t + e0[c];  // a[i] at a[i * n_edges]
-  const float* b = v2f_t + e1[c];
+  const P* a = v2f_t + e0[c];  // a[i] at a[i * n_edges]
+  const P* b = v2f_t + e1[c];
   const float* t = tables_t + c;  // T[k, c] at t[k * n_c]
   for (int i = 0; i < d; ++i) {
-    const float ai = __ldg(a + i * n_edges);
+    const float ai = load_plane(a + i * n_edges);
     float acc = 0.0f;
     for (int j = 0; j < d; ++j) {
       const float tot =
-          (t[static_cast<int64_t>(i * d + j) * n_c] + ai) + __ldg(b + j * n_edges);
+          (t[static_cast<int64_t>(i * d + j) * n_c] + ai) +
+          load_plane(b + j * n_edges);
       const float m = tot - ai;
       acc = j == 0 ? m : fminf(acc, m);
     }
     out0[i * n_c + c] = acc;
   }
   for (int j = 0; j < d; ++j) {
-    const float bj = __ldg(b + j * n_edges);
+    const float bj = load_plane(b + j * n_edges);
     float acc = 0.0f;
     for (int i = 0; i < d; ++i) {
       const float tot =
-          (t[static_cast<int64_t>(i * d + j) * n_c] + __ldg(a + i * n_edges)) + bj;
+          (t[static_cast<int64_t>(i * d + j) * n_c] +
+           load_plane(a + i * n_edges)) +
+          bj;
       const float m = tot - bj;
       acc = i == 0 ? m : fminf(acc, m);
     }
@@ -175,8 +186,9 @@ __global__ void __launch_bounds__(kThreads) factor_arity2_minplus_any(
   }
 }
 
+template <typename P>
 struct Args {
-  const float* v2f_t;
+  const P* v2f_t;
   const int32_t* e0;
   const int32_t* e1;
   const float* tables_t;
@@ -188,30 +200,49 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
-cudaError_t launch_fixed(const Args& x) {
+template <typename P, int D>
+cudaError_t launch_fixed(const Args<P>& x) {
   constexpr int K = slots_per_pass<D, 4>();
-  static const int per_sm = resident_blocks(factor_arity2_minplus_fixed<D, K>);
+  static const int per_sm =
+      resident_blocks(factor_arity2_minplus_fixed<P, D, K>);
   unsigned int blocks = 0;
   const cudaError_t err = grid_for(per_sm, x.n_c, &blocks);
   if (err != cudaSuccess) return err;
-  factor_arity2_minplus_fixed<D, K><<<blocks, kThreads, 0, x.stream>>>(
+  factor_arity2_minplus_fixed<P, D, K><<<blocks, kThreads, 0, x.stream>>>(
       x.v2f_t, x.e0, x.e1, x.tables_t, x.out0, x.out1, x.n_edges, x.n_c);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch(const Args& x) {
+template <typename P, int D>
+cudaError_t dispatch(const Args<P>& x) {
   if constexpr (D > kMaxFixedD) {
     const int64_t blocks = (x.n_c + kThreads - 1) / kThreads;
-    factor_arity2_minplus_any<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                                x.stream>>>(x.v2f_t, x.e0, x.e1, x.tables_t,
-                                            x.out0, x.out1, x.d, x.n_edges,
-                                            x.n_c);
+    factor_arity2_minplus_any<P><<<static_cast<unsigned int>(blocks),
+                                   kThreads, 0, x.stream>>>(
+        x.v2f_t, x.e0, x.e1, x.tables_t, x.out0, x.out1, x.d, x.n_edges,
+        x.n_c);
     return cudaGetLastError();
   } else {
-    return x.d == D ? launch_fixed<D>(x) : dispatch<D + 1>(x);
+    return x.d == D ? launch_fixed<P, D>(x) : dispatch<P, D + 1>(x);
   }
+}
+
+template <typename P>
+int launch(const void* v2f_t, const void* e0, const void* e1,
+           const void* tables_t, void* out0, void* out1, int d,
+           long long n_edges, long long n_c, void* stream) {
+  if (n_c <= 0 || d <= 0) return 0;
+  const Args<P> x{static_cast<const P*>(v2f_t),
+                  static_cast<const int32_t*>(e0),
+                  static_cast<const int32_t*>(e1),
+                  static_cast<const float*>(tables_t),
+                  static_cast<float*>(out0),
+                  static_cast<float*>(out1),
+                  d,
+                  static_cast<int64_t>(n_edges),
+                  static_cast<int64_t>(n_c),
+                  static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dispatch<P, 1>(x));
 }
 
 }  // namespace
@@ -220,16 +251,17 @@ extern "C" int factor_arity2_minplus_launch(
     const void* v2f_t, const void* e0, const void* e1, const void* tables_t,
     void* out0, void* out1, int d, long long n_edges, long long n_c,
     void* stream) {
-  if (n_c <= 0 || d <= 0) return 0;
-  const Args x{static_cast<const float*>(v2f_t),
-               static_cast<const int32_t*>(e0),
-               static_cast<const int32_t*>(e1),
-               static_cast<const float*>(tables_t),
-               static_cast<float*>(out0),
-               static_cast<float*>(out1),
-               d,
-               static_cast<int64_t>(n_edges),
-               static_cast<int64_t>(n_c),
-               static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dispatch<1>(x));
+  return launch<float>(v2f_t, e0, e1, tables_t, out0, out1, d, n_edges, n_c,
+                       stream);
+}
+
+// The same with a bfloat16 v2f_t (MaxSum's precision="bf16"): a[i] and
+// b[j] are widened exactly to float32 as they are loaded; table,
+// arithmetic and outputs stay float32.
+extern "C" int factor_arity2_minplus_bf16_launch(
+    const void* v2f_t, const void* e0, const void* e1, const void* tables_t,
+    void* out0, void* out1, int d, long long n_edges, long long n_c,
+    void* stream) {
+  return launch<__nv_bfloat16>(v2f_t, e0, e1, tables_t, out0, out1, d,
+                               n_edges, n_c, stream);
 }

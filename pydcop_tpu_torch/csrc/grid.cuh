@@ -1,14 +1,26 @@
 // What the two min-plus kernels share: the block size, the unrolling
-// policy by domain size D, and the grid sized to the card for a
-// grid-stride loop.  See ell_minplus.cu and factor_arity2_minplus.cu for
+// policy by domain size D, the grid sized to the card for a grid-stride
+// loop, and the widening load of a float32 or bfloat16 message plane.  See ell_minplus.cu and factor_arity2_minplus.cu for
 // why each kernel is shaped this way.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// One value of a message plane, read through the read-only path and
+// widened to float32: a float32 plane as it is, a bfloat16 plane (MaxSum's
+// precision="bf16") exactly, as the TPU kernels' adds promote it.  All
+// arithmetic stays float32.
+__device__ __forceinline__ float load_plane(const float* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ float load_plane(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
 
 constexpr int kThreads = 256;
 // largest D with a compile-time instantiation (the TPU kernels' own

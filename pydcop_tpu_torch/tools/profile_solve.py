@@ -1,19 +1,23 @@
 """Where a warm solve's time goes on the card.
 
     python -m pydcop_tpu_torch.tools.profile_solve [--algo ALGO]
-        [--config 4|3|2|5] [--reps N] [--layout LAYOUT] [--trace FILE]
-        [--resources N]
+        [--config 4|3|2|5|7|hard10k] [--reps N] [--layout LAYOUT]
+        [--precision f32|bf16] [--trace FILE] [--resources N]
 
-``--algo`` is ``maxsum`` (default), ``dsa``, ``mgm``, ``mgm2`` or
-``dpop``.  ``--config`` picks the problem and run of a bench config: 4
-(100k-variable scale-free coloring, 30 cycles, seed 7; MaxSum with
-damping 0.7), 3 (the 100x100 Ising grid of seed 3, 30 cycles, seed 0) or
-2 (1k random coloring, 60 cycles, seed 0; MaxSum with damping 0.5 and
-stop_cycle 60); DPOP runs config 5, meeting scheduling with 8 slots, 30
-events of up to 2 resources, seed 5, and ``--resources`` resources (30,
-the default, is bench config 5; fewer share more and widen the tree).
-The local-search solvers run their default params.  ``--layout`` is
-MaxSum's ``layout`` (default ``auto``).
+``--algo`` is ``maxsum`` (default), ``dsa``, ``mgm``, ``mgm2``,
+``mixeddsa``, ``dba``, ``gdba`` or ``dpop``.  ``--config`` picks the
+problem and run of a bench config: 4 (100k-variable scale-free coloring,
+30 cycles, seed 7; MaxSum with damping 0.7), 3 (the 100x100 Ising grid of
+seed 3, 30 cycles, seed 0), 2 (1k random coloring, 60 cycles, seed 0;
+MaxSum with damping 0.5 and stop_cycle 60), 7 (bench config 7: the
+mixed hard/soft problem of 2,000 variables and 5,050 constraints, 50
+cycles, seed 0) or ``hard10k`` (a hard scale-free coloring of 10,000
+variables, 100 cycles, seed 0); DPOP runs config 5, meeting scheduling
+with 8 slots, 30 events of up to 2 resources, seed 5, and
+``--resources`` resources (30, the default, is bench config 5; fewer
+share more and widen the tree).  The local-search solvers run their
+default params.  ``--layout`` and ``--precision`` are MaxSum's
+``layout`` (default ``auto``) and ``precision`` (default ``f32``).
 
 For DPOP, whose solve is one UTIL wave and not a cycle loop, the tool
 times the cold and warm solves, the fused wave's graph alone by CUDA
@@ -52,31 +56,48 @@ import time
 import torch
 
 from ..algorithms import base, load_algorithm_module
-from ..commands.generators.graphcoloring import generate_coloring_arrays
+from ..commands.generators.graphcoloring import (
+    generate_coloring_arrays,
+    generate_graph_coloring,
+)
 from ..commands.generators.ising import generate_ising_arrays
 from ..commands.generators.meetingscheduling import (
     generate_meeting_scheduling,
 )
+from ..commands.generators.mixedproblem import generate_mixed_problem
 from ..compile import hopper_kernels
 from ..compile.core import compile_dcop
 
 # config: (problem, n_cycles, seed, MaxSum's params)
 CONFIGS = {
-    4: (
+    "4": (
         lambda: generate_coloring_arrays(
             100_000, 3, graph="scalefree", m_edge=2, seed=7
         ),
         30, 7, {"damping": 0.7},
     ),
-    3: (lambda: generate_ising_arrays(100, 100, seed=3), 30, 0, {}),
-    2: (
+    "3": (lambda: generate_ising_arrays(100, 100, seed=3), 30, 0, {}),
+    "2": (
         lambda: generate_coloring_arrays(
             1000, 3, graph="random", p_edge=0.005, seed=11
         ),
         60, 0, {"damping": 0.5, "stop_cycle": 60},
     ),
+    "7": (
+        lambda: compile_dcop(generate_mixed_problem(
+            2000, 2000, 0.4, arity=2, domain_range=5, density=0.0025,
+            seed=13,
+        )),
+        50, 0, {},
+    ),
+    "hard10k": (
+        lambda: compile_dcop(generate_graph_coloring(
+            10_000, 3, graph="scalefree", m_edge=2, soft=False, seed=7,
+        )),
+        100, 0, {},
+    ),
 }
-KERNELS = ("ell_minplus", "factor_arity2_minplus")
+KERNELS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum")
 COUNTERS = ("captures", "replays", "iterations", "host_syncs")
 
 
@@ -208,10 +229,11 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--algo", default="maxsum",
-        choices=["maxsum", "dsa", "mgm", "mgm2", "dpop"],
+        choices=["maxsum", "dsa", "mgm", "mgm2", "mixeddsa", "dba", "gdba",
+                 "dpop"],
     )
     ap.add_argument(
-        "--config", type=int, choices=sorted(CONFIGS) + [5], default=4
+        "--config", choices=sorted(CONFIGS) + ["5"], default="4"
     )
     ap.add_argument("--resources", type=int, default=30)
     ap.add_argument("--reps", type=int, default=5)
@@ -219,11 +241,12 @@ def main(argv=None) -> dict:
         "--layout", default="auto",
         choices=["auto", "ell", "ell_pallas", "lanes", "pallas", "edges"],
     )
+    ap.add_argument("--precision", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--trace", help="write the chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
-    if (args.algo == "dpop") != (args.config == 5):
+    if (args.algo == "dpop") != (args.config == "5"):
         ap.error("config 5 is DPOP's, and DPOP runs config 5 only")
     if args.algo == "dpop":
         out = _profile_dpop(args)
@@ -232,8 +255,8 @@ def main(argv=None) -> dict:
     make, n_cycles, seed, maxsum_params = CONFIGS[args.config]
     mod = load_algorithm_module(args.algo)
     params = (
-        dict(maxsum_params, layout=args.layout) if args.algo == "maxsum"
-        else {}
+        dict(maxsum_params, layout=args.layout, precision=args.precision)
+        if args.algo == "maxsum" else {}
     )
     compiled = make()
 
@@ -246,8 +269,9 @@ def main(argv=None) -> dict:
     warm_counts = warm[-1][2]
     out = {
         "algo": args.algo,
-        "config": args.config,
+        "config": int(args.config) if args.config.isdigit() else args.config,
         "layout": args.layout if args.algo == "maxsum" else None,
+        "precision": args.precision if args.algo == "maxsum" else None,
         "device": torch.cuda.get_device_name(0),
         "n_vars": compiled.n_vars,
         "cycles": res.cycles,

@@ -5,12 +5,10 @@ package's, on the same inputs, and the ``edges`` solves.
   association, so it must equal the JAX ``factor_step`` exactly, the
   arity-3 bucket and D=20 included.
 - ``variable_step_with_select`` and ``select_values`` sum floats: the
-  fan-in is a segmented sum in edge order, bitwise equal to XLA's sorted
-  ``segment_sum`` on the CPU, but the mean over the domain axis may be
-  reduced in another order by XLA.  So on the grid case the values are
-  required equal; elsewhere the planes must agree within rtol=1e-6 and an
-  atol of 1e-4 times the plane's largest magnitude, and the argmin values
-  must be equal (these inputs have no totals tied within that tolerance).
+  fan-in is a segmented sum in edge order onto the unary costs, the order
+  of the jitted JAX step, and the mean sums the domain axis in index
+  order, as XLA's reduce does, so both are held to the jitted JAX
+  functions: the values and planes are required equal on every case.
 - Whole solves are held to the bar of ``tests/test_torch_lanes.py``.
 """
 
@@ -82,13 +80,7 @@ def test_variable_step_matches_jax(case):
         tk.select_values(pdev, f2v_e).numpy(),
         np.asarray(jax.jit(jk.select_values)(rdev, jnp.asarray(f2v))),
     )
-    if case == "grid":
-        assert np.array_equal(got_v2f.numpy(), want_v2f)
-    else:
-        np.testing.assert_allclose(
-            got_v2f.numpy(), want_v2f, rtol=1e-6,
-            atol=1e-4 * float(np.abs(want_v2f).max()),
-        )
+    assert np.array_equal(got_v2f.numpy(), want_v2f)
 
 
 @pytest.mark.parametrize("run", sorted(RUNS))

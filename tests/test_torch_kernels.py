@@ -258,6 +258,11 @@ def _eager_runner(compiled, solver, dev, consts):
         ("dsa", {}),
         ("mgm", {"break_mode": "random"}),
         ("mgm2", {}),
+        ("maxsum", {"layout": "ell", "precision": "bf16"}),
+        ("maxsum", {"layout": "pallas", "precision": "bf16"}),
+        ("mixeddsa", {}),
+        ("dba", {}),
+        ("gdba", {"increase_mode": "R"}),
     ],
 )
 def test_captured_chunks_equal_eager_chunks_on_card(algo, params,
@@ -341,3 +346,161 @@ def test_streaming_and_chunked_on_the_card_like_the_cpu(monkeypatch):
     chunks = dpop.solve.chunks
     assert dpop.solve(_meetings(DPOP_SMALL), {}, device="cuda") == want
     assert dpop.solve.chunks > chunks
+
+
+# --- the bf16 plane (MaxSum's precision="bf16") and the tree sum ---------
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_planes_on_cpu_are_the_plain_versions_and_uncounted(case):
+    ell = _args(case)
+    ell[0] = ell[0].to(torch.bfloat16)
+    lanes = _lanes_args(case)
+    lanes[0] = lanes[0].to(torch.bfloat16)
+    before = (hk.ell_minplus.launches, hk.factor_arity2_minplus.launches)
+    got = hk.ell_minplus(*ell)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, hk.ell_minplus_plain(*ell))
+    # the add promotes the bf16 value exactly: the float32 plane's result
+    widened = [ell[0].float()] + ell[1:]
+    assert torch.equal(got, hk.ell_minplus_plain(*widened))
+    for g, w in zip(hk.factor_arity2_minplus(*lanes),
+                    hk.factor_arity2_minplus_plain(lanes[0].float(),
+                                                   *lanes[1:])):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    assert before == (hk.ell_minplus.launches,
+                      hk.factor_arity2_minplus.launches)
+
+
+# element counts of the tree sum: one value, one window plus one, the
+# config-4 unary and constraint totals, a million
+TREE_SIZES = (1, 33, 100_000, 199_996, 1_000_000)
+
+
+def test_xla_tree_sum_refuses_other_devices():
+    with pytest.raises(ValueError):
+        hk.xla_tree_sum(torch.zeros(40, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_kernels_equal_plain_on_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ell = _args(case, "cuda")
+    ell[0] = ell[0].to(torch.bfloat16)
+    lanes = _lanes_args(case, "cuda")
+    lanes[0] = lanes[0].to(torch.bfloat16)
+    before = (hk.ell_minplus.launches, hk.factor_arity2_minplus.launches)
+    got_ell = hk.ell_minplus(*ell)
+    got_lanes = hk.factor_arity2_minplus(*lanes)
+    torch.cuda.synchronize()
+    assert (hk.ell_minplus.launches, hk.factor_arity2_minplus.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    assert torch.equal(got_ell, hk.ell_minplus_plain(*ell))
+    for g, w in zip(got_lanes, hk.factor_arity2_minplus_plain(*lanes)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_bf16_kernels_equal_plain_on_ragged_tail(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ell = _ragged_ell_args(case)
+    ell[0] = ell[0].to(torch.bfloat16)
+    lanes = _ragged_lanes_args(case)
+    lanes[0] = lanes[0].to(torch.bfloat16)
+    got_ell = hk.ell_minplus(*ell)
+    got_lanes = hk.factor_arity2_minplus(*lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got_ell, hk.ell_minplus_plain(*ell))
+    for g, w in zip(got_lanes, hk.factor_arity2_minplus_plain(*lanes)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_other_plane_dtypes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ell = _args("grid", "cuda")
+    lanes = _lanes_args("grid", "cuda")
+    with pytest.raises(TypeError):
+        hk.ell_minplus(ell[0].half(), *ell[1:])
+    with pytest.raises(TypeError):
+        hk.factor_arity2_minplus(lanes[0].half(), *lanes[1:])
+    with pytest.raises(TypeError):  # only the plane may be bf16
+        hk.ell_minplus(ell[0], ell[1], ell[2].to(torch.bfloat16), ell[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TREE_SIZES)
+def test_xla_tree_sum_equals_plain_on_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.where(torch.rand(n, generator=g, device="cuda") < 0.3, 1e9,
+                    torch.rand(n, generator=g, device="cuda"))
+    before = hk.xla_tree_sum.launches
+    got = hk.xla_tree_sum(x)
+    torch.cuda.synchronize()
+    assert hk.xla_tree_sum.launches == before + len(hk.xla_tree_levels(n))
+    assert torch.equal(got, hk.xla_tree_sum_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("db", [2, 16, 32, 64, 1024])
+def test_xla_tree_sum_of_strided_rows_equals_plain_on_card(db):
+    # one degree class of the ELL fan-in: a [D, nb, db] view of the plane
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(db)
+    plane = torch.randn((3, 20_000), generator=g, device="cuda")
+    seg = plane[:, 100:100 + 7 * db].reshape(3, 7, db)
+    got = hk.xla_tree_sum(seg)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 7)
+    assert torch.equal(got, hk.xla_tree_sum_plain(seg))
+
+
+@pytest.mark.cuda
+def test_fan_ins_on_the_card_like_the_cpu():
+    # the ordered fan-ins the bf16 planes and the jitted JAX order need:
+    # a bf16 segmented sum (each partial sum rounded) and the float32 sum
+    # onto the unary costs
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pydcop_tpu_torch.compile.kernels import segment_sum, segment_sum_onto
+
+    compiled = generate_coloring_arrays(5000, 3, graph="scalefree",
+                                        m_edge=2, seed=4)
+    out = {}
+    for device in ("cuda", "cpu"):
+        dev = to_device(compiled, device)
+        aux = lanes_aux(dev)
+        f2v = torch.randn(
+            (3, dev.n_edges), generator=torch.Generator().manual_seed(2)
+        ).to(device)
+        out[device] = [
+            segment_sum(f2v.to(torch.bfloat16), aux.fan_in_offsets_t, 1),
+            segment_sum_onto(aux.unary_t, f2v, dev.fan_in_onto_perm,
+                             aux.fan_in_onto_offsets_t, 1),
+        ]
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ell", "lanes", "edges"])
+def test_bf16_maxsum_on_the_card_like_the_cpu(layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pydcop_tpu_torch.algorithms import maxsum
+
+    compiled = generate_coloring_arrays(2000, 3, graph="scalefree", m_edge=2,
+                                        seed=7)
+    params = {"damping": 0.7, "precision": "bf16", "layout": layout}
+    card = maxsum.solve(compiled, params, n_cycles=30, seed=7, device="cuda")
+    cpu = maxsum.solve(compiled, params, n_cycles=30, seed=7, device="cpu")
+    assert card == cpu

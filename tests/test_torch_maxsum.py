@@ -101,14 +101,20 @@ def test_every_ell_layout_runs_the_one_path(layout):
     "params, kwargs",
     [
         ({"precision": "bf16"}, {}),
-        # the timeout is ported: bf16 is refused with or without one
+        # with and without a timeout
         ({"precision": "bf16"}, {"timeout": 1.0}),
     ],
 )
 def test_unported_options_raise(params, kwargs):
-    port_c, _ = _pair("grid")
-    with pytest.raises(NotImplementedError):
-        maxsum.solve(port_c, params, n_cycles=3, device="cpu", **kwargs)
+    # precision="bf16" was the last option the port refused; it is ported
+    # now, with and without a timeout: it raises nothing and gives the
+    # JAX package's result
+    port_c, ref_c = _pair("grid")
+    ref = jax_maxsum.solve(ref_c, params, n_cycles=3, **kwargs)
+    got = maxsum.solve(port_c, params, n_cycles=3, device="cpu", **kwargs)
+    assert (got.assignment, got.cost, got.violations, got.cycles) == (
+        ref.assignment, ref.cost, ref.violations, ref.cycles
+    )
 
 
 @pytest.mark.parametrize(
@@ -177,6 +183,27 @@ def test_chip_smoke_mixed_problem_solves_like_jax(start):
     assert got.cycles == ref.cycles
 
 
+def test_chip_smoke_mixed_record_is_jaxs():
+    # chip_smoke.py's maxsum_mixed phase at its own size: the recorded
+    # (cost, violations, cycles) is the JAX package's, and the port's CPU
+    # solve gives the same assignment
+    smoke = _chip_smoke()
+    fields = smoke.mixed_problem_fields()
+    params = dict(smoke.MIXED["params"], layout="auto")
+    run = dict(n_cycles=smoke.MIXED["n_cycles"], seed=smoke.MIXED["seed"])
+    ref = jax_maxsum.solve(_jax_compiled(fields), params, **run)
+    got = maxsum.solve(
+        compiled_from_numpy(fields), params, device="cpu", **run
+    )
+    assert (ref.cost, ref.violations, ref.cycles) == smoke.MAXSUM_RECORDED[
+        "mixed"
+    ]
+    assert got.assignment == ref.assignment
+    assert (got.cost, got.violations, got.cycles) == (
+        ref.cost, ref.violations, ref.cycles,
+    )
+
+
 def test_warm_solve_reuses_cached_operands():
     port_c, _ = _pair("grid")
     a = maxsum.solve(port_c, {}, n_cycles=5, device="cpu")
@@ -206,11 +233,12 @@ def _scripted_engine(costs, n_cycles, convergence=None):
     import torch
 
     from pydcop_tpu_torch.algorithms.base import extract_values, run_cycles
-    from pydcop_tpu_torch.compile.kernels import DeviceDCOP
+    from pydcop_tpu_torch.compile.kernels import DeviceDCOP, onto_layout
 
     State = namedtuple("State", "values k")
     d = len(costs)
     zero = torch.zeros(1, dtype=torch.int64)
+    onto_perm, onto_offsets = onto_layout(np.array([0, 1]))
     dev = DeviceDCOP(
         n_vars=1, max_domain=d, n_edges=1, n_constraints=1,
         domain_size=torch.tensor([d]),
@@ -219,6 +247,8 @@ def _scripted_engine(costs, n_cycles, convergence=None):
         constant_cost=torch.tensor(0.0),
         edge_var=zero, edge_con=zero, var_degree=zero,
         buckets=(), f2v_perm=zero, fan_in_offsets=torch.tensor([0, 1]),
+        fan_in_onto_perm=torch.as_tensor(onto_perm),
+        fan_in_onto_offsets=torch.as_tensor(onto_offsets),
     )
 
     def init(dev, key):
