@@ -12,7 +12,8 @@ solvers through their entry points, each solve running as replays of its
 captured CUDA graphs:
 
 - ``maxsum.solve``: the ELL layout at bench config 4's size (the main
-  path) and at config 2's, the lanes layout (``layout="pallas"``) at
+  path), at config 6's (1,000,000 variables, against the JAX package's
+  pinned cost) and at config 2's, the lanes layout (``layout="pallas"``) at
   config 4's size, the lanes and edges layouts at config 2's, and
   ``layout="auto"`` on a mixed binary + ternary problem, which runs
   lanes; each must give the result recorded before the graphs;
@@ -53,9 +54,9 @@ nothing), is checked against the same solve on the CPU, and counts from
 zero each kernel's launches (launches an iteration times the iterations
 its graphs replayed), its replays and its host syncs (O(log n_cycles)).
 Every solve also launches the port's own kernel ``xla_tree_sum``: the
-anytime-best total of ``evaluate`` (and MaxSum's ELL fan-in) summed in
-XLA-CPU's order, one launch a level of each sum.  It prints one JSON
-object per phase, then the kernel table (five rows: both TPU kernels
+anytime-best total of ``evaluate`` (and MaxSum's ELL fan-in and sum over
+the domain) summed in XLA-CPU's order, one launch a sum site.  It prints
+one JSON object per phase, then the kernel table (five rows: both TPU kernels
 with a float32 and with a bf16 plane, and ``xla_tree_sum``), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
@@ -87,6 +88,12 @@ F32_OPS_PER_S = 67e12
 
 CONFIG_4 = dict(
     gen=(100_000, 3, dict(graph="scalefree", m_edge=2, seed=7)),
+    params={"damping": 0.7}, n_cycles=30, seed=7,
+)
+# bench config 6 (bench_all.py): config 4's generator and run at
+# 1,000,000 variables
+CONFIG_6 = dict(
+    gen=(1_000_000, 3, dict(graph="scalefree", m_edge=2, seed=7)),
     params={"damping": 0.7}, n_cycles=30, seed=7,
 )
 CONFIG_2 = dict(
@@ -131,6 +138,10 @@ MAXSUM_RECORDED = {
     "config2": (176.00823494198994, 0, 60),
     "mixed": (25513.102097259267, 20, 30),
 }
+# MaxSum at bench config 6: (cost, violations, cycles) of the JAX package
+# on a CPU (JAX_PLATFORMS=cpu, jax 0.9.0); the port's CPU solve gives the
+# same cost and assignment, so the card is held to it exactly
+MAXSUM_CONFIG6_JAX = (178376.01337974897, 0, 30)
 # MaxSum with precision="bf16": (cost, violations, cycles) of the JAX
 # package on a CPU (JAX_PLATFORMS=cpu, jax 0.9.0); config 2's is the same
 # on every layout
@@ -441,27 +452,54 @@ def tree_inputs(n, device, seed=0):
     )]
 
 
-def tree_levels(n: int) -> int:
-    """xla_tree_sum's launches for a sum of n values."""
-    from pydcop_tpu_torch.compile.hopper_kernels import xla_tree_levels
+def evaluate_inputs(compiled, device, seed=0):
+    """[unary, values, buckets, constant]: ``evaluate``'s operands of
+    ``compiled`` on ``device`` and a random int32 assignment."""
+    import torch
 
-    return len(xla_tree_levels(n))
+    from pydcop_tpu_torch.compile.kernels import to_device
+
+    dev = to_device(compiled, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    values = (
+        torch.rand(dev.n_vars, generator=g, device=device) * dev.domain_size
+    ).to(torch.int32)
+    return [dev.unary, values,
+            [(b.tables_flat, b.var_slots) for b in dev.buckets],
+            dev.constant_cost]
 
 
-def evaluate_launches(compiled) -> int:
-    """xla_tree_sum's launches in one evaluate: the unary total and each
-    bucket's."""
-    return tree_levels(compiled.n_vars) + sum(
-        tree_levels(b.tables.shape[0]) for b in compiled.buckets
+def evaluate_bytes_ops(args):
+    """(bytes, ops) of one evaluate: the assignment, one unary entry a
+    variable, each constraint's var_slots and one table entry read once,
+    the total written; an add a value."""
+    unary, values, buckets, _ = args
+    n_vars = values.numel()
+    nbytes = n_vars * (values.element_size() + 4) + 4 + sum(
+        vs.numel() * vs.element_size() + vs.shape[0] * 4 for _, vs in buckets
     )
+    return nbytes, n_vars + sum(vs.shape[0] for _, vs in buckets)
 
 
-def ell_fan_in_launches(compiled) -> int:
-    """xla_tree_sum's launches in one ELL variable step: the fan-in of
-    each degree class."""
-    from pydcop_tpu_torch.compile.kernels import build_ell
+def fan_in_inputs(spans, n_pad, d, device, seed=0, dtype="float32"):
+    """[f2v_t, unary_t, spans]: a random [D, n_pad] factor->variable plane
+    and [D, V] unary plane of an ELL layout's degree classes."""
+    import torch
 
-    return sum(tree_levels(db) for _, db in build_ell(compiled).spans if db)
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_vars = sum(nb for nb, _ in spans)
+    f2v = torch.randn((d, n_pad), generator=g, device=device)
+    u = torch.rand((d, n_vars), generator=g, device=device) * 10
+    return [f2v.to(getattr(torch, dtype)), u, spans]
+
+
+def fan_in_bytes_ops(args):
+    """(bytes, ops) of one ELL fan-in: the plane and the unary plane read
+    once, both output planes written once; an add a slot (the sums) and a
+    subtract a slot (v2f_raw), an add a variable (u)."""
+    f2v, u, _ = args
+    nbytes = f2v.numel() * (f2v.element_size() + 4) + u.numel() * 8
+    return nbytes, 2 * f2v.numel() + u.numel()
 
 
 def fan_in_check(c4):
@@ -575,12 +613,12 @@ def phase_build():
         })
 
 
-def phase_kernels(c4):
+def phase_kernels(c4, c6, c7):
     """Each kernel against its plain version on the card, exactly, at the
     main path's shapes (config 4), the small cases (D = 2..20) and the
     ragged shape, the min-plus kernels with a float32 and with a bf16
-    plane; ``xla_tree_sum`` at evaluate's sizes and on config 4's ELL
-    fan-in classes.  Each timed at the main path's shape.  Returns the
+    plane; ``xla_tree_sum``'s sum sites (``_tree_sum_row``) on configs 4,
+    6 and 7.  Each timed at the main path's shape.  Returns the
     kernel rows by name and, by kernel, the config-4 operand sets the
     float32 min-plus kernels were timed on."""
     import torch
@@ -638,7 +676,8 @@ def phase_kernels(c4):
             # no one PyTorch call does the gathers, adds, mins (and mask)
             library_ms=None, l2_warm_ms=l2_warm_ms, copy_ms=copy_ms,
         )
-    rows["xla_tree_sum"] = _tree_sum_row(c4)
+    rows["xla_tree_sum"] = _tree_sum_row(c4, c6, c7)
+    emit({"phase": "kernel_row", **rows["xla_tree_sum"]})
     emit({"phase": "fan_in", **fan_in_check(c4)})
     return rows, timed_sets
 
@@ -695,13 +734,55 @@ def _kernel_row(name, wrapper, replaces, max_err, kernel_ms, plain_ms,
     }
 
 
-def _tree_sum_row(c4):
-    """``xla_tree_sum`` against its plain version, exactly: 1-D sums of
-    TREE_SIZES values and, as strided [D, nb, db] views of a random plane,
-    each degree class of config 4's ELL fan-in.  Timed on config 4's
-    constraint total (199,996 values: evaluate's largest sum), beside
+def _fan_in_call(f2v, u, spans):
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    return hk.ell_fan_in(spans, u, f2v)
+
+
+def _fan_in_plain(f2v, u, spans):
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    return hk.ell_fan_in_plain(spans, u, f2v)
+
+
+def _domain_sum_call(x):
+    from pydcop_tpu_torch.compile.kernels import domain_sum
+
+    return domain_sum(x, 0)
+
+
+def _domain_sum_plain(x):
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    return hk.xla_tree_sum_plain(x.movedim(0, -1)).unsqueeze(0)
+
+
+def _one_launch(name, call, args):
+    """Check that one call of a sum site is one xla_tree_sum launch."""
+    import torch
+
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    hk.xla_tree_sum.launches = 0
+    call(*args)
+    torch.cuda.synchronize()
+    n = hk.xla_tree_sum.launches
+    check(n == 1, f"{name}: {n} xla_tree_sum launches a call, not 1")
+    return n
+
+
+def _tree_sum_row(c4, c6, c7):
+    """``xla_tree_sum``'s sum sites against their plain versions, exactly:
+    1-D sums of TREE_SIZES values; each degree class of config 4's and
+    config 6's ELL fan-in as strided [D, nb, db] rows, and the whole
+    fan-in of both (float32 and bf16 planes); MaxSum's domain sum of the
+    config-4 [D, n_pad] plane, read in place; ``evaluate`` on configs 4,
+    6 and 7.  Each site must be one launch a call.  Timed: config 4's
+    constraint total (199,996 values, evaluate's largest sum) beside
     ``torch.sum``, the one PyTorch call that sums the same values (in
-    another order)."""
+    another order), and config 4's evaluate, fan-in and domain sum, each
+    beside its plain version and its bound."""
     import torch
 
     from pydcop_tpu_torch.compile import hopper_kernels as hk
@@ -711,19 +792,43 @@ def _tree_sum_row(c4):
         f"n{n}": functools.partial(tree_inputs, n, "cuda", n)
         for n in TREE_SIZES
     }
-    ell = build_ell(c4)
     g = torch.Generator(device="cuda").manual_seed(5)
-    plane = torch.randn((c4.max_domain, ell.n_pad), generator=g,
-                        device="cuda")
-    off = 0
-    for nb, db in ell.spans:
-        if db:
-            seg = plane[:, off:off + nb * db].reshape(-1, nb, db)
-            operands[f"ell_class_{db}"] = lambda seg=seg: [seg]
-        off += nb * db
+    ells = {"config4": build_ell(c4), "config6": build_ell(c6)}
+    for name, ell in ells.items():
+        plane = torch.randn((3, ell.n_pad), generator=g, device="cuda")
+        off = 0
+        for nb, db in ell.spans:
+            if db:
+                seg = plane[:, off:off + nb * db].reshape(-1, nb, db)
+                operands[f"{name}_class_{db}"] = lambda seg=seg: [seg]
+            off += nb * db
     checked, max_err = _check_equal(
         "xla_tree_sum", hk.xla_tree_sum, hk.xla_tree_sum_plain, operands
     )
+    sites = {
+        "evaluate": (hk.tree_evaluate, hk.tree_evaluate_plain, {
+            name: functools.partial(evaluate_inputs, c, "cuda", 7)
+            for name, c in (("config4", c4), ("config6", c6),
+                            ("config7", c7))
+        }),
+        "ell_fan_in": (_fan_in_call, _fan_in_plain, {
+            f"{name}_{dtype}": functools.partial(
+                fan_in_inputs, ell.spans, ell.n_pad, 3, "cuda", 3, dtype
+            )
+            for name, ell in ells.items()
+            for dtype in ("float32", "bfloat16")
+        }),
+        "domain_sum": (_domain_sum_call, _domain_sum_plain, {
+            "config4": lambda: [
+                fan_in_inputs(ells["config4"].spans, ells["config4"].n_pad,
+                              3, "cuda", 4)[0]
+            ],
+        }),
+    }
+    for site, (call, plain, ops) in sites.items():
+        got, err = _check_equal(f"xla_tree_sum {site}", call, plain, ops)
+        checked.update({f"{site}_{k}": v for k, v in got.items()})
+        max_err = max(max_err, err)
     emit({"phase": "kernels", "kernel": "xla_tree_sum", "shapes": checked})
     n_total = sum(b.tables.shape[0] for b in c4.buckets)
     sets = [tree_inputs(n_total, "cuda", seed) for seed in range(4)]
@@ -731,15 +836,43 @@ def _tree_sum_row(c4):
     kernel_ms = time_cuda_ms(hk.xla_tree_sum, sets)
     plain_ms = time_cuda_ms(hk.xla_tree_sum_plain, sets)
     library_ms = time_cuda_ms(torch.sum, sets)
-    # the launches of the one timed call, counted as it runs
-    hk.xla_tree_sum.launches = 0
-    hk.xla_tree_sum(*sets[0])
-    torch.cuda.synchronize()
+    launches_per_call = _one_launch("xla_tree_sum", hk.xla_tree_sum, sets[0])
+    # config 4's sites, four operand sets each (together past the L2)
+    ell4 = ells["config4"]
+    timed = {
+        "evaluate": (hk.tree_evaluate, hk.tree_evaluate_plain, None,
+                     [evaluate_inputs(c4, "cuda", s) for s in range(4)],
+                     evaluate_bytes_ops),
+        "fan_in": (_fan_in_call, _fan_in_plain, None,
+                   [fan_in_inputs(ell4.spans, ell4.n_pad, 3, "cuda", s)
+                    for s in range(4)], fan_in_bytes_ops),
+        "domain_sum": (
+            _domain_sum_call, _domain_sum_plain,
+            lambda x: torch.sum(x, 0, keepdim=True),
+            [fan_in_inputs(ell4.spans, ell4.n_pad, 3, "cuda", s)[:1]
+             for s in range(4)],
+            lambda a: (a[0].numel() * 4 + a[0].shape[1] * 4, a[0].numel()),
+        ),
+    }
+    extra = {}
+    for site, (call, plain, library, site_sets, bytes_ops) in timed.items():
+        _one_launch(site, call, site_sets[0])
+        site_bytes, site_ops = bytes_ops(site_sets[0])
+        bound_ms, bound_by = _bound(site_bytes, site_ops)
+        extra[f"{site}_config4"] = {
+            "ms": time_cuda_ms(call, site_sets),
+            "plain_ms": time_cuda_ms(plain, site_sets),
+            "library_ms": (
+                time_cuda_ms(library, site_sets) if library else None
+            ),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": site_bytes, "launches_per_call": 1,
+        }
     return _kernel_row(
         "xla_tree_sum", "xla_tree_sum",
         "none: the port's own kernel (evaluate's totals in XLA-CPU's order)",
         max_err, kernel_ms, plain_ms, nbytes, ops, library_ms=library_ms,
-        n=n_total, launches_per_call=hk.xla_tree_sum.launches,
+        n=n_total, launches_per_call=launches_per_call, **extra,
     )
 
 
@@ -1383,29 +1516,29 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     c4 = generate(CONFIG_4["gen"])
-    rows, timed_sets = phase_kernels(c4)
+    t0 = time.perf_counter()
+    c6 = generate(CONFIG_6["gen"])
+    emit({"phase": "config6_problem", "seconds": time.perf_counter() - t0,
+          "n_vars": c6.n_vars, "n_edges": c6.n_edges})
+    breakout = breakout_problems()
+    rows, timed_sets = phase_kernels(c4, c6, breakout["config7"])
     for other in args.against:
         phase_against(other.resolve(), timed_sets)
     del timed_sets
 
-    def counts(compiled, minplus=None, ell=False, maxsum=False):
+    def counts(minplus=None, ell=False, maxsum=False):
         """(launches an iteration, launches in the prologue) by kernel of
-        a solve on ``compiled``: ``minplus`` once an iteration (MaxSum's
-        factor step), and xla_tree_sum for every evaluate (the prologue
-        evaluates the initial assignment), for MaxSum's sum over the
-        domain in its variable step and, on the ELL layout, for every
-        degree class's fan-in."""
-        ev = evaluate_launches(compiled)
+        a solve: ``minplus`` once an iteration (MaxSum's factor step), and
+        xla_tree_sum once a sum site: every evaluate (the prologue
+        evaluates the initial assignment), MaxSum's sum over the domain
+        in its variable step and, on the ELL layout, its fan-in."""
         per_cycle = {
-            "ell_minplus": 0, "factor_arity2_minplus": 0, "xla_tree_sum": ev,
+            "ell_minplus": 0, "factor_arity2_minplus": 0,
+            "xla_tree_sum": 1 + maxsum + ell,
         }
         if minplus:
             per_cycle[minplus] = 1
-        if maxsum:
-            per_cycle["xla_tree_sum"] += tree_levels(compiled.max_domain)
-        if ell:
-            per_cycle["xla_tree_sum"] += ell_fan_in_launches(compiled)
-        return per_cycle, {"xla_tree_sum": ev}
+        return per_cycle, {"xla_tree_sum": 1}
 
     def maxsum_run(spec, layout, precision="f32"):
         params = dict(spec["params"], layout=layout)
@@ -1415,7 +1548,7 @@ def main() -> int:
 
     def maxsum_phase(name, compiled, run, minplus, cpu_bar="cost", **kw):
         per_cycle, per_start = counts(
-            compiled, minplus, ell=run[1]["layout"] == "ell", maxsum=True
+            minplus, ell=run[1]["layout"] == "ell", maxsum=True
         )
         return phase_solve(name, compiled, run, per_cycle,
                            per_start=per_start, cpu_bar=cpu_bar, **kw)
@@ -1433,6 +1566,13 @@ def main() -> int:
         against=ell4,
     )
     rows["factor_arity2_minplus"]["launches"] = warm["factor_arity2_minplus"]
+    # bench config 6: the main path at 1,000,000 variables, gated on the
+    # JAX package's result
+    maxsum_phase(
+        "maxsum_1m", c6, maxsum_run(CONFIG_6, "ell"), "ell_minplus",
+        cpu_bar="exact", recorded=MAXSUM_CONFIG6_JAX,
+    )
+    del c6
     c2 = generate(CONFIG_2["gen"])
     ell2, _ = maxsum_phase(
         "maxsum_1k", c2, maxsum_run(CONFIG_2, "ell"), "ell_minplus",
@@ -1446,7 +1586,7 @@ def main() -> int:
         )
     # "auto" must resolve to lanes here: the kernel counts show it
     mixed = compiled_from_numpy(mixed_problem_fields())
-    per_cycle, per_start = counts(mixed, "factor_arity2_minplus", maxsum=True)
+    per_cycle, per_start = counts("factor_arity2_minplus", maxsum=True)
     phase_solve(
         "maxsum_mixed", mixed, maxsum_run(MIXED, "auto"), per_cycle,
         per_start=per_start, cpu_bar="cost",
@@ -1481,17 +1621,16 @@ def main() -> int:
         "config4": c4, "mixed": mixed,
         "config3": generate_ising_arrays(*CONFIG_3["gen"]),
     }
+    per_cycle, per_start = counts()
     for name, algo, problem, params, n_cycles, seed in LOCAL_SEARCH:
-        per_cycle, per_start = counts(problems[problem])
         phase_solve(
             name, problems[problem], (algo, params, n_cycles, seed),
             per_cycle, per_start=per_start,
         )
     # the mixed and breakout solvers and the hard colorings: identical to
     # the CPU and to the JAX package's pinned results
-    problems.update(breakout_problems())
+    problems.update(breakout)
     for name, algo, problem, params, n_cycles, seed, pinned in BREAKOUT:
-        per_cycle, per_start = counts(problems[problem])
         phase_solve(
             name, problems[problem], (algo, params, n_cycles, seed),
             per_cycle, per_start=per_start, recorded=pinned,
@@ -1500,7 +1639,7 @@ def main() -> int:
             ),
         )
     phase_timeouts(c4, ell4)
-    del c4, c2, mixed, problems
+    del c4, c2, mixed, problems, breakout
     try:
         import yaml  # noqa: F401  (the YAML loader's one dependency)
     except ImportError as e:

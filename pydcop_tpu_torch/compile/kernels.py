@@ -35,13 +35,15 @@ Counterpart of ``pydcop_tpu/compile/kernels.py``:
 
 Every float sum whose rounding can decide a result runs in the order XLA's
 CPU compiler gives the JAX package's jitted program, on the CPU and on
-the card alike: ``xla_sum`` (windows of 32, level after level; the
-``xla_tree_sum`` kernel on the card) for ``evaluate``'s totals and the
-ELL fan-in; ``segment_sum_onto`` for a fan-in that XLA folds, with the
-``base +`` around it, into one scatter onto the base (the edges and
-lanes fan-ins, ``local_costs``); ``domain_sum`` for the mean over the
-domain axis.  ``segment_sum`` is ``torch.segment_reduce`` over the
-variable-sorted edges: each segment summed in edge order, deterministic
+the card alike: windows of 32, level after level, for ``evaluate``'s
+totals, the ELL fan-in and ``xla_sum`` (on the card each is one launch of
+the ``xla_tree_sum`` kernel: ``hopper_kernels.tree_evaluate``,
+``ell_fan_in``, ``xla_tree_sum``); ``segment_sum_onto`` for a fan-in
+that XLA folds, with the ``base +`` around it, into one scatter onto the
+base (the edges and lanes fan-ins, ``local_costs``); ``domain_sum`` for
+the mean over the domain axis.  ``segment_sum`` is
+``torch.segment_reduce`` over the variable-sorted edges: each segment
+summed in edge order, deterministic
 on the card (no atomics) and bitwise equal to XLA's sorted
 ``segment_sum`` on the CPU.
 
@@ -59,9 +61,12 @@ import torch
 
 from .core import BIG, CompiledDCOP
 from .hopper_kernels import (
+    bucket_costs_plain,
+    ell_fan_in,
     ell_minplus,
     factor_arity2_minplus,
     minplus_marginals_plain,
+    tree_evaluate,
     xla_tree_sum,
 )
 
@@ -259,9 +264,7 @@ def _bucket_costs(
     bucket: DeviceBucket, d: int, values: torch.Tensor
 ) -> torch.Tensor:
     """[n_c] cost of each constraint in the bucket under ``values``."""
-    vals = values.long()[bucket.var_slots]  # [n_c, a]
-    flat = _flat_index(vals, _strides(bucket.arity, d))
-    return take_rows(bucket.tables_flat, flat[:, None])[:, 0]
+    return bucket_costs_plain(bucket.tables_flat, bucket.var_slots, d, values)
 
 
 def xla_sum(x: torch.Tensor) -> torch.Tensor:
@@ -270,35 +273,35 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
     order, symmetrically zero-padded, level after level until at most 32
     partial sums are left, then those in order (``hopper_kernels.
     xla_tree_levels``).  A bf16 ``x`` is summed in float32 and rounded to
-    bf16 once, as XLA does.  On the card it runs the ``xla_tree_sum``
-    kernel, on the CPU its plain version: one order on both."""
+    bf16 once, as XLA does.  On the card it is one launch of the
+    ``xla_tree_sum`` kernel, on the CPU its plain version: one order on
+    both."""
     if x.dtype == torch.bfloat16:
         return xla_tree_sum(x.float()).to(torch.bfloat16)
-    if x.dim() and x.stride(-1) != 1:
-        x = x.contiguous()
     return xla_tree_sum(x)
 
 
 def domain_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The sum over the domain axis ``dim`` (kept, of size 1) in XLA's
     order: ``xla_sum`` over that axis (in index order from 0.0 up to 32
-    values; a single value is its own sum)."""
+    values; a single value is its own sum), read in place on the card."""
     return xla_sum(x.movedim(dim, -1)).unsqueeze(dim)
 
 
 def evaluate(dev: DeviceDCOP, values: torch.Tensor) -> torch.Tensor:
     """Scalar total cost (min-form) of a full assignment: unary +
-    constraints + constant, summed per bucket (no scatter).  Each sum is
-    ``xla_sum``, and the totals combine as the JAX package's do, ``unary
-    + (0 + b0 + b1 + ...) + constant``: the total is the JAX package's to
-    the bit, so the anytime best's strict ``<`` keeps the same cycle where
-    cycles with forbidden (1e9) entries tie in true cost."""
-    unary_cost = xla_sum(take_rows(dev.unary, values[:, None])[:, 0])
-    cons = sum(
-        xla_sum(_bucket_costs(b, dev.max_domain, values))
-        for b in dev.buckets
+    constraints + constant, summed per bucket (no scatter).  Each sum runs
+    in XLA-CPU's tree order, and the totals combine as the JAX package's
+    do, ``unary + (0 + b0 + b1 + ...) + constant``: the total is the JAX
+    package's to the bit, so the anytime best's strict ``<`` keeps the
+    same cycle where cycles with forbidden (1e9) entries tie in true
+    cost.  On the card the gathers, the sums and the combine are one
+    launch (``hopper_kernels.tree_evaluate``)."""
+    return tree_evaluate(
+        dev.unary, values,
+        [(b.tables_flat, b.var_slots) for b in dev.buckets],
+        dev.constant_cost,
     )
-    return unary_cost + cons + dev.constant_cost
 
 
 # ---------------------------------------------------------------------------
@@ -883,28 +886,14 @@ def variable_step_with_select_ell(
     prev_v2f_t: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Variable half-cycle on ELL planes: per-class dense reshape-sums for
-    the fan-in, broadcast for the fan-out, and ONE [V] gather mapping the
-    argmin back to original variable order."""
-    d = f2v_t.shape[0]
-    tot_parts, v2f_parts = [], []
-    off_e = off_v = 0
-    for nb, db in spans:  # every span has nb >= 1
-        u = unary_ell_t[:, off_v:off_v + nb]
-        if db == 0:
-            tot_parts.append(u)
-        else:
-            seg = f2v_t[:, off_e:off_e + nb * db].reshape(d, nb, db)
-            tot_b = xla_sum(seg) + u
-            tot_parts.append(tot_b)
-            v2f_parts.append((tot_b[:, :, None] - seg).reshape(d, nb * db))
-        off_e += nb * db
-        off_v += nb
-    tot = torch.cat(tot_parts, dim=1)
+    the fan-in and broadcast for the fan-out (``hopper_kernels.
+    ell_fan_in``: one launch over every class on the card), and ONE [V]
+    gather mapping the argmin back to original variable order."""
+    tot, v2f_t = ell_fan_in(spans, unary_ell_t, f2v_t)
     values_ell = torch.argmin(
         torch.where(valid_ell_t, tot, torch.inf), dim=0
     ).to(torch.int32)
     values = values_ell[pos_of_var]
-    v2f_t = torch.cat(v2f_parts, dim=1)
     mean = domain_sum(torch.where(edge_valid_t, v2f_t, 0.0), 0) / (
         torch.clamp(dsize_edges[None, :], min=1)
     )

@@ -1,13 +1,14 @@
 """Where a warm solve's time goes on the card.
 
     python -m pydcop_tpu_torch.tools.profile_solve [--algo ALGO]
-        [--config 4|3|2|5|7|hard10k] [--reps N] [--layout LAYOUT]
+        [--config 4|6|3|2|5|7|hard10k] [--reps N] [--layout LAYOUT]
         [--precision f32|bf16] [--trace FILE] [--resources N]
 
 ``--algo`` is ``maxsum`` (default), ``dsa``, ``mgm``, ``mgm2``,
 ``mixeddsa``, ``dba``, ``gdba`` or ``dpop``.  ``--config`` picks the
 problem and run of a bench config: 4 (100k-variable scale-free coloring,
-30 cycles, seed 7; MaxSum with damping 0.7), 3 (the 100x100 Ising grid of
+30 cycles, seed 7; MaxSum with damping 0.7), 6 (the same at 1,000,000
+variables), 3 (the 100x100 Ising grid of
 seed 3, 30 cycles, seed 0), 2 (1k random coloring, 60 cycles, seed 0;
 MaxSum with damping 0.5 and stop_cycle 60), 7 (bench config 7: the
 mixed hard/soft problem of 2,000 variables and 5,050 constraints, 50
@@ -73,6 +74,12 @@ CONFIGS = {
     "4": (
         lambda: generate_coloring_arrays(
             100_000, 3, graph="scalefree", m_edge=2, seed=7
+        ),
+        30, 7, {"damping": 0.7},
+    ),
+    "6": (
+        lambda: generate_coloring_arrays(
+            1_000_000, 3, graph="scalefree", m_edge=2, seed=7
         ),
         30, 7, {"damping": 0.7},
     ),

@@ -445,7 +445,7 @@ def test_xla_tree_sum_equals_plain_on_card(n):
     before = hk.xla_tree_sum.launches
     got = hk.xla_tree_sum(x)
     torch.cuda.synchronize()
-    assert hk.xla_tree_sum.launches == before + len(hk.xla_tree_levels(n))
+    assert hk.xla_tree_sum.launches == before + 1  # one launch a sum
     assert torch.equal(got, hk.xla_tree_sum_plain(x))
 
 
