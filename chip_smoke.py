@@ -47,7 +47,19 @@ captured CUDA graphs:
   UTIL wave is one captured graph (1 capture cold, 0 warm), against the
   CPU and the JAX package's result; and (``dpop_wide``) the wider
   instances of the same generator, its streaming path and its chunked
-  path, against the JAX package's results pinned here.
+  path, against the JAX package's results pinned here;
+- ``adsa`` (defaults, variants A and C), ``dsatuto`` and ``amaxsum.solve``
+  at config 4's problem, each identical to the CPU and to the JAX
+  package's pinned cost and message count;
+- the resident ``DynamicMaxSum`` session (``dynamic_config4``) on config
+  4 as 299,996 relation objects: run, run, ``change_factor_function``,
+  run, on the card and on the CPU, every cycle through
+  ``factor_arity2_minplus``; a warm run and the run after the change
+  capture nothing, and the graph cache keeps its size;
+- SyncBB and NCBB (``syncbb_24``, ``ncbb_24``) on a 24-variable soft
+  coloring: one launch of the port's ``branch_bound`` kernel a solve
+  (1,753,768 and 73,176 DFS steps), against the JAX package's pinned
+  result and assignment.
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -56,8 +68,9 @@ its graphs replayed), its replays and its host syncs (O(log n_cycles)).
 Every solve also launches the port's own kernel ``xla_tree_sum``: the
 anytime-best total of ``evaluate`` (and MaxSum's ELL fan-in and sum over
 the domain) summed in XLA-CPU's order, one launch a sum site.  It prints
-one JSON object per phase, then the kernel table (five rows: both TPU kernels
-with a float32 and with a bf16 plane, and ``xla_tree_sum``), the card's
+one JSON object per phase, then the kernel table (six rows: both TPU kernels
+with a float32 and with a bf16 plane, ``xla_tree_sum`` and the DFS kernel
+``branch_bound``, held equal to its plain version at 16 variables), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
 exits nonzero, with no result, when no CUDA device is present or the
@@ -188,13 +201,59 @@ LOCAL_SEARCH = [
      CONFIG_3["seed"]),
     ("mgm2_mixed", "mgm2", "mixed", {}, 30, 3),
 ]
+# A-DSA, DSA-tuto and A-MaxSum at config 4's problem, 30 cycles, seed 7:
+# (phase, algo, params, the JAX package's (cost, violations, cycles) on a
+# CPU, JAX_PLATFORMS=cpu); each sends ASYNC_MSG_COUNT messages
+ASYNC = [
+    ("adsa_100k", "adsa", {}, (8676.428238737793, 0, 30)),
+    ("adsa_100k_A", "adsa", {"variant": "A"}, (8676.428238737793, 0, 30)),
+    ("adsa_100k_C", "adsa", {"variant": "C"}, (8676.428238737793, 0, 30)),
+    ("dsatuto_100k", "dsatuto", {}, (8817.456954946329, 0, 30)),
+    ("amaxsum_100k", "amaxsum", {"damping": 0.7},
+     (20026.94531815924, 0, 30)),
+]
+ASYNC_MSG_COUNT = 11_999_760
+# the resident session on config 4's objects (OBJECTS_100K),
+# DynamicMaxSum(dcop, {"damping": 0.7}, seed=7): the JAX package's cost
+# after each run(30), the last after DYNAMIC_CHANGE.  The port's CPU gives
+# the first two exactly; the third, 21268.940973564702, differs in the
+# 7th digit: XLA-CPU contracts the damping into an FMA in the session's
+# program, which the port does not (ROADMAP, "Known divergences";
+# tests/test_torch_dynamic.py reproduces JAX's planes with the damping
+# contracted).  So the third is held to the port's own pinned cost exactly
+# and to JAX's within rel 1e-6, and the card to the CPU exactly
+DYNAMIC_JAX = (18768.49297691747, 18655.444915655473, 21268.952449623033)
+DYNAMIC_PORT_THIRD = 21268.940973564702
+DYNAMIC_CHANGE = ("cost_0", "10 if v00000 == v00002 else 0",
+                  ("v00000", "v00002"))
+# SyncBB and NCBB: generate_graph_coloring's arguments of the chip cell
+# and of the kernel's complete check against its plain version (25,872
+# SyncBB steps, which the plain step runs in seconds on the card)
+BB_CELL = (24, 3, dict(graph="random", p_edge=0.25, soft=True, seed=3))
+BB_SMALL = (16, 3, dict(graph="random", p_edge=0.25, soft=True, seed=3))
+# the step caps of the kernel's checks against its plain version on the
+# chip cell's own searches: the plain step cannot run SyncBB's whole
+# 1,753,768-step search in the script's time, so it runs as far as
+# BB_SMALL's complete one
+BB_CELL_CHECK_CAPS = (5, 25_000)
+# the JAX package's (cost, violations, cycle, msg_count) on BB_CELL and
+# its assignment (value indices in variable order), on a CPU
+BB_JAX = {
+    "syncbb": (2.187544019037877, 0, 0, 1_753_768),
+    "ncbb": (2.187544019037877, 0, 73_176, 219_528),
+}
+BB_JAX_VALUES = "021112102211212000011200"
+# a shared-memory load's latency on Hopper, in SM cycles: the unit of the
+# DFS kernel's latency bound (three dependent loads a step)
+SMEM_LOAD_CYCLES = 30
 ENGINE_COUNTERS = ("captures", "replays", "iterations", "host_syncs")
 # the rows of the kernel table: both TPU kernels with a float32 and with a
 # bf16 message plane, and the port's own tree sum
 KERNEL_ROWS = ("ell_minplus", "ell_minplus_bf16", "factor_arity2_minplus",
-               "factor_arity2_minplus_bf16", "xla_tree_sum")
+               "factor_arity2_minplus_bf16", "xla_tree_sum", "branch_bound")
 # the kernel wrappers of compile/hopper_kernels.py, each with a launch count
-KERNEL_WRAPPERS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum")
+KERNEL_WRAPPERS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum",
+                   "branch_bound")
 # xla_tree_sum's sizes: one value, one window plus one, config 4's unary
 # and constraint totals, a million
 TREE_SIZES = (1, 33, 100_000, 199_996, 1_000_000)
@@ -618,9 +677,10 @@ def phase_kernels(c4, c6, c7):
     main path's shapes (config 4), the small cases (D = 2..20) and the
     ragged shape, the min-plus kernels with a float32 and with a bf16
     plane; ``xla_tree_sum``'s sum sites (``_tree_sum_row``) on configs 4,
-    6 and 7.  Each timed at the main path's shape.  Returns the
-    kernel rows by name and, by kernel, the config-4 operand sets the
-    float32 min-plus kernels were timed on."""
+    6 and 7; ``branch_bound`` (``_branch_bound_row``).  Each timed at the
+    main path's shape.  Returns the kernel rows by name and, by kernel,
+    the operand sets the float32 min-plus kernels were timed on (config
+    4) and the chip cell's SyncBB search."""
     import torch
 
     from pydcop_tpu_torch.compile import hopper_kernels as hk
@@ -678,8 +738,27 @@ def phase_kernels(c4, c6, c7):
         )
     rows["xla_tree_sum"] = _tree_sum_row(c4, c6, c7)
     emit({"phase": "kernel_row", **rows["xla_tree_sum"]})
+    small, cell = (compile_bb(spec) for spec in (BB_SMALL, BB_CELL))
+    rows["branch_bound"] = _branch_bound_row(small, cell)
+    emit({"phase": "kernel_row", **rows["branch_bound"]})
+    from pydcop_tpu_torch.algorithms._branch_bound import DEFAULT_MAX_ITERS
+
+    timed_sets["branch_bound"] = [
+        [*dict(_bb_searches(cell))["syncbb"], DEFAULT_MAX_ITERS]
+    ]
     emit({"phase": "fan_in", **fan_in_check(c4)})
     return rows, timed_sets
+
+
+def compile_bb(spec):
+    """The compiled soft coloring of ``generate_graph_coloring(*spec)``."""
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    n, d, kw = spec
+    return compile_dcop(generate_graph_coloring(n, d, **kw))
 
 
 def _check_equal(name, kernel, plain, operands):
@@ -886,7 +965,13 @@ def _launcher(library, name):
 
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
-    fn = getattr(ctypes.CDLL(str(library)), f"{name}_launch")
+    lib = ctypes.CDLL(str(library))
+    if name == "branch_bound":
+        def call(*args):
+            *ops, max_iters = args
+            return hk.launch_branch_bound(lib, tuple(ops), max_iters)
+        return call
+    fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
     if name == "ell_minplus":
         fn.argtypes = list(hk._ELL_MINPLUS_ARGS)
@@ -917,21 +1002,24 @@ def _launcher(library, name):
 
 
 def phase_against(other: Path, timed_sets):
-    """Another checkout's float32 min-plus kernels (built from ``other``)
-    against this one's on the same config-4 operand sets: equal outputs,
-    then times in turns, theirs, ours, ours, theirs."""
+    """Another checkout's kernels (built from ``other``: the float32
+    min-plus kernels and, where its source has one, ``branch_bound``)
+    against this one's on the same operand sets: equal outputs, then
+    times in turns, theirs, ours, ours, theirs."""
     import torch
 
     from pydcop_tpu_torch.compile import _build
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
     pkg = other / "pydcop_tpu_torch"
+    names = [n for n in timed_sets if (pkg / "csrc" / f"{n}.cu").is_file()]
     t0 = time.perf_counter()
     libs = _build.build_all(
-        list(timed_sets), csrc=pkg / "csrc", build_dir=pkg / "_build"
+        names, csrc=pkg / "csrc", build_dir=pkg / "_build"
     )
     build_s = time.perf_counter() - t0
-    for name, sets in timed_sets.items():
+    for name in names:
+        sets = timed_sets[name]
         theirs, ours = _launcher(libs[name], name), getattr(hk, name)
         got, want = theirs(*sets[0]), ours(*sets[0])
         torch.cuda.synchronize()
@@ -945,7 +1033,11 @@ def phase_against(other: Path, timed_sets):
                  ("theirs", theirs)]
         times = {"theirs": [], "ours": []}
         for who, fn in order:
-            times[who].append(time_cuda_ms(fn, sets))
+            times[who].append(
+                # a whole search a call: events around direct launches
+                _events_ms(functools.partial(fn, *sets[0]), 3)
+                if name == "branch_bound" else time_cuda_ms(fn, sets)
+            )
         emit({
             "phase": "against", "kernel": name, "other": str(other),
             "build_s": build_s, "equal": True, "order": [w for w, _ in order],
@@ -1486,6 +1578,307 @@ def phase_dpop_wide():
         del compiled, res
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def _events_ms(fn, reps: int) -> float:
+    """Median device time of ``fn()`` between CUDA events, after one
+    warm-up call: for calls long enough (a whole search) that the launch
+    does not count."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _bb_searches(compiled):
+    """(name, operands on the card) of the two searches of ``compiled``:
+    SyncBB's (lexical order) and NCBB's (the pseudo-tree's DFS order,
+    seeded with its greedy assignment)."""
+    import numpy as np
+    import torch
+
+    from pydcop_tpu_torch.algorithms import _branch_bound, ncbb
+    from pydcop_tpu_torch.algorithms.dpop import _Tree
+
+    tree = _Tree(compiled)
+    cuda = torch.device("cuda")
+    return [
+        ("syncbb", _branch_bound._operands(
+            compiled, np.arange(compiled.n_vars), None, cuda)),
+        ("ncbb", _branch_bound._operands(
+            compiled, np.asarray(tree.topo), ncbb._greedy_init(compiled, tree),
+            cuda)),
+    ]
+
+
+def branch_bound_bytes_ops(ops, steps: int):
+    """(bytes, ops) of one search: each operand read once, the result
+    written once; per step the candidate's K attachment adds and three
+    more (unary, prefix, bound)."""
+    unary = ops[0]
+    k = ops[2].shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in ops)
+    nbytes += (unary.shape[0] + 3) * 4
+    return nbytes, steps * (k + 3)
+
+
+def _events_call(fn):
+    """``fn()``'s result and its device time in ms between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _branch_bound_row(small, cell):
+    """``branch_bound`` against its plain version on the card, exactly
+    (best, ub's bits, steps, completion), on SyncBB's and NCBB's
+    searches: of the 16-variable coloring, capped at 5 steps and
+    complete, and of the chip cell (24 variables: the operands the main
+    path gives the kernel), capped at BB_CELL_CHECK_CAPS.  Timed: the
+    kernel on SyncBB's complete 16-variable search beside the plain
+    step's checked call on it (the same inputs), and the kernel on the
+    chip cell's two searches, each beside its bounds: bytes and
+    operations, and the latency of three dependent shared-memory loads a
+    step."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms._branch_bound import DEFAULT_MAX_ITERS
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    checked = {}
+    plain_ms = None
+    for problem, caps in ((small, (5, DEFAULT_MAX_ITERS)),
+                          (cell, BB_CELL_CHECK_CAPS)):
+        for algo, ops in _bb_searches(problem):
+            n_vars = ops[0].shape[0]
+            for max_iters in caps:
+                got = hk.branch_bound(*ops, max_iters)
+                want, ms = _events_call(
+                    lambda: hk.branch_bound_plain(*ops, max_iters)
+                )
+                equal = torch.equal(got, want)
+                checked[f"{algo}_{n_vars}_{max_iters}"] = {
+                    "n_vars": n_vars, "slots": ops[2].shape[1],
+                    "steps": int(got[-2]), "complete": bool(got[-1]),
+                    "equal": equal, "plain_ms": ms,
+                }
+                check(equal, f"branch_bound != its plain version: {algo}, "
+                      f"{n_vars} variables, max_iters {max_iters}")
+                if problem is small and algo == "syncbb" and (
+                    max_iters == DEFAULT_MAX_ITERS
+                ):
+                    plain_ms = ms
+    emit({"phase": "kernels", "kernel": "branch_bound", "shapes": checked})
+    clock = sm_clock_hz()
+
+    def timed(ops, reps):
+        out = hk.branch_bound(*ops, DEFAULT_MAX_ITERS)
+        steps = int(out[-2])
+        ms = _events_ms(lambda: hk.branch_bound(*ops, DEFAULT_MAX_ITERS),
+                        reps)
+        nbytes, n_ops = branch_bound_bytes_ops(ops, steps)
+        return steps, ms, nbytes, n_ops
+
+    small_ops = dict(_bb_searches(small))["syncbb"]
+    steps, kernel_ms, nbytes, n_ops = timed(small_ops, 5)
+    latency_ms = 1e3 * steps * 3 * SMEM_LOAD_CYCLES / clock
+    cells = {}
+    for algo, ops in _bb_searches(cell):
+        c_steps, ms, c_bytes, c_ops = timed(ops, 3)
+        bound_ms, bound_by = _bound(c_bytes, c_ops)
+        c_latency = 1e3 * c_steps * 3 * SMEM_LOAD_CYCLES / clock
+        cells[algo] = {
+            "n_vars": ops[0].shape[0], "slots": ops[2].shape[1],
+            "steps": c_steps, "ms": ms, "ns_per_step": 1e6 * ms / c_steps,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "latency_bound_ms": c_latency,
+            "latency_share": c_latency / ms,
+        }
+    return _kernel_row(
+        "branch_bound", "branch_bound",
+        "none: the port's own kernel (the DFS that the JAX package runs as "
+        "the lax.while_loop _bb_loop, pydcop_tpu/algorithms/"
+        "_branch_bound.py:95)",
+        0.0, kernel_ms, plain_ms, nbytes, n_ops, library_ms=None,
+        steps=steps, ns_per_step=1e6 * kernel_ms / steps,
+        plain_ns_per_step=1e6 * plain_ms / steps,
+        latency_bound_ms=latency_ms,
+        latency_bound=(
+            f"{steps} steps x 3 dependent shared-memory loads x "
+            f"{SMEM_LOAD_CYCLES} cycles at {clock / 1e6:.0f} MHz"
+        ),
+        sm_clock_mhz=clock / 1e6, cell=cells,
+    )
+
+
+def phase_branch_bound():
+    """SyncBB and NCBB on the chip cell through their entry points, cold
+    and warm: one ``branch_bound`` launch a solve (counted from zero
+    around each), the JAX package's cost, steps, messages and assignment,
+    FINISHED.  Returns the warm SyncBB solve's launches."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    n, d, kw = BB_CELL
+    compiled = compile_dcop(generate_graph_coloring(n, d, **kw))
+    launches = {}
+    for algo in ("syncbb", "ncbb"):
+        mod = load_algorithm_module(algo)
+        out = {"phase": f"{algo}_24", "n_vars": compiled.n_vars,
+               "n_constraints": compiled.n_constraints}
+        results = []
+        for which in ("cold", "warm"):
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mod.solve(compiled, {}, device="cuda")
+            out[f"{which}_s"] = time.perf_counter() - t0
+            launches[algo] = _launch_counts()
+            check(launches[algo] == {**{k: 0 for k in KERNEL_WRAPPERS},
+                                     "branch_bound": 1},
+                  f"{algo}: launches {launches[algo]}, want one DFS")
+            results.append(res)
+        res = results[0]
+        check(results[1] == res, f"{algo}: the warm solve differs")
+        got = (res.cost, res.violations, res.cycles, res.msg_count)
+        check(got == BB_JAX[algo] and res.status == "FINISHED",
+              f"{algo}: {got} {res.status}, the JAX package gives "
+              f"{BB_JAX[algo]}")
+        values = "".join(
+            str(int(i)) for i in compiled.indices_from_assignment(
+                res.assignment)
+        )
+        check(values == BB_JAX_VALUES, f"{algo}: not JAX's assignment")
+        out.update(
+            cost=res.cost, violations=res.violations, cycle=res.cycles,
+            msg_count=res.msg_count, msg_size=res.msg_size,
+            status=res.status, recorded_assignment=True,
+            launches=launches[algo],
+        )
+        emit(out)
+    return launches["syncbb"]["branch_bound"]
+
+
+def phase_dynamic_config4():
+    """The resident DynamicMaxSum session on config 4's relation objects,
+    on the card and on the CPU: run(30), run(30), the change of
+    DYNAMIC_CHANGE, run(30).  Each run on the card equals the CPU's; the
+    costs are the JAX package's (the third within rel 1e-6, see
+    DYNAMIC_JAX).  On the card, launches are counted from zero around each
+    run (``factor_arity2_minplus`` once an iteration replayed, one more in
+    the cold run's warm-up), the first run captures the session's two
+    graphs, the others nothing, and the graph cache keeps its size."""
+    from pydcop_tpu_torch.algorithms.maxsum_dynamic import DynamicMaxSum
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.dcop.relations import constraint_from_str
+
+    n, d, kw = OBJECTS_100K
+    runs, setup = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        dcop = generate_graph_coloring(n, d, **kw)
+        setup[f"{device}_generate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        session = DynamicMaxSum(dcop, {"damping": 0.7}, seed=7,
+                                device=device)
+        setup[f"{device}_session_s"] = time.perf_counter() - t0
+        steps = []
+        for i in range(3):
+            step = {}
+            if i == 2:
+                name, expr, scope = DYNAMIC_CHANGE
+                t0 = time.perf_counter()
+                session.change_factor_function(name, constraint_from_str(
+                    name, expr, [dcop.variables[v] for v in scope]
+                ))
+                step["change_s"] = time.perf_counter() - t0
+            _zero_launches()
+            engine = _engine_counts()
+            t0 = time.perf_counter()
+            step["result"] = session.run(30)
+            step["run_s"] = time.perf_counter() - t0
+            step["counts"] = {
+                k: v - engine[k] for k, v in _engine_counts().items()
+            }
+            step["counts"].update(_launch_counts())
+            step["graph_cache"] = len(
+                session._graph_home.__dict__.get("_device_consts", {})
+            )
+            steps.append(step)
+        session.close()
+        runs[device] = steps
+    out = {"phase": "dynamic_config4", "runs": []}
+    for i, (card, cpu, pin) in enumerate(
+        zip(runs["cuda"], runs["cpu"], DYNAMIC_JAX)
+    ):
+        res, counts = card["result"], card["counts"]
+        check(res == cpu["result"],
+              f"dynamic run {i}: card {res.cost} vs cpu "
+              f"{cpu['result'].cost}")
+        check(res.cycles == 30 * (i + 1) and res.violations == 0,
+              f"dynamic run {i}: {res.cycles} cycles, {res.violations} "
+              "violations")
+        check(res.cost == pin if i < 2 else (
+                  res.cost == DYNAMIC_PORT_THIRD
+                  and abs(res.cost - pin) <= 1e-6 * abs(pin)),
+              f"dynamic run {i}: cost {res.cost}, the JAX package {pin}")
+        captured = counts["captures"]
+        check(captured == (2 if i == 0 else 0),
+              f"dynamic run {i}: {captured} captures")
+        warm_up = 1 if captured else 0
+        want = {
+            "factor_arity2_minplus": counts["iterations"] + warm_up,
+            "xla_tree_sum": 2 * (counts["iterations"] + warm_up)
+            + 1 + warm_up,
+        }
+        got = {k: counts[k] for k in want}
+        check(got == want, f"dynamic run {i}: launches {got}, want {want}")
+        check(card["graph_cache"] == runs["cuda"][0]["graph_cache"],
+              f"dynamic run {i}: the graph cache grew")
+        out["runs"].append({
+            "cost": res.cost, "jax_cost": pin, "cost_equal_jax": res.cost == pin,
+            "cycle": res.cycles, "msg_count": res.msg_count,
+            "card_run_s": card["run_s"], "cpu_run_s": cpu["run_s"],
+            "change_s": card.get("change_s"), "counts": counts,
+            "graph_cache": card["graph_cache"],
+        })
+    out.update(setup, same_as_cpu=True)
+    emit(out)
+    return out["runs"][1]["counts"]["factor_arity2_minplus"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -1493,6 +1886,7 @@ def main() -> int:
         help="checkouts of other commits whose kernels to time against",
     )
     args = ap.parse_args()
+    t_script = time.perf_counter()
     if not (ROOT / "pydcop_tpu_torch" / "compile").is_dir():
         print(
             "chip_smoke.py: pydcop_tpu_torch/ is not beside this script; "
@@ -1638,8 +2032,22 @@ def main() -> int:
                 DSA_HARD80_JAX_VALUES if name == "dsa_hard80" else None
             ),
         )
+    # A-DSA, DSA-tuto and A-MaxSum (edges layout: its domain sum is a
+    # second xla_tree_sum an iteration)
+    for name, algo, params, pinned in ASYNC:
+        per_cycle, per_start = counts(maxsum=algo == "amaxsum")
+        cold, _ = phase_solve(
+            name, c4, (algo, params, 30, 7), per_cycle, per_start=per_start,
+            recorded=pinned,
+        )
+        check(cold.msg_count == ASYNC_MSG_COUNT,
+              f"{name}: {cold.msg_count} messages")
     phase_timeouts(c4, ell4)
     del c4, c2, mixed, problems, breakout
+    rows["factor_arity2_minplus"]["dynamic_launches"] = (
+        phase_dynamic_config4()
+    )
+    rows["branch_bound"]["launches"] = phase_branch_bound()
     try:
         import yaml  # noqa: F401  (the YAML loader's one dependency)
     except ImportError as e:
@@ -1651,6 +2059,7 @@ def main() -> int:
     phase_dpop_wide()
     for name, row in rows.items():
         check(row["launches"], f"{name}: no launch on its path")
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     emit({"kernels": [rows[name] for name in KERNEL_ROWS]})
     print(smi, flush=True)
     emit({

@@ -21,6 +21,7 @@ __all__ = [
     "check_param_value",
     "load_algorithm_module",
     "prepare_algo_params",
+    "warn_inert_params",
 ]
 
 
@@ -163,6 +164,35 @@ class SolveResult(NamedTuple):
     msg_size: int
     cost_curve: Optional[List[float]] = None
     status: str = "FINISHED"
+
+
+def warn_inert_params(
+    given_params: Optional[Dict[str, Any]],
+    inert: Dict[str, str],
+    params_defs: Sequence[AlgoParameterDef] = (),
+) -> None:
+    """Warn when a parameter that an algorithm accepts only for
+    compatibility with the reference is given a value other than its
+    default.  Modules declare such parameters in ``inert_params: Dict[name,
+    reason]``; a default value (also the string form of one) asks for
+    nothing the algorithm fails to deliver and stays silent."""
+    import warnings
+
+    defs = {p.name: p for p in params_defs}
+    for name in sorted(set(given_params or {}) & set(inert)):
+        if name in defs:
+            try:
+                value = check_param_value(given_params[name], defs[name])
+            except ValueError:
+                value = given_params[name]  # invalid: prepare will raise
+            if value == defs[name].default_value:
+                continue
+        warnings.warn(
+            f"parameter {name!r} is accepted for reference compatibility "
+            f"but has no effect here: {inert[name]}",
+            UserWarning,
+            stacklevel=3,
+        )
 
 
 def load_algorithm_module(algo_name: str):

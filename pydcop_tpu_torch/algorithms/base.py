@@ -38,8 +38,17 @@ masked arithmetic, so they follow one trajectory.
 ``run_cycles`` counts, as the kernels count their launches, its graph
 captures, chunk replays, the iterations those replays ran (live or
 masked) and its host syncs in attributes (``captures``, ``replays``,
-``iterations``, ``host_syncs``).  Checkpoints and the pulse health hooks of
-the JAX engine are not ported.
+``iterations``, ``host_syncs``).  The pulse health hooks of the JAX
+engine are not ported.
+
+A resident session (``maxsum_dynamic.DynamicMaxSum``) runs the engine
+again and again on the same problem: it resumes from its own state, which
+it passes as a constant, and hands the same tensors in as ``state_into``,
+into which ``run_cycles`` copies the final state.  The session keeps its
+state, its tables and its unary plane in tensors it owns and refreshes
+them in place (``assign_``), so its graphs are keyed by the same tensors
+on every run and a warm run captures nothing.  A solve without
+``state_into`` copies no state.
 """
 
 from __future__ import annotations
@@ -59,8 +68,9 @@ from ..random import PRNGKey, fold_in, uniform
 from . import SolveResult
 
 __all__ = [
-    "TIMEOUT_CHUNK", "MAX_CHUNK", "cached_const", "run_cycles", "finalize",
-    "extract_values", "neighbor_pairs_dev", "pad_rows_np",
+    "TIMEOUT_CHUNK", "MAX_CHUNK", "apply_noise", "assign_", "cached_const",
+    "run_cycles", "finalize", "extract_values", "neighbor_pairs_dev",
+    "pad_rows_np",
 ]
 
 # chunk schedule: start small for early clock granularity, grow
@@ -210,6 +220,53 @@ def _noised(dev: DeviceDCOP, key, level) -> DeviceDCOP:
     return dataclasses.replace(dev, unary=dev.unary + noise)
 
 
+def apply_noise(
+    compiled: CompiledDCOP, dev: DeviceDCOP, seed: int, level: float
+) -> DeviceDCOP:
+    """``dev`` with the tie-breaking noise of a ``seed`` added to its unary
+    plane, eagerly: the same draw, and the same bits, as ``run_cycles``
+    adds in its prologue for ``noise=level`` (a resident session noises
+    once, then runs the engine without noise).  ``compiled`` is the
+    problem ``dev`` was made from; the draw has its ``n_vars`` rows."""
+    if not level:
+        return dev
+    if dev.n_vars != compiled.n_vars:
+        raise ValueError(
+            f"dev has {dev.n_vars} variables, the problem {compiled.n_vars}"
+        )
+    device = dev.unary.device
+    return _noised(
+        dev, torch.tensor(PRNGKey(seed), dtype=torch.int64, device=device),
+        torch.tensor(level, dtype=torch.float32, device=device),
+    )
+
+
+def assign_(dst, src) -> None:
+    """Copy every tensor of the tree ``src`` into the tensor at the same
+    place of ``dst``, in place: a resident session's refresh, which keeps
+    the tensors its captured graphs read.  The trees must have the same
+    structure, shapes and dtypes; other leaves must be equal."""
+    dst_leaves, src_leaves = _flatten(dst, []), _flatten(src, [])
+    if len(dst_leaves) != len(src_leaves):
+        raise ValueError(
+            f"{len(src_leaves)} leaves do not fit {len(dst_leaves)}"
+        )
+    for d, s in zip(dst_leaves, src_leaves):
+        if isinstance(d, torch.Tensor):
+            if (
+                not isinstance(s, torch.Tensor)
+                or d.shape != s.shape or d.dtype != s.dtype
+            ):
+                raise ValueError(
+                    f"{getattr(s, 'shape', s)} does not fit the tensor of "
+                    f"shape {tuple(d.shape)} and dtype {d.dtype}"
+                )
+            if d is not s:
+                d.copy_(s)
+        elif d != s:
+            raise ValueError(f"{s!r} does not fit {d!r}")
+
+
 def _prologue(
     solver: _Solver, dev: DeviceDCOP, consts: Tuple, key: torch.Tensor,
     level: torch.Tensor,
@@ -334,6 +391,10 @@ class _Eager:
         """(cycles run, stability counter)."""
         return int(self.carry.ran), int(self.carry.stable)
 
+    def state(self):
+        """The final solver state: this solve's own tensors."""
+        return self.carry.state
+
     def curve(self) -> np.ndarray:
         return torch.cat(self.curves).cpu().numpy() if self.curves else (
             np.zeros(0, dtype=np.float32)
@@ -437,6 +498,11 @@ class _Graphs:
         ran, stable = self.packed_buf[-3:-1].tolist()
         return ran, stable
 
+    def state(self):
+        """The final solver state: the carry buffers, which the next solve
+        overwrites, and the constants it passed through."""
+        return self.carry_in.state
+
     def curve(self) -> np.ndarray:
         return torch.cat(self.curves).cpu().numpy() if self.curves else (
             np.zeros(0, dtype=np.float32)
@@ -501,6 +567,7 @@ def run_cycles(
     timeout: Optional[float] = None,
     consts: Tuple = (),
     noise: float = 0.0,
+    state_into: Any = None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray], Dict[str, Any]]:
     """Drive a solver on ``dev``, the device form of ``compiled``.
 
@@ -513,7 +580,10 @@ def run_cycles(
     else the best seen), the per-cycle cost curve (``collect_curve``,
     which turns the stability exit off) and extras: ``best_cost``
     (min-form, on the noised costs), ``cycles`` (cycles run),
-    ``cycles_to_best`` and ``timed_out``.
+    ``cycles_to_best``, ``timed_out`` and, with ``state_into`` (a state
+    tree of the solver's structure, shapes and dtypes), ``state``: the
+    final solver state copied into ``state_into``, which no later solve
+    overwrites.  Without it no state is copied or returned.
 
     ``convergence(dev, old_state, new_state) -> bool tensor``: the solve
     stops stepping after ``same_count`` consecutive stable cycles.
@@ -558,6 +628,9 @@ def run_cycles(
         "cycles_to_best": out["best_cycle"],
         "timed_out": timed_out,
     }
+    if state_into is not None:
+        assign_(state_into, runner.state())
+        extras["state"] = state_into
     values = out["final"] if return_final else out["best"]
     curve = runner.curve()[:out["ran"]] if collect_curve else None
     return values, curve, extras

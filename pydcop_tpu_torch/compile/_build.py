@@ -32,7 +32,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: every kernel source of the package, by name (``csrc/<name>.cu``)
-KERNELS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum")
+KERNELS = (
+    "ell_minplus", "factor_arity2_minplus", "xla_tree_sum", "branch_bound",
+)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -38,6 +38,14 @@ slot gathers ``v2f_t[:, edge_ids[:, s]]``, which the TPU path ran as XLA
 gathers outside its kernel, into the kernel, and makes one pass over the
 table for both output planes.  See the source for the rest.
 
+``branch_bound`` (``csrc/branch_bound.cu``) is the port's own kernel too:
+the depth-first branch and bound of SyncBB and NCBB, the whole search in
+one launch of one thread block (``_bb_loop`` of the JAX package's
+``algorithms/_branch_bound.py`` is a ``lax.while_loop``, not a Pallas
+kernel).  It is bound by the latency of its dependent steps.  Its plain
+version runs the same step in PyTorch, 256 masked steps between looks at
+the depth, as the JAX loop does.
+
 ``xla_tree_sum`` (``csrc/xla_tree_sum.cu``) is the port's own kernel, not
 a TPU kernel's: the float32 sums whose order decides a result, in the
 order XLA's CPU compiler gives the JAX package (``xla_tree_levels``; the
@@ -62,6 +70,8 @@ import torch
 from . import _build
 
 __all__ = [
+    "branch_bound",
+    "branch_bound_plain",
     "bucket_costs_plain",
     "capture_tally",
     "count_replay",
@@ -81,12 +91,17 @@ __all__ = [
 
 
 @functools.lru_cache(maxsize=None)
+def _library(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built at first use."""
+    return ctypes.CDLL(str(_build.build_all((name,))[name]))
+
+
+@functools.lru_cache(maxsize=None)
 def _c_function(name: str, argtypes: tuple, variant: str = ""):
     """``<name><variant>_launch`` of ``csrc/<name>.cu``, built at first
     use and loaded with ctypes; every launch function returns
     cudaGetLastError()."""
-    lib = ctypes.CDLL(str(_build.build_all((name,))[name]))
-    fn = getattr(lib, f"{name}{variant}_launch")
+    fn = getattr(_library(name), f"{name}{variant}_launch")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -669,3 +684,192 @@ def _launch_fan_in(spans, unary_t, f2v_t, device):
          unary_t.data_ptr(), n_vars, len(spans), _span_table(tuple(spans)),
          tot.data_ptr(), v2f.data_ptr(), *_scratch_args(scratch, tickets))
     return tot, v2f
+
+
+# ---------------------------------------------------------------------------
+# branch_bound: the depth-first search of SyncBB and NCBB
+# ---------------------------------------------------------------------------
+
+#: DFS steps the plain version advances between looks at the depth (the JAX
+#: loop's _WHILE_CHUNK)
+BB_CHUNK = 256
+# the shared memory one block of the card can have (227 KB)
+_MAX_SHARED_BYTES = 232_448
+
+
+def _bb_step_plain(ops, s, max_iters: int):
+    """One masked DFS step of ``_bb_loop`` (a dead step, past the end or
+    the step cap, keeps the state).  Only the candidate's attachment sum
+    decides; it is summed over the slots in XLA's order
+    (:func:`xla_tree_sum_plain`)."""
+    unary, dsize, att_table, att_other, att_mask, lb_suffix = ops
+    depth, ptr, assign, cost_prefix, ub, best, iters = s
+    n, d = unary.shape
+    k = att_table.shape[1]
+    live = (depth >= 0) & (iters < max_iters)
+    row = depth.clamp(min=0).view(1)
+    v = ptr[row][0]
+    exhausted = v >= dsize[row][0]
+    other_vals = assign[att_other[row][0].long()].long()
+    picked = att_table[row][0][torch.arange(k, device=v.device), other_vals]
+    summed = xla_tree_sum_plain(
+        torch.where(att_mask[row][0][:, None], picked, 0.0).T
+    )
+    delta = unary[row][0] + summed
+    cost_new = cost_prefix[row][0] + delta[v.clamp(max=d - 1).view(1)][0]
+    feasible = ~exhausted & (cost_new + lb_suffix[row + 1][0] < ub)
+    is_last = row[0] == n - 1
+    here = torch.arange(n, device=v.device) == row
+    ptr = torch.where(here, torch.where(exhausted, 0, v + 1), ptr)
+    assign = torch.where(here & feasible, v, assign)
+    cost_prefix = torch.where(
+        (torch.arange(n + 1, device=v.device) == row + 1) & feasible,
+        cost_new, cost_prefix,
+    )
+    improved = feasible & is_last
+    ub = torch.where(improved, cost_new, ub)
+    best = torch.where(improved, assign, best)
+    depth_new = torch.where(
+        exhausted, depth - 1,
+        torch.where(feasible & ~is_last, depth + 1, depth),
+    )
+    new = (depth_new, ptr, assign, cost_prefix, ub, best, iters + 1)
+    return tuple(torch.where(live, b, a) for a, b in zip(s, new))
+
+
+def branch_bound_plain(
+    unary: torch.Tensor,  # [n, D] float32 unary costs by position
+    dsize: torch.Tensor,  # [n] int32 domain sizes by position
+    att_table: torch.Tensor,  # [n, K, D, D] float32 (slot, other, own)
+    att_other: torch.Tensor,  # [n, K] int32 position of the earlier var
+    att_mask: torch.Tensor,  # [n, K] bool
+    lb_suffix: torch.Tensor,  # [n + 1] float32 bound on the tail's cost
+    ub0: torch.Tensor,  # float32 scalar: the initial upper bound
+    best0: torch.Tensor,  # [n] int32 assignment achieving ub0 (or zeros)
+    max_iters: int,
+) -> torch.Tensor:
+    """The DFS of ``_bb_loop`` as PyTorch ops: steps in chunks of
+    ``BB_CHUNK``, the depth read by the host between chunks.  Returns the
+    int32 vector ``[best by position | ub's float32 bits | steps |
+    complete]``."""
+    n = unary.shape[0]
+    dev = unary.device
+    ops = (unary, dsize, att_table, att_other, att_mask, lb_suffix)
+    s = (
+        torch.zeros((), dtype=torch.int64, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.zeros(n + 1, dtype=torch.float32, device=dev),
+        ub0.to(torch.float32),
+        best0.to(torch.int32),
+        torch.zeros((), dtype=torch.int64, device=dev),
+    )
+    while True:
+        for _ in range(BB_CHUNK):
+            s = _bb_step_plain(ops, s, max_iters)
+        if not (int(s[0]) >= 0 and int(s[6]) < max_iters):
+            break
+    depth, _, _, _, ub, best, iters = s
+    return torch.cat([
+        best, ub.reshape(1).view(torch.int32),
+        iters.to(torch.int32).reshape(1),
+        (depth < 0).to(torch.int32).reshape(1),
+    ])
+
+
+# unary, dsize, att_table, att_other, att_mask, lb_suffix, ub0, best0, out,
+# n, k, d, max_iters, tables_shared, stream
+_BRANCH_BOUND_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5 + (
+    ctypes.c_void_p,
+)
+
+
+def _bb_shared_bytes(
+    library: ctypes.CDLL, n: int, k: int, d: int, tables_shared: bool
+) -> int:
+    fn = library.branch_bound_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(n, k, d, int(tables_shared))
+
+
+def launch_branch_bound(
+    library: ctypes.CDLL, tensors: tuple, max_iters: int
+) -> torch.Tensor:
+    """One launch of ``branch_bound_launch`` of ``library`` (a build of
+    ``csrc/branch_bound.cu``) on checked CUDA operands, on the current
+    stream: the attachment tables in shared memory when they fit.
+    Returns the output vector; counts nothing."""
+    unary, att_table = tensors[0], tensors[2]
+    n, d = unary.shape
+    k = att_table.shape[1]
+    shared = _bb_shared_bytes(library, n, k, d, True) <= _MAX_SHARED_BYTES
+    if not shared and (
+        _bb_shared_bytes(library, n, k, d, False) > _MAX_SHARED_BYTES
+    ):
+        raise ValueError(
+            f"branch_bound: the search state of {n} variables does not fit "
+            "in one block's shared memory"
+        )
+    fn = library.branch_bound_launch
+    fn.argtypes = list(_BRANCH_BOUND_ARGS)
+    fn.restype = ctypes.c_int
+    out = torch.empty(n + 3, dtype=torch.int32, device=unary.device)
+    with torch.cuda.device(unary.device):
+        rc = fn(
+            *(t.data_ptr() for t in tensors), out.data_ptr(), n, k, d,
+            max_iters, int(shared),
+            torch.cuda.current_stream(unary.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"branch_bound launch failed: error {rc}")
+    return out
+
+
+def branch_bound(
+    unary: torch.Tensor,
+    dsize: torch.Tensor,
+    att_table: torch.Tensor,
+    att_other: torch.Tensor,
+    att_mask: torch.Tensor,
+    lb_suffix: torch.Tensor,
+    ub0: torch.Tensor,
+    best0: torch.Tensor,
+    max_iters: int,
+) -> torch.Tensor:
+    """The whole depth-first branch and bound over variables in a fixed
+    order: the steps of ``_bb_loop`` until the search is complete or
+    ``max_iters`` steps ran.  On CPU tensors this is
+    :func:`branch_bound_plain`; on CUDA tensors one launch of
+    ``csrc/branch_bound.cu`` (one thread block; the attachment tables in
+    shared memory when they fit) on the current stream.  Returns the
+    int32 vector ``[best by position | ub's float32 bits | steps |
+    complete]``."""
+    tensors = (unary, dsize, att_table, att_other, att_mask, lb_suffix,
+               ub0, best0)
+    if all(t.device.type == "cpu" for t in tensors):
+        return branch_bound_plain(*tensors, max_iters)
+    device = _on_cuda(tensors, "branch_bound")
+    n, d = unary.shape
+    k = att_table.shape[1]
+    _check(unary, "unary", torch.float32, (n, d), device)
+    _check(dsize, "dsize", torch.int32, (n,), device)
+    _check(att_table, "att_table", torch.float32, (n, k, d, d), device)
+    _check(att_other, "att_other", torch.int32, (n, k), device)
+    _check(att_mask, "att_mask", torch.bool, (n, k), device)
+    _check(lb_suffix, "lb_suffix", torch.float32, (n + 1,), device)
+    _check(ub0, "ub0", torch.float32, (), device)
+    _check(best0, "best0", torch.int32, (n,), device)
+    if not 0 <= max_iters < 2 ** 31:
+        raise ValueError(f"max_iters {max_iters} does not fit in int32")
+    if k > XLA_WINDOW * XLA_WINDOW:
+        raise ValueError(
+            f"branch_bound takes at most {XLA_WINDOW ** 2} attachments a "
+            f"position, got {k}"
+        )
+    out = launch_branch_bound(_library("branch_bound"), tensors, max_iters)
+    _count_launch(branch_bound)
+    return out
+
+
+branch_bound.launches = 0

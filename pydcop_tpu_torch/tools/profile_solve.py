@@ -4,8 +4,9 @@
         [--config 4|6|3|2|5|7|hard10k] [--reps N] [--layout LAYOUT]
         [--precision f32|bf16] [--trace FILE] [--resources N]
 
-``--algo`` is ``maxsum`` (default), ``dsa``, ``mgm``, ``mgm2``,
-``mixeddsa``, ``dba``, ``gdba`` or ``dpop``.  ``--config`` picks the
+``--algo`` is ``maxsum`` (default), ``amaxsum``, ``dsa``, ``adsa``,
+``dsatuto``, ``mgm``, ``mgm2``, ``mixeddsa``, ``dba``, ``gdba`` or
+``dpop``.  ``--config`` picks the
 problem and run of a bench config: 4 (100k-variable scale-free coloring,
 30 cycles, seed 7; MaxSum with damping 0.7), 6 (the same at 1,000,000
 variables), 3 (the 100x100 Ising grid of
@@ -17,7 +18,8 @@ variables, 100 cycles, seed 0); DPOP runs config 5, meeting scheduling
 with 8 slots, 30 events of up to 2 resources, seed 5, and
 ``--resources`` resources (30, the default, is bench config 5; fewer
 share more and widen the tree).  The local-search solvers run their
-default params.  ``--layout`` and ``--precision`` are MaxSum's
+default params; A-MaxSum runs MaxSum's params of the config (it has no
+layouts).  ``--layout`` and ``--precision`` are MaxSum's
 ``layout`` (default ``auto``) and ``precision`` (default ``f32``).
 
 For DPOP, whose solve is one UTIL wave and not a cycle loop, the tool
@@ -236,8 +238,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--algo", default="maxsum",
-        choices=["maxsum", "dsa", "mgm", "mgm2", "mixeddsa", "dba", "gdba",
-                 "dpop"],
+        choices=["maxsum", "amaxsum", "dsa", "adsa", "dsatuto", "mgm",
+                 "mgm2", "mixeddsa", "dba", "gdba", "dpop"],
     )
     ap.add_argument(
         "--config", choices=sorted(CONFIGS) + ["5"], default="4"
@@ -261,10 +263,12 @@ def main(argv=None) -> dict:
         return out
     make, n_cycles, seed, maxsum_params = CONFIGS[args.config]
     mod = load_algorithm_module(args.algo)
-    params = (
-        dict(maxsum_params, layout=args.layout, precision=args.precision)
-        if args.algo == "maxsum" else {}
-    )
+    params = {
+        "maxsum": dict(
+            maxsum_params, layout=args.layout, precision=args.precision
+        ),
+        "amaxsum": dict(maxsum_params),
+    }.get(args.algo, {})
     compiled = make()
 
     def solve(p=params):

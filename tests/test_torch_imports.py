@@ -73,3 +73,29 @@ def test_to_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         to_device(_tiny_problem())
+
+
+@pytest.mark.parametrize(
+    "algo", ["adsa", "dsatuto", "amaxsum", "maxsum_dynamic", "syncbb", "ncbb"]
+)
+def test_every_solver_defaults_to_cuda_and_raises_without_it(
+    algo, monkeypatch
+):
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
+
+    mod = load_algorithm_module(algo)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.solve(_tiny_problem(), {}, n_cycles=3)
+
+
+def test_dynamic_session_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from pydcop_tpu_torch.algorithms.maxsum_dynamic import DynamicMaxSum
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
+
+    dcop = load_dcop_from_file(
+        str(ROOT / "tests" / "instances" / "graph_coloring.yaml")
+    )
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DynamicMaxSum(dcop)

@@ -263,6 +263,9 @@ def _eager_runner(compiled, solver, dev, consts):
         ("mixeddsa", {}),
         ("dba", {}),
         ("gdba", {"increase_mode": "R"}),
+        ("adsa", {"variant": "C"}),
+        ("dsatuto", {}),
+        ("amaxsum", {"damping": 0.7}),
     ],
 )
 def test_captured_chunks_equal_eager_chunks_on_card(algo, params,
@@ -504,3 +507,174 @@ def test_bf16_maxsum_on_the_card_like_the_cpu(layout):
     card = maxsum.solve(compiled, params, n_cycles=30, seed=7, device="cuda")
     cpu = maxsum.solve(compiled, params, n_cycles=30, seed=7, device="cpu")
     assert card == cpu
+
+
+# the DFS of SyncBB and NCBB: the 16-variable soft coloring of
+# chip_smoke.py's kernel check (25,872 SyncBB steps)
+BB_SMALL = (16, 3, dict(graph="random", p_edge=0.25, soft=True, seed=3))
+
+
+def _bb_compiled(spec=BB_SMALL):
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    n, d, kw = spec
+    return compile_dcop(generate_graph_coloring(n, d, **kw))
+
+
+def _bb_searches(compiled, device="cpu"):
+    """SyncBB's and NCBB's operands of ``compiled`` on ``device``."""
+    from pydcop_tpu_torch.algorithms import _branch_bound, ncbb
+    from pydcop_tpu_torch.algorithms.dpop import _Tree
+
+    tree = _Tree(compiled)
+    device = torch.device(device)
+    return {
+        "syncbb": _branch_bound._operands(
+            compiled, np.arange(compiled.n_vars), None, device),
+        "ncbb": _branch_bound._operands(
+            compiled, np.asarray(tree.topo),
+            ncbb._greedy_init(compiled, tree), device),
+    }
+
+
+def _dense_bb(n):
+    """A complete graph of ``n`` variables: n - 1 attachment slots at the
+    last position (20: three batches of the kernel's gather; 40: the
+    sum's windows of 32), tables of mixed magnitudes."""
+    from pydcop_tpu_torch.compile.direct import compile_from_edges
+
+    rng = np.random.default_rng(n)
+    edges = np.array([(i, j) for i in range(n) for j in range(i + 1, n)],
+                     dtype=np.int32)
+    table = (rng.random((len(edges), 3, 3)) * 10.0 ** rng.integers(
+        -3, 4, (len(edges), 1, 1))).astype(np.float32)
+    return compile_from_edges(n, 3, edges, table)
+
+
+def test_branch_bound_on_cpu_is_the_plain_version_and_uncounted():
+    ops = _bb_searches(_bb_compiled())["ncbb"]
+    before = hk.branch_bound.launches
+    got = hk.branch_bound(*ops, 10 ** 6)
+    assert torch.equal(got, hk.branch_bound_plain(*ops, 10 ** 6))
+    assert hk.branch_bound.launches == before
+    n = ops[0].shape[0]
+    assert got.dtype == torch.int32 and got.shape == (n + 3,)
+    assert (int(got[n + 1]), int(got[n + 2])) == (2296, 1)  # steps, done
+
+
+def test_branch_bound_refuses_other_devices():
+    ops = _bb_searches(_bb_compiled())["syncbb"]
+    with pytest.raises(ValueError):
+        hk.branch_bound(*[a.to("meta") for a in ops], 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables_shared", [True, False])
+def test_branch_bound_kernel_equals_plain_on_card(tables_shared,
+                                                  monkeypatch):
+    # the tables in shared memory, and (a budget too small for them) read
+    # from device memory: the same search, step for step
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    if not tables_shared:
+        sizes = hk._bb_shared_bytes
+        monkeypatch.setattr(
+            hk, "_bb_shared_bytes",
+            lambda lib, n, k, d, shared: (
+                10 ** 9 if shared else sizes(lib, n, k, d, 0)
+            ),
+        )
+    searches = _bb_searches(_bb_compiled(), "cuda")
+    for n in (20, 40):
+        searches[f"dense{n}"] = _bb_searches(_dense_bb(n), "cuda")["syncbb"]
+    for name, ops in searches.items():
+        for max_iters in (5, 3_000 if name.startswith("dense") else 10 ** 6):
+            before = hk.branch_bound.launches
+            got = hk.branch_bound(*ops, max_iters)
+            torch.cuda.synchronize()
+            assert hk.branch_bound.launches == before + 1
+            # best, ub's bits, steps, completion: exactly the plain DFS's
+            assert torch.equal(got, hk.branch_bound_plain(*ops, max_iters))
+
+
+@pytest.mark.cuda
+def test_branch_bound_checks_its_operands_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ops = list(_bb_searches(_bb_compiled(), "cuda")["syncbb"])
+    bad = list(ops)
+    bad[1] = ops[1].long()
+    with pytest.raises(TypeError):
+        hk.branch_bound(*bad, 10)
+    with pytest.raises(ValueError):
+        hk.branch_bound(*ops, 2 ** 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["syncbb", "ncbb"])
+def test_branch_and_bound_on_the_card_like_the_cpu(algo):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import importlib
+
+    mod = importlib.import_module(f"pydcop_tpu_torch.algorithms.{algo}")
+    compiled = _bb_compiled()
+    before = hk.branch_bound.launches
+    card = mod.solve(compiled, {}, device="cuda")
+    assert hk.branch_bound.launches == before + 1  # one launch a solve
+    assert card == mod.solve(compiled, {}, device="cpu")
+    capped = mod.solve(compiled, {"max_iters": 7}, device="cuda")
+    assert capped.status == "TIMEOUT"
+    assert capped == mod.solve(compiled, {"max_iters": 7}, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout, precision", [
+    ("lanes", "f32"), ("edges", "f32"), ("lanes", "bf16"),
+])
+def test_dynamic_session_on_the_card_like_the_cpu(layout, precision):
+    # the resident session: runs, a change, runs; the card equals the
+    # CPU, a warm run captures nothing, the lanes layout launches
+    # factor_arity2_minplus once an iteration
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from pydcop_tpu_torch.algorithms import base
+    from pydcop_tpu_torch.algorithms.maxsum_dynamic import DynamicMaxSum
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.dcop.relations import constraint_from_str
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        dcop = generate_graph_coloring(300, 3, "scalefree", m_edge=2, seed=9)
+        session = DynamicMaxSum(
+            dcop, {"layout": layout, "precision": precision, "damping": 0.7},
+            seed=2, device=device,
+        )
+        runs = []
+        for i in range(4):
+            if i == 2:
+                scope = list(dcop.constraints["cost_1"].dimensions)
+                session.change_factor_function("cost_1", constraint_from_str(
+                    "cost_1", f"4 if {scope[0].name} == {scope[1].name} "
+                    "else 0", scope,
+                ))
+            captures = base.run_cycles.captures
+            launches = hk.factor_arity2_minplus.launches
+            iterations = base.run_cycles.iterations
+            runs.append(session.run(20))
+            if device == "cuda":
+                assert base.run_cycles.captures - captures == (
+                    2 if i == 0 else 0
+                )
+                if layout == "lanes":
+                    assert hk.factor_arity2_minplus.launches - launches == (
+                        base.run_cycles.iterations - iterations
+                        + (1 if i == 0 else 0)
+                    )
+        results[device] = runs
+    assert results["cuda"] == results["cpu"]

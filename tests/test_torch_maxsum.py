@@ -240,9 +240,10 @@ def test_result_is_a_valid_assignment():
     )
 
 
-def _scripted_engine(costs, n_cycles, convergence=None):
+def _scripted_engine(costs, n_cycles, convergence=None, keep_state=False):
     """run_cycles over a one-variable problem whose unary costs are
-    ``costs``: init picks value 0, step k picks value k (mod len)."""
+    ``costs``: init picks value 0, step k picks value k (mod len).  With
+    ``keep_state`` the final state is copied into a state of its own."""
     from collections import namedtuple
     from types import SimpleNamespace
 
@@ -279,6 +280,7 @@ def _scripted_engine(costs, n_cycles, convergence=None):
     values, _, extras = run_cycles(
         SimpleNamespace(), dev, init, step, extract_values,
         n_cycles=n_cycles, convergence=convergence, return_final=False,
+        state_into=init(dev, None) if keep_state else None,
     )
     return values, extras
 
@@ -292,6 +294,12 @@ def test_anytime_best_is_strict_and_one_based():
         "best_cost": 2.0, "cycles": 5, "cycles_to_best": 4,
         "timed_out": False,
     }
+    # asked for, the final state (after 5 cycles), not the best one
+    _, extras = _scripted_engine(
+        [5.0, 3.0, 3.0, 4.0, 2.0], n_cycles=5, keep_state=True
+    )
+    state = extras["state"]
+    assert (state.values.tolist(), int(state.k)) == ([0], 5)
     # a tie with the incumbent never moves it: cost 3 first at cycle 1
     vals, extras = _scripted_engine([5.0, 3.0, 3.0], n_cycles=2)
     assert vals.tolist() == [1] and extras["cycles_to_best"] == 1
