@@ -59,7 +59,20 @@ captured CUDA graphs:
 - SyncBB and NCBB (``syncbb_24``, ``ncbb_24``) on a 24-variable soft
   coloring: one launch of the port's ``branch_bound`` kernel a solve
   (1,753,768 and 73,176 DFS steps), against the JAX package's pinned
-  result and assignment.
+  result and assignment;
+- the serving path (``serve``): bench config 8 (``serve_config8``: 32
+  DSA tenants in two shape buckets) through ``solve_batched`` in both
+  modes, cold and warm: each vmap tenant the bits of its card
+  ``solve_one`` and of the CPU's, the fused tenants the CPU's, their
+  summed cost the JAX package's; a warm batch captures nothing and
+  launches what one solo solve of its bucket launches; walls beside the
+  strict (``solve_one``) and API (``dsa.solve``) loops.  MaxSum on 32
+  grid colorings of 1,024 variables (``serve_maxsum_grid``, and 8 with
+  bf16 planes): ``ell_minplus`` once an iteration for all 32 tenants.
+  ``ServeServer`` in both modes and its HTTP front (``serve_server``).
+  The batched kernels (one launch for K instances) are held to their
+  plain versions instance by instance at K=32 and timed beside 32 solo
+  launches (the kernel line's ``*_batched`` rows).
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -70,7 +83,9 @@ anytime-best total of ``evaluate`` (and MaxSum's ELL fan-in and sum over
 the domain) summed in XLA-CPU's order, one launch a sum site.  It prints
 one JSON object per phase, then the kernel table (six rows: both TPU kernels
 with a float32 and with a bf16 plane, ``xla_tree_sum`` and the DFS kernel
-``branch_bound``, held equal to its plain version at 16 variables), the card's
+``branch_bound``, held equal to its plain version at 16 variables; and
+the five batched variants' rows; each row with its
+``batched_launches``), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
 exits nonzero, with no result, when no CUDA device is present or the
@@ -215,15 +230,10 @@ ASYNC = [
 ASYNC_MSG_COUNT = 11_999_760
 # the resident session on config 4's objects (OBJECTS_100K),
 # DynamicMaxSum(dcop, {"damping": 0.7}, seed=7): the JAX package's cost
-# after each run(30), the last after DYNAMIC_CHANGE.  The port's CPU gives
-# the first two exactly; the third, 21268.940973564702, differs in the
-# 7th digit: XLA-CPU contracts the damping into an FMA in the session's
-# program, which the port does not (ROADMAP, "Known divergences";
-# tests/test_torch_dynamic.py reproduces JAX's planes with the damping
-# contracted).  So the third is held to the port's own pinned cost exactly
-# and to JAX's within rel 1e-6, and the card to the CPU exactly
+# after each run(30), the last after DYNAMIC_CHANGE.  The session damps
+# as XLA-CPU's contracted FMA (``damp``'s ``fma``), so the port gives all
+# three exactly, on the CPU and on the card
 DYNAMIC_JAX = (18768.49297691747, 18655.444915655473, 21268.952449623033)
-DYNAMIC_PORT_THIRD = 21268.940973564702
 DYNAMIC_CHANGE = ("cost_0", "10 if v00000 == v00002 else 0",
                   ("v00000", "v00002"))
 # SyncBB and NCBB: generate_graph_coloring's arguments of the chip cell
@@ -280,6 +290,31 @@ DPOP_JAX = {
     20: (217.0, 0, 96, 13_170_020),
     15: (216.0, 0, 96, 59_581_009),
 }
+
+# the serving path.  Bench config 8 (bench_all.py, config_8_serving): 24
+# tenants of a 3x3 grid coloring and 8 of a 4x4 one (two shape buckets),
+# DSA with its defaults, 16 cycles; (tenant, variables, generator seed,
+# solve seed) as the bench names and seeds them
+SERVE_CONFIG8 = (
+    [(f"b{i}", 9, 300 + i, i) for i in range(24)]
+    + [(f"s{i}", 16, 400 + i, i) for i in range(8)]
+)
+SERVE_CONFIG8_RUN = ("dsa", {}, 16)
+# the JAX package's fused mode on it (solve_batched(reqs, mode="fused"),
+# JAX_PLATFORMS=cpu): the tenants' summed cost and violations
+SERVE_CONFIG8_JAX_FUSED = (5.587981048141955, 0)
+# the kernels under load: 32 tenants of a 32x32 grid coloring (1,024
+# variables, 1,984 constraints, 3,968 edges each; one bucket), MaxSum with
+# its defaults (damping 0.5, noise 0.01), 30 cycles; and 8 of them with
+# bf16 planes, 10 cycles
+SERVE_GRID = [(f"g{i}", 1024, 500 + i, i) for i in range(32)]
+SERVE_GRID_RUN = ("maxsum", {}, 30)
+SERVE_GRID_BF16_RUN = ("maxsum", {"precision": "bf16"}, 10)
+# the batched kernel rows of the kernels line, at K=32 on SERVE_GRID's
+# bucket
+BATCHED_ROWS = ("ell_minplus_batched", "ell_minplus_bf16_batched",
+                "xla_tree_sum_evaluate_batched",
+                "xla_tree_sum_fan_in_batched", "xla_tree_sum_rows_batched")
 
 
 def emit(obj) -> None:
@@ -1793,9 +1828,9 @@ def phase_dynamic_config4():
     """The resident DynamicMaxSum session on config 4's relation objects,
     on the card and on the CPU: run(30), run(30), the change of
     DYNAMIC_CHANGE, run(30).  Each run on the card equals the CPU's; the
-    costs are the JAX package's (the third within rel 1e-6, see
-    DYNAMIC_JAX).  On the card, launches are counted from zero around each
-    run (``factor_arity2_minplus`` once an iteration replayed, one more in
+    costs are the JAX package's exactly (DYNAMIC_JAX).  On the card,
+    launches are counted from zero around each run
+    (``factor_arity2_minplus`` once an iteration replayed, one more in
     the cold run's warm-up), the first run captures the session's two
     graphs, the others nothing, and the graph cache keeps its size."""
     from pydcop_tpu_torch.algorithms.maxsum_dynamic import DynamicMaxSum
@@ -1850,9 +1885,7 @@ def phase_dynamic_config4():
         check(res.cycles == 30 * (i + 1) and res.violations == 0,
               f"dynamic run {i}: {res.cycles} cycles, {res.violations} "
               "violations")
-        check(res.cost == pin if i < 2 else (
-                  res.cost == DYNAMIC_PORT_THIRD
-                  and abs(res.cost - pin) <= 1e-6 * abs(pin)),
+        check(res.cost == pin,
               f"dynamic run {i}: cost {res.cost}, the JAX package {pin}")
         captured = counts["captures"]
         check(captured == (2 if i == 0 else 0),
@@ -1877,6 +1910,494 @@ def phase_dynamic_config4():
     out.update(setup, same_as_cpu=True)
     emit(out)
     return out["runs"][1]["counts"]["factor_arity2_minplus"]
+
+
+def serve_requests(spec, run):
+    """The SolveRequests of a serving cell: (tenant, variables, generator
+    seed, solve seed) grid colorings, all under ``run`` (algo, params,
+    n_cycles)."""
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_coloring_arrays,
+    )
+    from pydcop_tpu_torch.serve import SolveRequest
+
+    algo, params, n_cycles = run
+    return [
+        SolveRequest(tenant, generate_coloring_arrays(
+            n, 3, graph="grid", seed=gen_seed), algo, dict(params),
+            n_cycles, seed)
+        for tenant, n, gen_seed, seed in spec
+    ]
+
+
+def _zero_all_launches():
+    """Every wrapper's launches and batched launches to 0."""
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    _zero_launches()
+    for name in KERNEL_WRAPPERS:
+        batched = getattr(getattr(hk, name), "batched", None)
+        if batched is not None:
+            batched.launches = 0
+
+
+def _all_launch_counts():
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    out = _launch_counts()
+    for name in KERNEL_WRAPPERS:
+        batched = getattr(getattr(hk, name), "batched", None)
+        if batched is not None:
+            out[f"{name}_batched"] = batched.launches
+    return out
+
+
+def _counted(call):
+    """``call()``'s result, its wall and its counts (engine counters and
+    launches, from zero)."""
+    import torch
+
+    _zero_all_launches()
+    engine = _engine_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v - engine[k] for k, v in _engine_counts().items()}
+    counts.update(_all_launch_counts())
+    return out, wall, counts
+
+
+def _same_tenant(got, want, name, cost_rel=0.0):
+    """Two TenantResults of one tenant: the same assignment, violations,
+    cycles and messages, the cost equal (or within ``cost_rel``), and,
+    when both have them, the same best cost and cycle of the best."""
+    g, w = got.result, want.result
+    check(g is not None and w is not None, f"{name}: no result")
+    for key in ("assignment", "violations", "cycles", "msg_count",
+                "status"):
+        check(getattr(g, key) == getattr(w, key),
+              f"{name}: {key} {getattr(g, key)!r} != {getattr(w, key)!r}")
+    if cost_rel:
+        check(abs(g.cost - w.cost) <= cost_rel * abs(w.cost),
+              f"{name}: cost {g.cost} vs {w.cost}")
+    else:
+        check(g.cost == w.cost, f"{name}: cost {g.cost} != {w.cost}")
+    for key in ("best_cost", "cycles_to_best"):
+        if key in got.extras and key in want.extras and not cost_rel:
+            check(got.extras[key] == want.extras[key],
+                  f"{name}: {key} {got.extras[key]} != {want.extras[key]}")
+    return g.cost == w.cost
+
+
+def _median_walls(calls, reps=3):
+    """Median wall of each call, the reps interleaved."""
+    import torch
+
+    walls = [[] for _ in calls]
+    for _ in range(reps):
+        for i, call in enumerate(calls):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls[i].append(time.perf_counter() - t0)
+    return [statistics.median(w) for w in walls]
+
+
+def _batch_device_ms(replays_per_group):
+    """Device time of one warm batch of every vmap slot made so far: each
+    slot's captured prologue graph and ``replays_per_group`` replays of
+    its chunk graph, replayed between CUDA events (the graphs' own device
+    time, no host work), median of five."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import base
+    from pydcop_tpu_torch.serve import batch as sb
+
+    graphs = [
+        g for slot in sb._slots.values()
+        for g in slot.home.__dict__.get("_device_consts", {}).values()
+        if isinstance(g, base._Graphs)
+    ]
+
+    def replay():
+        for g in graphs:
+            g.prologue.replay()
+            for _ in range(replays_per_group):
+                g.chunk.replay()
+
+    return _events_ms(replay, 5), len(graphs)
+
+
+def serve_grid_operands(k=32, seed=0):
+    """The batched kernels' operands at K instances of SERVE_GRID's bucket
+    on the card: each tenant's bucket-padded problem and class-padded ELL
+    layout (``serve.batch.build_instance``), random planes (zero on
+    padding slots) and a random assignment.  Returns (ell_minplus args,
+    tree_evaluate args, ell_fan_in args (spans, unary_t, f2v_t), the
+    domain sum's [K, n_pad, D] view)."""
+    import torch
+
+    from pydcop_tpu_torch.serve import bucket_key
+    from pydcop_tpu_torch.serve.batch import build_instance
+
+    reqs = serve_requests(SERVE_GRID[:k], SERVE_GRID_RUN)
+    key = bucket_key(reqs[0])
+    insts = [build_instance(r, key.dims, "cpu") for r in reqs]
+
+    def stack(xs):
+        return torch.stack(list(xs)).to("cuda")
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    consts = [i.host_plan.consts for i in insts]
+    pair_perm, tabs_t, real_row = (stack(c[j] for c in consts)
+                                   for j in (2, 3, 8))
+    d, n_pad = tabs_t.shape[1], tabs_t.shape[-1]
+    v2f = torch.randn((k, d, n_pad), generator=g, device="cuda") * real_row
+    ell = [v2f, pair_perm, tabs_t, real_row]
+    devs = [i.host_dev for i in insts]
+    values = (torch.rand((k, key.dims.n_vars), generator=g, device="cuda")
+              * stack(dv.domain_size for dv in devs)).to(torch.int32)
+    evaluate = [stack(dv.unary for dv in devs), values,
+                [(stack(dv.buckets[0].tables_flat for dv in devs),
+                  stack(dv.buckets[0].var_slots for dv in devs))],
+                stack(dv.constant_cost for dv in devs)]
+    spans = key.extra[0]
+    n_ell_vars = sum(nb for nb, _ in spans)
+    fan_in = [spans,
+              torch.rand((k, d, n_ell_vars), generator=g,
+                         device="cuda") * 10,
+              torch.randn((k, d, n_pad), generator=g, device="cuda")]
+    rows = torch.randn((k, d, n_pad), generator=g,
+                       device="cuda").movedim(1, -1)
+    return ell, evaluate, fan_in, rows
+
+
+def _instance(args, i):
+    """Instance i of batch-first operands (lists element by element)."""
+    import torch
+
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(a[i])
+        elif isinstance(a, list) and a and isinstance(a[0], tuple):
+            out.append([tuple(x[i] for x in b) for b in a])
+        else:
+            out.append(a)
+    return out
+
+
+def _batched_row(name, wrapper, replaces, batched, solo, plain, sets,
+                 bytes_ops, library=None):
+    """A batched kernel against its plain version instance by instance,
+    exactly, on the first operand set; timed by CUDA-graph replay over
+    the sets beside its plain version (instance by instance), 32 solo
+    launches and, where there is one, a library call; its bound is the
+    K instances' bytes and operations."""
+    import torch
+
+    args = sets[0]
+    k = args[1].shape[0] if isinstance(args[0], tuple) else (
+        args[0].shape[0])
+    got = batched(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    max_err = 0.0
+    for i in range(k):
+        want = plain(*_instance(args, i))
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            equal = torch.equal(g[i], w)
+            err = float((g[i].float() - w.float()).abs().max())
+            check(equal, f"{name}: instance {i} != its plain version: {err}")
+            max_err = max(max_err, err)
+    nbytes = ops = 0
+    for i in range(k):
+        b, o = bytes_ops(_instance(args, i))
+        nbytes, ops = nbytes + b, ops + o
+
+    def solo_all(*a):
+        for i in range(k):
+            solo(*_instance(a, i))
+
+    def plain_all(*a):
+        for i in range(k):
+            plain(*_instance(a, i))
+
+    kernel_ms = time_cuda_ms(batched, sets)
+    row = _kernel_row(
+        name, wrapper, replaces, max_err, kernel_ms,
+        time_cuda_ms(plain_all, sets, rounds=2), nbytes, ops,
+        library_ms=time_cuda_ms(library, sets) if library else None,
+        k=k, solo_launches_ms=time_cuda_ms(solo_all, sets, rounds=2),
+        launches_per_call=1,
+    )
+    emit({"phase": "kernel_row", **row})
+    return row
+
+
+def batched_kernel_rows():
+    """The batched variants at K=32 on SERVE_GRID's bucket: each equal to
+    its plain version instance by instance and timed (``_batched_row``);
+    four operand sets of other random values."""
+    import torch
+
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    pallas = "pydcop_tpu/compile/pallas_kernels.py:167"
+    own = "none: the port's own kernel (evaluate's totals in XLA-CPU's order)"
+    sets = [serve_grid_operands(seed=s) for s in range(4)]
+    ell_sets = [ops[0] for ops in sets]
+    bf16_sets = [[a[0].to(torch.bfloat16)] + a[1:] for a in ell_sets]
+
+    def fan_in_bytes(args):
+        spans, u, f2v = args
+        return fan_in_bytes_ops([f2v, u, spans])
+
+    def rows_bytes(args):
+        (x,) = args
+        return x.numel() * 4 + x.shape[0] * 4, x.numel()
+
+    rows = {}
+    for name, s in (("ell_minplus_batched", ell_sets),
+                    ("ell_minplus_bf16_batched", bf16_sets)):
+        rows[name] = _batched_row(
+            name, "ell_minplus", pallas, hk.ell_minplus_batched,
+            hk.ell_minplus, hk.ell_minplus_plain, s, ell_minplus_bytes_ops)
+    rows["xla_tree_sum_evaluate_batched"] = _batched_row(
+        "xla_tree_sum_evaluate_batched", "xla_tree_sum", own,
+        hk.tree_evaluate_batched, hk.tree_evaluate, hk.tree_evaluate_plain,
+        [ops[1] for ops in sets], evaluate_bytes_ops)
+    rows["xla_tree_sum_fan_in_batched"] = _batched_row(
+        "xla_tree_sum_fan_in_batched", "xla_tree_sum", own,
+        lambda spans, u, f: hk.ell_fan_in_batched(spans, u, f),
+        hk.ell_fan_in, hk.ell_fan_in_plain,
+        [ops[2] for ops in sets], fan_in_bytes)
+    rows["xla_tree_sum_rows_batched"] = _batched_row(
+        "xla_tree_sum_rows_batched", "xla_tree_sum", own,
+        hk.xla_tree_sum_batched, hk.xla_tree_sum, hk.xla_tree_sum_plain,
+        [[ops[3]] for ops in sets], rows_bytes,
+        library=lambda x: torch.sum(x, -1))
+    return rows
+
+
+def phase_serve_config8():
+    """Bench config 8 on the card: 32 tenants, two buckets, DSA, in both
+    modes, cold then warm.  vmap: every tenant equals its card
+    ``solve_one`` and the CPU's, a warm batch captures nothing, and each
+    bucket's warm batch launches what one warm solo solve of the bucket
+    launches (not 24 or 8 times it).  fused: every tenant equals the
+    CPU's fused result, and the summed cost and violations are the JAX
+    package's.  Warm walls of both modes beside the strict loop
+    (``solve_one`` a tenant) and the API loop (``dsa.solve`` a tenant),
+    host syncs a batch and the device's busy share of the vmap batch."""
+    from pydcop_tpu_torch.algorithms import dsa
+    from pydcop_tpu_torch.serve import bucket_key, solve_batched, solve_one
+
+    reqs = serve_requests(SERVE_CONFIG8, SERVE_CONFIG8_RUN)
+    groups = {}
+    for r in reqs:
+        groups.setdefault(bucket_key(r), []).append(r)
+    check(len(groups) == 2, f"config 8: {len(groups)} buckets, not 2")
+    degraded = solve_batched.degraded
+    runs, walls, counts = {}, {}, {}
+    for mode in ("fused", "vmap"):
+        for temp in ("cold", "warm"):
+            runs[mode, temp], walls[f"{mode}_{temp}_s"], counts[
+                f"{mode}_{temp}"] = _counted(
+                lambda: solve_batched(reqs, mode=mode, device="cuda"))
+    for mode in ("fused", "vmap"):
+        check(counts[f"{mode}_warm"]["captures"] == 0,
+              f"config 8 {mode}: a warm batch captured "
+              f"{counts[f'{mode}_warm']['captures']} graphs")
+    check(solve_batched.degraded == degraded,
+          "config 8: a batch degraded to solo solves")
+    cpu = {mode: solve_batched(reqs, mode=mode, device="cpu")
+           for mode in ("vmap", "fused")}
+    for r in reqs:
+        one = solve_one(r, device="cuda")
+        for temp in ("cold", "warm"):
+            _same_tenant(runs["vmap", temp][r.tenant], one,
+                         f"config 8 vmap {temp} {r.tenant} vs solve_one")
+        _same_tenant(cpu["vmap"][r.tenant], one,
+                     f"config 8 {r.tenant}: card solve_one vs the CPU batch")
+        _same_tenant(runs["fused", "warm"][r.tenant], cpu["fused"][r.tenant],
+                     f"config 8 fused {r.tenant} vs the CPU")
+    fused = runs["fused", "warm"]
+    total = (sum(fused[r.tenant].result.cost for r in reqs),
+             sum(fused[r.tenant].result.violations for r in reqs))
+    check(total == SERVE_CONFIG8_JAX_FUSED,
+          f"config 8 fused: {total}, the JAX package "
+          f"{SERVE_CONFIG8_JAX_FUSED}")
+    # a warm batch launches what one warm solo solve launches, bucket by
+    # bucket
+    per_bucket = {}
+    for key, group in groups.items():
+        solve_batched(group, device="cuda")
+        _, _, batch = _counted(lambda: solve_batched(group, device="cuda"))
+        solve_one(group[0], device="cuda")
+        _, _, solo = _counted(lambda: solve_one(group[0], device="cuda"))
+        name = f"v{key.dims.n_vars}"
+        per_bucket[name] = {"tenants": len(group), "batch": batch,
+                            "solo": solo}
+        check(batch["xla_tree_sum"] == solo["xla_tree_sum"]
+              == batch["xla_tree_sum_batched"] > 0
+              and batch["iterations"] == solo["iterations"],
+              f"config 8 bucket {name}: batch launches {batch}, solo "
+              f"{solo}")
+    strict, api, fused_wall, vmap_wall = _median_walls([
+        lambda: [solve_one(r, device="cuda") for r in reqs],
+        lambda: [dsa.solve(r.compiled, r.params, n_cycles=r.n_cycles,
+                           seed=r.seed, device="cuda") for r in reqs],
+        lambda: solve_batched(reqs, mode="fused", device="cuda"),
+        lambda: solve_batched(reqs, mode="vmap", device="cuda"),
+    ])
+    warm = counts["vmap_warm"]
+    stages = {
+        f"v{key.dims.n_vars}": {
+            k: runs["vmap", "warm"][group[0].tenant].extras[k]
+            for k in ("assemble_s", "solve_s")
+        }
+        for key, group in groups.items()
+    }
+    busy_ms, n_graphs = _batch_device_ms(warm["replays"] // len(groups))
+    emit({
+        "phase": "serve_config8", "tenants": len(reqs),
+        "buckets": len(groups), **walls, "counts": counts,
+        "per_bucket": per_bucket, "vmap_warm_stages_s": stages,
+        "fused_cost": total[0], "fused_violations": total[1],
+        "jax_fused": list(SERVE_CONFIG8_JAX_FUSED),
+        "warm_wall_s": {"fused": fused_wall, "vmap": vmap_wall,
+                        "strict_loop": strict, "api_loop": api},
+        "solves_per_s": {"fused": len(reqs) / fused_wall,
+                         "vmap": len(reqs) / vmap_wall,
+                         "strict_loop": len(reqs) / strict},
+        "host_syncs_per_batch": warm["host_syncs"] / len(groups),
+        "vmap_device_busy_ms": busy_ms, "vmap_graphs": n_graphs,
+        "vmap_device_busy_share": busy_ms / 1e3 / vmap_wall,
+        "vmap_device_idle_share": 1 - busy_ms / 1e3 / vmap_wall,
+        "same_as_solve_one": True, "fused_same_as_cpu": True,
+    })
+    return counts["vmap_warm"]
+
+
+def phase_serve_maxsum_grid():
+    """32 MaxSum tenants of a 32x32 grid coloring as one batch on the card,
+    cold then warm: every tenant equals its card ``solve_one`` exactly
+    and meets MaxSum's CPU bar against the CPU batch; a warm batch
+    captures nothing and launches ``ell_minplus`` once an iteration
+    replayed for all 32 tenants (and ``xla_tree_sum`` three times an
+    iteration and once in the prologue).  Then 8 tenants with bf16
+    planes, likewise.  The warm batch's wall beside the strict loop."""
+    from pydcop_tpu_torch.serve import solve_batched, solve_one
+
+    out = {"phase": "serve_maxsum_grid"}
+    launches = {}
+    for name, spec, run in (("f32", SERVE_GRID, SERVE_GRID_RUN),
+                            ("bf16", SERVE_GRID[:8], SERVE_GRID_BF16_RUN)):
+        reqs = serve_requests(spec, run)
+        cold, cold_s, cold_counts = _counted(
+            lambda: solve_batched(reqs, device="cuda"))
+        warm, warm_s, counts = _counted(
+            lambda: solve_batched(reqs, device="cuda"))
+        check(counts["captures"] == 0,
+              f"serve grid {name}: a warm batch captured "
+              f"{counts['captures']}")
+        its = counts["iterations"]
+        check(counts["ell_minplus"] == counts["ell_minplus_batched"] == its
+              > 0, f"serve grid {name}: {counts['ell_minplus']} ell_minplus "
+              f"launches for {its} iterations")
+        check(counts["xla_tree_sum"] == counts["xla_tree_sum_batched"]
+              == 3 * its + 1,
+              f"serve grid {name}: {counts['xla_tree_sum']} xla_tree_sum "
+              f"launches for {its} iterations")
+        cpu = solve_batched(reqs, device="cpu")
+        bit_equal = 0
+        for r in reqs:
+            one = solve_one(r, device="cuda")
+            _same_tenant(cold[r.tenant], one, f"grid {name} cold {r.tenant}")
+            _same_tenant(warm[r.tenant], one, f"grid {name} warm {r.tenant}")
+            bit_equal += _same_tenant(warm[r.tenant], cpu[r.tenant],
+                                      f"grid {name} {r.tenant} vs the CPU",
+                                      cost_rel=1e-5)
+        batch_s, strict_s = _median_walls([
+            lambda: solve_batched(reqs, device="cuda"),
+            lambda: [solve_one(r, device="cuda") for r in reqs],
+        ])
+        first = warm[reqs[0].tenant].extras
+        out[name] = {
+            "tenants": len(reqs), "cold_s": cold_s, "warm_s": warm_s,
+            # the warm batch's host stages: stacking and upload, the
+            # solve (replays and read-back); the rest is the decode
+            "assemble_s": first["assemble_s"], "solve_s": first["solve_s"],
+            "cold_counts": cold_counts, "counts": counts,
+            "warm_batch_s": batch_s, "strict_loop_s": strict_s,
+            "speedup": strict_s / batch_s,
+            "cost_bit_equal_to_cpu": bit_equal,
+            "costs": [warm[r.tenant].result.cost for r in reqs[:4]],
+        }
+        launches[name] = counts
+    emit(out)
+    return launches
+
+
+def phase_serve_server():
+    """``ServeServer`` on config 8's requests, in both modes: all 32
+    tenants done, none failed, no batch degraded, a clean drain; its queue
+    latency p50 and p99.  Then its HTTP front on a free port: a POSTed
+    YAML problem of ``tests/instances/`` gives the card's
+    ``solve_result``."""
+    import urllib.request
+
+    from pydcop_tpu_torch.api import solve_result
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
+    from pydcop_tpu_torch.serve import ServeServer
+
+    out = {"phase": "serve_server"}
+    for mode in ("vmap", "fused"):
+        reqs = serve_requests(SERVE_CONFIG8, SERVE_CONFIG8_RUN)
+        srv = ServeServer(port=None, window_ms=10, max_batch=32, mode=mode)
+        t0 = time.perf_counter()
+        ids = [srv.submit(r) for r in reqs]
+        rows = [srv.wait(t, timeout=300) for t in ids]
+        wall = time.perf_counter() - t0
+        drained = srv.drain(timeout=120)
+        st = srv.status()
+        states = [r["status"] for r in rows]
+        check(states == ["done"] * len(reqs) and drained
+              and st["dead_letters"] == 0 and st["degraded"] == 0,
+              f"serve_server {mode}: {st}")
+        out[mode] = {"wall_s": wall, "batches": st["batches"],
+                     "queue_ms": st["queue_ms"],
+                     "tenant_counts": st["tenant_counts"],
+                     "drained": drained}
+    path = ROOT / FRONT_DOOR_YAML[0]
+    srv = ServeServer(port=0, window_ms=5)
+    try:
+        base = f"http://127.0.0.1:{srv.http.port}"
+        body = json.dumps({"dcop_yaml": path.read_text(), "algo": "dsa",
+                           "n_cycles": 30, "seed": 3,
+                           "tenant": "http"}).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                base + "/solve", data=body, method="POST")) as resp:
+            check(json.loads(resp.read()) == {"tenant": "http"},
+                  "POST /solve")
+        srv.wait("http", timeout=120)
+        with urllib.request.urlopen(base + "/result/http") as resp:
+            row = json.loads(resp.read())
+    finally:
+        srv.shutdown()
+    want = solve_result(load_dcop_from_file([str(path)]), "dsa",
+                        n_cycles=30, seed=3, device="cuda")
+    got = (row["status"], row["cost"], row["violations"], row["cycles"],
+           row["assignment"])
+    check(got == ("done", want["cost"], want["violation"], want["cycle"],
+                  want["assignment"]),
+          f"POST /solve: {got} vs solve_result {want}")
+    out["http"] = {"port": "ephemeral", "cost": row["cost"],
+                   "equal_to_solve_result": True}
+    emit(out)
 
 
 def main() -> int:
@@ -1916,6 +2437,7 @@ def main() -> int:
           "n_vars": c6.n_vars, "n_edges": c6.n_edges})
     breakout = breakout_problems()
     rows, timed_sets = phase_kernels(c4, c6, breakout["config7"])
+    rows.update(batched_kernel_rows())
     for other in args.against:
         phase_against(other.resolve(), timed_sets)
     del timed_sets
@@ -2057,10 +2579,33 @@ def main() -> int:
     phase_front_door_objects()
     phase_dpop_config5()
     phase_dpop_wide()
+    # the serving path: bench config 8, the kernels batched under load,
+    # the server and its HTTP front
+    t_serve = time.perf_counter()
+    serve8 = phase_serve_config8()
+    grid = phase_serve_maxsum_grid()
+    phase_serve_server()
+    emit({"phase": "serve_seconds", "seconds": time.perf_counter() - t_serve})
+    rows["ell_minplus_batched"]["launches"] = grid["f32"][
+        "ell_minplus_batched"]
+    rows["ell_minplus_bf16_batched"]["launches"] = grid["bf16"][
+        "ell_minplus_batched"]
+    for name in BATCHED_ROWS[2:]:
+        rows[name]["launches"] = grid["f32"]["xla_tree_sum_batched"]
+    batched = {
+        "ell_minplus": grid["f32"]["ell_minplus_batched"],
+        "ell_minplus_bf16": grid["bf16"]["ell_minplus_batched"],
+        "xla_tree_sum": grid["f32"]["xla_tree_sum_batched"]
+        + serve8["xla_tree_sum_batched"],
+    }
     for name, row in rows.items():
+        row["batched_launches"] = (
+            row["launches"] if name in BATCHED_ROWS
+            else batched.get(name, 0)
+        )
         check(row["launches"], f"{name}: no launch on its path")
     emit({"phase": "script", "seconds": time.perf_counter() - t_script})
-    emit({"kernels": [rows[name] for name in KERNEL_ROWS]})
+    emit({"kernels": [rows[name] for name in KERNEL_ROWS + BATCHED_ROWS]})
     print(smi, flush=True)
     emit({
         "ok": True,

@@ -41,6 +41,14 @@ masked) and its host syncs in attributes (``captures``, ``replays``,
 ``iterations``, ``host_syncs``).  The pulse health hooks of the JAX
 engine are not ported.
 
+``run_batch`` runs K solves of one shape (the serving layer's bucket)
+as one: the same prologue and chunk mapped over a leading instance axis
+with ``torch.func.vmap`` (``_map_instances``), each instance its own key,
+noise level, cycle budget and real rows; the kernel wrappers' vmap rules
+launch each kernel once for the batch.  The batch runs until every
+instance has stopped, and each instance's result is the bits of the same
+solve alone.
+
 A resident session (``maxsum_dynamic.DynamicMaxSum``) runs the engine
 again and again on the same problem: it resumes from its own state, which
 it passes as a constant, and hands the same tensors in as ``state_into``,
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -69,8 +78,8 @@ from . import SolveResult
 
 __all__ = [
     "TIMEOUT_CHUNK", "MAX_CHUNK", "apply_noise", "assign_", "cached_const",
-    "run_cycles", "finalize", "extract_values", "neighbor_pairs_dev",
-    "pad_rows_np",
+    "run_batch", "run_cycles", "finalize", "extract_values",
+    "neighbor_pairs_dev", "pad_rows_np",
 ]
 
 # chunk schedule: start small for early clock granularity, grow
@@ -191,6 +200,13 @@ class _Solver:
     collect_curve: bool
     has_noise: bool
     length: int  # iterations per chunk
+    # the noise draw's rows when they are not the device problem's own
+    # (the serving layer's bucket rows); rows from the solve's n_real on
+    # are then zeroed
+    noise_draw: Optional[int] = None
+    # the prologue and chunk run mapped over a leading instance axis of
+    # every tensor (the serving layer's batches)
+    batched: bool = False
 
     @property
     def use_stability(self) -> bool:
@@ -212,25 +228,48 @@ class _Carry:
     cycle: torch.Tensor  # int64 absolute index of the next iteration
 
 
-def _noised(dev: DeviceDCOP, key, level) -> DeviceDCOP:
+def _noised(
+    dev: DeviceDCOP, key, level, n_real=None, n_draw: Optional[int] = None
+) -> DeviceDCOP:
     """Add ``level * uniform`` tie-breaking noise to the valid slots of the
-    unary plane (the reference's VariableNoisyCostFunc)."""
-    draw = uniform(key, (dev.n_vars, dev.max_domain), device=dev.unary.device)
-    noise = torch.where(dev.valid_mask, draw * level, 0.0)
+    unary plane (the reference's VariableNoisyCostFunc).
+
+    ``n_draw`` is the draw's row count, which picks the stream: by default
+    the device problem's own rows.  The serving layer passes its bucket's
+    row count, one draw shape for every instance of a batch, and
+    ``n_real`` (an int64 tensor, per instance in a batch) zeroes the
+    rows from ``n_real`` on, so an instance draws the same bits batched
+    and alone (``serve.solve_one``)."""
+    rows = dev.n_vars if n_draw is None else int(n_draw)
+    device = dev.unary.device
+    draw = uniform(key, (rows, dev.max_domain), device=device)
+    live = dev.valid_mask[:rows]
+    if n_real is not None:
+        live = live & (
+            torch.arange(rows, device=device)[:, None] < n_real
+        )
+    noise = torch.where(live, draw * level, 0.0)
+    if dev.n_vars > rows:
+        noise = torch.cat([
+            noise, noise.new_zeros((dev.n_vars - rows, dev.max_domain))
+        ])
     return dataclasses.replace(dev, unary=dev.unary + noise)
 
 
 def apply_noise(
-    compiled: CompiledDCOP, dev: DeviceDCOP, seed: int, level: float
+    compiled: CompiledDCOP, dev: DeviceDCOP, seed: int, level: float,
+    n_draw: Optional[int] = None,
 ) -> DeviceDCOP:
     """``dev`` with the tie-breaking noise of a ``seed`` added to its unary
     plane, eagerly: the same draw, and the same bits, as ``run_cycles``
-    adds in its prologue for ``noise=level`` (a resident session noises
-    once, then runs the engine without noise).  ``compiled`` is the
-    problem ``dev`` was made from; the draw has its ``n_vars`` rows."""
+    adds in its prologue for ``noise=level`` and ``noise_draw=n_draw`` (a
+    resident session noises once, then runs the engine without noise).
+    ``compiled`` is the problem ``dev`` was made from (``dev`` may be
+    padded past it); the draw has its ``n_vars`` rows unless ``n_draw``
+    says otherwise, and rows past its ``n_vars`` draw no noise."""
     if not level:
         return dev
-    if dev.n_vars != compiled.n_vars:
+    if dev.n_vars < compiled.n_vars:
         raise ValueError(
             f"dev has {dev.n_vars} variables, the problem {compiled.n_vars}"
         )
@@ -238,6 +277,8 @@ def apply_noise(
     return _noised(
         dev, torch.tensor(PRNGKey(seed), dtype=torch.int64, device=device),
         torch.tensor(level, dtype=torch.float32, device=device),
+        torch.tensor(compiled.n_vars, dtype=torch.int64, device=device),
+        compiled.n_vars if n_draw is None else n_draw,
     )
 
 
@@ -269,12 +310,16 @@ def assign_(dst, src) -> None:
 
 def _prologue(
     solver: _Solver, dev: DeviceDCOP, consts: Tuple, key: torch.Tensor,
-    level: torch.Tensor,
+    level: torch.Tensor, n_real: torch.Tensor,
 ) -> _Carry:
     """Noise, init and the initial assignment's cost: the carry of cycle
-    0.  ``key`` is the solve key as a [2] int64 tensor."""
+    0.  ``key`` is the solve key as a [2] int64 tensor; ``n_real`` the
+    real rows of a ``noise_draw`` solve."""
     if solver.has_noise:
-        dev = _noised(dev, key, level)
+        dev = _noised(
+            dev, key, level,
+            None if solver.noise_draw is None else n_real, solver.noise_draw,
+        )
     unary = dev.unary
     state = solver.init(dev, key, *consts)
     vals = solver.extract(dev, state)
@@ -329,19 +374,29 @@ def _chunk(
     return carry, torch.stack(costs) if costs else None
 
 
-def _pack(solver: _Solver, dev: DeviceDCOP, carry: _Carry) -> torch.Tensor:
-    """Everything the host reads, as one int32 vector:
-    ``[final values | best values | best_cycle | ran | stable | best_cost
-    (float32 bits)]``; a look between chunks reads ``ran`` and
-    ``stable``."""
-    dev = dataclasses.replace(dev, unary=carry.unary)
-    final = solver.extract(dev, carry.state)
+def _final_values(solver: _Solver, dev: DeviceDCOP, carry: _Carry):
+    """The final cycle's values of a carry (mapped over a batch's
+    instances like the chunk)."""
+    return solver.extract(
+        dataclasses.replace(dev, unary=carry.unary), carry.state
+    )
+
+
+def _pack(final: torch.Tensor, carry: _Carry) -> torch.Tensor:
+    """Everything the host reads, as one int32 vector, a row an instance
+    of a batch: ``[final values | best values | best_cycle | ran | stable
+    | best_cost (float32 bits)]``; a look between chunks reads ``ran`` and
+    ``stable``.  Not mapped: the bit view of the cost has no vmap rule."""
+    lead = tuple(carry.best_cost.shape)
+
+    def col(x):
+        return x.reshape(lead + (1,))
+
     return torch.cat([
         final.to(torch.int32), carry.best_vals.to(torch.int32),
-        carry.best_cycle.reshape(1), carry.ran.reshape(1),
-        carry.stable.reshape(1),
-        carry.best_cost.to(torch.float32).reshape(1).view(torch.int32),
-    ])
+        col(carry.best_cycle), col(carry.ran), col(carry.stable),
+        col(carry.best_cost.to(torch.float32)).view(torch.int32),
+    ], dim=-1)
 
 
 def _unpack(packed: np.ndarray, n_vars: int) -> Dict[str, Any]:
@@ -360,40 +415,78 @@ def _unpack(packed: np.ndarray, n_vars: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-class _Eager:
-    """The prologue and chunk run as eager ops (the CPU)."""
+def _same(fn: Callable) -> Callable:
+    return fn
+
+
+def _map_instances(fn: Callable) -> Callable:
+    """``fn``, a function of trees of tensors, mapped over a leading
+    instance axis of every tensor leaf of its arguments
+    (``torch.func.vmap``; plain values pass through, and must be the
+    same for every instance).  Each instance computes what it would
+    alone: a masked ``torch.where`` select of the loop stands where a
+    batched ``lax.cond`` would, and every kernel wrapper carries a vmap
+    rule that runs the whole batch as one launch with each instance's
+    bits (``hopper_kernels``)."""
+
+    def mapped(*trees):
+        leaves = _flatten(trees, [])
+        is_tensor = [isinstance(x, torch.Tensor) for x in leaves]
+        seen = {}
+
+        def one(*tensors):
+            it = iter(tensors)
+            out = fn(*_unflatten(trees, iter([
+                next(it) if t else x for x, t in zip(leaves, is_tensor)
+            ])))
+            out_leaves = _flatten(out, [])
+            seen["tree"] = out
+            seen["leaves"] = [
+                None if isinstance(x, torch.Tensor) else (x,)
+                for x in out_leaves
+            ]
+            return tuple(
+                x for x in out_leaves if isinstance(x, torch.Tensor)
+            )
+
+        tensors = iter(torch.func.vmap(one)(
+            *[x for x, t in zip(leaves, is_tensor) if t]
+        ))
+        return _unflatten(seen["tree"], iter([
+            next(tensors) if x is None else x[0] for x in seen["leaves"]
+        ]))
+
+    return mapped
+
+
+class _Runner:
+    """What both runners share: the prologue, chunk and pack of one
+    solver on one problem, mapped over the instance axis of a batch."""
 
     def __init__(self, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
         self.solver, self.dev, self.consts = solver, dev, consts
+        self.map = _map_instances if solver.batched else _same
 
-    def start(self, key, n_cycles: int, level: float) -> None:
-        device = self.dev.unary.device
-        self.n_limit = torch.tensor(n_cycles, dtype=torch.int64, device=device)
-        self.carry = _prologue(
-            self.solver, self.dev, self.consts,
-            torch.tensor(key, dtype=torch.int64, device=device),
-            torch.tensor(level, dtype=torch.float32, device=device),
+    def _prologue(self, solve_in: torch.Tensor, level: torch.Tensor):
+        """The carry of cycle 0 from ``solve_in`` ([..., 4] int64: the
+        key's two words, the cycle budget, the real rows) and ``level``."""
+        return self.map(functools.partial(_prologue, self.solver))(
+            self.dev, self.consts, solve_in[..., :2], level,
+            solve_in[..., 3],
         )
-        self.curves = []
 
-    def replay(self) -> None:
-        self.carry, curve = _chunk(
-            self.solver, self.dev, self.consts, self.carry, self.n_limit,
-            self.solver.length,
+    def _chunk(self, carry: _Carry, n_limit: torch.Tensor, length: int):
+        solver = self.solver
+        return self.map(
+            lambda dev, consts, c, n: _chunk(solver, dev, consts, c, n,
+                                             length)
+        )(self.dev, self.consts, carry, n_limit)
+
+    def _pack(self, carry: _Carry) -> torch.Tensor:
+        final = self.map(functools.partial(_final_values, self.solver))(
+            self.dev, carry
         )
-        if curve is not None:
-            self.curves.append(curve)
-
-    def packed(self) -> torch.Tensor:
-        return _pack(self.solver, self.dev, self.carry)
-
-    def status(self) -> Tuple[int, int]:
-        """(cycles run, stability counter)."""
-        return int(self.carry.ran), int(self.carry.stable)
-
-    def state(self):
-        """The final solver state: this solve's own tensors."""
-        return self.carry.state
+        return _pack(final, carry)
 
     def curve(self) -> np.ndarray:
         return torch.cat(self.curves).cpu().numpy() if self.curves else (
@@ -401,21 +494,59 @@ class _Eager:
         )
 
 
-class _Graphs:
+class _Eager(_Runner):
+    """The prologue and chunk run as eager ops (the CPU)."""
+
+    def start(self, solve_in: np.ndarray, level: np.ndarray) -> None:
+        device = self.dev.unary.device
+        solve_in = torch.as_tensor(solve_in, dtype=torch.int64,
+                                   device=device)
+        self.n_limit = solve_in[..., 2]
+        self.carry = self._prologue(
+            solve_in,
+            torch.as_tensor(level, dtype=torch.float32, device=device),
+        )
+        self.curves = []
+
+    def replay(self) -> None:
+        self.carry, curve = self._chunk(
+            self.carry, self.n_limit, self.solver.length
+        )
+        if curve is not None:
+            self.curves.append(curve)
+
+    def packed(self) -> torch.Tensor:
+        return self._pack(self.carry)
+
+    def status(self) -> np.ndarray:
+        """[..., 2]: (cycles run, stability counter) of each instance."""
+        return torch.stack(
+            [self.carry.ran, self.carry.stable], dim=-1
+        ).cpu().numpy()
+
+    def state(self):
+        """The final solver state: this solve's own tensors."""
+        return self.carry.state
+
+
+class _Graphs(_Runner):
     """The prologue and the chunk of one solver on one problem, each
     captured once into a CUDA graph; a solve replays them.
 
     The graphs read and write static buffers allocated before capture:
-    ``solve_in`` (the key's two words and the cycle budget) and ``level``
-    are written by the host per solve, the carry buffers hold every carry
-    tensor that is not a constant of the problem, ``packed`` the result.
-    Both graphs share one memory pool: they never run at once."""
+    ``solve_in`` (the key's two words, the cycle budget and the real rows,
+    a row an instance in a batch) and ``level`` are written by the host
+    per solve, the carry buffers hold every carry tensor that is not a
+    constant of the problem, ``packed`` the result.  Both graphs share
+    one memory pool: they never run at once."""
 
     def __init__(self, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
-        self.solver, self.dev, self.consts = solver, dev, consts
+        super().__init__(solver, dev, consts)
         device = dev.unary.device
-        self.solve_in = torch.zeros(3, dtype=torch.int64, device=device)
-        self.level = torch.zeros((), dtype=torch.float32, device=device)
+        lead = tuple(dev.unary.shape[:1]) if solver.batched else ()
+        self.solve_in = torch.zeros(lead + (4,), dtype=torch.int64,
+                                    device=device)
+        self.level = torch.zeros(lead, dtype=torch.float32, device=device)
         fixed = {id(t) for t in _flatten((dev, consts), [])
                  if isinstance(t, torch.Tensor)}
 
@@ -423,17 +554,15 @@ class _Graphs:
         # handles and the allocator's first blocks happen here, and one
         # iteration shows which state leaves the step rewrites
         with _side_stream(device):
-            first = _prologue(
-                solver, dev, consts, self.solve_in[:2], self.level
-            )
-            after, _ = _chunk(solver, dev, consts, first, self.n_limit(), 1)
-            _pack(solver, dev, after)
+            first = self._prologue(self.solve_in, self.level)
+            after, _ = self._chunk(first, self.n_limit(), 1)
+            self._pack(after)
         leaves = _flatten(first, [])
         moved = [a is not b for a, b in zip(_flatten(after, []), leaves)]
         # a carry tensor gets a buffer unless it is a constant of the
         # problem that the step passes through
         self.buffers = [
-            torch.empty_like(leaf)
+            torch.empty(leaf.shape, dtype=leaf.dtype, device=leaf.device)
             if isinstance(leaf, torch.Tensor)
             and (id(leaf) not in fixed or m) else None
             for leaf, m in zip(leaves, moved)
@@ -444,27 +573,28 @@ class _Graphs:
             leaf if buf is None else buf
             for buf, leaf in zip(self.buffers, leaves)
         ]))
-        self.packed_buf = torch.empty_like(_pack(solver, dev, first))
+        packed = self._pack(first)
+        self.packed_buf = torch.empty(packed.shape, dtype=packed.dtype,
+                                      device=device)
         self.curve_buf = torch.empty(
             solver.length, dtype=torch.float32, device=device
         )
-        del first, after, leaves
+        del first, after, leaves, packed
 
         with hopper_kernels.capture_tally() as self.launches_per_start:
-            self.prologue = _capture(lambda: self._store(_prologue(
-                solver, dev, consts, self.solve_in[:2], self.level
-            )))
+            self.prologue = _capture(lambda: self._store(
+                self._prologue(self.solve_in, self.level)
+            ))
         with hopper_kernels.capture_tally() as self.launches_per_replay:
             self.chunk = _capture(self._run_chunk, pool=self.prologue.pool())
         run_cycles.captures += 2
 
     def n_limit(self) -> torch.Tensor:
-        return self.solve_in[2]
+        return self.solve_in[..., 2]
 
     def _run_chunk(self) -> None:
-        carry, curve = _chunk(
-            self.solver, self.dev, self.consts, self.carry_in,
-            self.n_limit(), self.solver.length,
+        carry, curve = self._chunk(
+            self.carry_in, self.n_limit(), self.solver.length
         )
         self._store(carry)
         if curve is not None:
@@ -476,11 +606,11 @@ class _Graphs:
         for buf, leaf in zip(self.buffers, _flatten(carry, [])):
             if buf is not None and leaf is not buf:
                 buf.copy_(leaf)
-        self.packed_buf.copy_(_pack(self.solver, self.dev, carry))
+        self.packed_buf.copy_(self._pack(carry))
 
-    def start(self, key, n_cycles: int, level: float) -> None:
-        self.solve_in.copy_(torch.tensor([*key, n_cycles]))
-        self.level.fill_(level)
+    def start(self, solve_in: np.ndarray, level: np.ndarray) -> None:
+        self.solve_in.copy_(torch.as_tensor(solve_in, dtype=torch.int64))
+        self.level.copy_(torch.as_tensor(level, dtype=torch.float32))
         self.prologue.replay()
         hopper_kernels.count_replay(self.launches_per_start)
         self.curves = []
@@ -494,19 +624,14 @@ class _Graphs:
     def packed(self) -> torch.Tensor:
         return self.packed_buf
 
-    def status(self) -> Tuple[int, int]:
-        ran, stable = self.packed_buf[-3:-1].tolist()
-        return ran, stable
+    def status(self) -> np.ndarray:
+        """[..., 2]: (cycles run, stability counter) of each instance."""
+        return self.packed_buf[..., -3:-1].cpu().numpy()
 
     def state(self):
         """The final solver state: the carry buffers, which the next solve
         overwrites, and the constants it passed through."""
         return self.carry_in.state
-
-    def curve(self) -> np.ndarray:
-        return torch.cat(self.curves).cpu().numpy() if self.curves else (
-            np.zeros(0, dtype=np.float32)
-        )
 
 
 @contextlib.contextmanager
@@ -552,6 +677,46 @@ def _graphs(compiled, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
     )
 
 
+def _chunk_length(n_cycles: int) -> int:
+    """Iterations a chunk: up to ``TIMEOUT_CHUNK``, at least 8 (the
+    power-of-two class of the cycle budget, as JAX's scan length)."""
+    n_pad = max(8, 1 << max(0, int(n_cycles) - 1).bit_length())
+    return min(TIMEOUT_CHUNK, n_pad)
+
+
+def _drive(runner, solver: _Solver, n_limits: np.ndarray,
+           deadline: Optional[float]) -> bool:
+    """Replay chunks until every instance has stopped: its cycle budget
+    ran out, or (with a stability test) ``same_count`` consecutive cycles
+    were stable.  The host reads the instances' (cycles run, stability)
+    only between growing runs of chunks, after 16, 48, 112, ... cycles.
+    Returns whether ``deadline`` (a solo solve's) ran out first."""
+    limit = int(n_limits.max()) if n_limits.size else 0
+    issued = 0  # iterations replayed, live or not
+    chunk = TIMEOUT_CHUNK
+    while issued < limit:
+        reps = -(-min(chunk, limit - issued) // solver.length)
+        for _ in range(reps):
+            runner.replay()
+        run_cycles.replays += reps
+        run_cycles.iterations += reps * solver.length
+        issued += reps * solver.length
+        chunk = min(2 * chunk, MAX_CHUNK)
+        if issued >= limit:
+            break  # every cycle ran or the stop rule fired: nothing to ask
+        status = runner.status().reshape(-1, 2)
+        run_cycles.host_syncs += 1
+        ran, stable = status[:, 0], status[:, 1]
+        done = ran >= n_limits
+        if solver.use_stability:
+            done |= stable >= solver.same_count
+        if done.all():
+            break
+        if deadline is not None and time.perf_counter() >= deadline:
+            return bool((ran < n_limits).any())
+    return False
+
+
 def run_cycles(
     compiled: CompiledDCOP,
     dev: DeviceDCOP,
@@ -568,6 +733,8 @@ def run_cycles(
     consts: Tuple = (),
     noise: float = 0.0,
     state_into: Any = None,
+    noise_draw: Optional[int] = None,
+    with_best: bool = False,
 ) -> Tuple[np.ndarray, Optional[np.ndarray], Dict[str, Any]]:
     """Drive a solver on ``dev``, the device form of ``compiled``.
 
@@ -589,37 +756,27 @@ def run_cycles(
     stops stepping after ``same_count`` consecutive stable cycles.
     ``timeout`` (seconds of wall): the clock is read after each chunk, and
     a solve out of time reports the whole chunks it ran with
-    ``timed_out``; the trajectory is the same with or without it."""
+    ``timed_out``; the trajectory is the same with or without it.
+    ``with_best`` adds ``best_values``, the best assignment seen, to the
+    extras.  ``noise_draw``: the noise draw's row count when ``dev`` is padded
+    past ``compiled`` (the serving layer's bucket rows, see ``_noised``);
+    rows from ``compiled.n_vars`` on draw no noise."""
     n_cycles = int(n_cycles)
-    n_pad = max(8, 1 << max(0, n_cycles - 1).bit_length())
     solver = _Solver(
         init=init, step=step, extract=extract, convergence=convergence,
         same_count=int(same_count), collect_curve=bool(collect_curve),
-        has_noise=bool(noise), length=min(TIMEOUT_CHUNK, n_pad),
+        has_noise=bool(noise), length=_chunk_length(n_cycles),
+        noise_draw=None if noise_draw is None else int(noise_draw),
     )
     runner = _runner(compiled, solver, dev, tuple(consts))
     deadline = None if timeout is None else time.perf_counter() + timeout
-    runner.start(PRNGKey(seed), n_cycles, float(noise or 0.0))
-    issued = 0  # iterations replayed, live or not
-    chunk = TIMEOUT_CHUNK
-    timed_out = False
-    while issued < n_cycles:
-        reps = -(-min(chunk, n_cycles - issued) // solver.length)
-        for _ in range(reps):
-            runner.replay()
-        run_cycles.replays += reps
-        run_cycles.iterations += reps * solver.length
-        issued += reps * solver.length
-        chunk = min(2 * chunk, MAX_CHUNK)
-        if issued >= n_cycles:
-            break  # every cycle ran or the stop rule fired: nothing to ask
-        ran, stable = runner.status()
-        run_cycles.host_syncs += 1
-        if solver.use_stability and stable >= same_count:
-            break
-        if deadline is not None and time.perf_counter() >= deadline:
-            timed_out = ran < n_cycles
-            break
+    key = PRNGKey(seed)
+    n_real = dev.n_vars if noise_draw is None else compiled.n_vars
+    runner.start(
+        np.array([key[0], key[1], n_cycles, n_real]),
+        np.float32(noise or 0.0),
+    )
+    timed_out = _drive(runner, solver, np.array([n_cycles]), deadline)
     out = _unpack(runner.packed().cpu().numpy(), dev.n_vars)
     run_cycles.host_syncs += 1
     extras = {
@@ -628,6 +785,8 @@ def run_cycles(
         "cycles_to_best": out["best_cycle"],
         "timed_out": timed_out,
     }
+    if with_best:
+        extras["best_values"] = out["best"]
     if state_into is not None:
         assign_(state_into, runner.state())
         extras["state"] = state_into
@@ -640,6 +799,59 @@ run_cycles.captures = 0
 run_cycles.replays = 0
 run_cycles.iterations = 0  # replays times their chunks' length
 run_cycles.host_syncs = 0
+
+
+def run_batch(
+    home: Any,
+    dev: DeviceDCOP,
+    init: Callable,
+    step: Callable,
+    extract: Callable,
+    n_limits: List[int],
+    seeds: List[int],
+    levels: List[float],
+    n_reals: List[int],
+    consts: Tuple = (),
+    convergence: Optional[Callable] = None,
+    same_count: int = 4,
+    has_noise: bool = False,
+    noise_draw: Optional[int] = None,
+) -> List[Dict[str, Any]]:
+    """K solves of one solver as one: ``dev`` and ``consts`` hold K
+    problems of one shape stacked on a leading instance axis (the
+    serving layer's bucket), and instance ``i`` runs ``n_limits[i]``
+    cycles from ``PRNGKey(seeds[i])`` with noise ``levels[i]`` over its
+    ``n_reals[i]`` real rows.  The prologue and every chunk run mapped
+    over the instances: on the card each is one captured graph, keyed on
+    ``home`` (an object whose ``__dict__`` holds the cache) and on the
+    tensors of ``dev`` and ``consts``, which a caller refills in place
+    for its next batch; a chunk's launches are those of one solo chunk.
+    The batch runs until every instance has stopped (``_drive``), then
+    reads back one packed ``[K, ...]`` block.  Each instance's result
+    (``_unpack``'s fields) is the one ``run_cycles`` gives the same solve
+    alone with ``noise_draw``: a dead iteration keeps its carry."""
+    n_limits = np.asarray(n_limits, dtype=np.int64)
+    solver = _Solver(
+        init=init, step=step, extract=extract, convergence=convergence,
+        same_count=int(same_count), collect_curve=False,
+        has_noise=bool(has_noise),
+        length=_chunk_length(int(n_limits.max()) if n_limits.size else 0),
+        noise_draw=None if noise_draw is None else int(noise_draw),
+        batched=True,
+    )
+    runner = _runner(home, solver, dev, tuple(consts))
+    keys = np.array([PRNGKey(s) for s in seeds], dtype=np.int64)
+    runner.start(
+        np.concatenate([
+            keys, n_limits[:, None],
+            np.asarray(n_reals, dtype=np.int64)[:, None],
+        ], axis=1),
+        np.asarray(levels, dtype=np.float32),
+    )
+    _drive(runner, solver, n_limits, None)
+    packed = runner.packed().cpu().numpy()
+    run_cycles.host_syncs += 1
+    return [_unpack(row, dev.n_vars) for row in packed]
 
 
 def finalize(

@@ -207,6 +207,38 @@ def _consts(compiled: CompiledDCOP, params: Dict, dev: DeviceDCOP):
     return probability, constraint_optima(compiled, dev)
 
 
+def bucket_extra(compiled: CompiledDCOP, params: Dict) -> tuple:
+    """The serving layer's bucket-key component: DSA's constants are
+    shaped by the padded DeviceDCOP dims alone, so nothing extra."""
+    return ()
+
+
+def msg_per_cycle(compiled: CompiledDCOP):
+    """The reference's message accounting per cycle: one value message
+    per directed neighbour pair."""
+    src, _dst = compiled.neighbor_pairs()
+    return int(len(src)), int(len(src)) * UNIT_SIZE
+
+
+def batch_plan(compiled: CompiledDCOP, dev: DeviceDCOP, params: Dict):
+    """The serving layer's plan (``serve.batch``): the init, step and
+    constants a solve uses, against the bucket-padded ``dev``."""
+    from ..serve.batch import BatchPlan
+
+    return BatchPlan(
+        init=_init,
+        step=_make_step(params["variant"]),
+        extract=extract_values,
+        consts=_consts(compiled, params, dev),
+        convergence=None,
+        same_count=4,
+        noise=0.0,
+        return_final=False,
+        msg_per_cycle=msg_per_cycle(compiled),
+        n_cycles_override=int(params["stop_cycle"] or 0),
+    )
+
+
 def solve(
     compiled: CompiledDCOP,
     params: Optional[Dict[str, Any]] = None,

@@ -120,11 +120,16 @@ PLANE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 def _make_step(
     damping: float, damp_vars: bool, damp_factors: bool, wavefront: bool,
     layout: str, ell_spans: Tuple[Tuple[int, int], ...] = (),
-    precision: str = "f32",
+    precision: str = "f32", fma_damping: bool = False,
 ):
     """The cycle of ``layout`` ("ell", "lanes" or "edges") with message
     planes stored in ``precision``; cached, so a warm solve finds its
-    captured graphs under the same step."""
+    captured graphs under the same step.  ``fma_damping`` damps both
+    planes as one fused multiply-add (``damp``'s ``fma``), as XLA's CPU
+    compiler contracts the JAX package's resident DynamicMaxSum program
+    on the lanes and edges layouts, the two the session runs; only that
+    session sets it (the JAX package's fused solve does not contract),
+    and the ELL cycle ignores it."""
     var_damping = damping if damp_vars else 0.0
     plane_dtype = PLANE_DTYPES[precision]
 
@@ -181,15 +186,16 @@ def _make_step(
             # a factor sends once any of its variables has
             f2v = torch.where(edge_mask(i >= act_f), f2v, 0.0)
         if damp_factors and damping:
-            f2v = damp(damping, state.f2v, f2v)
+            f2v = damp(damping, state.f2v, f2v, fma_damping)
         if lanes:
             v2f, values = variable_step_with_select_lanes(
                 dev, state.aux, f2v, damping=var_damping,
-                prev_v2f_t=state.v2f,
+                prev_v2f_t=state.v2f, fma=fma_damping,
             )
         else:
             v2f, values = variable_step_with_select(
                 dev, f2v, damping=var_damping, prev_v2f=state.v2f,
+                fma=fma_damping,
             )
         if wavefront:
             # a variable starts sending once any of its factors has sent
@@ -382,10 +388,12 @@ def activation_cycles(
     return cached_const(compiled, ("activation", start_mode), build)
 
 
-def _ell_activation(compiled, ell: EllLayout, start_mode: str, device):
+def _ell_activation(compiled, ell: EllLayout, start_mode: str, device,
+                    tag: str = "ell_act"):
     """Wavefront activation arrays permuted to ELL slot order, on
-    ``device`` (cached).  Padding slots get an unreachable activation
-    cycle so both wavefront masks pin them to exact zeros."""
+    ``device`` (cached under ``tag``: one per layout of the problem).
+    Padding slots get an unreachable activation cycle so both wavefront
+    masks pin them to exact zeros."""
 
     def build():
         act_v, act_f = activation_cycles(compiled, start_mode)
@@ -400,7 +408,7 @@ def _ell_activation(compiled, ell: EllLayout, start_mode: str, device):
             torch.as_tensor(af, device=device),
         )
 
-    return cached_const(compiled, ("ell_act", start_mode, str(device)), build)
+    return cached_const(compiled, (tag, start_mode, str(device)), build)
 
 
 def _ell_dev_arrays(compiled, ell: EllLayout, device) -> Tuple:
@@ -459,6 +467,111 @@ def resolve_layout(compiled: CompiledDCOP, layout: str) -> str:
             return "lanes"
         return "ell"
     return "lanes" if layout == "pallas" else layout
+
+
+def _serve_ell(compiled: CompiledDCOP) -> EllLayout:
+    """The serving layer's ELL layout: every degree class's variable count
+    rounded up to a power of two (``serve.bucket.pad_ell_classes``), so
+    two graphs with the same padded span signature share the step and one
+    span table serves a batch.  Cached on the compiled problem."""
+    from ..serve.bucket import pad_ell_classes
+
+    return cached_const(
+        compiled, ("serve_ell",),
+        lambda: pad_ell_classes(
+            cached_const(compiled, ("ell_host",), lambda: build_ell(compiled))
+        ),
+    )
+
+
+def _serve_supported(compiled: CompiledDCOP) -> None:
+    if compiled.n_edges == 0 or any(b.arity != 2 for b in compiled.buckets):
+        from ..serve.batch import ServeUnsupported
+
+        raise ServeUnsupported(
+            "maxsum batch serving runs the ELL layout, which needs at "
+            "least one edge and binary constraints only: serve this "
+            "problem sequentially"
+        )
+
+
+def bucket_extra(compiled: CompiledDCOP, params: Dict) -> tuple:
+    """The serving layer's bucket-key component: the padded ELL span
+    signature, the step's static shape that the DeviceDCOP dims do not
+    determine."""
+    _serve_supported(compiled)
+    return (_serve_ell(compiled).spans,)
+
+
+def msg_per_cycle(compiled: CompiledDCOP):
+    """Two messages per factor-graph edge per cycle, each of size 2*D (the
+    reference's MaxSumMessage.size)."""
+    mc = 2 * compiled.n_edges
+    return mc, mc * 2 * compiled.max_domain
+
+
+def batch_plan(compiled: CompiledDCOP, dev: DeviceDCOP, params: Dict):
+    """The serving layer's plan: the ELL init and step on the class-padded
+    layout, constants padded to the bucket's shapes.  The same math as
+    the solo ELL solve slot for slot (class pads are dead slots, like
+    ``build_ell``'s degree padding)."""
+    from ..serve.batch import BatchPlan
+
+    _serve_supported(compiled)
+    ell = _serve_ell(compiled)
+    start_mode = params["start_messages"]
+    wavefront = start_mode != "all"
+    device = dev.unary.device
+
+    def build():
+        if wavefront:
+            act = _ell_activation(compiled, ell, start_mode, device,
+                                  "serve_ell_act")
+        else:
+            act = (torch.zeros(1, dtype=torch.int32, device=device),) * 2
+        pos = np.zeros(dev.n_vars, dtype=np.int64)
+        pos[:len(ell.pos_of_var)] = ell.pos_of_var
+
+        def idx(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                   device=device)
+
+        return act + (
+            torch.as_tensor(ell.pair_perm, device=device),  # int32: kernel
+            torch.as_tensor(ell.tabs_t, device=device),
+            idx(pos),
+            torch.as_tensor(ell.edge_valid_t, device=device),
+            torch.as_tensor(ell.valid_ell_t, device=device),
+            torch.as_tensor(ell.dsize_edges, device=device),
+            torch.as_tensor(ell.real_row, device=device),
+            idx(ell.var_perm),
+        )
+
+    consts = cached_const(
+        compiled, ("serve_ell_consts", start_mode, dev.n_vars, str(device)),
+        build,
+    )
+    precision = params["precision"]
+    return BatchPlan(
+        init=_make_init("ell", precision),
+        step=_make_step(
+            params["damping"],
+            params["damping_nodes"] in ("vars", "both"),
+            params["damping_nodes"] in ("factors", "both"),
+            wavefront, "ell", ell.spans, precision,
+        ),
+        extract=extract_values,
+        consts=consts,
+        convergence=(
+            _make_convergence(params["stability"])
+            if not params["stop_cycle"] else None
+        ),
+        same_count=SAME_COUNT,
+        noise=float(params["noise"]),
+        return_final=False,  # anytime best, as the solo solve
+        msg_per_cycle=msg_per_cycle(compiled),
+        n_cycles_override=int(params["stop_cycle"] or 0),
+    )
 
 
 def solve(

@@ -150,7 +150,7 @@ class DynamicMaxSum:
         self._step = _make_step(
             self.params["damping"], damping_nodes in ("vars", "both"),
             damping_nodes in ("factors", "both"), False, layout, (),
-            precision,
+            precision, fma_damping=True,
         )
         self._subscriptions = []
         for ext in self.dcop.external_variables.values():

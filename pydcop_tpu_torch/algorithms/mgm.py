@@ -145,6 +145,56 @@ def padded_neighbor_pairs(compiled, n_pairs: int, dev: DeviceDCOP):
     )
 
 
+def bucket_extra(compiled, params: Dict) -> tuple:
+    """The serving layer's bucket-key component: the power-of-two-padded
+    directed neighbour-pair count (the one MGM constant the DeviceDCOP
+    dims do not determine)."""
+    from ..serve.bucket import pow2
+
+    src, _dst = compiled.neighbor_pairs()
+    return (pow2(max(len(src), 1)),)
+
+
+def msg_per_cycle(compiled):
+    """One value and one gain message per directed neighbour pair per
+    cycle."""
+    src, _dst = compiled.neighbor_pairs()
+    return 2 * int(len(src)), 2 * int(len(src)) * UNIT_SIZE
+
+
+def serve_pair_count(compiled, dev: DeviceDCOP, padded: int) -> int:
+    """The neighbour pairs a serving plan keeps: ``padded`` on a
+    row-padded ``dev`` (the bucket), the real count on an unpadded one
+    (the fused union, whose dead self-pairs would have no dead row to sit
+    on; JAX's out-of-range gathers clamp them there, where they decide
+    nothing, so the real pairs give the same bits)."""
+    if dev.n_vars > compiled.n_vars:
+        return padded
+    return len(compiled.neighbor_pairs()[0])
+
+
+def batch_plan(compiled, dev: DeviceDCOP, params: Dict):
+    """The serving layer's plan: the solve's step and init with the
+    neighbour pairs padded to the bucket's pair count."""
+    from ..serve.batch import BatchPlan
+
+    (n_pairs_p,) = bucket_extra(compiled, params)
+    return BatchPlan(
+        init=_init,
+        step=_make_step(params["break_mode"] == "random"),
+        extract=extract_values,
+        consts=padded_neighbor_pairs(
+            compiled, serve_pair_count(compiled, dev, n_pairs_p), dev
+        ),
+        convergence=None,
+        same_count=4,
+        noise=0.0,
+        return_final=True,  # monotone
+        msg_per_cycle=msg_per_cycle(compiled),
+        n_cycles_override=int(params["stop_cycle"] or 0),
+    )
+
+
 def solve(
     compiled: CompiledDCOP,
     params: Optional[Dict[str, Any]] = None,

@@ -505,15 +505,20 @@ def _padded_offers(compiled: CompiledDCOP, dev: DeviceDCOP, n_off_p: int):
     )
 
 
-def _offers_dev(compiled: CompiledDCOP, dev: DeviceDCOP):
+def _offers_dev(compiled: CompiledDCOP, dev: DeviceDCOP, n_off_p=None):
     """The offer structure as the step's tensors on ``dev``'s device, in
     ``Mgm2State`` order after the neighbour pairs: index arrays as int64,
-    and the segment bounds of the sorted ``dyn_edge`` in its place."""
+    and the segment bounds of the sorted ``dyn_edge`` in its place.  With
+    ``n_off_p``, the offer edges padded to that count (``_padded_offers``;
+    the serving layer's buckets)."""
     device = dev.unary.device
 
     def build():
         (src, dst, tables, by_dst, dst_sorted, flat, edge, base, o_ids,
-         o_str, s_src, s_dst) = _offers_cached(compiled, dev.max_domain)
+         o_str, s_src, s_dst) = (
+            _offers_cached(compiled, dev.max_domain) if n_off_p is None
+            else _padded_offers(compiled, dev, n_off_p)
+        )
 
         def idx(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64),
@@ -528,7 +533,64 @@ def _offers_dev(compiled: CompiledDCOP, dev: DeviceDCOP):
         )
 
     return cached_const(
-        compiled, ("mgm2_offers_dev", dev.max_domain, str(device)), build
+        compiled,
+        ("mgm2_offers_dev", dev.max_domain, str(device), n_off_p,
+         dev.n_vars if n_off_p is not None else None),
+        build,
+    )
+
+
+def bucket_extra(compiled: CompiledDCOP, params: Dict) -> tuple:
+    """The serving layer's bucket-key component: the padded neighbour-pair
+    and directed offer-edge counts.  Higher-arity offer structures (the
+    per-cycle table slices) are shaped by the problem, so those problems
+    are not batched: ``ServeUnsupported``."""
+    from ..serve.batch import ServeUnsupported
+    from ..serve.bucket import pow2
+
+    if any(b.arity > 2 for b in compiled.buckets):
+        raise ServeUnsupported(
+            "mgm2 batch serving supports binary constraints only (the "
+            "higher-arity offer slices are shaped by the problem): serve "
+            "this problem sequentially"
+        )
+    src, _dst = compiled.neighbor_pairs()
+    n_off = int(_offers_cached(compiled, compiled.max_domain)[0].shape[0])
+    return (pow2(max(len(src), 1)), pow2(n_off) if n_off else 0)
+
+
+def msg_per_cycle(compiled: CompiledDCOP):
+    """Five protocol phases per directed neighbour pair per cycle."""
+    src, _dst = compiled.neighbor_pairs()
+    return 5 * int(len(src)), 5 * int(len(src)) * UNIT_SIZE
+
+
+def batch_plan(compiled: CompiledDCOP, dev: DeviceDCOP, params: Dict):
+    """The serving layer's plan: the five-phase step with the neighbour
+    pairs and offer edges padded to the bucket's counts (the real counts
+    on an unpadded ``dev``, see ``mgm.serve_pair_count``)."""
+    from ..serve.batch import BatchPlan
+    from .mgm import padded_neighbor_pairs, serve_pair_count
+
+    n_pairs_p, n_off_p = bucket_extra(compiled, params)
+    n_off = int(_offers_cached(compiled, dev.max_domain)[0].shape[0])
+    neigh = padded_neighbor_pairs(
+        compiled, serve_pair_count(compiled, dev, n_pairs_p), dev
+    )
+    padded = n_off_p and dev.n_vars > compiled.n_vars and n_off_p > n_off
+    offers = _offers_dev(compiled, dev, n_off_p if padded else None)
+    return BatchPlan(
+        init=_init,
+        step=_make_step(params["threshold"], params["favor"],
+                        bool(n_off_p), False),
+        extract=extract_values,
+        consts=neigh + offers,
+        convergence=None,
+        same_count=4,
+        noise=0.0,
+        return_final=True,  # monotone
+        msg_per_cycle=msg_per_cycle(compiled),
+        n_cycles_override=int(params["stop_cycle"] or 0),
     )
 
 

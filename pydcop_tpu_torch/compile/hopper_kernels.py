@@ -56,6 +56,16 @@ plain versions define it).  Each sum site is one launch: ``xla_tree_sum``
 in ``xla_tree_sum.launches``.  Rows over 1,024 values take tickets from a
 zeroed pool that each launch leaves at zero (``_tickets``).  It is bound
 by its launch at the sizes it runs at.
+
+The serving layer's batches: ``ell_minplus``, ``xla_tree_sum``,
+``tree_evaluate`` and ``ell_fan_in`` are each reached through a
+``torch.library`` custom op whose vmap rule turns a call mapped over an
+instance axis into the ``*_batched`` function: K instances of one shape
+stacked on a leading axis, one launch for all of them on the card (the
+sources' ``*_batched_launch`` entries; the rows sum folds the instances
+into its outer stride), each instance the bits of its solo call.  Such a
+launch counts in the wrapper's ``launches`` and in its
+``batched.launches``.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -76,16 +86,20 @@ __all__ = [
     "capture_tally",
     "count_replay",
     "ell_fan_in",
+    "ell_fan_in_batched",
     "ell_fan_in_plain",
     "ell_minplus",
+    "ell_minplus_batched",
     "ell_minplus_plain",
     "factor_arity2_minplus",
     "factor_arity2_minplus_plain",
     "minplus_marginals_plain",
     "tree_evaluate",
+    "tree_evaluate_batched",
     "tree_evaluate_plain",
     "xla_tree_levels",
     "xla_tree_sum",
+    "xla_tree_sum_batched",
     "xla_tree_sum_plain",
 ]
 
@@ -130,14 +144,103 @@ def count_replay(tally: Dict) -> None:
         wrapper.launches += n
 
 
-def _count_launch(wrapper) -> None:
+class _Count:
+    """A count of launches of its own: a wrapper's ``batched``, the
+    launches it made for a whole batch of instances (counted in its
+    ``launches`` too)."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
+def _count_launch(wrapper, batched: bool = False) -> None:
     """One call of ``wrapper`` on the card: a launch now, or one recorded
-    into the graph being captured on the current stream."""
+    into the graph being captured on the current stream.  A launch for a
+    batch counts in ``wrapper.batched`` too."""
+    counts = (wrapper, wrapper.batched) if batched else (wrapper,)
     if torch.cuda.is_current_stream_capturing():
         for tally in _tallies:
-            tally[wrapper] = tally.get(wrapper, 0) + 1
+            for c in counts:
+                tally[c] = tally.get(c, 0) + 1
     else:
-        wrapper.launches += 1
+        for c in counts:
+            c.launches += 1
+
+
+# Each wrapper is reached through a torch.library custom op, whose vmap
+# rule makes a call mapped over an instance axis (the serving layer's
+# batches, algorithms/base.py's _map_instances) ONE launch for the whole
+# batch (on the CPU, the plain version instance by instance).
+_OPS = "pydcop_tpu_torch"
+
+
+def _batch_first(batch_size: int, in_dims, args) -> List:
+    """``args`` with the instance axis first: a mapped tensor's axis moved
+    to 0, an unmapped tensor broadcast along a new axis 0 (lists of
+    tensors element by element); other values as they are."""
+
+    def one(x, d):
+        if d is None:
+            return x.expand(batch_size, *x.shape)
+        return x.movedim(d, 0)
+
+    out = []
+    for a, d in zip(args, in_dims):
+        if isinstance(a, torch.Tensor):
+            out.append(one(a, d))
+        elif isinstance(a, (list, tuple)) and all(
+            isinstance(x, torch.Tensor) for x in a
+        ):
+            dims = d if isinstance(d, (list, tuple)) else [d] * len(a)
+            out.append([one(x, dd) for x, dd in zip(a, dims)])
+        else:
+            out.append(a)
+    return out
+
+
+def _per_instance(plain: Callable, *args):
+    """``plain`` called on each instance of ``args`` (batch-first tensors,
+    lists of them, and other values as they are), its results stacked:
+    the CPU's batched call, each instance's bits its solo call's (a vmap
+    rule cannot map the plain version again)."""
+    k = next(
+        a.shape[0] if isinstance(a, torch.Tensor) else a[0].shape[0]
+        for a in args
+        if isinstance(a, torch.Tensor) or (
+            isinstance(a, list) and a and isinstance(a[0], torch.Tensor))
+    )
+
+    def pick(a, i):
+        if isinstance(a, torch.Tensor):
+            return a[i]
+        if isinstance(a, list) and all(
+            isinstance(x, torch.Tensor) for x in a
+        ):
+            return [x[i] for x in a]
+        return a
+
+    outs = [plain(*(pick(a, i) for a in args)) for i in range(k)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(col) for col in zip(*outs))
+    return torch.stack(outs)
+
+
+def _fresh(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """``out``, copied if it shares memory with an input (a custom op's
+    result may not alias its operands: a one-element sum is a view)."""
+    ptr = out.untyped_storage().data_ptr()
+    if any(x.untyped_storage().data_ptr() == ptr for x in inputs):
+        return out.clone()
+    return out
+
+
+def _host_or_card(tensors, what: str) -> torch.device:
+    """The device of a call: the CPU, or one CUDA device; raises for
+    anything else (a mix, or another device type)."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return torch.device("cpu")
+    return _on_cuda(list(tensors), what)
 
 
 # the message planes a kernel takes, and the suffix of its launch function
@@ -188,35 +291,82 @@ def ell_minplus(
     partner's value + pad mask.  On CPU tensors this is
     :func:`ell_minplus_plain`; on CUDA tensors it launches
     ``csrc/ell_minplus.cu`` on the current stream (float32 tables, a
-    float32 or bfloat16 plane, a float32 result)."""
-    tensors = (v2f_t, pair_perm, tabs_t, real_row)
-    if all(t.device.type == "cpu" for t in tensors):
-        return ell_minplus_plain(v2f_t, pair_perm, tabs_t, real_row)
-    device = v2f_t.device
-    if device.type != "cuda":
-        raise ValueError(f"ell_minplus runs on cpu or cuda, not {device}")
-    d, n_pad = v2f_t.shape
-    _check(v2f_t, "v2f_t", _PLANE_DTYPES, (d, n_pad), device)
-    _check(pair_perm, "pair_perm", torch.int32, (n_pad,), device)
-    _check(tabs_t, "tabs_t", torch.float32, (d, d, n_pad), device)
-    _check(real_row, "real_row", torch.bool, (1, n_pad), device)
-    out = tabs_t.new_empty((d, n_pad))
-    fn = _c_function(
-        "ell_minplus", _ELL_MINPLUS_ARGS, _PLANE_VARIANT[v2f_t.dtype]
-    )
-    with torch.cuda.device(device):
-        rc = fn(
-            v2f_t.data_ptr(), pair_perm.data_ptr(), tabs_t.data_ptr(),
-            real_row.data_ptr(), out.data_ptr(), d, n_pad,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"ell_minplus launch failed: CUDA error {rc}")
-    _count_launch(ell_minplus)
-    return out
+    float32 or bfloat16 plane, a float32 result).  Mapped over an
+    instance axis (``torch.func.vmap``) it is one launch for the whole
+    batch (``ell_minplus_batched``), each instance's result the solo
+    call's."""
+    _host_or_card((v2f_t, pair_perm, tabs_t, real_row), "ell_minplus")
+    return _ell_minplus_op(v2f_t, pair_perm, tabs_t, real_row)
 
 
 ell_minplus.launches = 0
+ell_minplus.batched = _Count()
+
+
+@torch.library.custom_op(f"{_OPS}::ell_minplus", mutates_args=())
+def _ell_minplus_op(
+    v2f_t: torch.Tensor, pair_perm: torch.Tensor, tabs_t: torch.Tensor,
+    real_row: torch.Tensor,
+) -> torch.Tensor:
+    if v2f_t.device.type == "cpu":
+        return ell_minplus_plain(v2f_t, pair_perm, tabs_t, real_row)
+    return _launch_ell_minplus(v2f_t, pair_perm, tabs_t, real_row, False)
+
+
+@_ell_minplus_op.register_vmap
+def _ell_minplus_vmap(info, in_dims, *args):
+    return ell_minplus_batched(*_batch_first(info.batch_size, in_dims,
+                                             args)), 0
+
+
+def ell_minplus_batched(
+    v2f_t: torch.Tensor,  # [K, D, n_pad]
+    pair_perm: torch.Tensor,  # [K, n_pad] int32, instance-local slots
+    tabs_t: torch.Tensor,  # [K, D, D, n_pad]
+    real_row: torch.Tensor,  # [K, 1, n_pad]
+) -> torch.Tensor:
+    """``ell_minplus`` of K instances stacked on a leading axis, each
+    instance's result its solo call's: on CPU tensors the plain version
+    of each instance, on CUDA tensors one launch of
+    ``csrc/ell_minplus.cu`` for the batch (counted in
+    ``ell_minplus.launches`` and ``ell_minplus.batched.launches``)."""
+    args = (v2f_t, pair_perm, tabs_t, real_row)
+    if _host_or_card(args, "ell_minplus").type == "cpu":
+        return _per_instance(ell_minplus_plain, *args)
+    return _launch_ell_minplus(*(a.contiguous() for a in args), True)
+
+
+# v2f_t, pair_perm, tabs_t, real_row, out, d, n_pad, n_inst, stream
+_ELL_MINPLUS_BATCHED_ARGS = (ctypes.c_void_p,) * 5 + (
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+)
+
+
+def _launch_ell_minplus(v2f_t, pair_perm, tabs_t, real_row,
+                        batched: bool) -> torch.Tensor:
+    device = v2f_t.device
+    lead = tuple(v2f_t.shape[:1]) if batched else ()
+    d, n_pad = v2f_t.shape[-2:]
+    _check(v2f_t, "v2f_t", _PLANE_DTYPES, lead + (d, n_pad), device)
+    _check(pair_perm, "pair_perm", torch.int32, lead + (n_pad,), device)
+    _check(tabs_t, "tabs_t", torch.float32, lead + (d, d, n_pad), device)
+    _check(real_row, "real_row", torch.bool, lead + (1, n_pad), device)
+    out = tabs_t.new_empty(lead + (d, n_pad))
+    variant = _PLANE_VARIANT[v2f_t.dtype]
+    args = [v2f_t.data_ptr(), pair_perm.data_ptr(), tabs_t.data_ptr(),
+            real_row.data_ptr(), out.data_ptr(), d, n_pad]
+    if batched:
+        fn = _c_function("ell_minplus", _ELL_MINPLUS_BATCHED_ARGS,
+                         variant + "_batched")
+        args.append(lead[0])
+    else:
+        fn = _c_function("ell_minplus", _ELL_MINPLUS_ARGS, variant)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ell_minplus launch failed: CUDA error {rc}")
+    _count_launch(ell_minplus, batched)
+    return out
 
 
 # v2f_t, e0, e1, tables_t, out0, out1, d, n_edges, n_c, stream
@@ -426,27 +576,29 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     return pool
 
 
-def _tree_launch(name: str, argtypes: tuple, device, segments, extra=0):
+def _tree_launch(name: str, argtypes: tuple, device, segments,
+                 extra_scratch=0, extra_tickets=0):
     """(C launch function, scratch, tickets) of one tree-sum launch over
-    ``segments`` of (n, rows): a fresh float32 scratch (plus ``extra``
-    floats) and the device's ticket pool (plus ``extra`` tickets)."""
+    ``segments`` of (n, rows): a fresh float32 scratch (plus
+    ``extra_scratch`` floats) and the device's ticket pool (plus
+    ``extra_tickets``).  A batch's rows are all its instances' rows."""
     scratch, tickets = _tree_needs(segments)
     return (
         _c_function("xla_tree_sum", argtypes, name),
-        torch.empty(max(scratch + extra, 1), dtype=torch.float32,
+        torch.empty(max(scratch + extra_scratch, 1), dtype=torch.float32,
                     device=device),
-        _tickets(device, tickets + extra),
+        _tickets(device, tickets + extra_tickets),
     )
 
 
-def _run(fn, device, what: str, *args) -> None:
+def _run(fn, device, what: str, *args, batched: bool = False) -> None:
     """Call a launch function with the current stream; raise on a CUDA
     error or a refusal (-1: a buffer too small, a table too long)."""
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: error {rc}")
-    _count_launch(xla_tree_sum)
+    _count_launch(xla_tree_sum, batched)
 
 
 def _scratch_args(scratch: torch.Tensor, tickets: torch.Tensor):
@@ -496,13 +648,47 @@ def xla_tree_sum(x: torch.Tensor) -> torch.Tensor:
     order.  On a CPU tensor this is :func:`xla_tree_sum_plain`; on a CUDA
     tensor (1 to 3 dimensions, of any strides: a [D, n] plane's domain
     axis is read in place) it is one launch of ``csrc/xla_tree_sum.cu``
-    on the current stream, every row to its full tree."""
+    on the current stream, every row to its full tree.  Mapped over an
+    instance axis it is one launch for the K instances' rows
+    (``xla_tree_sum_batched``)."""
+    _host_or_card((x,), "xla_tree_sum")
+    return _rows_op(x)
+
+
+xla_tree_sum.launches = 0
+xla_tree_sum.batched = _Count()
+
+
+@torch.library.custom_op(f"{_OPS}::xla_tree_sum", mutates_args=())
+def _rows_op(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
-        return xla_tree_sum_plain(x)
-    return _launch_rows(x, _on_cuda([x], "xla_tree_sum"))
+        return _fresh(xla_tree_sum_plain(x), x)
+    return _launch_rows(x, x.device, False)
 
 
-def _launch_rows(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+@_rows_op.register_vmap
+def _rows_vmap(info, in_dims, x):
+    return xla_tree_sum_batched(*_batch_first(info.batch_size, in_dims,
+                                              (x,))), 0
+
+
+def xla_tree_sum_batched(x: torch.Tensor) -> torch.Tensor:
+    """``xla_tree_sum`` of K instances stacked on a leading axis of ``x``
+    (of any strides): on a CPU tensor the plain version of each
+    instance, on a CUDA tensor one launch over the K instances' rows,
+    the instance axis the rows' outer stride (counted in
+    ``xla_tree_sum.batched.launches`` too)."""
+    device = _host_or_card((x,), "xla_tree_sum")
+    if device.type == "cpu":
+        return _per_instance(xla_tree_sum_plain, x)
+    lead = tuple(x.shape[:-1])
+    if x.dim() > 3:
+        x = x.reshape(-1, *x.shape[-2:])
+    return _launch_rows(x, device, True).reshape(lead)
+
+
+def _launch_rows(x: torch.Tensor, device: torch.device,
+                 batched: bool) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise TypeError(f"x has dtype {x.dtype}, expected torch.float32")
     rows, inner, s_outer, s_inner, s_elem = _row_layout(x)
@@ -514,11 +700,9 @@ def _launch_rows(x: torch.Tensor, device: torch.device) -> torch.Tensor:
         "_rows", _ROWS_ARGS, device, [(n, rows)]
     )
     _run(fn, device, "xla_tree_sum", x.data_ptr(), out.data_ptr(), n, rows,
-         inner, s_outer, s_inner, s_elem, *_scratch_args(scratch, tickets))
+         inner, s_outer, s_inner, s_elem, *_scratch_args(scratch, tickets),
+         batched=batched)
     return out
-
-
-xla_tree_sum.launches = 0
 
 
 def bucket_costs_plain(
@@ -577,12 +761,64 @@ def tree_evaluate(
     tensor.  On CPU tensors this is :func:`tree_evaluate_plain`; on CUDA
     tensors it is one launch of ``csrc/xla_tree_sum.cu`` (counted in
     ``xla_tree_sum.launches``) whose level 1 gathers each cost from the
-    assignment and whose last warp combines the totals."""
-    tensors = [unary, values, constant] + [t for b in buckets for t in b]
-    if all(t.device.type == "cpu" for t in tensors):
+    assignment and whose last warp combines the totals.  Mapped over an
+    instance axis it is one launch for the K totals
+    (``tree_evaluate_batched``)."""
+    tables = [t for t, _ in buckets]
+    var_slots = [vs for _, vs in buckets]
+    _host_or_card([unary, values, constant] + tables + var_slots,
+                  "tree_evaluate")
+    return _evaluate_op(unary, values, tables, var_slots, constant)
+
+
+@torch.library.custom_op(f"{_OPS}::tree_evaluate", mutates_args=())
+def _evaluate_op(
+    unary: torch.Tensor, values: torch.Tensor, tables: List[torch.Tensor],
+    var_slots: List[torch.Tensor], constant: torch.Tensor,
+) -> torch.Tensor:
+    buckets = list(zip(tables, var_slots))
+    if unary.device.type == "cpu":
         return tree_evaluate_plain(unary, values, buckets, constant)
-    return _launch_evaluate(unary, values, buckets, constant,
-                            _on_cuda(tensors, "tree_evaluate"))
+    return _launch_evaluate(unary, values, buckets, constant, unary.device)
+
+
+@_evaluate_op.register_vmap
+def _evaluate_vmap(info, in_dims, unary, values, tables, var_slots,
+                   constant):
+    unary, values, tables, var_slots, constant = _batch_first(
+        info.batch_size, in_dims, (unary, values, tables, var_slots,
+                                   constant),
+    )
+    return tree_evaluate_batched(
+        unary, values, list(zip(tables, var_slots)), constant
+    ), 0
+
+
+def tree_evaluate_batched(
+    unary: torch.Tensor,  # [K, n_vars, D]
+    values: torch.Tensor,  # [K, n_vars]
+    buckets: Sequence[Tuple[torch.Tensor, torch.Tensor]],  # [K, ...] each
+    constant: torch.Tensor,  # [K]
+) -> torch.Tensor:
+    """[K] ``evaluate`` totals of K instances of one shape stacked on a
+    leading axis (instance-local variable ids), each its solo call's: on
+    CPU tensors the plain version of each instance, on CUDA
+    tensors one launch for the batch."""
+    tensors = [unary, values, constant] + [t for b in buckets for t in b]
+    device = _host_or_card(tensors, "tree_evaluate")
+    if device.type == "cpu":
+        return _per_instance(
+            lambda u, v, ts, vss, c: tree_evaluate_plain(
+                u, v, list(zip(ts, vss)), c
+            ),
+            unary, values, [t for t, _ in buckets],
+            [vs for _, vs in buckets], constant,
+        )
+    return _launch_evaluate_batched(
+        unary.contiguous(), values.contiguous(),
+        [(t.contiguous(), vs.contiguous()) for t, vs in buckets],
+        constant.contiguous(), device,
+    )
 
 
 def _launch_evaluate(unary, values, buckets, constant, device):
@@ -599,7 +835,8 @@ def _launch_evaluate(unary, values, buckets, constant, device):
         desc += [tables.data_ptr(), var_slots.data_ptr(), n_c, a]
     segments = [(n_vars, 1)] + [(vs.shape[0], 1) for _, vs in buckets]
     fn, scratch, tickets = _tree_launch(
-        "_evaluate", _EVALUATE_ARGS, device, segments, extra=len(segments)
+        "_evaluate", _EVALUATE_ARGS, device, segments,
+        extra_scratch=len(segments), extra_tickets=1,
     )
     out = unary.new_empty(())
     desc = (ctypes.c_longlong * max(len(desc), 1))(*desc)
@@ -607,6 +844,38 @@ def _launch_evaluate(unary, values, buckets, constant, device):
          int(values.dtype == torch.int64), d, unary.data_ptr(),
          unary.stride(0), n_vars, len(buckets), desc, constant.data_ptr(),
          out.data_ptr(), *_scratch_args(scratch, tickets))
+    return out
+
+
+# values, values_i64, d, unary, unary_stride, unary_inst, n_vars, n_inst,
+# n_buckets, buckets, constant, out, scratch, tickets, stream
+_EVALUATE_BATCHED_ARGS = (_P, ctypes.c_int, ctypes.c_int, _P, _LL, _LL, _LL,
+                          _LL, ctypes.c_int, _P, _P, _P) + _SCRATCH + (_P,)
+
+
+def _launch_evaluate_batched(unary, values, buckets, constant, device):
+    k, n_vars, d = unary.shape
+    _check(unary, "unary", torch.float32, (k, n_vars, d), device)
+    _check(values, "values", _VALUE_DTYPES, (k, n_vars), device)
+    _check(constant, "constant", torch.float32, (k,), device)
+    desc = []
+    for tables, var_slots in buckets:
+        _, n_c, a = var_slots.shape
+        _check(tables, "tables_flat", torch.float32, (k, n_c, d ** a),
+               device)
+        _check(var_slots, "var_slots", torch.int64, (k, n_c, a), device)
+        desc += [tables.data_ptr(), var_slots.data_ptr(), n_c, a]
+    segments = [(n_vars, k)] + [(vs.shape[1], k) for _, vs in buckets]
+    fn, scratch, tickets = _tree_launch(
+        "_evaluate_batched", _EVALUATE_BATCHED_ARGS, device, segments,
+        extra_scratch=k * len(segments), extra_tickets=k,
+    )
+    out = unary.new_empty((k,))
+    desc = (ctypes.c_longlong * max(len(desc), 1))(*desc)
+    _run(fn, device, "tree_evaluate", values.data_ptr(),
+         int(values.dtype == torch.int64), d, unary.data_ptr(), d,
+         n_vars * d, n_vars, k, len(buckets), desc, constant.data_ptr(),
+         out.data_ptr(), *_scratch_args(scratch, tickets), batched=True)
     return out
 
 
@@ -661,28 +930,79 @@ def ell_fan_in(
     On CPU tensors this is :func:`ell_fan_in_plain`; on CUDA tensors it is
     one launch of ``csrc/xla_tree_sum.cu`` (counted in
     ``xla_tree_sum.launches``) over all classes at once, writing both
-    float32 planes whole (a float32 or bfloat16 ``f2v_t``)."""
-    if unary_t.device.type == "cpu" and f2v_t.device.type == "cpu":
-        return ell_fan_in_plain(spans, unary_t, f2v_t)
-    return _launch_fan_in(spans, unary_t, f2v_t,
-                          _on_cuda([unary_t, f2v_t], "ell_fan_in"))
+    float32 planes whole (a float32 or bfloat16 ``f2v_t``).  Mapped over
+    an instance axis (one span table for every instance) it is one launch
+    for the batch (``ell_fan_in_batched``)."""
+    _host_or_card((unary_t, f2v_t), "ell_fan_in")
+    return _fan_in_op([v for span in spans for v in span], unary_t, f2v_t)
 
 
-def _launch_fan_in(spans, unary_t, f2v_t, device):
-    d, n_pad = f2v_t.shape
-    n_vars = unary_t.shape[1]
-    _check(f2v_t, "f2v_t", _PLANE_DTYPES, (d, n_pad), device)
-    _check(unary_t, "unary_t", torch.float32, (d, n_vars), device)
-    segments = [(db, d * nb) for nb, db in spans]
-    fn, scratch, tickets = _tree_launch(
-        "_ell_fan_in" + _PLANE_VARIANT[f2v_t.dtype], _FAN_IN_ARGS, device,
-        segments,
+def _pairs(flat: List[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple(zip(flat[0::2], flat[1::2]))
+
+
+@torch.library.custom_op(f"{_OPS}::ell_fan_in", mutates_args=())
+def _fan_in_op(
+    spans: List[int], unary_t: torch.Tensor, f2v_t: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if unary_t.device.type == "cpu":
+        tot, v2f = ell_fan_in_plain(_pairs(spans), unary_t, f2v_t)
+        return _fresh(tot, unary_t, f2v_t), v2f
+    return _launch_fan_in(_pairs(spans), unary_t, f2v_t, unary_t.device)
+
+
+@_fan_in_op.register_vmap
+def _fan_in_vmap(info, in_dims, spans, unary_t, f2v_t):
+    _, unary_t, f2v_t = _batch_first(
+        info.batch_size, in_dims, (spans, unary_t, f2v_t)
     )
-    tot = unary_t.new_empty((d, n_vars))
-    v2f = unary_t.new_empty((d, n_pad))
+    return ell_fan_in_batched(_pairs(spans), unary_t, f2v_t), (0, 0)
+
+
+def ell_fan_in_batched(
+    spans: Tuple[Tuple[int, int], ...],
+    unary_t: torch.Tensor,  # [K, D, V]
+    f2v_t: torch.Tensor,  # [K, D, n_pad]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ell_fan_in`` of K instances of one span table stacked on a
+    leading axis, each its solo call's: on CPU tensors the plain version
+    of each instance, on CUDA tensors one launch for the batch
+    (a row of a class is (instance, d, slot))."""
+    device = _host_or_card((unary_t, f2v_t), "ell_fan_in")
+    if device.type == "cpu":
+        return _per_instance(
+            lambda u, f: ell_fan_in_plain(spans, u, f), unary_t, f2v_t
+        )
+    return _launch_fan_in(spans, unary_t.contiguous(), f2v_t.contiguous(),
+                          device, batched=True)
+
+
+# plane, d, n_pad, u, n_vars, n_inst, n_classes, spans, tot, v2f, scratch,
+# tickets, stream
+_FAN_IN_BATCHED_ARGS = (_P, ctypes.c_int, _LL, _P, _LL, _LL, ctypes.c_int,
+                        _P, _P, _P) + _SCRATCH + (_P,)
+
+
+def _launch_fan_in(spans, unary_t, f2v_t, device, batched=False):
+    lead = tuple(f2v_t.shape[:1]) if batched else ()
+    k = lead[0] if batched else 1
+    d, n_pad = f2v_t.shape[-2:]
+    n_vars = unary_t.shape[-1]
+    _check(f2v_t, "f2v_t", _PLANE_DTYPES, lead + (d, n_pad), device)
+    _check(unary_t, "unary_t", torch.float32, lead + (d, n_vars), device)
+    segments = [(db, k * d * nb) for nb, db in spans]
+    variant = _PLANE_VARIANT[f2v_t.dtype]
+    fn, scratch, tickets = _tree_launch(
+        "_ell_fan_in" + variant + ("_batched" if batched else ""),
+        _FAN_IN_BATCHED_ARGS if batched else _FAN_IN_ARGS, device, segments,
+    )
+    tot = unary_t.new_empty(lead + (d, n_vars))
+    v2f = unary_t.new_empty(lead + (d, n_pad))
+    inst = (k,) if batched else ()
     _run(fn, device, "ell_fan_in", f2v_t.data_ptr(), d, n_pad,
-         unary_t.data_ptr(), n_vars, len(spans), _span_table(tuple(spans)),
-         tot.data_ptr(), v2f.data_ptr(), *_scratch_args(scratch, tickets))
+         unary_t.data_ptr(), n_vars, *inst, len(spans),
+         _span_table(tuple(spans)), tot.data_ptr(), v2f.data_ptr(),
+         *_scratch_args(scratch, tickets), batched=batched)
     return tot, v2f
 
 

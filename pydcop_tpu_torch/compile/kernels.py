@@ -61,6 +61,8 @@ import torch
 
 from .core import BIG, CompiledDCOP
 from .hopper_kernels import (
+    _OPS,
+    _batch_first,
     bucket_costs_plain,
     ell_fan_in,
     ell_minplus,
@@ -475,31 +477,45 @@ def bf16_scalar(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.bfloat16))
 
 
-def damp(damping: float, prev: torch.Tensor, new: torch.Tensor):
+def damp(
+    damping: float, prev: torch.Tensor, new: torch.Tensor, fma: bool = False
+):
     """``damping * prev + (1 - damping) * new``, with the float32 ``new``.
     A bfloat16 ``prev`` (MaxSum's precision="bf16") is scaled as the JAX
     package's jitted step scales it: widened to float32 and multiplied by
     ``damping`` rounded to bf16, in float32, with no rounding of the
     product back to bf16 (XLA's CPU compiler keeps the excess precision
-    where the product feeds a float32 add)."""
+    where the product feeds a float32 add).
+
+    ``fma``: a float32 ``prev`` is damped as one fused multiply-add,
+    ``fma(d, prev, (1 - d) * new)``, the form XLA's CPU compiler gives
+    the JAX package's resident DynamicMaxSum program: ``d * prev`` (the
+    float32 ``damping`` times a float32, exact in float64), plus the
+    float32 ``(1 - d) * new``, rounded once in float64 and then to
+    float32.  A bf16 ``prev`` ignores it."""
     if prev.dtype == torch.bfloat16:
         return prev.float() * bf16_scalar(damping) + (1.0 - damping) * new
+    if fma:
+        d32 = float(np.float32(damping))
+        return (
+            prev.double() * d32 + ((1.0 - damping) * new).double()
+        ).float()
     return damping * prev + (1.0 - damping) * new
 
 
 def _normalize_v2f(
     v2f: torch.Tensor, mask: torch.Tensor, dsize: torch.Tensor, dim: int,
-    damping: float, prev: torch.Tensor,
+    damping: float, prev: torch.Tensor, fma: bool = False,
 ) -> torch.Tensor:
     """Mean-normalize variable->factor messages over the valid domain
     slots (``dim`` is the domain axis), BIG on invalid slots, then damp
-    against the previous plane."""
+    against the previous plane (``damp``'s ``fma``)."""
     mean = domain_sum(torch.where(mask, v2f, 0.0), dim) / (
         torch.clamp(dsize, min=1)
     )
     v2f = torch.where(mask, v2f - mean, BIG)
     if damping and prev is not None:
-        v2f = damp(damping, prev, v2f)
+        v2f = damp(damping, prev, v2f, fma)
     return v2f
 
 
@@ -512,10 +528,30 @@ def segment_sum(
     bitwise equal to XLA's sorted ``segment_sum`` on the CPU.  ``offsets``
     is precomputed, so no call rescans segment lengths, and ``unsafe``
     skips the offsets' checks, which read values back to the host (a
-    sync that a CUDA graph capture forbids)."""
+    sync that a CUDA graph capture forbids).  Mapped over an instance
+    axis (the serving layer's batches) it is one ``segment_reduce`` over
+    the K instances, each with its own offsets, each segment still summed
+    in order."""
+    return _segment_sum_op(x, offsets, axis)
+
+
+@torch.library.custom_op(f"{_OPS}::segment_sum", mutates_args=())
+def _segment_sum_op(
+    x: torch.Tensor, offsets: torch.Tensor, axis: int
+) -> torch.Tensor:
     return torch.segment_reduce(
         x, "sum", offsets=offsets, axis=axis, unsafe=True
     )
+
+
+@_segment_sum_op.register_vmap
+def _segment_sum_vmap(info, in_dims, x, offsets, axis):
+    x, offsets, _ = _batch_first(
+        info.batch_size, in_dims, (x, offsets, axis)
+    )
+    return torch.segment_reduce(
+        x, "sum", offsets=offsets.contiguous(), axis=axis + 1, unsafe=True
+    ), 0
 
 
 def segment_max(
@@ -613,18 +649,20 @@ def variable_step_with_select(
     f2v: torch.Tensor,
     damping: float = 0.0,
     prev_v2f: torch.Tensor = None,
+    fma: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Variable half-cycle on [n_edges, D] planes: fan-in (sorted
     segmented sum) plus unary costs, the argmin of that total as the
     per-variable values, and the variable->factor messages
-    ``total[edge_var] - f2v``, mean-normalized and damped."""
+    ``total[edge_var] - f2v``, mean-normalized and damped (``damp``'s
+    ``fma``)."""
     total = _fan_in_total(
         dev, dev.unary, f2v, dev.fan_in_offsets, dev.fan_in_onto_offsets, 0
     )  # [n_vars, D]
     values = masked_argmin(total, dev.valid_mask)
     v2f = _normalize_v2f(
         total[dev.edge_var] - f2v, dev.valid_mask[dev.edge_var],
-        dev.domain_size[dev.edge_var][:, None], 1, damping, prev_v2f,
+        dev.domain_size[dev.edge_var][:, None], 1, damping, prev_v2f, fma,
     )
     return v2f, values
 
@@ -725,6 +763,7 @@ def variable_step_with_select_lanes(
     f2v_t: torch.Tensor,
     damping: float = 0.0,
     prev_v2f_t: torch.Tensor = None,
+    fma: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``variable_step_with_select`` on [D, n_edges] planes."""
     total = _fan_in_total(
@@ -737,7 +776,7 @@ def variable_step_with_select_lanes(
     v2f_t = _normalize_v2f(
         _gather_cols(total, dev.edge_var) - f2v_t,
         _gather_cols(aux.valid_t, dev.edge_var),
-        dev.domain_size[dev.edge_var][None, :], 0, damping, prev_v2f_t,
+        dev.domain_size[dev.edge_var][None, :], 0, damping, prev_v2f_t, fma,
     )
     return v2f_t, values
 

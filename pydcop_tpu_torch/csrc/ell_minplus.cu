@@ -63,6 +63,12 @@
 // bound and no upper limit; it re-reads the partner values per own value
 // (they hit L1 after the first pass).
 //
+// A batch (the serving layer's K tenants of one shape bucket) is one launch:
+// the grid's y index is the instance, whose operands start that many
+// instances into each [n_inst, ...] operand; its x extent shares the
+// card's resident blocks among the instances.  A solo call is a batch of
+// one, so both give each instance the same bits.
+//
 // Plain C interface (loaded with ctypes): returns the first CUDA error of
 // the launch (cudaGetLastError() after it), 0 on success.  The caller owns
 // every buffer and the stream.
@@ -74,6 +80,19 @@
 
 namespace {
 
+// Instance blockIdx.y of a batch of [n_inst, ...] operands (the serving
+// layer's batches; pair indices are instance-local): its operands start
+// that many instances in.
+#define ELL_TO_INSTANCE(d)                          \
+  do {                                              \
+    const int64_t inst_ = blockIdx.y;               \
+    v2f_t += inst_ * (d) * n_pad;                   \
+    pair_perm += inst_ * n_pad;                     \
+    tabs_t += inst_ * (d) * (d) * n_pad;            \
+    real_row += inst_ * n_pad;                      \
+    out += inst_ * (d) * n_pad;                     \
+  } while (0)
+
 template <typename P, int D, int K>
 __global__ void __launch_bounds__(kThreads)
     ell_minplus_fixed(const P* __restrict__ v2f_t,
@@ -81,6 +100,7 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ tabs_t,
                       const uint8_t* __restrict__ real_row,
                       float* __restrict__ out, int64_t n_pad) {
+  ELL_TO_INSTANCE(D);
   constexpr bool kWhole = D <= kWholeTableD;
   constexpr int kTabRegs = kWhole ? D * D : 1;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -145,6 +165,7 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ tabs_t,
                     const uint8_t* __restrict__ real_row,
                     float* __restrict__ out, int d, int64_t n_pad) {
+  ELL_TO_INSTANCE(d);
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n_pad) return;
   if (!real_row[e]) {
@@ -171,17 +192,35 @@ struct Args {
   float* out;
   int d;
   int64_t n_pad;
+  int64_t n_inst;
   cudaStream_t stream;
 };
+
+// The grid of a batch: its y extent the instances, its x extent an equal
+// share of the blocks the card holds at once (at least one, at most what
+// one instance's slots need).
+cudaError_t batch_grid(int per_sm, int64_t n_pad, int64_t n_inst,
+                       dim3* grid) {
+  unsigned int blocks = 0;
+  const cudaError_t err = grid_for(per_sm, n_pad * n_inst, &blocks);
+  if (err != cudaSuccess) return err;
+  const int64_t need = (n_pad + kThreads - 1) / kThreads;
+  int64_t x = blocks / n_inst;
+  if (x < 1) x = 1;
+  if (x > need) x = need;
+  *grid = dim3(static_cast<unsigned int>(x),
+               static_cast<unsigned int>(n_inst));
+  return cudaSuccess;
+}
 
 template <typename P, int D>
 cudaError_t launch_fixed(const Args<P>& x) {
   constexpr int K = slots_per_pass<D, 2>();
   static const int per_sm = resident_blocks(ell_minplus_fixed<P, D, K>);
-  unsigned int blocks = 0;
-  const cudaError_t err = grid_for(per_sm, x.n_pad, &blocks);
+  dim3 grid;
+  const cudaError_t err = batch_grid(per_sm, x.n_pad, x.n_inst, &grid);
   if (err != cudaSuccess) return err;
-  ell_minplus_fixed<P, D, K><<<blocks, kThreads, 0, x.stream>>>(
+  ell_minplus_fixed<P, D, K><<<grid, kThreads, 0, x.stream>>>(
       x.v2f_t, x.pair_perm, x.tabs_t, x.real_row, x.out, x.n_pad);
   return cudaGetLastError();
 }
@@ -190,9 +229,10 @@ template <typename P, int D>
 cudaError_t dispatch(const Args<P>& x) {
   if constexpr (D > kMaxFixedD) {
     const int64_t blocks = (x.n_pad + kThreads - 1) / kThreads;
-    ell_minplus_any<P><<<static_cast<unsigned int>(blocks), kThreads, 0,
-                         x.stream>>>(x.v2f_t, x.pair_perm, x.tabs_t,
-                                     x.real_row, x.out, x.d, x.n_pad);
+    const dim3 grid(static_cast<unsigned int>(blocks),
+                    static_cast<unsigned int>(x.n_inst));
+    ell_minplus_any<P><<<grid, kThreads, 0, x.stream>>>(
+        x.v2f_t, x.pair_perm, x.tabs_t, x.real_row, x.out, x.d, x.n_pad);
     return cudaGetLastError();
   } else {
     return x.d == D ? launch_fixed<P, D>(x) : dispatch<P, D + 1>(x);
@@ -202,8 +242,9 @@ cudaError_t dispatch(const Args<P>& x) {
 template <typename P>
 int launch(const void* v2f_t, const void* pair_perm, const void* tabs_t,
            const void* real_row, void* out, int d, long long n_pad,
-           void* stream) {
-  if (n_pad <= 0 || d <= 0) return 0;
+           long long n_inst, void* stream) {
+  if (n_pad <= 0 || d <= 0 || n_inst <= 0) return 0;
+  if (n_inst > 65535) return -1;  // the grid's y extent
   const Args<P> x{static_cast<const P*>(v2f_t),
                   static_cast<const int32_t*>(pair_perm),
                   static_cast<const float*>(tabs_t),
@@ -211,6 +252,7 @@ int launch(const void* v2f_t, const void* pair_perm, const void* tabs_t,
                   static_cast<float*>(out),
                   d,
                   static_cast<int64_t>(n_pad),
+                  static_cast<int64_t>(n_inst),
                   static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch<P, 1>(x));
 }
@@ -221,7 +263,7 @@ extern "C" int ell_minplus_launch(const void* v2f_t, const void* pair_perm,
                                   const void* tabs_t, const void* real_row,
                                   void* out, int d, long long n_pad,
                                   void* stream) {
-  return launch<float>(v2f_t, pair_perm, tabs_t, real_row, out, d, n_pad,
+  return launch<float>(v2f_t, pair_perm, tabs_t, real_row, out, d, n_pad, 1,
                        stream);
 }
 
@@ -234,5 +276,27 @@ extern "C" int ell_minplus_bf16_launch(const void* v2f_t,
                                        const void* real_row, void* out, int d,
                                        long long n_pad, void* stream) {
   return launch<__nv_bfloat16>(v2f_t, pair_perm, tabs_t, real_row, out, d,
-                               n_pad, stream);
+                               n_pad, 1, stream);
+}
+
+// A batch of n_inst instances in one launch: every operand gains a leading
+// instance axis ([n_inst, D, n_pad] planes, [n_inst, n_pad] pair_perm with
+// instance-local slots, [n_inst, D, D, n_pad] tables, [n_inst, 1, n_pad]
+// masks); instance i's result is the solo launch's on its operands.
+extern "C" int ell_minplus_batched_launch(const void* v2f_t,
+                                          const void* pair_perm,
+                                          const void* tabs_t,
+                                          const void* real_row, void* out,
+                                          int d, long long n_pad,
+                                          long long n_inst, void* stream) {
+  return launch<float>(v2f_t, pair_perm, tabs_t, real_row, out, d, n_pad,
+                       n_inst, stream);
+}
+
+extern "C" int ell_minplus_bf16_batched_launch(
+    const void* v2f_t, const void* pair_perm, const void* tabs_t,
+    const void* real_row, void* out, int d, long long n_pad,
+    long long n_inst, void* stream) {
+  return launch<__nv_bfloat16>(v2f_t, pair_perm, tabs_t, real_row, out, d,
+                               n_pad, n_inst, stream);
 }

@@ -18,10 +18,14 @@
 // PyTorch versions (compile/hopper_kernels.py: xla_tree_sum_plain and the
 // compositions built on it) are the definition of that order.
 //
-// Three entry points, each one launch for a whole sum site:
+// Three sites, each one launch for a whole sum site, and each for a batch
+// of instances of one shape too (the serving layer's K tenants: the
+// *_batched_launch entries, one launch for the whole batch, every
+// instance's sums in the same order as alone):
 //   - xla_tree_sum_rows_launch: the sum over the last axis of a strided
 //     stack of rows (xla_sum; domain_sum reads its [D, n] plane in place
-//     through the element stride);
+//     through the element stride; a batch's K x n rows are one stack, the
+//     instance axis the outer stride);
 //   - xla_tree_sum_evaluate_launch: evaluate's total, the unary entry and
 //     each bucket's table entry gathered by level 1 from the assignment,
 //     then `unary + (0 + b0 + b1 + ...) + constant` as the JAX package
@@ -348,21 +352,29 @@ struct RowsSite {
 };
 
 // --- evaluate: the unary total and each bucket's, gathered, combined -----
+//
+// A batch of n_inst assignments of one shape (the serving layer's K
+// tenants) is one launch: each segment has a row an instance, every
+// operand a leading instance axis, and each instance's totals combine on
+// their own, by the thread that finishes the instance's last segment.
 
 struct EvalSite;
 
-// The unary entry of variable i.
+// The unary entry of variable i of instance `inst`.
 struct UnaryRow {
   const EvalSite* site;
+  int64_t inst;
   __device__ float load(int64_t i) const;
 };
 
-// Constraint i's table entry under the assignment: its slots' values as a
-// flat C-order index; arity kA, or any (kA = 0: the bucket's own).
+// Constraint i's table entry under instance `inst`'s assignment: its
+// slots' values as a flat C-order index; arity kA, or any (kA = 0: the
+// bucket's own).
 template <int kA>
 struct BucketRow {
   const EvalSite* site;
   int b;
+  int64_t inst;
   __device__ float load(int64_t i) const;
 };
 
@@ -370,71 +382,80 @@ struct EvalSite {
   int n_segs;  // 1 + buckets
   int64_t blocks;
   Seg segs[kMaxBuckets + 1];
-  float* scratch;  // the segments' totals, then the large rows' partials
-  unsigned* tickets;  // the large rows', then the site's own
-  const void* values;
+  float* scratch;  // the instances' totals, then the large rows' partials
+  unsigned* tickets;  // the large rows', then one an instance
+  const void* values;  // [n_inst, n_vars]
   int values_i64;
+  int64_t n_vars;
   int d;
   const float* unary;
-  int64_t unary_stride;
-  const float* tables[kMaxBuckets];
-  const long long* var_slots[kMaxBuckets];
+  int64_t unary_stride;  // between two variables' rows
+  int64_t unary_inst;  // between two instances
+  const float* tables[kMaxBuckets];  // [n_inst, n_c, D**a]
+  const long long* var_slots[kMaxBuckets];  // [n_inst, n_c, a]
   int64_t table_len[kMaxBuckets];
+  int64_t n_c[kMaxBuckets];
   int arity[kMaxBuckets];
-  const float* constant;
-  float* out;
-  float* totals;
-  unsigned* site_ticket;
+  const float* constant;  // [n_inst]
+  float* out;  // [n_inst]
+  float* totals;  // [n_inst, n_segs]
+  unsigned* site_tickets;  // [n_inst]
 
-  __device__ int64_t value(int64_t v) const {
-    return values_i64 ? __ldg(static_cast<const long long*>(values) + v)
-                      : __ldg(static_cast<const int*>(values) + v);
+  __device__ int64_t value(int64_t inst, int64_t v) const {
+    const int64_t k = inst * n_vars + v;
+    return values_i64 ? __ldg(static_cast<const long long*>(values) + k)
+                      : __ldg(static_cast<const int*>(values) + k);
   }
   // binary buckets (the common case) get a loader with its slot loop
   // unrolled, so a thread's gathers are in flight together
   template <class F>
-  __device__ void visit(int s, int64_t, F&& f) const {
+  __device__ void visit(int s, int64_t r, F&& f) const {
     if (s == 0) {
-      f(UnaryRow{this});
+      f(UnaryRow{this, r});
     } else if (arity[s - 1] == 2) {
-      f(BucketRow<2>{this, s - 1});
+      f(BucketRow<2>{this, s - 1, r});
     } else {
-      f(BucketRow<0>{this, s - 1});
+      f(BucketRow<0>{this, s - 1, r});
     }
   }
-  // the segment's total; the thread that finishes the last one combines
-  // them as the JAX package does, `unary + (0 + b0 + b1 + ...) + constant`
+  // the segment's total; the thread that finishes an instance's last one
+  // combines them as the JAX package does,
+  // `unary + (0 + b0 + b1 + ...) + constant`
   template <class Row>
-  __device__ void finish(int s, int64_t, const Row&, float total, int lane,
+  __device__ void finish(int s, int64_t r, const Row&, float total, int lane,
                          int) const {
     if (lane != 0) return;
-    totals[s] = total;
+    float* mine = totals + r * n_segs;
+    mine[s] = total;
     __threadfence();
-    if (atomicAdd(site_ticket, 1u) != static_cast<unsigned>(n_segs - 1)) {
+    if (atomicAdd(site_tickets + r, 1u) !=
+        static_cast<unsigned>(n_segs - 1)) {
       return;
     }
     __threadfence();
     float cons = 0.0f;
-    for (int b = 1; b < n_segs; ++b) cons = __fadd_rn(cons, __ldcg(totals + b));
-    *out = __fadd_rn(__fadd_rn(__ldcg(totals), cons), __ldg(constant));
-    *site_ticket = 0u;
+    for (int b = 1; b < n_segs; ++b) cons = __fadd_rn(cons, __ldcg(mine + b));
+    out[r] = __fadd_rn(__fadd_rn(__ldcg(mine), cons), __ldg(constant + r));
+    site_tickets[r] = 0u;
   }
 };
 
 __device__ float UnaryRow::load(int64_t i) const {
-  return __ldg(site->unary + i * site->unary_stride + site->value(i));
+  return __ldg(site->unary + inst * site->unary_inst + i * site->unary_stride +
+               site->value(inst, i));
 }
 
 template <int kA>
 __device__ float BucketRow<kA>::load(int64_t i) const {
   const int a = kA ? kA : site->arity[b];
-  const long long* vs = site->var_slots[b] + i * a;
+  const int64_t row = inst * site->n_c[b] + i;
+  const long long* vs = site->var_slots[b] + row * a;
   int64_t flat = 0;
 #pragma unroll
   for (int t = 0; t < (kA ? kA : a); ++t) {
-    flat = flat * site->d + site->value(__ldg(vs + t));
+    flat = flat * site->d + site->value(inst, __ldg(vs + t));
   }
-  return __ldg(site->tables[b] + i * site->table_len[b] + flat);
+  return __ldg(site->tables[b] + row * site->table_len[b] + flat);
 }
 
 // --- the ELL fan-in: every degree class -----------------------------------
@@ -556,6 +577,52 @@ extern "C" int xla_tree_sum_rows_launch(
   return launch(site, stream);
 }
 
+namespace {
+
+int evaluate(const void* values, int values_i64, int d, const void* unary,
+             long long unary_stride, long long unary_inst, long long n_vars,
+             long long n_inst, int n_buckets, const long long* buckets,
+             const void* constant, void* out, void* scratch,
+             long long scratch_cap, void* tickets, long long ticket_cap,
+             void* stream) {
+  if (n_buckets < 0 || n_buckets > kMaxBuckets || n_inst < 1) return -1;
+  EvalSite site{};
+  site.n_segs = 1 + n_buckets;
+  site.segs[0].n = n_vars;
+  site.segs[0].rows = n_inst;
+  for (int b = 0; b < n_buckets; ++b) {
+    site.tables[b] = reinterpret_cast<const float*>(buckets[4 * b]);
+    site.var_slots[b] =
+        reinterpret_cast<const long long*>(buckets[4 * b + 1]);
+    site.n_c[b] = buckets[4 * b + 2];
+    site.segs[b + 1].n = buckets[4 * b + 2];
+    site.segs[b + 1].rows = n_inst;
+    site.arity[b] = static_cast<int>(buckets[4 * b + 3]);
+    int64_t len = 1;
+    for (int t = 0; t < site.arity[b]; ++t) len *= d;
+    site.table_len[b] = len;
+  }
+  int64_t need = n_inst * site.n_segs, n_tickets = 0;
+  site.blocks = layout(site.segs, site.n_segs, &need, &n_tickets);
+  if (need > scratch_cap || n_tickets + n_inst > ticket_cap) return -1;
+  site.scratch = static_cast<float*>(scratch);
+  site.totals = site.scratch;
+  site.tickets = static_cast<unsigned*>(tickets);
+  site.site_tickets = site.tickets + n_tickets;
+  site.values = values;
+  site.values_i64 = values_i64;
+  site.n_vars = n_vars;
+  site.d = d;
+  site.unary = static_cast<const float*>(unary);
+  site.unary_stride = unary_stride;
+  site.unary_inst = unary_inst;
+  site.constant = static_cast<const float*>(constant);
+  site.out = static_cast<float*>(out);
+  return launch(site, stream);
+}
+
+}  // namespace
+
 // *out = evaluate's total: the unary entries unary[v, values[v]] (rows
 // unary_stride apart), and per bucket b (buckets[4b .. 4b+3]: its [n_c,
 // D**a] tables, its [n_c, a] int64 var_slots, n_c, a) the entries
@@ -568,37 +635,26 @@ extern "C" int xla_tree_sum_evaluate_launch(
     const long long* buckets, const void* constant, void* out,
     void* scratch, long long scratch_cap, void* tickets,
     long long ticket_cap, void* stream) {
-  if (n_buckets < 0 || n_buckets > kMaxBuckets) return -1;
-  EvalSite site{};
-  site.n_segs = 1 + n_buckets;
-  site.segs[0].n = n_vars;
-  site.segs[0].rows = 1;
-  for (int b = 0; b < n_buckets; ++b) {
-    site.tables[b] = reinterpret_cast<const float*>(buckets[4 * b]);
-    site.var_slots[b] =
-        reinterpret_cast<const long long*>(buckets[4 * b + 1]);
-    site.segs[b + 1].n = buckets[4 * b + 2];
-    site.segs[b + 1].rows = 1;
-    site.arity[b] = static_cast<int>(buckets[4 * b + 3]);
-    int64_t len = 1;
-    for (int t = 0; t < site.arity[b]; ++t) len *= d;
-    site.table_len[b] = len;
-  }
-  int64_t need = site.n_segs, n_tickets = 0;
-  site.blocks = layout(site.segs, site.n_segs, &need, &n_tickets);
-  if (need > scratch_cap || n_tickets + 1 > ticket_cap) return -1;
-  site.scratch = static_cast<float*>(scratch);
-  site.totals = site.scratch;
-  site.tickets = static_cast<unsigned*>(tickets);
-  site.site_ticket = site.tickets + n_tickets;
-  site.values = values;
-  site.values_i64 = values_i64;
-  site.d = d;
-  site.unary = static_cast<const float*>(unary);
-  site.unary_stride = unary_stride;
-  site.constant = static_cast<const float*>(constant);
-  site.out = static_cast<float*>(out);
-  return launch(site, stream);
+  return evaluate(values, values_i64, d, unary, unary_stride, 0, n_vars, 1,
+                  n_buckets, buckets, constant, out, scratch, scratch_cap,
+                  tickets, ticket_cap, stream);
+}
+
+// evaluate's totals of n_inst instances of one shape, one launch: values
+// [n_inst, n_vars]; unary rows unary_stride apart, instances unary_inst
+// apart; each bucket's tables [n_inst, n_c, D**a] and var_slots [n_inst,
+// n_c, a] (instance-local variable ids); constant and out [n_inst].
+// Scratch: n_inst * (1 + n_buckets) totals, then the large rows'; tickets:
+// the large rows', then n_inst.
+extern "C" int xla_tree_sum_evaluate_batched_launch(
+    const void* values, int values_i64, int d, const void* unary,
+    long long unary_stride, long long unary_inst, long long n_vars,
+    long long n_inst, int n_buckets, const long long* buckets,
+    const void* constant, void* out, void* scratch, long long scratch_cap,
+    void* tickets, long long ticket_cap, void* stream) {
+  return evaluate(values, values_i64, d, unary, unary_stride, unary_inst,
+                  n_vars, n_inst, n_buckets, buckets, constant, out, scratch,
+                  scratch_cap, tickets, ticket_cap, stream);
 }
 
 // MaxSum's ELL fan-in over every degree class (spans[2c], spans[2c+1] =
@@ -613,6 +669,34 @@ extern "C" int xla_tree_sum_ell_fan_in_launch(
     long long ticket_cap, void* stream) {
   return fan_in<float>(plane, d, n_pad, u, n_vars, n_classes, spans, tot,
                        v2f, scratch, scratch_cap, tickets, ticket_cap, stream);
+}
+
+// n_inst instances of one span table, one launch: plane [n_inst, D,
+// n_pad], u and tot [n_inst, D, n_vars], v2f [n_inst, D, n_pad].  A row
+// of class c is (instance, d, j) at plane row instance * D + d, so the
+// instances fold into the D axis: the site of D' = n_inst * D rows.
+extern "C" int xla_tree_sum_ell_fan_in_batched_launch(
+    const void* plane, int d, long long n_pad, const void* u,
+    long long n_vars, long long n_inst, int n_classes,
+    const long long* spans, void* tot, void* v2f, void* scratch,
+    long long scratch_cap, void* tickets, long long ticket_cap,
+    void* stream) {
+  if (n_inst < 1 || n_inst * d > 0x7fffffff) return -1;
+  return fan_in<float>(plane, static_cast<int>(n_inst * d), n_pad, u, n_vars,
+                       n_classes, spans, tot, v2f, scratch, scratch_cap,
+                       tickets, ticket_cap, stream);
+}
+
+extern "C" int xla_tree_sum_ell_fan_in_bf16_batched_launch(
+    const void* plane, int d, long long n_pad, const void* u,
+    long long n_vars, long long n_inst, int n_classes,
+    const long long* spans, void* tot, void* v2f, void* scratch,
+    long long scratch_cap, void* tickets, long long ticket_cap,
+    void* stream) {
+  if (n_inst < 1 || n_inst * d > 0x7fffffff) return -1;
+  return fan_in<__nv_bfloat16>(plane, static_cast<int>(n_inst * d), n_pad, u,
+                               n_vars, n_classes, spans, tot, v2f, scratch,
+                               scratch_cap, tickets, ticket_cap, stream);
 }
 
 extern "C" int xla_tree_sum_ell_fan_in_bf16_launch(

@@ -3,13 +3,14 @@
 Counterpart of ``pydcop_tpu/dcop_cli.py``: argparse top level with the
 global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
-per verb.  The port has the ``solve`` verb.  Its global ``--device
-{cuda,cpu}`` takes the place of JAX's ``JAX_PLATFORMS``: the default is
-the card, and without one the CLI exits nonzero unless ``--device cpu``
-is given; it never falls back to the CPU by itself.  The JAX CLI's
+per verb.  The port has the ``solve`` and ``serve`` verbs.  Its global
+``--device {cuda,cpu}`` takes the place of JAX's ``JAX_PLATFORMS``: the
+default is the card, and without one the CLI exits nonzero unless
+``--device cpu`` is given; it never falls back to the CPU by itself.  The JAX CLI's
 multi-host and platform options are parsed and refused as not ported.
 
-Run as ``python -m pydcop_tpu_torch [--device cpu] solve -a ALGO FILE``.
+Run as ``python -m pydcop_tpu_torch [--device cpu] solve -a ALGO FILE``
+or ``python -m pydcop_tpu_torch [--device cpu] serve --port 0``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import signal
 import sys
 from typing import List, Optional
 
-from .commands import solve
+from .commands import serve, solve
 
 __all__ = ["main"]
 
@@ -89,6 +90,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     subparsers = parser.add_subparsers(dest="command")
     solve.set_parser(subparsers)
+    serve.set_parser(subparsers)
 
     args = parser.parse_args(argv)
     _setup_logging(args.verbosity, args.log)

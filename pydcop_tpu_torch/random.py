@@ -126,6 +126,8 @@ def uniform(
     if device is None:
         device = key.device if isinstance(key, torch.Tensor) else "cpu"
     bits = _random_bits(key, shape, device)
-    # 23 mantissa bits under the exponent of 1.0 -> a float in [1, 2)
-    float_bits = (bits >> 9) | 0x3F800000
-    return float_bits.to(torch.int32).view(torch.float32) - 1.0
+    # jax puts the top 23 bits under the exponent of 1.0 (a float in
+    # [1, 2)) and subtracts 1: exactly m * 2**-23 for the 23-bit m, which
+    # a float32 holds exactly (and which needs no bit view, which
+    # torch.func.vmap cannot map)
+    return (bits >> 9).to(torch.float32) * 2.0 ** -23

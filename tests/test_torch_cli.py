@@ -96,3 +96,71 @@ def test_cli_refuses_global_options_not_ported(capsys):
                         "-a", "dsa", _path("graph_coloring")])
     assert rc == 2
     assert "--platform is not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("option", [
+    ["--fault-schedule", "f.yaml"], ["--no-pulse"], ["--checkpoint", "ck"],
+    ["--slo", "p99<250ms"], ["--slo-file", "s.yaml"], ["--peer", "http://x"],
+    ["--mem-guard"],
+])
+def test_serve_refuses_options_not_ported(option, capsys):
+    rc = dcop_cli.main(["--device", "cpu", "serve", "--port", "0", *option])
+    assert rc == 2
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_serve_verb_serves_then_drains(tmp_path):
+    # python -m pydcop_tpu_torch --device cpu serve: announces its port,
+    # solves a POSTed YAML problem, drains after --duration and writes
+    # the drain's summary
+    import time
+    import urllib.request
+
+    out = tmp_path / "serve.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pydcop_tpu_torch", "--device", "cpu",
+         "--output", str(out), "serve", "--port", "0", "--window-ms", "5",
+         "--duration", "20"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("SERVE_PORT="), proc.stderr.read()
+        base = f"http://127.0.0.1:{int(line.split('=')[1])}"
+        with open(_path("graph_coloring")) as f:
+            body = json.dumps({"dcop_yaml": f.read(), "algo": "dsa",
+                               "n_cycles": 10, "tenant": "cli"}).encode()
+        req = urllib.request.Request(base + "/solve", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert json.loads(resp.read()) == {"tenant": "cli"}
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(base + "/result/cli") as resp:
+                row = json.loads(resp.read())
+            if row["status"] == "done":
+                break
+            time.sleep(0.05)
+        assert row["status"] == "done" and row["cycles"] == 10
+        stop = urllib.request.Request(base + "/shutdown", data=b"{}",
+                                      method="POST")
+        with urllib.request.urlopen(stop, timeout=60) as resp:
+            assert json.loads(resp.read()) == {"state": "draining"}
+        assert proc.wait(timeout=60) == 0
+    finally:
+        proc.kill()
+        proc.communicate()
+    summary = json.loads(out.read_text())
+    assert summary["drained"] is True
+    assert (summary["solves"], summary["dead_letters"]) == (1, 0)
+    assert summary["tenant_counts"] == {"done": 1}
+
+
+def test_serve_verb_needs_the_card_unless_asked(capsys):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    rc = dcop_cli.main(["serve", "--port", "0", "--duration", "1"])
+    assert rc == 2
+    assert "--device cpu" in capsys.readouterr().err

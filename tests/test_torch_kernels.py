@@ -678,3 +678,88 @@ def test_dynamic_session_on_the_card_like_the_cpu(layout, precision):
                     )
         results[device] = runs
     assert results["cuda"] == results["cpu"]
+
+
+def _ell_batch(k, d, dtype, device="cpu"):
+    """K instances of one ELL shape: a scale-free coloring's layout with
+    its own random tables, plane and partner of every real slot."""
+    n, _, kw = CASES["scalefree"]
+    ell = build_ell(generate_coloring_arrays(n, d, **dict(kw, seed=d)))
+    out = []
+    for i in range(k):
+        rng = np.random.default_rng(100 + i)
+        v2f = np.where(ell.real_row, rng.normal(size=(d, ell.n_pad)), 0.0)
+        tabs = (rng.random(ell.tabs_t.shape) * 10).astype(np.float32)
+        out.append((v2f.astype(np.float32), rng.permutation(
+            ell.pair_perm).astype(np.int32), tabs, ell.real_row))
+    args = [torch.as_tensor(np.stack(col), device=device)
+            for col in zip(*out)]
+    args[0] = args[0].to(dtype)
+    return args
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_ell_minplus_batched_on_cpu_is_each_instance(k):
+    args = _ell_batch(k, 3, torch.float32)
+    got = hk.ell_minplus_batched(*args)
+    for i in range(k):
+        assert torch.equal(got[i], hk.ell_minplus_plain(*(a[i] for a in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 17])
+@pytest.mark.parametrize("k", [1, 3, 32])
+def test_ell_minplus_batched_kernel_equals_plain_on_card(k, d, dtype):
+    # one launch for K instances (instance-local partners), each the
+    # plain version's of its operands, at a fixed-D and the runtime-D
+    # kernel, float32 and bf16 planes
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _ell_batch(k, d, dtype, "cuda")
+    before = (hk.ell_minplus.launches, hk.ell_minplus.batched.launches)
+    got = hk.ell_minplus_batched(*args)
+    torch.cuda.synchronize()
+    assert (hk.ell_minplus.launches - before[0],
+            hk.ell_minplus.batched.launches - before[1]) == (1, 1)
+    for i in range(k):
+        assert torch.equal(got[i], hk.ell_minplus_plain(*(a[i] for a in args)))
+    # mapped over the instances, the wrapper is the same one launch
+    mapped = torch.func.vmap(hk.ell_minplus)(*args)
+    assert torch.equal(mapped, got)
+
+
+@pytest.mark.cuda
+def test_serve_batch_on_card_is_solve_one_on_card():
+    # the vmap mode on the card: the engine mapped over the instances and
+    # captured once per bucket; each tenant the bits of its card solve_one
+    # and of the CPU's; a warm batch captures nothing
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pydcop_tpu_torch.algorithms import base
+    from pydcop_tpu_torch.serve import SolveRequest, solve_batched, solve_one
+
+    degraded = solve_batched.degraded
+    for algo, params in (
+        ("maxsum", {}), ("maxsum", {"precision": "bf16", "noise": 0.0}),
+        ("dsa", {}), ("dsa", {"variant": "A"}), ("dsa", {"variant": "C"}),
+        ("mgm", {"break_mode": "random"}), ("mgm2", {}),
+    ):
+        reqs = [
+            SolveRequest(f"{algo}{i}", generate_coloring_arrays(
+                n, 3, graph="grid", seed=70 + i), algo, params, 20, i)
+            for i, n in enumerate((25, 25, 49, 25, 49))
+        ]
+        out = solve_batched(reqs, device="cuda")
+        # a batch that raised would degrade to solo solves, with the same
+        # results: the count shows it
+        assert solve_batched.degraded == degraded, (algo, params)
+        captures = base.run_cycles.captures
+        again = solve_batched(reqs, device="cuda")
+        assert base.run_cycles.captures == captures
+        for r in reqs:
+            one = solve_one(r, device="cuda")
+            cpu = solve_one(r, device="cpu")
+            for got in (out[r.tenant], again[r.tenant], cpu):
+                assert got.result == one.result
+                assert got.extras["best_cost"] == one.extras["best_cost"]

@@ -355,3 +355,116 @@ def test_domain_sum_kernel_equals_plain_on_card(d):
     got, n = _launches_of(lambda: tk.domain_sum(x.cuda(), 0))
     assert n == 1
     assert np.array_equal(_bits(got.cpu()), _bits(tk.domain_sum(x, 0)))
+
+
+# -- the batched sites: K instances of one shape, one launch ---------------
+
+
+def _evaluate_batch(case, k, device="cpu"):
+    """K instances of an EVALUATE case's shape (instance i drawn from seed
+    i), stacked on a leading axis."""
+    parts = []
+    for i in range(k):
+        unary, values, buckets, constant = _evaluate_inputs(case)
+        rng = np.random.default_rng(1000 + i)
+        unary = _costs(rng, unary.shape)
+        values = rng.integers(0, unary.shape[1], len(values)).astype(
+            np.int32)
+        buckets = [(_costs(rng, t.shape), vs) for t, vs in buckets]
+        parts.append((unary, values, buckets, np.float32(i)))
+
+    def t(xs):
+        return torch.as_tensor(np.stack(xs), device=device)
+
+    n_b = len(parts[0][2])
+    return (
+        t([p[0] for p in parts]), t([p[1] for p in parts]),
+        [(t([p[2][b][0] for p in parts]), t([p[2][b][1] for p in parts]))
+         for b in range(n_b)],
+        t([p[3] for p in parts]),
+    )
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_tree_evaluate_batched_on_cpu_is_each_instance(k):
+    unary, values, buckets, constant = _evaluate_batch("window_edges", k)
+    got = hk.tree_evaluate_batched(unary, values, buckets, constant)
+    for i in range(k):
+        want = hk.tree_evaluate_plain(
+            unary[i], values[i], [(a[i], b[i]) for a, b in buckets],
+            constant[i])
+        assert _bits(got[i]) == _bits(want)
+
+
+def _batched_launches_of(call):
+    """``call()``'s result and its (xla_tree_sum launches, batched ones)."""
+    before = (hk.xla_tree_sum.launches, hk.xla_tree_sum.batched.launches)
+    out = call()
+    torch.cuda.synchronize()
+    return out, (hk.xla_tree_sum.launches - before[0],
+                 hk.xla_tree_sum.batched.launches - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["arities_1_to_4", "window_edges",
+                                  "100k"])
+@pytest.mark.parametrize("k", [1, 3, 32])
+def test_tree_evaluate_batched_kernel_equals_plain_on_card(case, k):
+    # K totals, rows over 1,024 values among them, in one launch; each
+    # the plain version's of its instance; a second launch finds its
+    # tickets at zero
+    _card()
+    if case == "100k" and k == 32:
+        pytest.skip("3.2M gathers a bucket: the k=3 case covers the tree")
+    args = _evaluate_batch(case, k, "cuda")
+    want = hk.tree_evaluate_batched(*[
+        [(a.cpu(), b.cpu()) for a, b in x] if isinstance(x, list)
+        else x.cpu() for x in args
+    ])
+    for _ in range(2):
+        got, n = _batched_launches_of(
+            lambda: hk.tree_evaluate_batched(*args))
+        assert n == (1, 1)
+        assert np.array_equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 3, 32])
+def test_ell_fan_in_batched_kernel_equals_plain_on_card(dtype, k):
+    # FAN_IN_SPANS holds a class of 2,048-slot rows: over 1,024 values
+    _card()
+    parts = [_fan_in_inputs(3, dtype, seed=i) for i in range(k)]
+    u = torch.stack([p[0] for p in parts])
+    f2v = torch.stack([p[1] for p in parts])
+    (tot, v2f), n = _batched_launches_of(
+        lambda: hk.ell_fan_in_batched(FAN_IN_SPANS, u.cuda(), f2v.cuda()))
+    assert n == (1, 1)
+    for i in range(k):
+        want_tot, want_v2f = hk.ell_fan_in_plain(FAN_IN_SPANS, u[i], f2v[i])
+        assert np.array_equal(_bits(tot[i].cpu()), _bits(want_tot))
+        assert np.array_equal(_bits(v2f[i].cpu()), _bits(want_v2f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 1025, 70_000])
+@pytest.mark.parametrize("k", [1, 3, 32])
+def test_rows_sum_batched_kernel_equals_plain_on_card(n, k):
+    # the domain sum's strided rows of K instances ([K, n, D] read in
+    # place), one launch
+    _card()
+    x = torch.as_tensor(_costs(np.random.default_rng(n + k), (k, 3, n)))
+    xs = x.cuda().movedim(1, -1)  # [K, n, D], the plane read in place
+    got, launches = _batched_launches_of(
+        lambda: hk.xla_tree_sum_batched(xs))
+    assert launches == (1, 1)
+    for i in range(k):
+        want = hk.xla_tree_sum_plain(x[i].movedim(0, -1))
+        assert np.array_equal(_bits(got[i].cpu()), _bits(want))
+    long_rows = x.cuda()  # [K, D, n]: rows of n values
+    got, launches = _batched_launches_of(
+        lambda: hk.xla_tree_sum_batched(long_rows))
+    assert launches == (1, 1)
+    for i in range(k):
+        assert np.array_equal(_bits(got[i].cpu()),
+                              _bits(hk.xla_tree_sum_plain(x[i])))
