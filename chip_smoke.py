@@ -72,7 +72,21 @@ captured CUDA graphs:
   ``ServeServer`` in both modes and its HTTP front (``serve_server``).
   The batched kernels (one launch for K instances) are held to their
   plain versions instance by instance at K=32 and timed beside 32 solo
-  launches (the kernel line's ``*_batched`` rows).
+  launches (the kernel line's ``*_batched`` rows);
+- health telemetry (``pulse_config4``): MaxSum on ``ell`` and DSA at
+  config 4 with pulse on and off: the health rows the CPU's bit for bit
+  and the JAX package's pinned rows, the result the pulse-off result,
+  equal host syncs, no warm capture, kernels and µs an iteration either
+  way;
+- durable solves (``durable_config4``, ``durable_config6``): DSA, MGM-2
+  and MaxSum with noise at config 4 and MaxSum at config 6, a snapshot
+  every 10 of 30 cycles; every resume gives the uninterrupted result,
+  across card and CPU both ways, and config 6 resumed from cycle 10 the
+  JAX package's pinned cost; snapshot bytes and seconds, resume walls;
+- a crash through the CLI (``kill_resume_cli``): a checkpointed ``solve``
+  SIGKILLed after its first manifest, ``solve --resume`` printing the
+  uninterrupted JSON, the ``checkpoints`` verb listing the directory and
+  the ``postmortem`` verb rendering a timed-out pulse solve's dump.
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -99,6 +113,7 @@ sets, in turns: theirs, ours, ours, theirs.
 """
 
 import argparse
+import dataclasses
 import functools
 import json
 import statistics
@@ -308,6 +323,51 @@ SERVE_CONFIG8_JAX_FUSED = (5.587981048141955, 0)
 # its defaults (damping 0.5, noise 0.01), 30 cycles; and 8 of them with
 # bf16 planes, 10 cycles
 SERVE_GRID = [(f"g{i}", 1024, 500 + i, i) for i in range(32)]
+# health telemetry (pulse_config4): the JAX package's health rows at
+# config 4 (30 cycles, seed 7, pulse on; JAX_PLATFORMS=cpu, jax 0.9.0).
+# DSA's rows are pinned whole (sha256 of the float32 [30, 8] rows); of
+# MaxSum's the fields that are exact whatever the planes' last bits (cost,
+# best_cost, flips, churn, flipback, violations; sha256 of those columns),
+# and the residual and aux columns as JAX's float32 bytes, held to 1e-6:
+# they are maxima of the change of a message plane, and the planes match
+# JAX's to float32 rounding, not bit for bit
+PULSE_EXACT_FIELDS = (0, 1, 2, 3, 4, 7)
+PULSE_JAX = {
+    "dsa": dict(
+        cost=8757.02712483978,
+        rows_sha256="f0f97765952c0750c1bdc6d63f61126b"
+        "383e3cfc1ba49a6b65da594f035a8ebd",
+    ),
+    "maxsum": dict(
+        cost=18768.492959813426,
+        exact_sha256="568bb9f01e30e19d2f8a59c087bb0d6b"
+        "0ad363ec5a6510f7ff7c4c28dd40cae2",
+        planes_hex=(
+            "59d7af3b000000009ef1a53b8bc3cc3a5c5d413c3464113b5a93863c"
+            "8667753b68a3973cfc94d43b4ad7af3c8d26253c9205b93c281c5d3c"
+            "fc99ba3cc6c5843c5c5aba3c5adc923c24f2b83c0c4b9c3c6ec9e03c"
+            "38e3a13c30c0f93c20b6a03c16b3063de61ba73c827c123d2c6ac23c"
+            "cccb173d9892cd3c85af243da8a8c23c9cb74e3d709cc53ca04f6c3d"
+            "6456f43c74277d3d12ec1b3db483853da885383d909c8a3d24294f3d"
+            "3c32853db460623d0646653dd8616e3d16127b3d308a6a3de8d98e3d"
+            "a85e503de40b963d0fe3423d00dd8e3daf96483dd01f7b3d08d1373d"
+            "18b0703d0c70423dd02f6a3d640b433d"
+        ),
+    ),
+}
+# durable solves at config 4: a snapshot every 10 of 30 cycles
+DURABLE_RUNS = (
+    ("dsa", {}),
+    ("mgm2", {}),
+    ("maxsum", dict(CONFIG_4["params"], layout="ell", noise=0.01)),
+)
+# the CLI crash: DSA on a soft random coloring written as YAML, killed
+# after its first checkpoint and resumed
+KILL_PROBLEM = (1000, 3, dict(graph="random", p_edge=0.005, soft=True,
+                              seed=5))
+KILL_CYCLES = 2400
+# the port's CLI, as a subprocess
+PORT_CLI = [sys.executable, "-m", "pydcop_tpu_torch"]
 SERVE_GRID_RUN = ("maxsum", {}, 30)
 SERVE_GRID_BF16_RUN = ("maxsum", {"precision": "bf16"}, 10)
 # the batched kernel rows of the kernels line, at K=32 on SERVE_GRID's
@@ -2400,6 +2460,461 @@ def phase_serve_server():
     emit(out)
 
 
+def _with_extras(mod, call):
+    """``call()`` (a solve of ``mod``) and the extras of the
+    ``run_cycles`` call inside it."""
+    seen = {}
+    orig = mod.run_cycles
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        seen["extras"] = out[2]
+        return out
+
+    mod.run_cycles = spy
+    try:
+        return call(), seen["extras"]
+    finally:
+        mod.run_cycles = orig
+
+
+def _cycle_graphs(compiled):
+    """The cached ``_Graphs`` of a problem by cache key."""
+    return {
+        k: v for k, v in compiled.__dict__.get("_device_consts", {}).items()
+        if k[0] == "cycle_graphs"
+    }
+
+
+def _device_events(solve) -> int:
+    """The device events (kernels and copies) of one solve, as
+    ``torch.profiler`` sees them."""
+    import torch
+
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        solve()
+    return sum(
+        e.device_type == torch.autograd.DeviceType.CUDA
+        for e in prof.events()
+    )
+
+
+def _timed_manager(directory, **kw):
+    """A checkpoint manager that keeps each write's seconds in
+    ``save_s``."""
+    from pydcop_tpu_torch.durability import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def save_carry(self, *a, **k):
+            t0 = time.perf_counter()
+            path = super().save_carry(*a, **k)
+            self.save_s.append(time.perf_counter() - t0)
+            return path
+
+    mgr = Timed(directory, **kw)
+    mgr.save_s = []
+    return mgr
+
+
+def phase_pulse_config4(c4):
+    """Health telemetry at config 4 (``pulse_config4``): MaxSum on ``ell``
+    and DSA, 30 cycles, with pulse on and off, warm.  The health rows are
+    the CPU port's bit for bit and the JAX package's pinned rows; the
+    result is the pulse-off result; the host syncs are equal and the warm
+    pulse-on solve captures nothing.  Reports kernels and µs an iteration
+    with pulse on and off (the price of health) and the diagnosis."""
+    import hashlib
+
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import dsa, maxsum
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+    from pydcop_tpu_torch.telemetry.pulse import HEALTH_WIDTH, pulse
+    from pydcop_tpu_torch.tools.profile_solve import _graph_ms
+
+    runs = {
+        "maxsum": (maxsum, dict(CONFIG_4["params"], layout="ell")),
+        "dsa": (dsa, {}),
+    }
+    for name, (mod, params) in runs.items():
+        def solve(device, on, mod=mod, params=params):
+            pulse.reset()
+            pulse.enabled = on
+            try:
+                return _with_extras(mod, lambda: mod.solve(
+                    c4, dict(params), n_cycles=CONFIG_4["n_cycles"],
+                    seed=CONFIG_4["seed"], device=device,
+                ))
+            finally:
+                pulse.enabled = False
+
+        out = {"phase": "pulse_config4", "algo": name, "params": params}
+        before = set(_cycle_graphs(c4))
+        for on in (False, True):
+            tag = "on" if on else "off"
+            solve("cuda", on)  # cold (off: warm already from its phase)
+            walls, counts = [], None
+            for _ in range(3):
+                hk.xla_tree_sum.launches = 0
+                engine = _engine_counts()
+                t0 = time.perf_counter()
+                (res, extras) = solve("cuda", on)
+                walls.append(time.perf_counter() - t0)
+                counts = {k: v - engine[k]
+                          for k, v in _engine_counts().items()}
+                counts["xla_tree_sum"] = hk.xla_tree_sum.launches
+            out[f"warm_s_{tag}"] = statistics.median(walls)
+            out[f"warm_counts_{tag}"] = counts
+            out[f"kernels_per_iteration_{tag}"] = _device_events(
+                lambda: solve("cuda", on)
+            ) / counts["iterations"]
+            if on:
+                card, card_extras = res, extras
+            else:
+                off = res
+        check(out["warm_counts_on"]["captures"] == 0,
+              f"pulse_config4 {name}: the warm pulse-on solve captured")
+        check(out["warm_counts_on"]["host_syncs"]
+              == out["warm_counts_off"]["host_syncs"],
+              f"pulse_config4 {name}: host syncs on "
+              f"{out['warm_counts_on']['host_syncs']}, off "
+              f"{out['warm_counts_off']['host_syncs']}")
+        check((card.assignment, card.cost, card.cycles)
+              == (off.assignment, off.cost, off.cycles),
+              f"pulse_config4 {name}: pulse changed the result")
+        # xla_tree_sum: DSA's mean gain is one more sum an iteration
+        extra = 1 if name == "dsa" else 0
+        iters = out["warm_counts_on"]["iterations"]
+        check(out["warm_counts_on"]["xla_tree_sum"]
+              == out["warm_counts_off"]["xla_tree_sum"] + extra * iters,
+              f"pulse_config4 {name}: xla_tree_sum launches "
+              f"{out['warm_counts_on']['xla_tree_sum']}")
+        rows = card_extras["pulse"]["health"]
+        check(rows.shape == (card.cycles, HEALTH_WIDTH),
+              f"pulse_config4 {name}: rows {rows.shape}")
+        cpu, cpu_extras = solve("cpu", True)
+        check(np.array_equal(rows.view(np.uint32),
+                             cpu_extras["pulse"]["health"].view(np.uint32)),
+              f"pulse_config4 {name}: card rows differ from the CPU's")
+        check(np.array_equal(card_extras["pulse"]["flip_count"],
+                             cpu_extras["pulse"]["flip_count"]),
+              f"pulse_config4 {name}: flip counters differ from the CPU's")
+        pin = PULSE_JAX[name]
+        check(card.cost == pin["cost"],
+              f"pulse_config4 {name}: cost {card.cost}")
+        if "rows_sha256" in pin:
+            check(hashlib.sha256(rows.tobytes()).hexdigest()
+                  == pin["rows_sha256"],
+                  f"pulse_config4 {name}: rows are not JAX's")
+        else:
+            exact = np.ascontiguousarray(rows[:, PULSE_EXACT_FIELDS])
+            check(hashlib.sha256(exact.tobytes()).hexdigest()
+                  == pin["exact_sha256"],
+                  f"pulse_config4 {name}: exact fields are not JAX's")
+            planes = np.frombuffer(bytes.fromhex(pin["planes_hex"]),
+                                   dtype=np.float32).reshape(-1, 2)
+            err = float(np.abs(rows[:, 5:7] - planes).max())
+            check(err <= 1e-6,
+                  f"pulse_config4 {name}: residual/aux off JAX's by {err}")
+            out["plane_fields_max_abs_err_vs_jax"] = err
+        # the chunk graph, with and without the hook: µs an iteration
+        after = _cycle_graphs(c4)
+        on_keys = [k for k in set(after) - before
+                   if k[1].health is not None]
+        check(len(on_keys) == 1,
+              f"pulse_config4 {name}: {len(on_keys)} pulse graphs")
+        on_key = on_keys[0]
+        off_key = ("cycle_graphs", dataclasses.replace(on_key[1],
+                                                       health=None),
+                   on_key[2])
+        length = on_key[1].length
+        for tag, key in (("on", on_key), ("off", off_key)):
+            out[f"us_per_iteration_{tag}"] = (
+                1e3 * _graph_ms(after[key].chunk) / length
+            )
+        out.update(
+            diagnosis=card_extras["pulse"]["report"]["diagnosis"],
+            cost=card.cost, cycles=card.cycles, rows_equal_cpu=True,
+            rows_match_jax=True,
+        )
+        emit(out)
+
+
+def phase_durable_config4(c4):
+    """Durable solves at config 4 (``durable_config4``): DSA, MGM-2 and
+    MaxSum ``ell`` with noise, a snapshot every 10 of 30 cycles.  Every
+    resume from a snapshot gives the uninterrupted result (assignment,
+    cost, cycles, ``cycles_to_best``) bit for bit; a snapshot written on
+    the card resumes on the CPU and one written on the CPU on the card,
+    with the same result; warm, nothing is captured.  Reports the save
+    seconds, the bytes a snapshot and the host syncs of a checkpointed
+    solve."""
+    import os
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
+    from pydcop_tpu_torch.durability import CheckpointManager, durability
+
+    for algo, params in DURABLE_RUNS:
+        mod = load_algorithm_module(algo)
+
+        def solve(device, manager=None, resume=None):
+            durability.configure(manager=manager, resume=resume)
+            try:
+                return _with_extras(mod, lambda: mod.solve(
+                    c4, dict(params), n_cycles=30, seed=CONFIG_4["seed"],
+                    device=device,
+                ))
+            finally:
+                durability.reset()
+
+        def key(pair):
+            res, extras = pair
+            return (res.assignment, res.cost, res.cycles,
+                    extras["cycles_to_best"])
+
+        with tempfile.TemporaryDirectory() as tmp:
+            solve("cuda")
+            t0 = time.perf_counter()
+            want = solve("cuda")
+            warm_s = time.perf_counter() - t0
+            mgr = _timed_manager(os.path.join(tmp, "card"),
+                                 every_cycles=10, keep=3)
+            engine = _engine_counts()
+            t0 = time.perf_counter()
+            got = solve("cuda", manager=mgr)
+            ck_s = time.perf_counter() - t0
+            counts = {k: v - engine[k] for k, v in _engine_counts().items()}
+            check(key(got) == key(want),
+                  f"durable_config4 {algo}: the checkpointed solve differs")
+            check(counts["captures"] == 0,
+                  f"durable_config4 {algo}: the checkpointed solve captured")
+            check(len(mgr.saved_paths) == 3,
+                  f"durable_config4 {algo}: {len(mgr.saved_paths)} snapshots")
+            resumed = {}
+            for path in mgr.saved_paths[:2]:
+                engine = _engine_counts()
+                t0 = time.perf_counter()
+                r = solve("cuda", resume=path)
+                resumed[os.path.basename(path)] = time.perf_counter() - t0
+                check(_engine_counts()["captures"] == engine["captures"],
+                      f"durable_config4 {algo}: the resume captured")
+                check(key(r) == key(want),
+                      f"durable_config4 {algo}: resume from {path} differs")
+            # across devices: the card's snapshot on the CPU, and the
+            # CPU's on the card
+            check(key(solve("cpu", resume=mgr.saved_paths[1])) == key(want),
+                  f"durable_config4 {algo}: card snapshot on the CPU")
+            cpu_mgr = CheckpointManager(os.path.join(tmp, "cpu"),
+                                        every_cycles=10, keep=3)
+            cpu = solve("cpu", manager=cpu_mgr)
+            check(key(cpu) == key(want),
+                  f"durable_config4 {algo}: the CPU's checkpointed solve")
+            check(key(solve("cuda", resume=cpu_mgr.saved_paths[0]))
+                  == key(want),
+                  f"durable_config4 {algo}: CPU snapshot on the card")
+            emit({
+                "phase": "durable_config4", "algo": algo, "params": params,
+                "cost": want[0].cost, "cycles": want[0].cycles,
+                "warm_s": warm_s, "checkpointed_s": ck_s,
+                "save_s": mgr.save_s,
+                "snapshot_bytes": [os.path.getsize(p)
+                                   for p in mgr.saved_paths],
+                "checkpointed_counts": counts,
+                "resume_s": resumed, "resumes_equal": True,
+                "card_to_cpu": True, "cpu_to_card": True,
+            })
+
+
+def phase_durable_config6(c6, ref):
+    """A durable solve at config 6 (``durable_config6``): MaxSum ``ell``
+    at 1,000,000 variables, 30 cycles, a snapshot every 10.  The
+    checkpointed solve gives the uninterrupted ``ref``, and the run
+    resumed from cycle 10 gives the JAX package's pinned cost, cold (its
+    graphs captured anew, as a new process would) and warm.  Reports the
+    snapshot bytes (and the bytes the carry's leaves predict from the ELL
+    layout's ``n_pad``), the save seconds and the resume walls."""
+    import os
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import base, maxsum
+    from pydcop_tpu_torch.durability import durability
+
+    params = dict(CONFIG_6["params"], layout="ell")
+    ell = c6.__dict__["_device_consts"][("ell_host",)]
+    n, d, n_pad = c6.n_vars, c6.max_domain, ell.n_pad
+    # the leaves: two [D, n_pad] planes, act_v and act_f [n_pad] int32,
+    # the permuted unary [D, n_vars], values, best values and the
+    # scalars
+    predicted = 4 * (2 * d * n_pad + 2 * n_pad + d * n + 2 * n + 5)
+
+    def solve(manager=None, resume=None):
+        durability.configure(manager=manager, resume=resume)
+        t0 = time.perf_counter()
+        try:
+            res = maxsum.solve(c6, dict(params), n_cycles=30,
+                               seed=CONFIG_6["seed"], device="cuda")
+        finally:
+            durability.reset()
+        return res, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = _timed_manager(tmp, every_cycles=10, keep=3)
+        engine = _engine_counts()
+        got, ck_s = solve(manager=mgr)
+        counts = {k: v - engine[k] for k, v in _engine_counts().items()}
+        check((got.assignment, got.cost, got.cycles)
+              == (ref.assignment, ref.cost, ref.cycles),
+              "durable_config6: the checkpointed solve differs")
+        _, warm_s = solve()
+        first = mgr.saved_paths[0]
+        # a cold resume: the graphs captured anew, as in a new process
+        for k in list(_cycle_graphs(c6)):
+            del c6.__dict__["_device_consts"][k]
+        walls = {}
+        for tag in ("cold", "warm"):
+            captures = base.run_cycles.captures
+            res, walls[tag] = solve(resume=first)
+            check(base.run_cycles.captures - captures
+                  == (2 if tag == "cold" else 0),
+                  f"durable_config6: {tag} resume captured "
+                  f"{base.run_cycles.captures - captures}")
+            check((res.cost, res.violations, res.cycles)
+                  == MAXSUM_CONFIG6_JAX,
+                  f"durable_config6: {tag} resume gave "
+                  f"{(res.cost, res.violations, res.cycles)}")
+            check(res.assignment == ref.assignment,
+                  f"durable_config6: {tag} resume's assignment")
+        sizes = [os.path.getsize(p) for p in mgr.saved_paths]
+        emit({
+            "phase": "durable_config6", "n_vars": n, "n_pad": n_pad,
+            "cost": got.cost, "warm_s": warm_s, "checkpointed_s": ck_s,
+            "checkpointed_counts": counts, "save_s": mgr.save_s,
+            "snapshot_bytes": sizes, "predicted_leaf_bytes": predicted,
+            "snapshot_share_of_checkpointed_wall": sum(mgr.save_s) / ck_s,
+            "resume_cold_s": walls["cold"], "resume_warm_s": walls["warm"],
+            "resumed_cost_is_jax": True,
+        })
+
+
+def phase_kill_resume_cli():
+    """A crash through the CLI (``kill_resume_cli``): ``python -m
+    pydcop_tpu_torch solve -a dsa --checkpoint DIR --checkpoint-every 8``
+    on a generated coloring, SIGKILLed once its first manifest appears,
+    then ``solve --resume DIR``, whose JSON must be the uninterrupted
+    run's (``time`` aside); the ``checkpoints`` verb lists DIR; a pulse
+    solve whose ``--timeout`` runs out dumps the flight recorder, which
+    the ``postmortem`` verb renders as the library does."""
+    import signal
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+    from pydcop_tpu_torch.api import solve_result
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, load_dcop_from_file
+    from pydcop_tpu_torch.telemetry.pulse import (
+        load_postmortem,
+        pulse,
+        render_postmortem,
+    )
+
+    cli = PORT_CLI
+    args = ["solve", "-a", "dsa", "-n", str(KILL_CYCLES), "--seed", "3"]
+    out = {"phase": "kill_resume_cli", "n_cycles": KILL_CYCLES}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        n, d, kw = KILL_PROBLEM
+        path = tmp / "coloring.yaml"
+        path.write_text(dcop_yaml(generate_graph_coloring(n, d, **kw)))
+        dcop = load_dcop_from_file(str(path))
+        algo = AlgorithmDef.build_with_default_param(
+            "dsa", {}, mode=dcop.objective
+        )
+        want = json.loads(json.dumps(solve_result(
+            dcop, algo, distribution="oneagent", n_cycles=KILL_CYCLES,
+            seed=3, device="cuda",
+        ), default=str))
+        want.pop("time")
+        ck = tmp / "ck"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [*cli, *args, "--checkpoint", str(ck), "--checkpoint-every",
+             "8", str(path)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        try:
+            while not list(ck.glob("ckpt-c*.json")):
+                if proc.poll() is not None:
+                    check(False, "kill_resume_cli: the solve ended before "
+                          f"its first checkpoint: "
+                          f"{proc.stderr.read()[-2000:]}")
+                check(time.perf_counter() - t0 < 300,
+                      "kill_resume_cli: no checkpoint in 300 s")
+                time.sleep(0.02)
+            out["first_manifest_s"] = time.perf_counter() - t0
+            proc.send_signal(signal.SIGKILL)
+            stdout, _ = proc.communicate(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=60)
+        check(proc.returncode == -signal.SIGKILL and not stdout,
+              f"kill_resume_cli: the killed solve exited {proc.returncode}")
+        listed = subprocess.run(
+            [*cli, "checkpoints", "list", str(ck)], cwd=ROOT,
+            capture_output=True, text=True, timeout=300,
+        )
+        check(listed.returncode == 0 and "checkpoint(s)" in listed.stdout,
+              f"kill_resume_cli: checkpoints list: {listed.stderr[-2000:]}")
+        out["listed"] = listed.stdout.strip().splitlines()[-1]
+        t0 = time.perf_counter()
+        resumed = subprocess.run(
+            [*cli, *args, "--resume", str(ck), str(path)], cwd=ROOT,
+            capture_output=True, text=True, timeout=600,
+        )
+        out["resume_s"] = time.perf_counter() - t0
+        check(resumed.returncode == 0,
+              f"kill_resume_cli: the resume exited {resumed.returncode}: "
+              f"{resumed.stderr[-2000:]}")
+        got = json.loads(resumed.stdout)
+        got.pop("time")
+        check(got == want, "kill_resume_cli: the resumed JSON differs from "
+              "the uninterrupted run's")
+        # the flight recorder: a pulse solve that runs out of time
+        pulse.reset()
+        pulse.enabled = True
+        pulse.postmortem_path = str(tmp / "postmortem.json")
+        try:
+            timed = solve_result(dcop, algo, n_cycles=10 ** 7, seed=3,
+                                 timeout=0.5, device="cuda")
+        finally:
+            pulse.enabled = False
+            pulse.postmortem_path = "postmortem.json"
+        check(timed["status"] == "TIMEOUT",
+              f"kill_resume_cli: the timed solve {timed['status']}")
+        doc = load_postmortem(str(tmp / "postmortem.json"))
+        rendered = subprocess.run(
+            [*cli, "postmortem", str(tmp / "postmortem.json")], cwd=ROOT,
+            capture_output=True, text=True, timeout=300,
+        )
+        check(rendered.returncode == 0
+              and rendered.stdout == render_postmortem(doc) + "\n",
+              f"kill_resume_cli: postmortem: {rendered.stderr[-2000:]}")
+        out.update(
+            resumed_equals_uninterrupted=True, cost=got["cost"],
+            postmortem_reason=doc["reason"],
+            postmortem_rows=len(doc["rows"]),
+            postmortem_diagnosis=doc["diagnosis"]["diagnosis_full"],
+        )
+    emit(out)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -2484,11 +2999,14 @@ def main() -> int:
     rows["factor_arity2_minplus"]["launches"] = warm["factor_arity2_minplus"]
     # bench config 6: the main path at 1,000,000 variables, gated on the
     # JAX package's result
-    maxsum_phase(
+    c6_ref, _ = maxsum_phase(
         "maxsum_1m", c6, maxsum_run(CONFIG_6, "ell"), "ell_minplus",
         cpu_bar="exact", recorded=MAXSUM_CONFIG6_JAX,
     )
-    del c6
+    t_durable = time.perf_counter()
+    phase_durable_config6(c6, c6_ref)
+    new_phases_s = time.perf_counter() - t_durable
+    del c6, c6_ref
     c2 = generate(CONFIG_2["gen"])
     ell2, _ = maxsum_phase(
         "maxsum_1k", c2, maxsum_run(CONFIG_2, "ell"), "ell_minplus",
@@ -2565,6 +3083,10 @@ def main() -> int:
         check(cold.msg_count == ASYNC_MSG_COUNT,
               f"{name}: {cold.msg_count} messages")
     phase_timeouts(c4, ell4)
+    t_new = time.perf_counter()
+    phase_pulse_config4(c4)
+    phase_durable_config4(c4)
+    new_phases_s += time.perf_counter() - t_new
     del c4, c2, mixed, problems, breakout
     rows["factor_arity2_minplus"]["dynamic_launches"] = (
         phase_dynamic_config4()
@@ -2576,6 +3098,10 @@ def main() -> int:
         emit({"phase": "front_door_yaml", "skipped": f"no PyYAML: {e}"})
     else:
         phase_front_door_yaml()
+        t_new = time.perf_counter()
+        phase_kill_resume_cli()
+        new_phases_s += time.perf_counter() - t_new
+    emit({"phase": "pulse_durability_seconds", "seconds": new_phases_s})
     phase_front_door_objects()
     phase_dpop_config5()
     phase_dpop_wide()

@@ -29,10 +29,24 @@ from . import (
     prepare_algo_params,
     warn_inert_params,
 )
-from .base import cached_const, extract_values, finalize, run_cycles
+from .base import (
+    cached_const,
+    extract_values,
+    field_io,
+    finalize,
+    gain_health,
+    run_cycles,
+)
 from .dsa import constraint_optima, dsa_decision, random_init_values
 
 GRAPH_TYPE = "constraints_hypergraph"
+
+#: the health hook (``telemetry/pulse.py``): the local-search family's
+#: largest and mean available gain
+health = gain_health
+
+#: the checkpoint form: JAX's state leaves, of which only ``values`` moves
+carry_io = field_io("values")
 
 HEADER_SIZE = 0
 UNIT_SIZE = 1
@@ -122,6 +136,8 @@ def solve(
         timeout=timeout,
         consts=(probability, constraint_optima(compiled, dev)),
         return_final=False,
+        health=health,
+        carry_io=carry_io,
     )
     # each variable posts its value to every neighbour once a period
     src, _dst = compiled.neighbor_pairs()

@@ -32,11 +32,20 @@ from ..compile.kernels import (
 )
 from ..random import split, uniform
 from . import SolveResult, prepare_algo_params, warn_inert_params
-from .base import cached_const, extract_values, finalize, run_cycles
-from .maxsum import SAME_COUNT, plane_stable
+from .base import (
+    cached_const,
+    extract_values,
+    field_io,
+    finalize,
+    run_cycles,
+)
+from .maxsum import SAME_COUNT, health, plane_stable
 from .maxsum import algo_params as _maxsum_params
 
 GRAPH_TYPE = "factor_graph"
+
+#: the checkpoint form: JAX's state leaves, every one of which moves
+carry_io = field_io("v2f", "f2v", "values", "v2f_cand", "f2v_cand")
 
 UNIT_SIZE = 1
 
@@ -151,6 +160,8 @@ def solve(
         timeout=timeout,
         noise=params["noise"],
         return_final=False,
+        health=health,
+        carry_io=carry_io,
         # MaxSum's stability stop, off under an explicit stop_cycle
         convergence=(
             _make_convergence(params["stability"])

@@ -37,9 +37,29 @@ masked arithmetic, so they follow one trajectory.
 
 ``run_cycles`` counts, as the kernels count their launches, its graph
 captures, chunk replays, the iterations those replays ran (live or
-masked) and its host syncs in attributes (``captures``, ``replays``,
-``iterations``, ``host_syncs``).  The pulse health hooks of the JAX
-engine are not ported.
+masked), its host syncs and the carries it copied to the host for a
+checkpoint in attributes (``captures``, ``replays``, ``iterations``,
+``host_syncs``, ``snapshots``).
+
+Health telemetry (``telemetry/pulse.py``): while ``pulse.enabled``, a
+solver's ``health`` hook runs inside the chunk, and every live iteration
+writes one ``HEALTH_WIDTH`` row (``_health_vec``: cost, best cost,
+flips, churn, flipback, the hook's residual and aux, violations) and
+advances the flip counters of the carry (``PulseCarry``).  The rows ride
+the reads the engine already makes: the looks between chunks and the
+packed read-back, so a solve makes as many host syncs with pulse on as
+off.  With pulse off the graphs are the ones captured without it.
+
+Durable solves (``durability/manager.py``): while the ``durability``
+singleton holds a manager, the host looks after every chunk; the
+manager's cycle boundaries are written into the graph's cycle budget, so
+the iterations past a boundary are masked, and at a boundary the carry
+is copied to the host in one read and written as the JAX package's
+checkpoint leaves (``CarryIO``).  A resume runs the prologue, copies the
+stored carry into the carry the chunk reads (the graphs' own buffers on
+the card) and sets its cycle: per-cycle keys are functions of the
+absolute cycle, so it continues the uninterrupted run's trajectory bit
+for bit, on either device and from either package's checkpoint.
 
 ``run_batch`` runs K solves of one shape (the serving layer's bucket)
 as one: the same prologue and chunk mapped over a leading instance axis
@@ -65,21 +85,31 @@ import contextlib
 import dataclasses
 import functools
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..compile import hopper_kernels
 from ..compile.core import CompiledDCOP
-from ..compile.kernels import DeviceDCOP, evaluate
+from ..compile.kernels import (
+    DeviceDCOP,
+    evaluate,
+    local_costs,
+    take_rows,
+    violation_count,
+    xla_sum,
+)
+from ..durability.manager import CheckpointManager, durability
 from ..random import PRNGKey, fold_in, uniform
+from ..telemetry.pulse import HEALTH_FIELDS, HEALTH_WIDTH, pulse
 from . import SolveResult
 
 __all__ = [
     "TIMEOUT_CHUNK", "MAX_CHUNK", "apply_noise", "assign_", "cached_const",
     "run_batch", "run_cycles", "finalize", "extract_values",
-    "neighbor_pairs_dev", "pad_rows_np",
+    "neighbor_pairs_dev", "pad_rows_np", "PulseCarry", "gain_health",
+    "CarryIO", "field_io",
 ]
 
 # chunk schedule: start small for early clock granularity, grow
@@ -184,6 +214,151 @@ def _select(live: torch.Tensor, new, old):
 
 
 # ---------------------------------------------------------------------------
+# Health telemetry: the per-cycle health vector, computed on the device
+# ---------------------------------------------------------------------------
+
+
+class PulseCarry(NamedTuple):
+    """The carry of the health telemetry: the two previous value planes
+    feed the flip and flipback fields, the per-variable flip counters the
+    frozen-vs-churning summary.  ``None`` stands for it with pulse off."""
+
+    prev: torch.Tensor  # [n_vars] int32 values one cycle back
+    prev2: torch.Tensor  # [n_vars] int32 values two cycles back
+    flips: torch.Tensor  # [n_vars] int32 flips of each variable so far
+
+
+def _pulse_carry0(vals: torch.Tensor) -> PulseCarry:
+    """The pulse carry of the initial assignment (cycle 0)."""
+    v0 = vals.to(torch.int32)
+    return PulseCarry(prev=v0, prev2=v0, flips=torch.zeros_like(v0))
+
+
+def _health_vec(
+    dev: DeviceDCOP, pc: PulseCarry, new_vals: torch.Tensor,
+    cost: torch.Tensor, best_cost: torch.Tensor,
+    residual_aux: torch.Tensor,
+) -> Tuple[torch.Tensor, PulseCarry]:
+    """One cycle's health vector (float32 ``[HEALTH_WIDTH]``, in the order
+    of ``HEALTH_FIELDS``) and the advanced pulse carry: reductions over
+    planes the step already made.  ``residual_aux`` is the solver hook's
+    two values.  Single-value rows can never flip: they are not live."""
+    live = dev.domain_size > 1
+    new_vals = new_vals.to(torch.int32)
+    flipped = (new_vals != pc.prev) & live
+    n_flips = flipped.sum().to(torch.float32)
+    n_live = torch.clamp(live.sum(), min=1).to(torch.float32)
+    flipback = (
+        ((new_vals == pc.prev2) & flipped).sum().to(torch.float32)
+        / torch.clamp(n_flips, min=1.0)
+    )
+    vec = torch.cat([
+        torch.stack([
+            cost.to(torch.float32), best_cost.to(torch.float32), n_flips,
+            n_flips / n_live, flipback,
+        ]),
+        residual_aux.to(torch.float32).reshape(-1),
+        violation_count(dev, new_vals).to(torch.float32).reshape(1),
+    ])
+    return vec, PulseCarry(
+        prev=new_vals, prev2=pc.prev,
+        flips=pc.flips + flipped.to(torch.int32),
+    )
+
+
+def gain_health(dev: DeviceDCOP, old_state, new_state) -> torch.Tensor:
+    """The health hook of the local-search solvers (DSA, A-DSA, DSA-tuto,
+    MGM, MGM-2, MixedDSA): residual = the largest local gain any variable
+    still has (0 at a local optimum), aux = the mean gain over the live
+    variables, summed in XLA's order (``xla_sum``)."""
+    costs = local_costs(dev, new_state.values)
+    cur = take_rows(costs, new_state.values[:, None])[:, 0]
+    best = torch.where(dev.valid_mask, costs, torch.inf).amin(dim=-1)
+    live = dev.domain_size > 1
+    gain = torch.where(live, cur - best, 0.0)
+    n_live = torch.clamp(live.sum(), min=1).to(torch.float32)
+    return torch.stack([
+        gain.max().to(torch.float32),
+        xla_sum(gain).to(torch.float32) / n_live,
+    ])
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: a solver's state as the JAX package's leaves
+# ---------------------------------------------------------------------------
+
+
+class CarryIO(NamedTuple):
+    """How a solver's state is written as checkpoint leaves and read back,
+    in the JAX package's on-disk form: ``save(state, consts)`` gives the
+    leaves of JAX's state in its order, dtypes and orientation (its
+    static companions included); ``load(state, leaves)`` gives ``state``,
+    a freshly initialized one, with its dynamic fields taken from such
+    leaves (on ``state``'s device) and its static companions kept, built
+    from the problem and not from the file."""
+
+    save: Callable[[Any, Tuple], List[torch.Tensor]]
+    load: Callable[[Any, List[torch.Tensor]], Any]
+
+
+def _jax_dtype(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the JAX package holds it: 64-bit integers as int32 (its
+    x64 mode is off)."""
+    return x.to(torch.int32) if x.dtype == torch.int64 else x
+
+
+def field_io(*fields: str) -> CarryIO:
+    """The ``CarryIO`` of a named-tuple state whose leaves are JAX's, but
+    for 64-bit integers: the dynamic ``fields`` are restored, every other
+    field is kept."""
+
+    def save(state, consts) -> List[torch.Tensor]:
+        return [_jax_dtype(x) for x in _flatten(state, [])]
+
+    def load(state, leaves):
+        it = iter(leaves)
+        out = {}
+        for name in state._fields:
+            sub = _flatten(getattr(state, name), [])
+            got = [next(it) for _ in sub]
+            if name in fields:
+                out[name] = _unflatten(getattr(state, name), iter([
+                    g.to(device=t.device, dtype=t.dtype)
+                    for g, t in zip(got, sub)
+                ]))
+        return state._replace(**out)
+
+    return CarryIO(save, load)
+
+
+def _phase_of(step: Callable) -> str:
+    """A solver's label in checkpoint manifests and health metadata: the
+    last component of its step function's module (``maxsum``, ``dsa``,
+    ...), as the JAX package's."""
+    mod = getattr(step, "__module__", None) or "solve"
+    return mod.rsplit(".", 1)[-1]
+
+
+def _host_copy(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """CPU copies of ``tensors``, read from their device in one transfer
+    (their bytes laid end to end)."""
+    if not tensors:
+        return []
+    flat = [
+        t.detach().contiguous().reshape(-1).view(torch.uint8)
+        if t.numel() else torch.empty(0, dtype=torch.uint8, device=t.device)
+        for t in tensors
+    ]
+    buf = torch.cat(flat).cpu()
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        out.append(buf[off:off + n].clone().view(t.dtype).reshape(t.shape))
+        off += n
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The solve as two functions of device tensors: prologue and chunk
 # ---------------------------------------------------------------------------
 
@@ -207,6 +382,10 @@ class _Solver:
     # the prologue and chunk run mapped over a leading instance axis of
     # every tensor (the serving layer's batches)
     batched: bool = False
+    # the solver's health hook ``health(dev, old_state, new_state) ->
+    # float32[2]`` while pulse is on, else None: the graphs of a solve
+    # with pulse off are the ones captured without it
+    health: Optional[Callable] = None
 
     @property
     def use_stability(self) -> bool:
@@ -224,8 +403,9 @@ class _Carry:
     best_cost: torch.Tensor
     best_cycle: torch.Tensor  # int32, 1-based, 0 = never improved on
     stable: torch.Tensor  # int32 consecutive stable cycles
-    ran: torch.Tensor  # int32 live iterations so far
+    ran: torch.Tensor  # int32 cycles run so far (absolute on a resume)
     cycle: torch.Tensor  # int64 absolute index of the next iteration
+    pulse: Optional[PulseCarry] = None  # with a health hook
 
 
 def _noised(
@@ -329,24 +509,27 @@ def _prologue(
         best_cost=evaluate(dev, vals), best_cycle=zero, stable=zero,
         ran=zero, cycle=torch.zeros((), dtype=torch.int64,
                                     device=unary.device),
+        pulse=None if solver.health is None else _pulse_carry0(vals),
     )
 
 
 def _chunk(
     solver: _Solver, dev: DeviceDCOP, consts: Tuple, carry: _Carry,
     n_limit: torch.Tensor, length: int,
-) -> Tuple[_Carry, Optional[torch.Tensor]]:
+) -> Tuple[_Carry, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``length`` masked iterations from ``carry``: the body of
-    ``_while_chunk``.  Returns the next carry and, with a curve, each
-    iteration's cost."""
+    ``_while_chunk``.  Returns the next carry, with a curve each
+    iteration's cost, and with a health hook each iteration's health
+    row (``[length, HEALTH_WIDTH]``; a dead iteration's row is not
+    read)."""
     dev = dataclasses.replace(dev, unary=carry.unary)
     state, bv, bc, bcyc = (
         carry.state, carry.best_vals, carry.best_cost, carry.best_cycle
     )
-    stable, ran = carry.stable, carry.ran
+    stable, ran, pc = carry.stable, carry.ran, carry.pulse
     cycles = carry.cycle + torch.arange(length, device=carry.cycle.device)
     keys = fold_in(carry.run_key, cycles)  # [length, 2]
-    costs = []
+    costs, rows = [], []
     for i in range(length):
         live = cycles[i] < n_limit
         if solver.use_stability:
@@ -363,15 +546,24 @@ def _chunk(
             stable = torch.where(
                 live, torch.where(same, stable + 1, 0), stable
             )
+        if solver.health is not None:
+            vec, new_pc = _health_vec(
+                dev, pc, vals, cost, bc, solver.health(dev, state, new_state)
+            )
+            pc = _select(live, new_pc, pc)
+            rows.append(vec)
         state = _select(live, new_state, state)
         ran = ran + live.to(torch.int32)
         if solver.collect_curve:
             costs.append(torch.where(live, cost, bc))
     carry = dataclasses.replace(
         carry, state=state, best_vals=bv, best_cost=bc, best_cycle=bcyc,
-        stable=stable, ran=ran, cycle=carry.cycle + length,
+        stable=stable, ran=ran, cycle=carry.cycle + length, pulse=pc,
     )
-    return carry, torch.stack(costs) if costs else None
+    return (
+        carry, torch.stack(costs) if costs else None,
+        torch.stack(rows) if rows else None,
+    )
 
 
 def _final_values(solver: _Solver, dev: DeviceDCOP, carry: _Carry):
@@ -461,7 +653,10 @@ def _map_instances(fn: Callable) -> Callable:
 
 class _Runner:
     """What both runners share: the prologue, chunk and pack of one
-    solver on one problem, mapped over the instance axis of a batch."""
+    solver on one problem, mapped over the instance axis of a batch; the
+    rows (curve, health) the replays wrote since the host last looked;
+    and the host's writes into the carry (a checkpoint's boundary, a
+    resume)."""
 
     def __init__(self, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
         self.solver, self.dev, self.consts = solver, dev, consts
@@ -488,10 +683,87 @@ class _Runner:
         )
         return _pack(final, carry)
 
+    def _begin(self) -> None:
+        self.pending_curve: List[torch.Tensor] = []
+        self.pending_rows: List[torch.Tensor] = []
+        self.curve_parts: List[torch.Tensor] = []
+
+    def _took(self, curve, rows) -> None:
+        """Keep the rows one replay wrote (device tensors of its own)."""
+        if curve is not None:
+            self.pending_curve.append(curve)
+        if rows is not None:
+            self.pending_rows.append(rows)
+
+    def _read(self, head: torch.Tensor, tail: List[torch.Tensor]):
+        """``head`` (int32) and, behind it, the pending health rows and the
+        ``tail`` tensors (int32), in one read; the pending rows are
+        consumed.  Returns host arrays: head, rows (or None), tail."""
+        rows = self.pending_rows
+        self.pending_rows = []
+        if not rows and not tail:
+            return head.cpu().numpy(), None, []
+        parts = [head.reshape(-1)]
+        if rows:
+            parts.append(torch.cat(rows).reshape(-1).view(torch.int32))
+        parts += [t.reshape(-1) for t in tail]
+        buf = torch.cat(parts).cpu().numpy()
+        k = head.numel()
+        out_head, off = buf[:k].reshape(tuple(head.shape)), k
+        out_rows = None
+        if rows:
+            n = sum(r.numel() for r in rows)
+            out_rows = buf[off:off + n].view(np.float32).reshape(
+                -1, HEALTH_WIDTH
+            )
+            off += n
+        out_tail = []
+        for t in tail:
+            out_tail.append(buf[off:off + t.numel()])
+            off += t.numel()
+        return out_head, out_rows, out_tail
+
+    def look(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Each instance's (cycles run, stability counter), ``[..., 2]``,
+        and the health rows replayed since the last look, in one read."""
+        status, rows, _ = self._read(self._status(), [])
+        return status, rows
+
+    def status(self) -> np.ndarray:
+        return self.look()[0]
+
+    def result(self):
+        """The packed result, the health rows not yet read and (with a
+        health hook) the flip counters, in one read."""
+        flips = [] if self.carry.pulse is None else [self.carry.pulse.flips]
+        packed, rows, tail = self._read(self.packed(), flips)
+        return packed, rows, tail[0] if tail else None
+
+    def keep_curve(self, n_live: int) -> None:
+        """Keep the first ``n_live`` entries of the curve the replays since
+        the last look wrote: the live iterations, which come first."""
+        if self.pending_curve:
+            self.curve_parts.append(torch.cat(self.pending_curve)[:n_live])
+            self.pending_curve = []
+
     def curve(self) -> np.ndarray:
-        return torch.cat(self.curves).cpu().numpy() if self.curves else (
-            np.zeros(0, dtype=np.float32)
-        )
+        return torch.cat(self.curve_parts).cpu().numpy() if (
+            self.curve_parts
+        ) else np.zeros(0, dtype=np.float32)
+
+    def set_limit(self, n_limit: int) -> None:
+        """Write the cycle budget the next replays read."""
+        self.solve_in[..., 2].fill_(int(n_limit))
+
+    def set_cycle(self, cycle: int) -> None:
+        """Write the absolute cycle of the carry's next iteration (a tensor
+        the carry owns: in place, so no graph sees a new one)."""
+        self.carry.cycle.fill_(int(cycle))
+
+    def write_carry(self, **fields) -> None:
+        """Write ``fields`` of the carry (trees of tensors, on its device)
+        into the carry the next chunk reads."""
+        self.carry = dataclasses.replace(self.carry, **fields)
 
 
 class _Eager(_Runner):
@@ -499,30 +771,25 @@ class _Eager(_Runner):
 
     def start(self, solve_in: np.ndarray, level: np.ndarray) -> None:
         device = self.dev.unary.device
-        solve_in = torch.as_tensor(solve_in, dtype=torch.int64,
-                                   device=device)
-        self.n_limit = solve_in[..., 2]
+        self.solve_in = torch.as_tensor(solve_in, dtype=torch.int64,
+                                        device=device)
         self.carry = self._prologue(
-            solve_in,
+            self.solve_in,
             torch.as_tensor(level, dtype=torch.float32, device=device),
         )
-        self.curves = []
+        self._begin()
 
     def replay(self) -> None:
-        self.carry, curve = self._chunk(
-            self.carry, self.n_limit, self.solver.length
+        self.carry, curve, rows = self._chunk(
+            self.carry, self.solve_in[..., 2], self.solver.length
         )
-        if curve is not None:
-            self.curves.append(curve)
+        self._took(curve, rows)
 
     def packed(self) -> torch.Tensor:
         return self._pack(self.carry)
 
-    def status(self) -> np.ndarray:
-        """[..., 2]: (cycles run, stability counter) of each instance."""
-        return torch.stack(
-            [self.carry.ran, self.carry.stable], dim=-1
-        ).cpu().numpy()
+    def _status(self) -> torch.Tensor:
+        return torch.stack([self.carry.ran, self.carry.stable], dim=-1)
 
     def state(self):
         """The final solver state: this solve's own tensors."""
@@ -537,7 +804,8 @@ class _Graphs(_Runner):
     ``solve_in`` (the key's two words, the cycle budget and the real rows,
     a row an instance in a batch) and ``level`` are written by the host
     per solve, the carry buffers hold every carry tensor that is not a
-    constant of the problem, ``packed`` the result.  Both graphs share
+    constant of the problem, ``packed`` the result, ``curve_buf`` and
+    ``health_buf`` a replay's curve and health rows.  Both graphs share
     one memory pool: they never run at once."""
 
     def __init__(self, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
@@ -555,7 +823,7 @@ class _Graphs(_Runner):
         # iteration shows which state leaves the step rewrites
         with _side_stream(device):
             first = self._prologue(self.solve_in, self.level)
-            after, _ = self._chunk(first, self.n_limit(), 1)
+            after, _, _ = self._chunk(first, self.n_limit(), 1)
             self._pack(after)
         leaves = _flatten(first, [])
         moved = [a is not b for a, b in zip(_flatten(after, []), leaves)]
@@ -573,11 +841,16 @@ class _Graphs(_Runner):
             leaf if buf is None else buf
             for buf, leaf in zip(self.buffers, leaves)
         ]))
+        self.carry = self.carry_in
         packed = self._pack(first)
         self.packed_buf = torch.empty(packed.shape, dtype=packed.dtype,
                                       device=device)
         self.curve_buf = torch.empty(
             solver.length, dtype=torch.float32, device=device
+        )
+        self.health_buf = None if solver.health is None else torch.empty(
+            (solver.length, HEALTH_WIDTH), dtype=torch.float32,
+            device=device,
         )
         del first, after, leaves, packed
 
@@ -593,12 +866,14 @@ class _Graphs(_Runner):
         return self.solve_in[..., 2]
 
     def _run_chunk(self) -> None:
-        carry, curve = self._chunk(
+        carry, curve, rows = self._chunk(
             self.carry_in, self.n_limit(), self.solver.length
         )
         self._store(carry)
         if curve is not None:
             self.curve_buf.copy_(curve)
+        if rows is not None:
+            self.health_buf.copy_(rows)
 
     def _store(self, carry: _Carry) -> None:
         """Copy ``carry`` into the buffers (inside a capture), and the
@@ -613,20 +888,29 @@ class _Graphs(_Runner):
         self.level.copy_(torch.as_tensor(level, dtype=torch.float32))
         self.prologue.replay()
         hopper_kernels.count_replay(self.launches_per_start)
-        self.curves = []
+        self._begin()
 
     def replay(self) -> None:
         self.chunk.replay()
         hopper_kernels.count_replay(self.launches_per_replay)
-        if self.solver.collect_curve:
-            self.curves.append(self.curve_buf.clone())
+        self._took(
+            self.curve_buf.clone() if self.solver.collect_curve else None,
+            None if self.health_buf is None else self.health_buf.clone(),
+        )
 
     def packed(self) -> torch.Tensor:
         return self.packed_buf
 
-    def status(self) -> np.ndarray:
-        """[..., 2]: (cycles run, stability counter) of each instance."""
-        return self.packed_buf[..., -3:-1].cpu().numpy()
+    def _status(self) -> torch.Tensor:
+        return self.packed_buf[..., -3:-1]
+
+    def write_carry(self, **fields) -> None:
+        """Copy ``fields`` into the carry buffers the chunk graph reads
+        (the graphs are keyed by these tensors: never new ones), and the
+        packed result of the written carry beside them."""
+        for name, value in fields.items():
+            assign_(getattr(self.carry_in, name), value)
+        self.packed_buf.copy_(self._pack(self.carry_in))
 
     def state(self):
         """The final solver state: the carry buffers, which the next solve
@@ -685,14 +969,18 @@ def _chunk_length(n_cycles: int) -> int:
 
 
 def _drive(runner, solver: _Solver, n_limits: np.ndarray,
-           deadline: Optional[float]) -> bool:
+           deadline: Optional[float], start: int = 0,
+           look: Optional[Callable[[], np.ndarray]] = None) -> bool:
     """Replay chunks until every instance has stopped: its cycle budget
     ran out, or (with a stability test) ``same_count`` consecutive cycles
-    were stable.  The host reads the instances' (cycles run, stability)
-    only between growing runs of chunks, after 16, 48, 112, ... cycles.
-    Returns whether ``deadline`` (a solo solve's) ran out first."""
+    were stable.  The host looks at the instances' (cycles run,
+    stability) with ``look`` (default ``runner.status``) only between
+    growing runs of chunks, after 16, 48, 112, ... cycles from ``start``
+    (a resumed solve's first cycle).  Returns whether ``deadline`` (a
+    solo solve's) ran out first."""
+    look = look or runner.status
     limit = int(n_limits.max()) if n_limits.size else 0
-    issued = 0  # iterations replayed, live or not
+    issued = start  # iterations replayed, live or not, from cycle 0
     chunk = TIMEOUT_CHUNK
     while issued < limit:
         reps = -(-min(chunk, limit - issued) // solver.length)
@@ -704,7 +992,7 @@ def _drive(runner, solver: _Solver, n_limits: np.ndarray,
         chunk = min(2 * chunk, MAX_CHUNK)
         if issued >= limit:
             break  # every cycle ran or the stop rule fired: nothing to ask
-        status = runner.status().reshape(-1, 2)
+        status = look().reshape(-1, 2)
         run_cycles.host_syncs += 1
         ran, stable = status[:, 0], status[:, 1]
         done = ran >= n_limits
@@ -715,6 +1003,194 @@ def _drive(runner, solver: _Solver, n_limits: np.ndarray,
         if deadline is not None and time.perf_counter() >= deadline:
             return bool((ran < n_limits).any())
     return False
+
+
+def _drive_durable(runner, solver: _Solver, n_cycles: int, start: int,
+                   ckpt: CheckpointManager, deadline: Optional[float],
+                   look: Callable[[], np.ndarray],
+                   save: Callable[[int], None]) -> bool:
+    """A checkpointed solve's replays: a look after every chunk, as JAX's
+    chunked engine looks, and a snapshot (``save(cycle)``) whenever the
+    manager says one is due.  The next cycle boundary is written into the
+    graph's budget, so the iterations past it are masked and the carry
+    stops at it; then the real budget and the carry's next cycle are
+    written back.  Returns whether ``deadline`` ran out first."""
+    done, cycle = start, start  # cycles run; the carry's next iteration
+    while done < n_cycles:
+        limit = n_cycles
+        to_boundary = ckpt.cycles_to_boundary(done)
+        if to_boundary is not None:
+            limit = min(limit, done + to_boundary)
+        runner.set_limit(limit)
+        if cycle != done:
+            # the masked iterations past the last boundary moved the
+            # carry's cycle on: the next live one is cycle ``done``
+            runner.set_cycle(done)
+        runner.replay()
+        run_cycles.replays += 1
+        run_cycles.iterations += solver.length
+        status = look().reshape(-1)
+        run_cycles.host_syncs += 1
+        cycle = done + solver.length
+        done, stable = int(status[0]), int(status[1])
+        if ckpt.due(done):
+            save(done)
+        if solver.use_stability and stable >= solver.same_count:
+            break
+        if deadline is not None and time.perf_counter() >= deadline:
+            return done < n_cycles
+    return False
+
+
+class _Looks:
+    """The host's looks at a solo solve: each reads the status and the
+    health rows replayed since the last look together, publishes the live
+    rows to the pulse monitor and keeps the live part of the curve.  The
+    live iterations between two looks come first: the budget and the
+    stability stop only ever end a run of them."""
+
+    def __init__(self, runner, start: int, keep_rows: bool):
+        self.runner, self.done = runner, start
+        self.rows: Optional[List[np.ndarray]] = [] if keep_rows else None
+
+    def look(self) -> np.ndarray:
+        status, rows = self.runner.look()
+        self.took(int(status.reshape(-1)[0]), rows)
+        return status
+
+    def took(self, ran: int, rows: Optional[np.ndarray]) -> None:
+        n = max(0, ran - self.done)
+        if rows is not None:
+            live = rows[:n]
+            pulse.publish(live, self.done)
+            if self.rows is not None:
+                self.rows.append(live)
+        self.runner.keep_curve(n)
+        self.done = max(self.done, ran)
+
+
+def _to_host(tree):
+    """``tree`` (dicts, lists and tensors) with its tensors copied to the
+    host in one read (``_host_copy``)."""
+    leaves: List[torch.Tensor] = []
+
+    def index(t):
+        if isinstance(t, dict):
+            return {k: index(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [index(v) for v in t]
+        leaves.append(t)
+        return len(leaves) - 1
+
+    shape = index(tree)
+    host = _host_copy(leaves)
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [fill(v) for v in t]
+        return host[t]
+
+    return fill(shape)
+
+
+def _carry_dict(state_leaves, best_vals, best_cost, best_cycle, stable,
+                pc: Optional[PulseCarry]) -> Dict[str, Any]:
+    """The chunk-boundary carry a checkpoint holds, as the JAX package's
+    dict (its leaves in sorted key order): the solver state's leaves in
+    JAX's form, the anytime best, the stability counter and, with pulse
+    on, the flip carry."""
+    carry = {
+        "state": list(state_leaves),
+        "best_vals": best_vals,
+        "best_cost": best_cost,
+        "best_cycle": best_cycle,
+        "stable": stable,
+    }
+    if pc is not None:
+        carry["pulse"] = {"prev": pc.prev, "prev2": pc.prev2,
+                          "flips": pc.flips}
+    return carry
+
+
+def _save_solve_checkpoint(ckpt: CheckpointManager, runner,
+                           carry_io: CarryIO, done: int) -> None:
+    """One snapshot at a chunk boundary: the carry read from the device in
+    one transfer, right after the look that found the boundary."""
+    carry = runner.carry
+    pc = carry.pulse
+    tree = _carry_dict(
+        carry_io.save(carry.state, runner.consts), carry.best_vals,
+        carry.best_cost, carry.best_cycle, carry.stable, pc,
+    )
+    host = _to_host(tree)
+    run_cycles.snapshots += 1
+    extra = {**durability.runtime_extra(), "has_pulse": pc is not None}
+    if pc is not None:
+        # the flight recorder's ring rides the manifest, so a resumed
+        # run's postmortem still shows the health history before the kill
+        ring_rows, ring_start = pulse.recorder.ring()
+        if ring_rows:
+            extra["pulse_ring"] = ring_rows
+            extra["pulse_ring_start"] = ring_start
+    ckpt.save_carry(
+        host, done, best_cost=float(host["best_cost"]),
+        cycles_to_best=int(host["best_cycle"]), extra=extra,
+    )
+
+
+def _restore_solve_checkpoint(runner, resume_path: str, compiled,
+                              carry_io: CarryIO, health, seed: int,
+                              algo: str):
+    """Load a checkpoint, refusing one of another problem, algorithm or
+    seed, and write its carry into the runner's carry, the prologue's
+    output: the state's dynamic leaves, the anytime best, the stability
+    counter, the flip carry, and the cycles run and next cycle set to the
+    manifest's cycle.  Returns (that cycle, the manifest)."""
+    carry = runner.carry
+    device = carry.best_vals.device
+
+    def template_fn(manifest):
+        pc = None
+        if (manifest.get("extra") or {}).get("has_pulse"):
+            pt = torch.zeros(runner.dev.n_vars, dtype=torch.int32)
+            pc = PulseCarry(pt, pt, pt)
+        return _carry_dict(
+            carry_io.save(carry.state, runner.consts), carry.best_vals,
+            carry.best_cost, carry.best_cycle, carry.stable, pc,
+        )
+
+    stored, manifest = CheckpointManager.load_carry(
+        resume_path, template_fn, compiled=compiled, algo=algo,
+        seed=int(seed),
+    )
+
+    def on(x):
+        return x.to(device)
+
+    state = carry_io.load(carry.state, [on(x) for x in stored["state"]])
+    start = int(manifest.get("cycle", 0))
+    fields = dict(
+        state=state, best_vals=on(stored["best_vals"]),
+        best_cost=on(stored["best_cost"]),
+        best_cycle=on(stored["best_cycle"]), stable=on(stored["stable"]),
+        ran=torch.tensor(start, dtype=torch.int32, device=device),
+        cycle=torch.tensor(start, dtype=torch.int64, device=device),
+    )
+    if health is not None:
+        # a checkpoint without the flip carry restarts the counters at 0
+        # from the restored values: health only, the trajectory never
+        # reads it
+        p = stored.get("pulse")
+        fields["pulse"] = (
+            PulseCarry(on(p["prev"]), on(p["prev2"]), on(p["flips"]))
+            if p is not None else _pulse_carry0(runner.solver.extract(
+                dataclasses.replace(runner.dev, unary=carry.unary), state
+            ))
+        )
+    runner.write_carry(**fields)
+    return start, manifest
 
 
 def run_cycles(
@@ -735,6 +1211,8 @@ def run_cycles(
     state_into: Any = None,
     noise_draw: Optional[int] = None,
     with_best: bool = False,
+    health: Optional[Callable] = None,
+    carry_io: Optional[CarryIO] = None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray], Dict[str, Any]]:
     """Drive a solver on ``dev``, the device form of ``compiled``.
 
@@ -760,13 +1238,47 @@ def run_cycles(
     ``with_best`` adds ``best_values``, the best assignment seen, to the
     extras.  ``noise_draw``: the noise draw's row count when ``dev`` is padded
     past ``compiled`` (the serving layer's bucket rows, see ``_noised``);
-    rows from ``compiled.n_vars`` on draw no noise."""
+    rows from ``compiled.n_vars`` on draw no noise.
+
+    ``health(dev, old_state, new_state) -> float32[2]``: the solver's
+    health hook (residual, aux), run while ``pulse.enabled``; the rows
+    land on the pulse monitor and in ``extras["pulse"]`` (``fields``,
+    ``health``: the rows, or None on a timed or durable solve, whose rows
+    the monitor streamed, ``flip_count``, ``report``), and never change
+    the trajectory.  ``carry_io``: how the solver's state is checkpointed
+    (``CarryIO``); a solve with one checkpoints and resumes as the
+    ``durability`` singleton says (``extras["resumed_from"]``, and
+    ``curve_offset``: a resumed curve covers the resumed cycles only)."""
     n_cycles = int(n_cycles)
+    algo = _phase_of(step)
+    ckpt = resume_path = None
+    if durability.active and carry_io is not None:
+        ckpt = durability.manager
+        if ckpt is not None and not ckpt.bind(
+            compiled, algo, int(seed), float(noise or 0.0), n_cycles,
+        ):
+            # the manager belongs to another problem's solve: neither
+            # checkpoint this one nor let it claim the resume
+            ckpt = None
+        else:
+            resume_path = durability.take_resume()
+    hook = health if (health is not None and pulse.enabled) else None
+    if hook is not None:
+        pulse.begin_run({
+            "algo": algo,
+            "n_vars": int(compiled.n_vars),
+            "n_cycles": n_cycles,
+            "seed": int(seed),
+            "noise": float(noise or 0.0),
+            "timeout": timeout,
+            "fields": list(HEALTH_FIELDS),
+        })
     solver = _Solver(
         init=init, step=step, extract=extract, convergence=convergence,
         same_count=int(same_count), collect_curve=bool(collect_curve),
         has_noise=bool(noise), length=_chunk_length(n_cycles),
         noise_draw=None if noise_draw is None else int(noise_draw),
+        health=hook,
     )
     runner = _runner(compiled, solver, dev, tuple(consts))
     deadline = None if timeout is None else time.perf_counter() + timeout
@@ -776,9 +1288,40 @@ def run_cycles(
         np.array([key[0], key[1], n_cycles, n_real]),
         np.float32(noise or 0.0),
     )
-    timed_out = _drive(runner, solver, np.array([n_cycles]), deadline)
-    out = _unpack(runner.packed().cpu().numpy(), dev.n_vars)
+    start = 0
+    if resume_path is not None:
+        start, manifest = _restore_solve_checkpoint(
+            runner, resume_path, compiled, carry_io, hook, seed, algo,
+        )
+        ring = (manifest.get("extra") or {}).get("pulse_ring")
+        if hook is not None and ring:
+            # refill the flight recorder with the dead run's health ring
+            pulse.recorder.record(
+                ring, int(manifest["extra"].get("pulse_ring_start", 0))
+            )
+        durability.note_resumed(manifest, resume_path)
+    # the rows are kept for extras where the JAX package's fused solve
+    # returns them: no timeout, no durability
+    looks = _Looks(
+        runner, start,
+        keep_rows=(hook is not None and timeout is None
+                   and ckpt is None and resume_path is None),
+    )
+    if ckpt is not None:
+        timed_out = _drive_durable(
+            runner, solver, n_cycles, start, ckpt, deadline, looks.look,
+            lambda done: _save_solve_checkpoint(ckpt, runner, carry_io,
+                                                done),
+        )
+    else:
+        timed_out = _drive(
+            runner, solver, np.array([n_cycles]), deadline, start,
+            looks.look,
+        )
+    packed, rows, flips = runner.result()
+    out = _unpack(packed, dev.n_vars)
     run_cycles.host_syncs += 1
+    looks.took(out["ran"], rows)
     extras = {
         "best_cost": out["best_cost"],
         "cycles": out["ran"],
@@ -790,8 +1333,28 @@ def run_cycles(
     if state_into is not None:
         assign_(state_into, runner.state())
         extras["state"] = state_into
+    if resume_path is not None:
+        extras["resumed_from"] = start
+        if collect_curve:
+            extras["curve_offset"] = start
+    if hook is not None:
+        flips_np = flips[:compiled.n_vars].copy()
+        extras["pulse"] = {
+            "fields": HEALTH_FIELDS,
+            "health": (
+                None if looks.rows is None else
+                np.concatenate(looks.rows) if looks.rows
+                else np.zeros((0, HEALTH_WIDTH), dtype=np.float32)
+            ),
+            "flip_count": flips_np,
+            "report": pulse.finish_run(flips_np),
+        }
+        if timed_out:
+            # a solve out of wall clock leaves its last health rows and
+            # its configuration behind for the ``postmortem`` verb
+            pulse.recorder.maybe_dump("solve-timeout")
     values = out["final"] if return_final else out["best"]
-    curve = runner.curve()[:out["ran"]] if collect_curve else None
+    curve = runner.curve() if collect_curve else None
     return values, curve, extras
 
 
@@ -799,6 +1362,7 @@ run_cycles.captures = 0
 run_cycles.replays = 0
 run_cycles.iterations = 0  # replays times their chunks' length
 run_cycles.host_syncs = 0
+run_cycles.snapshots = 0  # carries copied to the host for a checkpoint
 
 
 def run_batch(

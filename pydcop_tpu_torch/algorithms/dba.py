@@ -16,8 +16,8 @@ Weights live per edge (constraint, variable) in one ``[n_edges]`` float32
 vector and grow by exact increments of 1; a full ok+improve round is one
 step of array ops (violation tests are gathers and compares, neighbourhood
 maxima and minima scatter reductions over the directed neighbour pairs).
-Reports the anytime best.  The JAX package's ``health`` hook is not
-ported: the port's engine has no health hooks.
+Reports the anytime best.  Its ``health`` hook gives the weight mass a
+cycle added (summed in XLA's order) and the frozen fraction.
 """
 
 from __future__ import annotations
@@ -38,11 +38,13 @@ from ..compile.kernels import (
     segment_sum,
     take_rows,
     to_device,
+    xla_sum,
 )
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     cached_const,
     extract_values,
+    field_io,
     finalize,
     neighbor_pairs_dev,
     run_cycles,
@@ -66,6 +68,21 @@ class DbaState(NamedTuple):
     weights: torch.Tensor  # [n_edges] per-(constraint, variable) weights
     counters: torch.Tensor  # [n_vars] int32 termination counters
     frozen: torch.Tensor  # [n_vars] bool: reached max_distance
+
+
+def health(dev: DeviceDCOP, old_state: DbaState, new_state: DbaState):
+    """The health hook (``telemetry/pulse.py``): residual = the breakout
+    weight mass added this cycle (summed in XLA's order), aux = the
+    fraction of live variables that the termination counter froze."""
+    dw = xla_sum(new_state.weights - old_state.weights)
+    live = dev.domain_size > 1
+    n_live = torch.clamp(live.sum(), min=1).to(torch.float32)
+    frozen = (new_state.frozen & live).sum().to(torch.float32) / n_live
+    return torch.stack([dw.to(torch.float32), frozen])
+
+
+#: the checkpoint form: JAX's state leaves, every one of which moves
+carry_io = field_io("values", "weights", "counters", "frozen")
 
 
 def _violations_per_slot(
@@ -200,6 +217,8 @@ def solve(
         collect_curve=collect_curve,
         timeout=timeout,
         return_final=False,  # anytime best
+        health=health,
+        carry_io=carry_io,
         consts=neigh,
     )
     cycles = extras["cycles"]

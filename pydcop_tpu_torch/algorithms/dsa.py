@@ -40,7 +40,9 @@ from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     cached_const,
     extract_values,
+    field_io,
     finalize,
+    gain_health,
     pad_rows_np,
     run_cycles,
 )
@@ -56,6 +58,14 @@ algo_params = [
     AlgoParameterDef("variant", "str", ["A", "B", "C"], "B"),
     AlgoParameterDef("stop_cycle", "int", None, 0),
 ]
+
+
+#: the health hook (``telemetry/pulse.py``): the local-search family's
+#: largest and mean available gain
+health = gain_health
+
+#: the checkpoint form: JAX's state leaves, only ``values`` moves
+carry_io = field_io("values")
 
 
 class DsaState(NamedTuple):
@@ -265,6 +275,8 @@ def solve(
         timeout=timeout,
         consts=_consts(compiled, params, dev),
         return_final=False,  # anytime best
+        health=health,
+        carry_io=carry_io,
     )
     # one value message to each neighbour per cycle over the hypergraph
     src, _dst = compiled.neighbor_pairs()

@@ -26,10 +26,24 @@ from ..compile.kernels import (
 )
 from ..random import uniform
 from . import SolveResult, prepare_algo_params
-from .base import cached_const, extract_values, finalize, run_cycles
+from .base import (
+    cached_const,
+    extract_values,
+    field_io,
+    finalize,
+    gain_health,
+    run_cycles,
+)
 from .dsa import random_init_values
 
 GRAPH_TYPE = "constraints_hypergraph"
+
+#: the health hook (``telemetry/pulse.py``): the local-search family's
+#: largest and mean available gain
+health = gain_health
+
+#: the checkpoint form: JAX's state leaves, of which only ``values`` moves
+carry_io = field_io("values")
 
 UNIT_SIZE = 1
 
@@ -82,6 +96,8 @@ def solve(
         collect_curve=collect_curve,
         timeout=timeout,
         return_final=False,
+        health=health,
+        carry_io=carry_io,
     )
     src, _ = compiled.neighbor_pairs()
     cycles = extras["cycles"]

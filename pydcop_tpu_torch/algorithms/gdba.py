@@ -23,8 +23,8 @@ Modifiers are dense float32 tensors shaped like the constraint tables,
 one per (constraint, slot) edge: ``[n_c, arity, D**arity]`` per bucket,
 growing by exact increments of 1.  Effective costs are one elementwise op
 over gathered entries; the increase modes are masked adds on the same
-tensors.  Reports the anytime best.  The JAX package's ``health`` hook is
-not ported: the port's engine has no health hooks.
+tensors.  Reports the anytime best.  Its ``health`` hook gives the modifier
+mass a cycle added (summed in XLA's order) and the largest modifier.
 """
 
 from __future__ import annotations
@@ -45,11 +45,13 @@ from ..compile.kernels import (
     resolve_device,
     take_rows,
     to_device,
+    xla_sum,
 )
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     cached_const,
     extract_values,
+    field_io,
     finalize,
     neighbor_pairs_dev,
     run_cycles,
@@ -73,6 +75,24 @@ algo_params = [
 class GdbaState(NamedTuple):
     values: torch.Tensor  # [n_vars]
     modifiers: Tuple[torch.Tensor, ...]  # per bucket [n_c, arity, D**arity]
+
+
+def health(dev: DeviceDCOP, old_state: GdbaState, new_state: GdbaState):
+    """The health hook (``telemetry/pulse.py``): residual = the modifier
+    mass added across every bucket this cycle (each bucket's sum in XLA's
+    order), aux = the largest modifier magnitude so far."""
+    dm = torch.zeros((), dtype=torch.float32, device=dev.unary.device)
+    mx = torch.zeros((), dtype=torch.float32, device=dev.unary.device)
+    for new_m, old_m in zip(new_state.modifiers, old_state.modifiers):
+        dm = dm + xla_sum((new_m - old_m).abs().reshape(-1)).to(
+            torch.float32
+        )
+        mx = torch.maximum(mx, new_m.abs().max().to(torch.float32))
+    return torch.stack([dm, mx])
+
+
+#: the checkpoint form: JAX's state leaves, every one of which moves
+carry_io = field_io("values", "modifiers")
 
 
 def _eff_slot_costs(
@@ -277,6 +297,8 @@ def solve(
         collect_curve=collect_curve,
         timeout=timeout,
         return_final=False,  # anytime best
+        health=health,
+        carry_io=carry_io,
         consts=(*neigh, table_min, table_max),
     )
     cycles = extras["cycles"]

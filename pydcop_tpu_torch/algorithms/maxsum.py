@@ -57,7 +57,13 @@ from ..compile.kernels import (
     variable_step_with_select_lanes,
 )
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
-from .base import cached_const, extract_values, finalize, run_cycles
+from .base import (
+    CarryIO,
+    cached_const,
+    extract_values,
+    finalize,
+    run_cycles,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -260,6 +266,46 @@ def _make_init(layout: str, precision: str = "f32"):
 # SAME_COUNT: stop after this many consecutive stable cycles (reference
 # maxsum.py:106 — computations stop resending after 4 identical messages)
 SAME_COUNT = 4
+
+
+def health(dev: DeviceDCOP, old_state, new_state) -> torch.Tensor:
+    """The health hook (``telemetry/pulse.py``): residual = the max-abs
+    change of the variable->factor plane this cycle, aux = the same of
+    the factor->variable plane; bf16 planes are widened first, so both
+    are exact in float32.  A-MaxSum and the resident session use it too
+    (any state with ``v2f`` and ``f2v`` planes, of either orientation)."""
+    r_v = (new_state.v2f.float() - old_state.v2f.float()).abs().max()
+    r_f = (new_state.f2v.float() - old_state.f2v.float()).abs().max()
+    return torch.stack([r_v, r_f])
+
+
+def _save_leaves(state: MaxSumState, consts) -> list:
+    """JAX's ``MaxSumState`` leaves: the planes, values and cycle, the
+    wavefront activation arrays (the port's first two constants) and the
+    layout's companions as JAX holds them (ELL: the permuted unary plane;
+    lanes: the transposed tables, unary plane and valid mask)."""
+    aux = state.aux
+    if isinstance(aux, EllCarry):
+        companions = [aux.unary_t]
+    elif isinstance(aux, LanesAux):
+        companions = [*aux.tables_t, aux.unary_t, aux.valid_t]
+    else:
+        companions = []
+    return [
+        state.v2f, state.f2v, state.values, state.cycle, consts[0],
+        consts[1], *companions,
+    ]
+
+
+def _load_leaves(state: MaxSumState, leaves) -> MaxSumState:
+    """The planes, values and cycle of JAX's leaves on a fresh state; the
+    companions stay the ones built from the problem and the noise."""
+    v2f, f2v, values, cycle = leaves[:4]
+    return replace(state, v2f=v2f, f2v=f2v, values=values, cycle=cycle)
+
+
+#: the checkpoint form of every layout
+carry_io = CarryIO(_save_leaves, _load_leaves)
 
 
 def plane_stable(old: torch.Tensor, new: torch.Tensor, stability: float):
@@ -654,6 +700,8 @@ def solve(
             else None
         ),
         same_count=SAME_COUNT,
+        health=health,
+        carry_io=carry_io,
     )
     cycles = extras["cycles"]
     # 2 messages per edge per cycle (var->factor and factor->var), size = 2*D

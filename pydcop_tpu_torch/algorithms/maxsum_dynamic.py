@@ -243,6 +243,10 @@ class DynamicMaxSum:
             return_final=False,
             consts=(self._inert, self._inert, self.state),
             state_into=self.state,
+            # each run publishes its own health stream while pulse is on
+            # (the residuals restart from the warm planes, so a change's
+            # spike shows)
+            health=_maxsum.health,
         )
         self._cycles_done += n_cycles
         self._msg_count += 2 * self.compiled.n_edges * n_cycles

@@ -34,13 +34,22 @@ from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     cached_const,
     extract_values,
+    field_io,
     finalize,
+    gain_health,
     neighbor_pairs_dev,
     run_cycles,
 )
 from .dsa import random_init_values
 
 GRAPH_TYPE = "constraints_hypergraph"
+
+#: the health hook (``telemetry/pulse.py``): the local-search family's
+#: largest and mean available gain
+health = gain_health
+
+#: the checkpoint form: JAX's state leaves, of which only ``values`` moves
+carry_io = field_io("values")
 
 HEADER_SIZE = 100
 UNIT_SIZE = 5
@@ -223,6 +232,8 @@ def solve(
         collect_curve=collect_curve,
         timeout=timeout,
         return_final=True,  # monotone: the final assignment is the best
+        health=health,
+        carry_io=carry_io,
         consts=neigh,
     )
     cycles = extras["cycles"]

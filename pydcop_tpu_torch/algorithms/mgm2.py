@@ -43,9 +43,14 @@ from ..compile.kernels import (
 from ..random import split, uniform
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
+    CarryIO,
+    _flatten,
+    _jax_dtype,
     cached_const,
     extract_values,
+    field_io,
     finalize,
+    gain_health,
     neighbor_pairs_dev,
     run_cycles,
 )
@@ -89,6 +94,31 @@ class Mgm2State(NamedTuple):
     dyn_other_strides: torch.Tensor  # [n_dyn, K]
     dyn_stride_src: torch.Tensor  # [n_dyn]
     dyn_stride_dst: torch.Tensor  # [n_dyn]
+
+
+#: the health hook (``telemetry/pulse.py``): the local-search family's
+#: largest and mean available gain
+health = gain_health
+
+
+def _save_leaves(state: Mgm2State, consts) -> List[torch.Tensor]:
+    """JAX's ``Mgm2State`` leaves: the port keeps the segment bounds of
+    the sorted ``dyn_edge`` where JAX keeps ``dyn_edge`` itself (int32,
+    each offer edge's id repeated over its segment)."""
+    counts = state.dyn_offsets[1:] - state.dyn_offsets[:-1]
+    dyn_edge = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=counts.device), counts
+    )
+    return [
+        _jax_dtype(dyn_edge if name == "dyn_offsets" else x)
+        for name in state._fields
+        for x in _flatten(getattr(state, name), [])
+    ]
+
+
+#: the checkpoint form: only ``values`` moves, the offer structure is
+#: rebuilt from the problem
+carry_io = CarryIO(_save_leaves, field_io("values").load)
 
 
 def _segment_pick(score, valid, seg, n_segments):
@@ -625,6 +655,8 @@ def solve(
         collect_curve=collect_curve,
         timeout=timeout,
         return_final=True,  # monotone
+        health=health,
+        carry_io=carry_io,
         consts=neigh + offers,
     )
     cycles = extras["cycles"]

@@ -45,13 +45,22 @@ from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     cached_const,
     extract_values,
+    field_io,
     finalize,
+    gain_health,
     pad_rows_np,
     run_cycles,
 )
 from .dsa import random_init_values
 
 GRAPH_TYPE = "constraints_hypergraph"
+
+#: the health hook (``telemetry/pulse.py``): the local-search family's
+#: largest and mean available gain
+health = gain_health
+
+#: the checkpoint form: JAX's state leaves, of which only ``values`` moves
+carry_io = field_io("values")
 
 HEADER_SIZE = 0
 UNIT_SIZE = 1
@@ -263,6 +272,8 @@ def solve(
         timeout=timeout,
         consts=_consts(compiled, dev),
         return_final=False,  # anytime best
+        health=health,
+        carry_io=carry_io,
     )
     # one value message to each neighbour per cycle over the hypergraph
     src, _dst = compiled.neighbor_pairs()

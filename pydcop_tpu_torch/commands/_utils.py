@@ -2,17 +2,23 @@
 
 Counterpart of ``pydcop_tpu/commands/_utils.py`` (the part the ``solve``
 verb uses): parse ``--algo_params name:value`` pairs into a validated
-``AlgorithmDef`` and write the JSON result.
+``AlgorithmDef``, write the JSON result, and the CSV, durability and
+pulse flags with their start and finish around a solve.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 from typing import Any, Dict, List, Optional
 
 from ..algorithms import AlgorithmDef
 
-__all__ = ["build_algo_def", "parse_params", "write_output"]
+__all__ = [
+    "add_csvio_arguments", "add_durability_arguments", "build_algo_def",
+    "finish_durability", "finish_telemetry", "parse_params",
+    "start_durability", "start_telemetry", "write_output",
+]
 
 
 def parse_params(param_strs: Optional[List[str]]) -> Dict[str, str]:
@@ -48,3 +54,142 @@ def write_output(args, payload: Dict[str, Any]) -> None:
             f.write(text + "\n")
     else:
         print(text)
+
+
+def add_csvio_arguments(parser) -> None:
+    parser.add_argument(
+        "--run_metrics",
+        default=None,
+        help="CSV file for run-time metrics",
+    )
+    parser.add_argument(
+        "--end_metrics",
+        default=None,
+        help="CSV file to append end-of-run metrics to",
+    )
+
+
+def add_durability_arguments(parser) -> None:
+    """--checkpoint/--resume: the durability flags of ``solve``."""
+    parser.add_argument(
+        "--checkpoint", nargs="?", const="", default=None, metavar="DIR",
+        help="periodically checkpoint the solver carry to DIR (atomic npz "
+        "+ manifest; default DIR = $PYDCOP_TPU_STATE_DIR/checkpoints).  "
+        "Snapshots ride the cycle loop's chunk boundaries; a killed run "
+        "resumes with --resume to the bit-identical trajectory of the "
+        "uninterrupted run",
+    )
+    parser.add_argument(
+        "--checkpoint-every", type=int, default=None, metavar="K",
+        help="checkpoint cadence in cycles (default 64); combines with "
+        "--checkpoint-every-seconds (whichever is due first)",
+    )
+    parser.add_argument(
+        "--checkpoint-every-seconds", type=float, default=None,
+        metavar="T",
+        help="checkpoint cadence in wall seconds (checked at chunk "
+        "boundaries)",
+    )
+    parser.add_argument(
+        "--checkpoint-keep", type=int, default=None, metavar="N",
+        help="rotation: keep the last N checkpoints (default 3)",
+    )
+    parser.add_argument(
+        "--resume", default=None, metavar="PATH",
+        help="resume a killed solve from a checkpoint file (or the newest "
+        "one in a directory); the manifest must match this problem, "
+        "algorithm and seed or the resume refuses loudly",
+    )
+
+
+def start_durability(args):
+    """Configure the durability singleton from the CLI flags; returns the
+    manager (or None) for ``finish_durability``.  ``--resume`` is resolved
+    before the solve, so a missing path fails fast."""
+    ckpt_dir = getattr(args, "checkpoint", None)
+    resume = getattr(args, "resume", None)
+    if ckpt_dir is None and resume is None:
+        for flag in (
+            "checkpoint_every", "checkpoint_every_seconds",
+            "checkpoint_keep",
+        ):
+            if getattr(args, flag, None) is not None:
+                logging.getLogger("pydcop_tpu_torch.durability").warning(
+                    "--%s has no effect without --checkpoint",
+                    flag.replace("_", "-"),
+                )
+        return None
+    from ..durability import (
+        DEFAULT_KEEP,
+        CheckpointManager,
+        durability,
+        resolve_checkpoint_path,
+    )
+
+    manager = None
+    if ckpt_dir is not None:
+        keep = getattr(args, "checkpoint_keep", None)
+        manager = CheckpointManager(
+            ckpt_dir or None,
+            every_cycles=getattr(args, "checkpoint_every", None),
+            every_seconds=getattr(args, "checkpoint_every_seconds", None),
+            keep=DEFAULT_KEEP if keep is None else keep,
+        )
+    if resume is not None:
+        resume = resolve_checkpoint_path(resume)
+    durability.configure(manager=manager, resume=resume)
+    return manager
+
+
+def finish_durability(args, manager) -> None:
+    """Report what durability did and switch the singleton back off (in a
+    ``finally``, beside ``finish_telemetry``)."""
+    if (
+        getattr(args, "checkpoint", None) is None
+        and getattr(args, "resume", None) is None
+    ):
+        return
+    from ..durability import durability
+
+    logger = logging.getLogger("pydcop_tpu_torch.durability")
+    if manager is not None:
+        if manager.saved_paths:
+            logger.info(
+                "%d checkpoint(s) in %s (newest: %s)",
+                len(manager.saved_paths), manager.directory,
+                manager.saved_paths[-1],
+            )
+        elif not manager.bound:
+            logger.warning(
+                "--checkpoint: no checkpoints written: the algorithm never "
+                "entered the cycle loop (one-shot solvers like dpop have "
+                "no checkpointable carry)"
+            )
+        else:
+            logger.warning(
+                "--checkpoint: solve finished before the first cadence "
+                "boundary (every %s cycles / %s s): nothing written",
+                manager.every_cycles, manager.every_seconds,
+            )
+    durability.reset()
+
+
+def start_telemetry(args) -> None:
+    """``--pulse-out``: per-cycle health vectors computed in the cycle
+    loop, streamed as JSONL, and the flight recorder armed."""
+    pulse_out = getattr(args, "pulse_out", None)
+    if pulse_out:
+        from ..telemetry.pulse import pulse
+
+        pulse.reset()
+        pulse.enabled = True
+        pulse.stream_open(pulse_out)
+
+
+def finish_telemetry(args) -> None:
+    """Switch pulse back off and close its stream (in a ``finally``)."""
+    if getattr(args, "pulse_out", None):
+        from ..telemetry.pulse import pulse
+
+        pulse.enabled = False
+        pulse.stream_close()

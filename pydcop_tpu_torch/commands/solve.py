@@ -3,21 +3,37 @@
 Counterpart of ``pydcop_tpu/commands/solve.py`` in its ``--mode direct``:
 load the problem, compile it, solve it on the card (or the CPU with the
 global ``--device cpu``) and print the result JSON, the same schema and
-the same text as the JAX package's.  The options of its other modes (the
-thread/process agent runtime, telemetry, memory guard, chaos, durability,
-CSV metrics) are parsed, so a command written for the JAX package gets a
-clear refusal naming the option instead of a usage error.
+the same text as the JAX package's.  ``--pulse-out`` streams the solve's
+per-cycle health rows as JSONL (and arms the flight recorder, which
+dumps ``postmortem.json`` when a ``--timeout`` runs out);
+``--checkpoint``/``--resume`` and their cadence flags make the solve
+durable; ``--run_metrics``/``--end_metrics`` write the CSV metrics.  The
+options of its other modes (the thread/process agent runtime, the other
+telemetry flags, memory guard, chaos) are parsed, so a command written
+for the JAX package gets a clear refusal naming the option instead of a
+usage error.
 """
 
 from __future__ import annotations
 
+import csv
 import logging
+import os
 import sys
 import time
 
 from ..constants import INFINITY
 from ..dcop.yamldcop import load_dcop_from_file
-from ._utils import build_algo_def, write_output
+from ._utils import (
+    add_csvio_arguments,
+    add_durability_arguments,
+    build_algo_def,
+    finish_durability,
+    finish_telemetry,
+    start_durability,
+    start_telemetry,
+    write_output,
+)
 
 logger = logging.getLogger("pydcop_tpu_torch.cli.solve")
 
@@ -33,28 +49,18 @@ _NOT_PORTED = (
     (("--period",), dict(type=float, default=None), "the agent runtime"),
     (("--delay",), dict(type=float, default=None), "the agent runtime"),
     (("--uiport",), dict(type=int, default=None), "the agent runtime"),
-    (("--run_metrics",), dict(default=None), "CSV metrics"),
-    (("--end_metrics",), dict(default=None), "CSV metrics"),
     (("--profile",), dict(default=None), "telemetry"),
     (("--trace-out",), dict(default=None), "telemetry"),
     (("--metrics-out",), dict(default=None), "telemetry"),
     (("--metrics-port",), dict(type=int, default=None), "telemetry"),
     (("--profile-out",), dict(default=None), "telemetry"),
     (("--dump-hlo",), dict(default=None), "telemetry"),
-    (("--pulse-out",), dict(default=None), "telemetry"),
     (("--mem-guard",), dict(action="store_true"), "the memory guard"),
     (("--mem-reserve-pct",), dict(type=float, default=None),
      "the memory guard"),
     (("--mem-limit-bytes",), dict(type=int, default=None),
      "the memory guard"),
     (("--fault-schedule",), dict(default=None), "chaos"),
-    (("--checkpoint",), dict(nargs="?", const="", default=None),
-     "durability"),
-    (("--checkpoint-every",), dict(type=int, default=None), "durability"),
-    (("--checkpoint-every-seconds",), dict(type=float, default=None),
-     "durability"),
-    (("--checkpoint-keep",), dict(type=int, default=None), "durability"),
-    (("--resume",), dict(default=None), "durability"),
 )
 
 
@@ -94,6 +100,14 @@ def set_parser(subparsers) -> None:
         help="value standing in for symbolic infinity when reporting "
         f"hard-constraint costs (default {INFINITY})",
     )
+    parser.add_argument(
+        "--pulse-out", default=None, metavar="FILE",
+        help="compute per-cycle health vectors in the cycle loop and "
+        "stream them to FILE as JSONL; arms the flight recorder "
+        "(postmortem.json on a timeout)",
+    )
+    add_csvio_arguments(parser)
+    add_durability_arguments(parser)
     for flags, kwargs, _what in _NOT_PORTED:
         parser.add_argument(*flags, help="not ported yet", **kwargs)
 
@@ -109,6 +123,17 @@ def _refused_option(args):
     return None
 
 
+def _dump_run_metrics(path: str, curve, offset: int = 0) -> None:
+    """Per-cycle cost CSV; ``offset`` is the absolute cycle the curve
+    starts after (a ``--resume`` run's curve covers the resumed cycles
+    only)."""
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["cycle", "cost"])
+        for i, c in enumerate(curve or []):
+            w.writerow([offset + i + 1, c])
+
+
 def run_cmd(args, timeout: float = None) -> int:
     refused = _refused_option(args)
     if refused is not None:
@@ -119,6 +144,17 @@ def run_cmd(args, timeout: float = None) -> int:
             file=sys.stderr,
         )
         return 2
+    start_telemetry(args)
+    manager = start_durability(args)
+    try:
+        return _run_cmd(args, timeout)
+    finally:
+        # a failed or timed-out solve keeps the checkpoints it wrote
+        finish_durability(args, manager)
+        finish_telemetry(args)
+
+
+def _run_cmd(args, timeout: float = None) -> int:
     t_load = time.perf_counter()
     dcop = load_dcop_from_file(args.dcop_files)
     logger.info(
@@ -136,13 +172,40 @@ def run_cmd(args, timeout: float = None) -> int:
         distribution=args.distribution,
         n_cycles=args.n_cycles,
         seed=args.seed,
-        collect_curve=bool(args.collect_curve),
+        collect_curve=bool(args.collect_curve or args.run_metrics),
         timeout=timeout,
         infinity=args.infinity,
         device=args.device,
     )
+    if args.run_metrics:
+        offset = 0
+        if getattr(args, "resume", None):
+            # a resumed solve's curve starts at the checkpoint's cycle:
+            # label the CSV in absolute cycles
+            from ..durability import durability
+
+            offset = int(
+                (durability.last_resume or {}).get("cycle") or 0
+            )
+        _dump_run_metrics(
+            args.run_metrics, result.get("cost_curve"), offset
+        )
     if not args.collect_curve:
         result.pop("cost_curve", None)
+    if args.end_metrics:
+        exists = os.path.exists(args.end_metrics)
+        with open(args.end_metrics, "a", newline="", encoding="utf-8") as f:
+            w = csv.writer(f)
+            if not exists:
+                w.writerow(
+                    ["time", "status", "cost", "violation", "cycle",
+                     "msg_count", "msg_size"]
+                )
+            w.writerow(
+                [result.get(k) for k in
+                 ("time", "status", "cost", "violation", "cycle",
+                  "msg_count", "msg_size")]
+            )
     write_output(args, result)
     # TIMEOUT exits 0: the anytime incumbent is a usable result
     return 0 if result.get("status") in ("FINISHED", "TIMEOUT") else 1

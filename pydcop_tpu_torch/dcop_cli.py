@@ -3,7 +3,8 @@
 Counterpart of ``pydcop_tpu/dcop_cli.py``: argparse top level with the
 global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
-per verb.  The port has the ``solve`` and ``serve`` verbs.  Its global
+per verb.  The port has the ``solve`` and ``serve`` verbs, and the
+host-only ``checkpoints`` and ``postmortem`` verbs.  Its global
 ``--device {cuda,cpu}`` takes the place of JAX's ``JAX_PLATFORMS``: the
 default is the card, and without one the CLI exits nonzero unless
 ``--device cpu`` is given; it never falls back to the CPU by itself.  The JAX CLI's
@@ -22,13 +23,16 @@ import signal
 import sys
 from typing import List, Optional
 
-from .commands import serve, solve
+from .commands import checkpoints, postmortem, serve, solve
 
 __all__ = ["main"]
 
 # extra slack on top of --timeout before force-exit, so the command can
 # finish its chunk and report TIMEOUT itself
 TIMEOUT_SLACK = 20
+
+# verbs that only read files on the host: they run without a card
+_HOST_ONLY = ("checkpoints", "postmortem")
 
 # global options of the JAX CLI that the port does not run yet
 _NOT_PORTED = (
@@ -91,6 +95,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     subparsers = parser.add_subparsers(dest="command")
     solve.set_parser(subparsers)
     serve.set_parser(subparsers)
+    checkpoints.set_parser(subparsers)
+    postmortem.set_parser(subparsers)
 
     args = parser.parse_args(argv)
     _setup_logging(args.verbosity, args.log)
@@ -102,7 +108,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
             print(f"error: {flag} is not ported yet", file=sys.stderr)
             return 2
-    if args.device == "cuda":
+    if args.device == "cuda" and args.command not in _HOST_ONLY:
         import torch
 
         if not torch.cuda.is_available():

@@ -1,9 +1,10 @@
 """Checkpoint and resume of solver state, in the JAX package's npz format.
 
 Counterpart of the npz half of ``pydcop_tpu/utils/checkpoint.py``: a tree
-of arrays (tensors, numpy arrays, named tuples, dataclasses, tuples and
-lists; ``None`` is no leaf) is written as one ``.npz`` file with arrays
-``leaf_0`` ... ``leaf_{n-1}`` in tree order and a ``__meta__`` array
+of arrays (tensors, numpy arrays, named tuples, dataclasses, tuples,
+lists and dicts, whose keys go in sorted order as JAX's tree flattening
+takes them; ``None`` is no leaf) is written as one ``.npz`` file with
+arrays ``leaf_0`` ... ``leaf_{n-1}`` in tree order and a ``__meta__`` array
 holding the UTF-8 JSON ``{"n_leaves", "treedef", "metadata",
 "leaf_dtypes"}``.  A bfloat16 leaf, which npz cannot hold, is stored as
 its ``uint8`` view and named in ``leaf_dtypes``; it comes back as a
@@ -28,11 +29,25 @@ import torch
 
 logger = logging.getLogger("pydcop_tpu_torch.checkpoint")
 
-__all__ = ["save_checkpoint", "load_checkpoint", "CheckpointError"]
+__all__ = [
+    "save_checkpoint", "load_checkpoint", "CheckpointError",
+    "atomic_write_json",
+]
 
 
 class CheckpointError(Exception):
     pass
+
+
+def atomic_write_json(path: str, obj: Any, **json_kwargs: Any) -> None:
+    """Write ``obj`` as JSON to ``path`` through a temporary file and
+    ``os.replace``: a crash mid-write leaves the previous file or none,
+    never a torn one."""
+    tmp = path + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(obj, f, **json_kwargs)
+        f.write("\n")
+    os.replace(tmp, path)
 
 
 def _is_leaf(x) -> bool:
@@ -56,6 +71,9 @@ def _flatten(tree) -> Tuple[List[Any], str]:
         )
     elif isinstance(tree, (tuple, list)):
         names, children, label = None, list(tree), type(tree).__name__
+    elif isinstance(tree, dict):
+        names = sorted(tree)
+        children, label = [tree[n] for n in names], "dict"
     else:
         raise TypeError(f"cannot checkpoint a {type(tree).__name__}")
     leaves, parts = [], []
@@ -80,6 +98,8 @@ def _unflatten(tree, leaves):
             f.name: _unflatten(getattr(tree, f.name), leaves)
             for f in dataclasses.fields(tree)
         })
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
     items = [_unflatten(x, leaves) for x in tree]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*items)

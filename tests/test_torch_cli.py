@@ -5,7 +5,10 @@ CLI's JSON (``python -m pydcop_tpu solve`` under ``JAX_PLATFORMS=cpu``),
 ``time`` excepted, under the bar of ``test_torch_api.py`` (MaxSum's cost
 within rel 1e-5, a cost curve within rel 1e-6, every other field equal).
 Without a card and without ``--device cpu`` it refuses; the options of
-the JAX CLI's other modes are refused as not ported.
+the JAX CLI's other modes are refused as not ported.  ``--pulse-out``,
+``--checkpoint``/``--resume`` and the CSV metrics run, and the host-only
+``checkpoints`` and ``postmortem`` verbs read the files either package
+writes.
 """
 
 import json
@@ -81,8 +84,8 @@ def test_cli_without_a_card_exits_nonzero():
 
 @pytest.mark.parametrize("option", [
     ["-m", "thread"], ["--trace-out", "t.json"], ["--mem-guard"],
-    ["--fault-schedule", "f.yaml"], ["--checkpoint", "ck"], ["--resume", "ck"],
-    ["--run_metrics", "m.csv"], ["--delay", "0.1"],
+    ["--fault-schedule", "f.yaml"], ["--metrics-out", "m.json"],
+    ["--profile-out", "prof"], ["--metrics-port", "9"], ["--delay", "0.1"],
 ])
 def test_cli_refuses_options_not_ported(option, capsys):
     rc = dcop_cli.main(["--device", "cpu", "solve", "-a", "dsa", *option,
@@ -164,3 +167,131 @@ def test_serve_verb_needs_the_card_unless_asked(capsys):
     rc = dcop_cli.main(["serve", "--port", "0", "--duration", "1"])
     assert rc == 2
     assert "--device cpu" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# durable solves, pulse and the host-only verbs
+# ---------------------------------------------------------------------------
+
+
+def _solve(tmp_path, name, *opts, algo="dsa", n=30):
+    out = tmp_path / f"{name}.json"
+    rc = dcop_cli.main(["--device", "cpu", "--output", str(out), "solve",
+                        "-a", algo, "-n", str(n), *opts,
+                        _path("graph_coloring")])
+    assert rc == 0
+    result = json.loads(out.read_text())
+    result.pop("time")
+    return result
+
+
+def test_checkpoint_then_resume_gives_the_uninterrupted_json(tmp_path):
+    want = _solve(tmp_path, "ref")
+    ck = tmp_path / "ck"
+    assert _solve(tmp_path, "ck", "--checkpoint", str(ck),
+                  "--checkpoint-every", "8", "--checkpoint-keep", "5") == want
+    assert sorted(p.name for p in ck.glob("*.npz")) == [
+        f"ckpt-c{c:09d}.npz" for c in (8, 16, 24)
+    ]
+    # a file, or a directory (its newest checkpoint)
+    for resume in (ck / "ckpt-c000000008.npz", ck):
+        assert _solve(tmp_path, "res", "--resume", str(resume)) == want
+
+
+def test_run_metrics_are_labelled_in_absolute_cycles_after_a_resume(
+    tmp_path
+):
+    ck = tmp_path / "ck"
+    _solve(tmp_path, "ck", "--checkpoint", str(ck), "--checkpoint-every",
+           "10", "--run_metrics", str(tmp_path / "full.csv"))
+    _solve(tmp_path, "res", "--resume", str(ck / "ckpt-c000000010.npz"),
+           "--run_metrics", str(tmp_path / "res.csv"),
+           "--end_metrics", str(tmp_path / "end.csv"))
+    full = (tmp_path / "full.csv").read_text().splitlines()
+    res = (tmp_path / "res.csv").read_text().splitlines()
+    assert full[0] == res[0] == "cycle,cost"
+    assert len(full) == 31 and res[1:] == full[11:]
+    assert res[1].startswith("11,")
+    end = (tmp_path / "end.csv").read_text().splitlines()
+    assert end[0] == "time,status,cost,violation,cycle,msg_count,msg_size"
+    assert end[1].split(",")[1:3] == ["FINISHED", str(
+        json.loads((tmp_path / "res.json").read_text())["cost"]
+    )]
+
+
+def test_a_resume_against_another_seed_is_refused(tmp_path):
+    from pydcop_tpu_torch.utils.checkpoint import CheckpointError
+
+    ck = tmp_path / "ck"
+    _solve(tmp_path, "ck", "--checkpoint", str(ck), "--checkpoint-every",
+           "10")
+    with pytest.raises(CheckpointError, match="seed"):
+        _solve(tmp_path, "res", "--resume", str(ck), "--seed", "9")
+
+
+def test_checkpoints_verb_lists_inspects_and_prunes(tmp_path, capsys):
+    ck = tmp_path / "ck"
+    _solve(tmp_path, "ck", "--checkpoint", str(ck), "--checkpoint-every",
+           "8", "--checkpoint-keep", "5")
+    capsys.readouterr()
+    # host-only: no --device cpu needed, with or without a card
+    assert dcop_cli.main(["checkpoints", "list", str(ck)]) == 0
+    listing = capsys.readouterr().out
+    assert "3 checkpoint(s)" in listing and "dsa" in listing
+    assert dcop_cli.main(["--output", str(tmp_path / "l.json"),
+                          "checkpoints", "list", str(ck)]) == 0
+    listed = json.loads((tmp_path / "l.json").read_text())["checkpoints"]
+    assert [m["cycle"] for m in listed] == [8, 16, 24]
+    assert dcop_cli.main(["--output", str(tmp_path / "i.json"),
+                          "checkpoints", "inspect", str(ck)]) == 0
+    inspected = json.loads((tmp_path / "i.json").read_text())
+    assert inspected["manifest"]["cycle"] == 24
+    assert dcop_cli.main(["--output", str(tmp_path / "p.json"),
+                          "checkpoints", "prune", str(ck), "--keep",
+                          "1"]) == 0
+    assert json.loads((tmp_path / "p.json").read_text())["removed"] == 2
+    assert len(list(ck.glob("*.npz"))) == 1
+
+
+def test_pulse_out_streams_the_jax_schema(tmp_path):
+    from pydcop_tpu_torch.telemetry.pulse import HEALTH_FIELDS, pulse
+
+    stream = tmp_path / "pulse.jsonl"
+    _solve(tmp_path, "p", "--pulse-out", str(stream))
+    assert pulse.enabled is False
+    lines = [json.loads(x) for x in stream.read_text().splitlines()]
+    assert lines[0]["event"] == "begin"
+    assert lines[0]["meta"]["algo"] == "dsa"
+    rows = [x for x in lines if "cycle" in x and "event" not in x]
+    assert [r["cycle"] for r in rows] == list(range(1, 31))
+    assert set(rows[0]) == {"cycle", *HEALTH_FIELDS}
+    assert lines[-1]["event"] == "diagnosis"
+
+
+def test_postmortem_verb_renders_a_timeout_dump(tmp_path):
+    from pydcop_tpu.telemetry.pulse import load_postmortem as jax_load
+    from pydcop_tpu.telemetry.pulse import (
+        render_postmortem as jax_render,
+    )
+
+    # a subprocess: the global --timeout arms an alarm
+    proc = subprocess.run(
+        [sys.executable, "-m", "pydcop_tpu_torch", "--device", "cpu",
+         "-t", "0.5", "solve", "-a", "dsa", "-n", "10000000",
+         "--pulse-out", "p.jsonl", _path("graph_coloring")],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout)["status"] == "TIMEOUT"
+    dump = tmp_path / "postmortem.json"
+    doc = jax_load(str(dump))
+    assert doc["reason"] == "solve-timeout" and doc["rows"]
+    rendered = subprocess.run(
+        [sys.executable, "-m", "pydcop_tpu_torch", "postmortem",
+         str(dump)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert rendered.returncode == 0, rendered.stderr[-2000:]
+    assert rendered.stdout == jax_render(doc) + "\n"
+    assert "solve-timeout" in rendered.stdout
