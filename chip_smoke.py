@@ -86,7 +86,24 @@ captured CUDA graphs:
 - a crash through the CLI (``kill_resume_cli``): a checkpointed ``solve``
   SIGKILLed after its first manifest, ``solve --resume`` printing the
   uninterrupted JSON, the ``checkpoints`` verb listing the directory and
-  the ``postmortem`` verb rendering a timed-out pulse solve's dump.
+  the ``postmortem`` verb rendering a timed-out pulse solve's dump;
+- MaxSum's float32 damping as XLA's single-rounded FMA (``fma_config4``,
+  ``fma_config6``): both damping sites one ``damp_fma`` launch each, the
+  JAX package's pinned costs, kernels and µs an iteration beside the same
+  solve damped in the plain torch form, and at config 4 the final message
+  planes the CPU's bit for bit;
+- serving with pulse on (``serve_pulse``): config 8's DSA tenants and 32
+  MaxSum grid tenants at damping 0.7, each tenant's health rows the CPU
+  batch's bit for bit, as many host syncs as with pulse off, no warm
+  capture, launches and µs a bucket iteration on and off; the ``serve``
+  verb in a subprocess drained by SIGTERM into its fleet checkpoint
+  (``serve_fleet_checkpoint``);
+- a scenario replay (``replay_session``): a ``ScenarioSession`` killed in
+  a subprocess after its first checkpoint and resumed onto the
+  uninterrupted run, which equals the CPU's;
+- ``solve --trace-out/--metrics-out`` (``trace_cli``): the engine's
+  window and read-back spans and metrics with the JAX package's names,
+  the windows' cycles adding up to the solve's.
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -95,11 +112,11 @@ its graphs replayed), its replays and its host syncs (O(log n_cycles)).
 Every solve also launches the port's own kernel ``xla_tree_sum``: the
 anytime-best total of ``evaluate`` (and MaxSum's ELL fan-in and sum over
 the domain) summed in XLA-CPU's order, one launch a sum site.  It prints
-one JSON object per phase, then the kernel table (six rows: both TPU kernels
-with a float32 and with a bf16 plane, ``xla_tree_sum`` and the DFS kernel
-``branch_bound``, held equal to its plain version at 16 variables; and
-the five batched variants' rows; each row with its
-``batched_launches``), the card's
+one JSON object per phase, then the kernel table (seven rows: both TPU
+kernels with a float32 and with a bf16 plane, ``xla_tree_sum``, the DFS
+kernel ``branch_bound``, held equal to its plain version at 16
+variables, and ``damp_fma``; and the six batched variants' rows; each
+row with its ``batched_launches``), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
 exits nonzero, with no result, when no CUDA device is present or the
@@ -273,12 +290,17 @@ BB_JAX_VALUES = "021112102211212000011200"
 SMEM_LOAD_CYCLES = 30
 ENGINE_COUNTERS = ("captures", "replays", "iterations", "host_syncs")
 # the rows of the kernel table: both TPU kernels with a float32 and with a
-# bf16 message plane, and the port's own tree sum
+# bf16 message plane, and the port's own kernels
 KERNEL_ROWS = ("ell_minplus", "ell_minplus_bf16", "factor_arity2_minplus",
-               "factor_arity2_minplus_bf16", "xla_tree_sum", "branch_bound")
+               "factor_arity2_minplus_bf16", "xla_tree_sum", "branch_bound",
+               "damp_fma")
 # the kernel wrappers of compile/hopper_kernels.py, each with a launch count
 KERNEL_WRAPPERS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum",
-                   "branch_bound")
+                   "branch_bound", "damp_fma")
+# damp_fma's sizes besides the config-4 plane: ragged element counts (a
+# float4 tail of 1, 2 and 3 values, a grid-stride pass past the card's
+# threads); an unaligned view runs its scalar path
+DAMP_SIZES = (1, 2, 3, 5, 1027, 2_500_001)
 # xla_tree_sum's sizes: one value, one window plus one, config 4's unary
 # and constraint totals, a million
 TREE_SIZES = (1, 33, 100_000, 199_996, 1_000_000)
@@ -328,9 +350,9 @@ SERVE_GRID = [(f"g{i}", 1024, 500 + i, i) for i in range(32)]
 # DSA's rows are pinned whole (sha256 of the float32 [30, 8] rows); of
 # MaxSum's the fields that are exact whatever the planes' last bits (cost,
 # best_cost, flips, churn, flipback, violations; sha256 of those columns),
-# and the residual and aux columns as JAX's float32 bytes, held to 1e-6:
-# they are maxima of the change of a message plane, and the planes match
-# JAX's to float32 rounding, not bit for bit
+# and the residual and aux columns as JAX's float32 bytes, held bit for
+# bit: they are maxima of the change of a message plane, and the planes
+# are JAX's bit for bit since both are damped in XLA's FMA form
 PULSE_EXACT_FIELDS = (0, 1, 2, 3, 4, 7)
 PULSE_JAX = {
     "dsa": dict(
@@ -369,12 +391,48 @@ KILL_CYCLES = 2400
 # the port's CLI, as a subprocess
 PORT_CLI = [sys.executable, "-m", "pydcop_tpu_torch"]
 SERVE_GRID_RUN = ("maxsum", {}, 30)
+# serving with pulse on: config 8's DSA tenants and the grid tenants with
+# MaxSum at damping 0.7 (both planes through damp_fma, batched); the CPU
+# batch compared with the card's holds the first SERVE_PULSE_CPU tenants
+SERVE_PULSE_GRID_RUN = ("maxsum", {"damping": 0.7}, 30)
+SERVE_PULSE_CPU = 8
+# the scenario replay (replay_session): a DynamicMaxSum session on a
+# scale-free coloring's relation objects, three events (two delays around
+# a factor swap), killed after its first checkpoint and resumed
+REPLAY_PROBLEM = (20_000, 3, dict(graph="scalefree", m_edge=2, soft=True,
+                                  seed=7))
+REPLAY_PARAMS = {"damping": 0.7}
+REPLAY_SEED = 7
+REPLAY_SCENARIO = """
+events:
+  - id: warm
+    delay: 20
+  - id: swap
+    actions:
+      - {type: swap_factor, constraint: cost_0,
+         function: "10 if v00000 == v00002 else 0"}
+  - id: settle
+    delay: 20
+"""
+# the engine's spans and metrics as the JAX package names them
+TRACE_SPANS = {"solve.window": {"kind", "phase", "offset", "cycles"},
+               "solve.readback": {"bytes"}}
+TRACE_METRICS = ("solve.windows", "solve.device_cycles", "device.chunk_ms",
+                 "solve.readback_bytes", "solve.readback_seconds")
 SERVE_GRID_BF16_RUN = ("maxsum", {"precision": "bf16"}, 10)
 # the batched kernel rows of the kernels line, at K=32 on SERVE_GRID's
 # bucket
 BATCHED_ROWS = ("ell_minplus_batched", "ell_minplus_bf16_batched",
                 "xla_tree_sum_evaluate_batched",
-                "xla_tree_sum_fan_in_batched", "xla_tree_sum_rows_batched")
+                "xla_tree_sum_fan_in_batched", "xla_tree_sum_rows_batched",
+                "damp_fma_batched")
+# what damp_fma replaces: the JAX package's damping, which XLA's CPU
+# compiler contracts into one FMA (a jnp expression, not a TPU kernel)
+DAMP_REPLACES = (
+    "none: the port's own kernel (MaxSum's damping as XLA's FMA: "
+    "pydcop_tpu/algorithms/maxsum.py:213, :252; "
+    "pydcop_tpu/compile/kernels.py:520, :645, :1011)"
+)
 
 
 def emit(obj) -> None:
@@ -833,6 +891,8 @@ def phase_kernels(c4, c6, c7):
         )
     rows["xla_tree_sum"] = _tree_sum_row(c4, c6, c7)
     emit({"phase": "kernel_row", **rows["xla_tree_sum"]})
+    rows["damp_fma"] = _damp_fma_row(c4)
+    emit({"phase": "kernel_row", **rows["damp_fma"]})
     small, cell = (compile_bb(spec) for spec in (BB_SMALL, BB_CELL))
     rows["branch_bound"] = _branch_bound_row(small, cell)
     emit({"phase": "kernel_row", **rows["branch_bound"]})
@@ -906,6 +966,88 @@ def _kernel_row(name, wrapper, replaces, max_err, kernel_ms, plain_ms,
         "library_ms": library_ms,
         **extra,
     }
+
+
+def damp_inputs(shape, device, seed=0):
+    """[prev, new]: two random float32 message planes of ``shape``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device) * 10
+            for _ in range(2)]
+
+
+def _damp_calls(damping):
+    """(the kernel's call, its plain version, the plain torch form, the
+    float64 chain the port damped with before) of ``damping``."""
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    d, e = hk.damp_constants(damping)
+
+    def kernel(prev, new):
+        return hk.damp_fma(damping, prev, new)
+
+    def plain(prev, new):
+        return hk.damp_fma_plain(prev, new, d, e)
+
+    def plain_form(prev, new):
+        return damping * prev + (1.0 - damping) * new
+
+    def float64_chain(prev, new):
+        return (prev.double() * d + ((1.0 - damping) * new).double()
+                ).float()
+
+    return kernel, plain, plain_form, float64_chain
+
+
+def damp_bytes_ops(args):
+    """(bytes, ops) of one damping: both planes read once, the output
+    written once; a multiply and a fused multiply-add (3 operations) a
+    value."""
+    prev, _ = args
+    return 12 * prev.numel(), 3 * prev.numel()
+
+
+def _damp_fma_row(c4):
+    """``damp_fma`` against its plain version, exactly: config 4's
+    [D, n_pad] ELL plane (the main path's), DAMP_SIZES and an unaligned
+    view; timed by CUDA-graph replay on four config-4 operand sets beside
+    the plain torch form and the float64 chain (the library yardsticks:
+    neither rounds as one FMA), and between CUDA events its plain
+    version."""
+    from pydcop_tpu_torch.algorithms.base import cached_const
+    from pydcop_tpu_torch.compile.kernels import build_ell
+
+    damping = CONFIG_4["params"]["damping"]
+    kernel, plain, plain_form, float64_chain = _damp_calls(damping)
+    ell = cached_const(c4, ("ell_host",), lambda: build_ell(c4))
+    shape = (c4.max_domain, ell.n_pad)
+    operands = {"config4": functools.partial(damp_inputs, shape, "cuda")}
+    for n in DAMP_SIZES:
+        operands[f"n{n}"] = functools.partial(damp_inputs, (n,), "cuda", n)
+    operands["unaligned"] = lambda: [
+        x[1:] for x in damp_inputs((1_000_001,), "cuda", 11)
+    ]
+    checked, max_err = _check_equal("damp_fma", kernel, plain, operands)
+    emit({"phase": "kernels", "kernel": "damp_fma", "shapes": checked})
+    args = operands["config4"]()
+    # 4 operand sets of 18 MB each, so L2 holds none of them
+    sets = [args] + [[a.clone() for a in args] for _ in range(3)]
+    nbytes, ops = damp_bytes_ops(args)
+    # the plain version looks at its sums (a host sync): it is timed
+    # between CUDA events, not in a graph
+    plain_ms = _events_ms(lambda: [plain(*a) for a in sets], 5) / len(sets)
+    return _kernel_row(
+        "damp_fma", "damp_fma", DAMP_REPLACES, max_err,
+        time_cuda_ms(kernel, sets), plain_ms, nbytes,
+        ops, library_ms=time_cuda_ms(plain_form, sets),
+        library_call=(
+            "damping * prev + (1 - damping) * new in torch: three "
+            "kernels, rounded twice (not one FMA)"
+        ),
+        float64_chain_ms=time_cuda_ms(float64_chain, sets),
+        shape=list(shape),
+    )
 
 
 def _fan_in_call(f2v, u, spans):
@@ -1349,6 +1491,117 @@ def phase_solve(name, compiled, run, per_cycle, *, per_start=None,
         )
     emit(out)
     return cold, warm_counts
+
+
+def _final_planes(mod, solve):
+    """The final (v2f, f2v) planes of ``solve()`` (a solve of ``mod``),
+    on the host: its ``run_cycles`` call gets a ``state_into`` of its
+    own tensors (``init_ell`` hands one zero tensor to both planes)."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import base
+
+    seen = {}
+    orig = mod.run_cycles
+
+    def spy(*args, **kwargs):
+        _, dev, init = args[:3]
+        tree = init(dev, None, *kwargs.get("consts", ()))
+        kwargs["state_into"] = base._unflatten(tree, iter([
+            x.clone() if isinstance(x, torch.Tensor) else x
+            for x in base._flatten(tree, [])
+        ]))
+        out = orig(*args, **kwargs)
+        seen["state"] = out[2]["state"]
+        return out
+
+    mod.run_cycles = spy
+    try:
+        solve()
+    finally:
+        mod.run_cycles = orig
+    return seen["state"].v2f.cpu(), seen["state"].f2v.cpu()
+
+
+def phase_fma(name, compiled, spec, pinned, planes_vs_cpu):
+    """MaxSum on ``ell`` at bench config 4's or 6's size and damping
+    (``fma_config4``, ``fma_config6``), warm: both float32 damping sites
+    are one ``damp_fma`` launch each, and the solve gives the JAX
+    package's pinned (cost, violations, cycles).  Beside it, on this card,
+    the same solve damped in the plain torch form (three elementwise
+    kernels a site, the parent's form): kernels and µs an iteration of
+    each chunk graph, walls.  With ``planes_vs_cpu`` the final message
+    planes are the CPU's bit for bit."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import maxsum
+    from pydcop_tpu_torch.tools.profile_solve import _graph_ms
+
+    params = dict(spec["params"], layout="ell")
+
+    def solve(device="cuda"):
+        return maxsum.solve(compiled, dict(params), n_cycles=spec["n_cycles"],
+                            seed=spec["seed"], device=device)
+
+    def ell_graphs():
+        return {k: g for k, g in _cycle_graphs(compiled).items()
+                if k[1].health is None and k[1].step.__name__ == "step_ell"}
+
+    fma_graphs = ell_graphs()
+    check(len(fma_graphs) == 1,
+          f"{name}: {len(fma_graphs)} ELL graphs before the phase")
+    (fma_key, fma_graph), = fma_graphs.items()
+    res, wall, counts = _counted(solve)
+    its = counts["iterations"]
+    check(counts["captures"] == 0, f"{name}: the warm solve captured")
+    check(counts["damp_fma"] == 2 * its > 0,
+          f"{name}: {counts['damp_fma']} damp_fma launches, {its} "
+          "iterations")
+    got = (res.cost, res.violations, res.cycles)
+    check(got == tuple(pinned), f"{name}: {got}, the JAX package {pinned}")
+    out = {
+        "phase": name, "n_vars": compiled.n_vars, "params": params,
+        "cost": res.cost, "jax_cost": pinned[0], "cost_equal_jax": True,
+        "cycles": res.cycles, "warm_s": wall, "counts": counts,
+        "damp_fma_per_iteration": counts["damp_fma"] / its,
+        "kernels_per_iteration": _device_events(solve) / its,
+        "us_per_iteration": 1e3 * _graph_ms(fma_graph.chunk)
+        / fma_key[1].length,
+    }
+    # the plain form, on this card: the step built with fma_damping off
+    orig = maxsum._make_step
+    maxsum._make_step = lambda *a, **k: orig(*a, **dict(k, fma_damping=False))
+    try:
+        plain_res = solve()  # cold: its own graphs
+        _, plain_wall, plain_counts = _counted(solve)
+        plain_events = _device_events(solve)
+    finally:
+        maxsum._make_step = orig
+    plain_keys = set(ell_graphs()) - {fma_key}
+    check(len(plain_keys) == 1, f"{name}: {len(plain_keys)} plain graphs")
+    plain_key = plain_keys.pop()
+    check(plain_counts["damp_fma"] == 0,
+          f"{name}: the plain form launched damp_fma")
+    out.update(
+        plain_form_warm_s=plain_wall,
+        plain_form_kernels_per_iteration=(
+            plain_events / plain_counts["iterations"]),
+        plain_form_us_per_iteration=(
+            1e3 * _graph_ms(ell_graphs()[plain_key].chunk)
+            / plain_key[1].length),
+        plain_form_cost=plain_res.cost,
+        plain_form_same_assignment=plain_res.assignment == res.assignment,
+    )
+    # the plain form's graphs go: this phase alone uses them
+    compiled.__dict__["_device_consts"].pop(plain_key)
+    if planes_vs_cpu:
+        card = _final_planes(maxsum, solve)
+        cpu = _final_planes(maxsum, lambda: solve("cpu"))
+        for plane, a, b in zip(("v2f", "f2v"), card, cpu):
+            check(torch.equal(a, b),
+                  f"{name}: the card's final {plane} is not the CPU's")
+        out["planes_equal_cpu"] = True
+    emit(out)
 
 
 def phase_timeouts(c4, ell4):
@@ -1955,6 +2208,8 @@ def phase_dynamic_config4():
             "factor_arity2_minplus": counts["iterations"] + warm_up,
             "xla_tree_sum": 2 * (counts["iterations"] + warm_up)
             + 1 + warm_up,
+            # both planes damped in the FMA form
+            "damp_fma": 2 * (counts["iterations"] + warm_up),
         }
         got = {k: counts[k] for k in want}
         check(got == want, f"dynamic run {i}: launches {got}, want {want}")
@@ -1969,7 +2224,7 @@ def phase_dynamic_config4():
         })
     out.update(setup, same_as_cpu=True)
     emit(out)
-    return out["runs"][1]["counts"]["factor_arity2_minplus"]
+    return out["runs"][1]["counts"]
 
 
 def serve_requests(spec, run):
@@ -2149,12 +2404,13 @@ def _instance(args, i):
 
 
 def _batched_row(name, wrapper, replaces, batched, solo, plain, sets,
-                 bytes_ops, library=None):
+                 bytes_ops, library=None, plain_in_graph=True):
     """A batched kernel against its plain version instance by instance,
     exactly, on the first operand set; timed by CUDA-graph replay over
-    the sets beside its plain version (instance by instance), 32 solo
-    launches and, where there is one, a library call; its bound is the
-    K instances' bytes and operations."""
+    the sets beside its plain version (instance by instance; between
+    CUDA events when it cannot be captured), 32 solo launches and, where
+    there is one, a library call; its bound is the K instances' bytes and
+    operations."""
     import torch
 
     args = sets[0]
@@ -2186,9 +2442,10 @@ def _batched_row(name, wrapper, replaces, batched, solo, plain, sets,
             plain(*_instance(a, i))
 
     kernel_ms = time_cuda_ms(batched, sets)
+    plain_ms = time_cuda_ms(plain_all, sets, rounds=2) if plain_in_graph \
+        else _events_ms(lambda: [plain_all(*a) for a in sets], 3) / len(sets)
     row = _kernel_row(
-        name, wrapper, replaces, max_err, kernel_ms,
-        time_cuda_ms(plain_all, sets, rounds=2), nbytes, ops,
+        name, wrapper, replaces, max_err, kernel_ms, plain_ms, nbytes, ops,
         library_ms=time_cuda_ms(library, sets) if library else None,
         k=k, solo_launches_ms=time_cuda_ms(solo_all, sets, rounds=2),
         launches_per_call=1,
@@ -2239,6 +2496,14 @@ def batched_kernel_rows():
         hk.xla_tree_sum_batched, hk.xla_tree_sum, hk.xla_tree_sum_plain,
         [[ops[3]] for ops in sets], rows_bytes,
         library=lambda x: torch.sum(x, -1))
+    # damp_fma at K=32 of the bucket's [D, n_pad] planes: one launch
+    kernel, plain, plain_form, _ = _damp_calls(
+        CONFIG_4["params"]["damping"])
+    rows["damp_fma_batched"] = _batched_row(
+        "damp_fma_batched", "damp_fma", DAMP_REPLACES,
+        torch.func.vmap(kernel), kernel, plain,
+        [[ops[0][0], torch.randn_like(ops[0][0])] for ops in sets],
+        damp_bytes_ops, library=plain_form, plain_in_graph=False)
     return rows
 
 
@@ -2372,6 +2637,11 @@ def phase_serve_maxsum_grid():
               == 3 * its + 1,
               f"serve grid {name}: {counts['xla_tree_sum']} xla_tree_sum "
               f"launches for {its} iterations")
+        # float32 planes: both damped by one batched damp_fma launch
+        damps = 2 * its if name == "f32" else 0
+        check(counts["damp_fma"] == counts["damp_fma_batched"] == damps,
+              f"serve grid {name}: {counts['damp_fma']} damp_fma launches "
+              f"for {its} iterations")
         cpu = solve_batched(reqs, device="cpu")
         bit_equal = 0
         for r in reqs:
@@ -2616,8 +2886,10 @@ def phase_pulse_config4(c4):
                   f"pulse_config4 {name}: exact fields are not JAX's")
             planes = np.frombuffer(bytes.fromhex(pin["planes_hex"]),
                                    dtype=np.float32).reshape(-1, 2)
-            err = float(np.abs(rows[:, 5:7] - planes).max())
-            check(err <= 1e-6,
+            got = np.ascontiguousarray(rows[:, 5:7])
+            err = float(np.abs(got - planes).max())
+            check(np.array_equal(got.view(np.uint32),
+                                 planes.view(np.uint32)),
                   f"pulse_config4 {name}: residual/aux off JAX's by {err}")
             out["plane_fields_max_abs_err_vs_jax"] = err
         # the chunk graph, with and without the hook: µs an iteration
@@ -2915,12 +3187,339 @@ def phase_kill_resume_cli():
     emit(out)
 
 
+def _slot_graph_us(reqs, health: bool):
+    """µs an iteration of each bucket's warm chunk graph of ``reqs``'s
+    vmap slots, with or without the health hook, by bucket label."""
+    from pydcop_tpu_torch.algorithms import base
+    from pydcop_tpu_torch.serve import batch as sb
+    from pydcop_tpu_torch.serve import bucket_key
+    from pydcop_tpu_torch.tools.profile_solve import _graph_ms
+
+    keys = {bucket_key(r) for r in reqs}
+    out = {}
+    for (key, k_pad, device), slot in sb._slots.items():
+        if key not in keys or device != "cuda":
+            continue
+        for g in slot.home.__dict__.get("_device_consts", {}).values():
+            if isinstance(g, base._Graphs) and (
+                    g.solver.health is not None) == health:
+                out[f"v{key.dims.n_vars}_k{k_pad}"] = (
+                    1e3 * _graph_ms(g.chunk) / g.solver.length)
+    return out
+
+
+def phase_serve_pulse():
+    """Serving with pulse on (``serve_pulse``): bench config 8's 32 DSA
+    tenants and 32 MaxSum grid tenants at damping 0.7, warm batches with
+    pulse off and on.  With pulse on each vmap tenant carries its health
+    rows and flip counters, the CPU batch's bit for bit; a warm batch
+    captures nothing and makes as many host syncs as with pulse off; the
+    results are the pulse-off ones.  Launches, µs a bucket iteration (its
+    chunk graph) and walls, on and off.  Returns the pulse-on launches."""
+    import numpy as np
+
+    from pydcop_tpu_torch.serve import solve_batched
+    from pydcop_tpu_torch.telemetry.pulse import HEALTH_WIDTH, pulse
+
+    out = {"phase": "serve_pulse"}
+    launches = {}
+    cells = {"config8": (SERVE_CONFIG8, SERVE_CONFIG8_RUN),
+             "maxsum_grid": (SERVE_GRID, SERVE_PULSE_GRID_RUN)}
+    for name, (spec, run) in cells.items():
+        reqs = serve_requests(spec, run)
+        runs = {}
+        try:
+            for tag in ("off", "on"):
+                pulse.reset()
+                pulse.enabled = tag == "on"
+                solve_batched(reqs, device="cuda")  # cold where new
+                runs[tag] = _counted(
+                    lambda: solve_batched(reqs, device="cuda"))
+            # pulse is on here
+            cpu = solve_batched(reqs[:SERVE_PULSE_CPU], device="cpu")
+            walls = {"on": _median_walls([
+                lambda: solve_batched(reqs, device="cuda")])[0]}
+            pulse.enabled = False
+            walls["off"] = _median_walls([
+                lambda: solve_batched(reqs, device="cuda")])[0]
+        finally:
+            pulse.enabled = False
+        (off, _, c_off), (on, _, c_on) = runs["off"], runs["on"]
+        check(c_on["captures"] == 0,
+              f"serve_pulse {name}: a warm pulse-on batch captured")
+        check(c_on["host_syncs"] == c_off["host_syncs"],
+              f"serve_pulse {name}: host syncs on {c_on['host_syncs']}, "
+              f"off {c_off['host_syncs']}")
+        for r in reqs:
+            got, was = on[r.tenant], off[r.tenant]
+            check((got.result.assignment, got.result.cost)
+                  == (was.result.assignment, was.result.cost),
+                  f"serve_pulse {name} {r.tenant}: pulse changed the result")
+            rows = got.extras["pulse"]["health"]
+            check(rows.shape == (got.result.cycles, HEALTH_WIDTH)
+                  and "pulse" not in was.extras,
+                  f"serve_pulse {name} {r.tenant}: rows {rows.shape}")
+        for r in reqs[:SERVE_PULSE_CPU]:
+            got, want = on[r.tenant].extras["pulse"], cpu[
+                r.tenant].extras["pulse"]
+            check(np.array_equal(got["health"].view(np.uint32),
+                                 want["health"].view(np.uint32))
+                  and np.array_equal(got["flip_count"], want["flip_count"]),
+                  f"serve_pulse {name} {r.tenant}: rows are not the CPU's")
+        launches[name] = c_on
+        out[name] = {
+            "tenants": len(reqs), "counts_off": c_off, "counts_on": c_on,
+            "host_syncs_per_batch": c_on["host_syncs"],
+            "us_per_bucket_iteration_off": _slot_graph_us(reqs, False),
+            "us_per_bucket_iteration_on": _slot_graph_us(reqs, True),
+            "warm_batch_s_off": walls["off"],
+            "warm_batch_s_on": walls["on"],
+            "rows_equal_cpu": SERVE_PULSE_CPU,
+            "diagnosis": analyze_first(on[reqs[0].tenant]),
+        }
+    its = launches["maxsum_grid"]["iterations"]
+    check(launches["maxsum_grid"]["damp_fma"]
+          == launches["maxsum_grid"]["damp_fma_batched"] == 2 * its > 0,
+          f"serve_pulse: {launches['maxsum_grid']['damp_fma']} damp_fma "
+          f"launches for {its} batch iterations")
+    emit(out)
+    return launches
+
+
+def analyze_first(tenant_result):
+    """The diagnosis of a tenant's health rows."""
+    from pydcop_tpu_torch.telemetry.pulse import analyze
+
+    return analyze(tenant_result.extras["pulse"]["health"]).get("diagnosis")
+
+
+def phase_serve_fleet_checkpoint():
+    """The ``serve`` verb on the card, in a subprocess (pulse on by
+    default, ``--checkpoint DIR``): a POSTed YAML problem is solved, its
+    result carrying a pulse block; SIGTERM drains the server, which exits
+    0 and writes the fleet manifest (``kind: fleet``) with the tenant
+    done, its cost the card's ``solve_result``."""
+    import signal
+    import tempfile
+    import urllib.request
+
+    from pydcop_tpu_torch.api import solve_result
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
+
+    path = ROOT / FRONT_DOOR_YAML[0]
+    out = {"phase": "serve_fleet_checkpoint"}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "fleet"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [*PORT_CLI, "--output", str(Path(tmp) / "serve.json"), "serve",
+             "--port", "0", "--window-ms", "5", "--checkpoint", str(ck)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        try:
+            line = proc.stdout.readline()
+            check(line.startswith("SERVE_PORT="),
+                  f"serve_fleet_checkpoint: no port line: {line!r}")
+            out["ready_s"] = time.perf_counter() - t0
+            base_url = f"http://127.0.0.1:{int(line.split('=')[1])}"
+            body = json.dumps({"dcop_yaml": path.read_text(), "algo": "dsa",
+                               "n_cycles": 30, "seed": 3,
+                               "tenant": "fleet"}).encode()
+            with urllib.request.urlopen(urllib.request.Request(
+                    base_url + "/solve", data=body, method="POST"),
+                    timeout=120) as resp:
+                check(json.loads(resp.read()) == {"tenant": "fleet"},
+                      "serve_fleet_checkpoint: POST /solve")
+            deadline = time.perf_counter() + 300
+            while True:
+                with urllib.request.urlopen(base_url + "/result/fleet",
+                                            timeout=60) as resp:
+                    row = json.loads(resp.read())
+                if row["status"] in ("done", "failed", "killed"):
+                    break
+                check(time.perf_counter() < deadline,
+                      "serve_fleet_checkpoint: no result in 300 s")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=60)
+        check(proc.returncode == 0,
+              f"serve_fleet_checkpoint: the drained server exited "
+              f"{proc.returncode}")
+        check(row["status"] == "done" and row["pulse"]["cycles"] == 30,
+              f"serve_fleet_checkpoint: {row.get('status')}, "
+              f"{row.get('pulse')}")
+        manifest = json.loads((ck / "fleet-manifest.json").read_text())
+        summary = json.loads((Path(tmp) / "serve.json").read_text())
+    want = solve_result(load_dcop_from_file([str(path)]), "dsa",
+                        n_cycles=30, seed=3, device="cuda")
+    tenant = manifest["tenants"]["fleet"]
+    check(manifest["kind"] == "fleet" and manifest["state"] == "drained"
+          and tenant["status"] == "done" and tenant["cost"] == want["cost"]
+          and tenant["assignment"] == want["assignment"],
+          f"serve_fleet_checkpoint: manifest {manifest}")
+    check(summary["fleet_checkpoint"] == str(ck / "fleet-manifest.json"),
+          f"serve_fleet_checkpoint: summary {summary}")
+    out.update(pulse=row["pulse"], manifest_keys=sorted(manifest),
+               cost=tenant["cost"], equal_to_solve_result=True,
+               wall_s=time.perf_counter() - t0)
+    emit(out)
+
+
+def _replay_child(directory: str) -> None:
+    """The replay phase's process to kill: plays REPLAY_SCENARIO on the
+    card with a checkpoint an event, and SIGKILLs itself once the first
+    event's checkpoint is written."""
+    import os
+    import signal
+
+    from pydcop_tpu_torch.durability import CheckpointManager
+
+    class KillAfterFirst(CheckpointManager):
+        def save_carry(self, *a, **k):
+            path = super().save_carry(*a, **k)
+            os.kill(os.getpid(), signal.SIGKILL)
+            return path
+
+    sess = _replay_session(KillAfterFirst(directory, keep=10))
+    sess.play()
+
+
+def _replay_session(manager, device="cuda", resume=None):
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.dcop.yamldcop import load_scenario
+    from pydcop_tpu_torch.durability import ScenarioSession
+
+    n, d, kw = REPLAY_PROBLEM
+    dcop = generate_graph_coloring(n, d, **kw)
+    scenario = load_scenario(REPLAY_SCENARIO)
+    if resume is not None:
+        return ScenarioSession.resume(dcop, scenario, resume,
+                                      params=dict(REPLAY_PARAMS),
+                                      manager=manager, device=device)
+    return ScenarioSession(dcop, scenario, params=dict(REPLAY_PARAMS),
+                           seed=REPLAY_SEED, manager=manager, device=device)
+
+
+def phase_replay_session():
+    """A scenario replay killed and resumed on the card
+    (``replay_session``): a subprocess plays REPLAY_SCENARIO with a
+    checkpoint an event and is SIGKILLed after the first; the session
+    resumed from that checkpoint plays the rest and gives the
+    uninterrupted run's costs and result, on the card and on the CPU."""
+    import signal
+    import tempfile
+
+    from pydcop_tpu_torch.durability import CheckpointManager, list_manifests
+
+    out = {"phase": "replay_session", "n_vars": REPLAY_PROBLEM[0]}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        sess = _replay_session(None, device)
+        runs[device] = (sess.play(), list(sess.cost_trace))
+        sess.close()
+        out[f"{device}_play_s"] = time.perf_counter() - t0
+    check(runs["cuda"] == runs["cpu"],
+          f"replay_session: the card {runs['cuda'][1]} vs the CPU "
+          f"{runs['cpu'][1]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--replay-child",
+             tmp], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        out["killed_child_s"] = time.perf_counter() - t0
+        check(child.returncode == -signal.SIGKILL,
+              f"replay_session: the child exited {child.returncode}: "
+              f"{child.stderr[-2000:]}")
+        manifests = list_manifests(tmp)
+        check(len(manifests) == 1
+              and manifests[0]["extra"]["scenario_cursor"] == 1,
+              f"replay_session: {len(manifests)} checkpoint(s) left")
+        t0 = time.perf_counter()
+        sess = _replay_session(CheckpointManager(tmp, keep=10),
+                               resume=tmp)
+        check(sess.cursor == 1, f"replay_session: cursor {sess.cursor}")
+        resumed = (sess.play(), list(sess.cost_trace))
+        sess.close()
+        out["resume_s"] = time.perf_counter() - t0
+        out["checkpoints_after"] = len(list_manifests(tmp))
+    full, trace = runs["cuda"]
+    check(resumed[0] == full and resumed[1] == trace[-len(resumed[1]):],
+          f"replay_session: resumed {resumed[1]} vs uninterrupted {trace}")
+    out.update(cost_trace=trace, cost=full.cost, cycles=full.cycles,
+               resumed_equals_uninterrupted=True, same_as_cpu=True)
+    emit(out)
+
+
+def phase_trace_cli():
+    """``solve --trace-out/--metrics-out`` on the card (``trace_cli``):
+    the CLI writes the engine's readback windows and read-back as the JAX
+    package names them (``solve.window``, ``solve.readback``, category
+    ``device``, JAX's fields), the windows' cycles adding up to the
+    solve's, and JAX's metric names, ``solve.device_cycles`` the cycles
+    run."""
+    import tempfile
+
+    from pydcop_tpu_torch import dcop_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        # the CLI's entry point in this process (``python -m
+        # pydcop_tpu_torch`` calls it) with PORT_CLI's global options,
+        # on the card
+        rc = dcop_cli.main([
+            *PORT_CLI[3:], "--output", str(tmp / "r.json"), "solve",
+            *FRONT_DOOR_ARGS[:4], "-n", "300", "--trace-out",
+            str(tmp / "t.json"), "--metrics-out", str(tmp / "m.json"),
+            str(ROOT / FRONT_DOOR_YAML[0]),
+        ])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"trace_cli: exit {rc}")
+        result = json.loads((tmp / "r.json").read_text())
+        trace = json.loads((tmp / "t.json").read_text())
+        metrics = json.loads((tmp / "m.json").read_text())["metrics"]
+    spans = {name: [e for e in trace["traceEvents"]
+                    if e.get("name") == name] for name in TRACE_SPANS}
+    for name, fields in TRACE_SPANS.items():
+        check(spans[name] and all(
+            e["cat"] == "device" and e["ph"] == "X"
+            and set(e["args"]) == fields for e in spans[name]),
+            f"trace_cli: {name} spans {spans[name][:2]}")
+    cycles = sum(e["args"]["cycles"] for e in spans["solve.window"])
+    check(cycles == result["cycle"] > 0,
+          f"trace_cli: windows of {cycles} cycles, the solve "
+          f"{result['cycle']}")
+    check(all(m in metrics for m in TRACE_METRICS)
+          and metrics["solve.device_cycles"]["values"][0]["value"]
+          == result["cycle"],
+          f"trace_cli: metrics {sorted(metrics)}")
+    emit({
+        "phase": "trace_cli", "wall_s": wall, "cycles": result["cycle"],
+        "windows": len(spans["solve.window"]),
+        "window_cycles": [e["args"]["cycles"]
+                          for e in spans["solve.window"]],
+        "readback_bytes": spans["solve.readback"][0]["args"]["bytes"],
+        "metrics": sorted(metrics),
+    })
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--against", type=Path, nargs="+", default=[],
         help="checkouts of other commits whose kernels to time against",
     )
+    # the replay phase's process to kill (not for direct use)
+    ap.add_argument("--replay-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
     if not (ROOT / "pydcop_tpu_torch" / "compile").is_dir():
@@ -2938,6 +3537,9 @@ def main() -> int:
         )
         return 1
     sys.path.insert(0, str(ROOT))
+    if args.replay_child:
+        _replay_child(args.replay_child)
+        return 1  # not reached: the child kills itself
     from pydcop_tpu_torch.commands.generators.ising import (
         generate_ising_arrays,
     )
@@ -2957,15 +3559,17 @@ def main() -> int:
         phase_against(other.resolve(), timed_sets)
     del timed_sets
 
-    def counts(minplus=None, ell=False, maxsum=False):
+    def counts(minplus=None, ell=False, maxsum=False, damp=False):
         """(launches an iteration, launches in the prologue) by kernel of
-        a solve: ``minplus`` once an iteration (MaxSum's factor step), and
+        a solve: ``minplus`` once an iteration (MaxSum's factor step),
         xla_tree_sum once a sum site: every evaluate (the prologue
         evaluates the initial assignment), MaxSum's sum over the domain
-        in its variable step and, on the ELL layout, its fan-in."""
+        in its variable step and, on the ELL layout, its fan-in; and
+        damp_fma twice (``damp``: MaxSum's float32 planes, both damped
+        in the FMA form)."""
         per_cycle = {
             "ell_minplus": 0, "factor_arity2_minplus": 0,
-            "xla_tree_sum": 1 + maxsum + ell,
+            "xla_tree_sum": 1 + maxsum + ell, "damp_fma": 2 * damp,
         }
         if minplus:
             per_cycle[minplus] = 1
@@ -2979,7 +3583,8 @@ def main() -> int:
 
     def maxsum_phase(name, compiled, run, minplus, cpu_bar="cost", **kw):
         per_cycle, per_start = counts(
-            minplus, ell=run[1]["layout"] == "ell", maxsum=True
+            minplus, ell=run[1]["layout"] == "ell", maxsum=True,
+            damp=run[1].get("precision", "f32") == "f32",
         )
         return phase_solve(name, compiled, run, per_cycle,
                            per_start=per_start, cpu_bar=cpu_bar, **kw)
@@ -2991,6 +3596,9 @@ def main() -> int:
     )
     rows["ell_minplus"]["launches"] = warm["ell_minplus"]
     rows["xla_tree_sum"]["launches"] = warm["xla_tree_sum"]
+    rows["damp_fma"]["launches"] = warm["damp_fma"]
+    phase_fma("fma_config4", c4, CONFIG_4, MAXSUM_RECORDED["config4"],
+              planes_vs_cpu=True)
     _, warm = maxsum_phase(
         "maxsum_100k_pallas", c4, maxsum_run(CONFIG_4, "pallas"),
         "factor_arity2_minplus", recorded=MAXSUM_RECORDED["config4"],
@@ -3003,6 +3611,8 @@ def main() -> int:
         "maxsum_1m", c6, maxsum_run(CONFIG_6, "ell"), "ell_minplus",
         cpu_bar="exact", recorded=MAXSUM_CONFIG6_JAX,
     )
+    phase_fma("fma_config6", c6, CONFIG_6, MAXSUM_CONFIG6_JAX,
+              planes_vs_cpu=False)
     t_durable = time.perf_counter()
     phase_durable_config6(c6, c6_ref)
     new_phases_s = time.perf_counter() - t_durable
@@ -3020,7 +3630,8 @@ def main() -> int:
         )
     # "auto" must resolve to lanes here: the kernel counts show it
     mixed = compiled_from_numpy(mixed_problem_fields())
-    per_cycle, per_start = counts("factor_arity2_minplus", maxsum=True)
+    per_cycle, per_start = counts("factor_arity2_minplus", maxsum=True,
+                                  damp=True)
     phase_solve(
         "maxsum_mixed", mixed, maxsum_run(MIXED, "auto"), per_cycle,
         per_start=per_start, cpu_bar="cost",
@@ -3075,7 +3686,8 @@ def main() -> int:
     # A-DSA, DSA-tuto and A-MaxSum (edges layout: its domain sum is a
     # second xla_tree_sum an iteration)
     for name, algo, params, pinned in ASYNC:
-        per_cycle, per_start = counts(maxsum=algo == "amaxsum")
+        per_cycle, per_start = counts(maxsum=algo == "amaxsum",
+                                      damp=algo == "amaxsum")
         cold, _ = phase_solve(
             name, c4, (algo, params, 30, 7), per_cycle, per_start=per_start,
             recorded=pinned,
@@ -3088,9 +3700,10 @@ def main() -> int:
     phase_durable_config4(c4)
     new_phases_s += time.perf_counter() - t_new
     del c4, c2, mixed, problems, breakout
-    rows["factor_arity2_minplus"]["dynamic_launches"] = (
-        phase_dynamic_config4()
-    )
+    dynamic = phase_dynamic_config4()
+    rows["factor_arity2_minplus"]["dynamic_launches"] = dynamic[
+        "factor_arity2_minplus"]
+    rows["damp_fma"]["dynamic_launches"] = dynamic["damp_fma"]
     rows["branch_bound"]["launches"] = phase_branch_bound()
     try:
         import yaml  # noqa: F401  (the YAML loader's one dependency)
@@ -3112,17 +3725,29 @@ def main() -> int:
     grid = phase_serve_maxsum_grid()
     phase_serve_server()
     emit({"phase": "serve_seconds", "seconds": time.perf_counter() - t_serve})
+    # serving with pulse and fleet checkpoints, the scenario replay, the
+    # CLI's spans
+    t_new = time.perf_counter()
+    serve_pulse = phase_serve_pulse()
+    phase_serve_fleet_checkpoint()
+    phase_replay_session()
+    phase_trace_cli()
+    emit({"phase": "serve_replay_trace_seconds",
+          "seconds": time.perf_counter() - t_new})
     rows["ell_minplus_batched"]["launches"] = grid["f32"][
         "ell_minplus_batched"]
     rows["ell_minplus_bf16_batched"]["launches"] = grid["bf16"][
         "ell_minplus_batched"]
-    for name in BATCHED_ROWS[2:]:
+    for name in BATCHED_ROWS[2:5]:
         rows[name]["launches"] = grid["f32"]["xla_tree_sum_batched"]
+    rows["damp_fma_batched"]["launches"] = grid["f32"]["damp_fma_batched"]
     batched = {
         "ell_minplus": grid["f32"]["ell_minplus_batched"],
         "ell_minplus_bf16": grid["bf16"]["ell_minplus_batched"],
         "xla_tree_sum": grid["f32"]["xla_tree_sum_batched"]
         + serve8["xla_tree_sum_batched"],
+        "damp_fma": grid["f32"]["damp_fma_batched"]
+        + serve_pulse["maxsum_grid"]["damp_fma_batched"],
     }
     for name, row in rows.items():
         row["batched_launches"] = (

@@ -69,6 +69,18 @@ launch each kernel once for the batch.  The batch runs until every
 instance has stopped, and each instance's result is the bits of the same
 solve alone.
 
+Window spans (``telemetry/tracing.py``, ``metrics.py``): while the
+tracer or the metrics registry is on, every readback window records a
+``solve.window`` span (``cat="device"``: ``kind``, ``phase``, ``offset``,
+``cycles``) and the metrics ``solve.windows``, ``solve.device_cycles`` and
+``device.chunk_ms``, and the packed read-back a ``solve.readback`` span
+with ``solve.readback_bytes`` and ``solve.readback_seconds``: the JAX
+package's names and fields.  A window ends at a host sync the engine
+makes anyway, so the port's windows follow its own looks (after 16, 48,
+112, ... cycles, then the read-back; ``kind="chunk"``), not the JAX
+package's one fused window a solve; a batch is one window
+(``kind="batch"``).  The windows' ``cycles`` sum to the cycles run.
+
 A resident session (``maxsum_dynamic.DynamicMaxSum``) runs the engine
 again and again on the same problem: it resumes from its own state, which
 it passes as a constant, and hands the same tensors in as ``state_into``,
@@ -102,7 +114,9 @@ from ..compile.kernels import (
 )
 from ..durability.manager import CheckpointManager, durability
 from ..random import PRNGKey, fold_in, uniform
+from ..telemetry.metrics import metrics_registry
 from ..telemetry.pulse import HEALTH_FIELDS, HEALTH_WIDTH, pulse
+from ..telemetry.tracing import tracer
 from . import SolveResult
 
 __all__ = [
@@ -116,6 +130,54 @@ __all__ = [
 # geometrically so a long run pays O(log n) host syncs
 TIMEOUT_CHUNK = 16
 MAX_CHUNK = 1024
+
+# the telemetry handles, created once at import (the JAX package's names)
+_m_windows = metrics_registry.counter(
+    "solve.windows", "device readback windows"
+)
+_m_device_cycles = metrics_registry.counter(
+    "solve.device_cycles", "solver cycles advanced on device"
+)
+_m_readback_bytes = metrics_registry.counter(
+    "solve.readback_bytes", "device->host result bytes read back"
+)
+_m_readback_seconds = metrics_registry.histogram(
+    "solve.readback_seconds", "device->host readback latency"
+)
+_m_chunk_ms = metrics_registry.histogram(
+    "device.chunk_ms",
+    "device window latency (dispatch to host sync) per chunk, ms",
+    buckets=(0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 50.0, 100.0, 500.0,
+             1000.0, 5000.0, 10000.0),
+)
+
+
+def _telemetry_on() -> bool:
+    return tracer.enabled or metrics_registry.enabled
+
+
+def _record_window(
+    kind: str, phase: str, offset: int, cycles: int, t0: float, t1: float
+) -> None:
+    """One readback window: the device cycles between two host syncs,
+    attributed to the solver's ``phase``.  The caller checked that
+    telemetry is on."""
+    tracer.complete(
+        "solve.window", t0, t1 - t0, cat="device",
+        kind=kind, phase=phase, offset=offset, cycles=cycles,
+    )
+    _m_windows.inc()
+    _m_device_cycles.inc(cycles)
+    _m_chunk_ms.observe((t1 - t0) * 1e3, phase=phase, kind=kind)
+
+
+def _record_readback(nbytes: int, t0: float, t1: float) -> None:
+    """One device->host read-back: its latency and bytes."""
+    tracer.complete(
+        "solve.readback", t0, t1 - t0, cat="device", bytes=nbytes
+    )
+    _m_readback_bytes.inc(nbytes)
+    _m_readback_seconds.observe(t1 - t0)
 
 
 def extract_values(dev: DeviceDCOP, state) -> torch.Tensor:
@@ -704,17 +766,20 @@ class _Runner:
         if not rows and not tail:
             return head.cpu().numpy(), None, []
         parts = [head.reshape(-1)]
-        if rows:
-            parts.append(torch.cat(rows).reshape(-1).view(torch.int32))
+        # a batch's rows are [K, length, HEALTH_WIDTH] a replay: each
+        # instance's rows in cycle order
+        rows = torch.cat(rows, dim=-2) if rows else None
+        if rows is not None:
+            parts.append(rows.reshape(-1).view(torch.int32))
         parts += [t.reshape(-1) for t in tail]
         buf = torch.cat(parts).cpu().numpy()
         k = head.numel()
         out_head, off = buf[:k].reshape(tuple(head.shape)), k
         out_rows = None
-        if rows:
-            n = sum(r.numel() for r in rows)
+        if rows is not None:
+            n = rows.numel()
             out_rows = buf[off:off + n].view(np.float32).reshape(
-                -1, HEALTH_WIDTH
+                tuple(rows.shape[:-2]) + (-1, HEALTH_WIDTH)
             )
             off += n
         out_tail = []
@@ -734,10 +799,12 @@ class _Runner:
 
     def result(self):
         """The packed result, the health rows not yet read and (with a
-        health hook) the flip counters, in one read."""
+        health hook) the flip counters, in one read; and its bytes."""
         flips = [] if self.carry.pulse is None else [self.carry.pulse.flips]
         packed, rows, tail = self._read(self.packed(), flips)
-        return packed, rows, tail[0] if tail else None
+        nbytes = packed.nbytes + sum(t.nbytes for t in tail) + (
+            0 if rows is None else rows.nbytes)
+        return packed, rows, tail[0] if tail else None, nbytes
 
     def keep_curve(self, n_live: int) -> None:
         """Keep the first ``n_live`` entries of the curve the replays since
@@ -849,7 +916,7 @@ class _Graphs(_Runner):
             solver.length, dtype=torch.float32, device=device
         )
         self.health_buf = None if solver.health is None else torch.empty(
-            (solver.length, HEALTH_WIDTH), dtype=torch.float32,
+            lead + (solver.length, HEALTH_WIDTH), dtype=torch.float32,
             device=device,
         )
         del first, after, leaves, packed
@@ -1047,16 +1114,30 @@ class _Looks:
     health rows replayed since the last look together, publishes the live
     rows to the pulse monitor and keeps the live part of the curve.  The
     live iterations between two looks come first: the budget and the
-    stability stop only ever end a run of them."""
+    stability stop only ever end a run of them.  With a ``phase``
+    (telemetry on), each look closes a readback window."""
 
-    def __init__(self, runner, start: int, keep_rows: bool):
+    def __init__(self, runner, start: int, keep_rows: bool,
+                 phase: Optional[str] = None):
         self.runner, self.done = runner, start
         self.rows: Optional[List[np.ndarray]] = [] if keep_rows else None
+        self.phase = phase
+        self.t_window = time.perf_counter()
 
     def look(self) -> np.ndarray:
         status, rows = self.runner.look()
-        self.took(int(status.reshape(-1)[0]), rows)
+        ran = int(status.reshape(-1)[0])
+        self.window(ran, time.perf_counter())
+        self.took(ran, rows)
         return status
+
+    def window(self, ran: int, t1: float) -> None:
+        """Close the readback window that ends at a host sync at ``t1``
+        with ``ran`` cycles run."""
+        if self.phase is not None:
+            _record_window("chunk", self.phase, self.done,
+                           max(0, ran - self.done), self.t_window, t1)
+        self.t_window = t1
 
     def took(self, ran: int, rows: Optional[np.ndarray]) -> None:
         n = max(0, ran - self.done)
@@ -1306,6 +1387,7 @@ def run_cycles(
         runner, start,
         keep_rows=(hook is not None and timeout is None
                    and ckpt is None and resume_path is None),
+        phase=algo if _telemetry_on() else None,
     )
     if ckpt is not None:
         timed_out = _drive_durable(
@@ -1318,9 +1400,14 @@ def run_cycles(
             runner, solver, np.array([n_cycles]), deadline, start,
             looks.look,
         )
-    packed, rows, flips = runner.result()
+    t_rb = time.perf_counter()
+    packed, rows, flips, nbytes = runner.result()
+    t_end = time.perf_counter()
     out = _unpack(packed, dev.n_vars)
     run_cycles.host_syncs += 1
+    if looks.phase is not None:
+        _record_readback(nbytes, t_rb, t_end)
+        looks.window(out["ran"], t_end)
     looks.took(out["ran"], rows)
     extras = {
         "best_cost": out["best_cost"],
@@ -1380,6 +1467,7 @@ def run_batch(
     same_count: int = 4,
     has_noise: bool = False,
     noise_draw: Optional[int] = None,
+    health: Optional[Callable] = None,
 ) -> List[Dict[str, Any]]:
     """K solves of one solver as one: ``dev`` and ``consts`` hold K
     problems of one shape stacked on a leading instance axis (the
@@ -1393,16 +1481,28 @@ def run_batch(
     The batch runs until every instance has stopped (``_drive``), then
     reads back one packed ``[K, ...]`` block.  Each instance's result
     (``_unpack``'s fields) is the one ``run_cycles`` gives the same solve
-    alone with ``noise_draw``: a dead iteration keeps its carry."""
+    alone with ``noise_draw``: a dead iteration keeps its carry.
+
+    ``health``: the solver's health hook, run while ``pulse.enabled``
+    (pulse on and off capture different graphs).  Each instance then
+    also gets ``health``, its rows (``[cycles run, HEALTH_WIDTH]``, the
+    solo solve's bits), and ``flips``, its flip counters over its
+    ``n_reals[i]`` real rows.  The rows of each replay land in the
+    runner's ``[K, length, HEALTH_WIDTH]`` buffer and are read with the
+    looks the batch makes anyway and with its packed read-back: as many
+    host syncs as with pulse off.  A dead iteration's row is cut, as the
+    JAX package cuts it: an instance's live iterations come first."""
     n_limits = np.asarray(n_limits, dtype=np.int64)
+    hook = health if (health is not None and pulse.enabled) else None
     solver = _Solver(
         init=init, step=step, extract=extract, convergence=convergence,
         same_count=int(same_count), collect_curve=False,
         has_noise=bool(has_noise),
         length=_chunk_length(int(n_limits.max()) if n_limits.size else 0),
         noise_draw=None if noise_draw is None else int(noise_draw),
-        batched=True,
+        batched=True, health=hook,
     )
+    t0 = time.perf_counter()
     runner = _runner(home, solver, dev, tuple(consts))
     keys = np.array([PRNGKey(s) for s in seeds], dtype=np.int64)
     runner.start(
@@ -1412,10 +1512,36 @@ def run_batch(
         ], axis=1),
         np.asarray(levels, dtype=np.float32),
     )
-    _drive(runner, solver, n_limits, None)
-    packed = runner.packed().cpu().numpy()
+    seen: List[np.ndarray] = []
+
+    def look() -> np.ndarray:
+        status, rows = runner.look()
+        if rows is not None:
+            seen.append(rows)
+        return status
+
+    _drive(runner, solver, n_limits, None, look=look)
+    t_rb = time.perf_counter()
+    packed, rows, flips, nbytes = runner.result()
+    t_end = time.perf_counter()
     run_cycles.host_syncs += 1
-    return [_unpack(row, dev.n_vars) for row in packed]
+    out = [_unpack(row, dev.n_vars) for row in packed]
+    if _telemetry_on():
+        # the batch is one window: every instance's cycles (a padded
+        # instance runs none)
+        _record_readback(nbytes, t_rb, t_end)
+        _record_window("batch", _phase_of(step), 0,
+                       sum(row["ran"] for row in out), t0, t_end)
+    if hook is not None:
+        if rows is not None:
+            seen.append(rows)
+        health_rows = np.concatenate(seen, axis=1) if seen else np.zeros(
+            (len(out), 0, HEALTH_WIDTH), dtype=np.float32)
+        flips = flips.reshape(len(out), -1)
+        for i, row in enumerate(out):
+            row["health"] = health_rows[i, :row["ran"]].copy()
+            row["flips"] = flips[i, :int(n_reals[i])].copy()
+    return out
 
 
 def finalize(

@@ -246,6 +246,7 @@ def batch_plan(compiled: CompiledDCOP, dev: DeviceDCOP, params: Dict):
         return_final=False,
         msg_per_cycle=msg_per_cycle(compiled),
         n_cycles_override=int(params["stop_cycle"] or 0),
+        health=health,
     )
 
 

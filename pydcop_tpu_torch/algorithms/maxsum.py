@@ -131,11 +131,11 @@ def _make_step(
     """The cycle of ``layout`` ("ell", "lanes" or "edges") with message
     planes stored in ``precision``; cached, so a warm solve finds its
     captured graphs under the same step.  ``fma_damping`` damps both
-    planes as one fused multiply-add (``damp``'s ``fma``), as XLA's CPU
-    compiler contracts the JAX package's resident DynamicMaxSum program
-    on the lanes and edges layouts, the two the session runs; only that
-    session sets it (the JAX package's fused solve does not contract),
-    and the ELL cycle ignores it."""
+    float32 planes as one fused multiply-add (``damp``'s ``fma``: the
+    ``damp_fma`` kernel on the card), as XLA's CPU compiler contracts the
+    JAX package's MaxSum programs on every layout: the solve (fused,
+    chunked, checkpointed, pulse on), the serving batch and the resident
+    DynamicMaxSum session all set it.  bf16 planes ignore it."""
     var_damping = damping if damp_vars else 0.0
     plane_dtype = PLANE_DTYPES[precision]
 
@@ -160,11 +160,11 @@ def _make_step(
         if wavefront:
             f2v = torch.where(i >= act_f[None, :], f2v, 0.0)
         if damp_factors and damping:
-            f2v = damp(damping, state.f2v, f2v)
+            f2v = damp(damping, state.f2v, f2v, fma_damping)
         v2f, values = variable_step_with_select_ell(
             ell_spans, state.aux.unary_t, valid_ell_t, edge_valid_t,
             dsize_edges, pos_of_var, real_row, f2v,
-            damping=var_damping, prev_v2f_t=state.v2f,
+            damping=var_damping, prev_v2f_t=state.v2f, fma=fma_damping,
         )
         if wavefront:
             v2f = torch.where((i + 1) >= act_v[None, :], v2f, 0.0)
@@ -604,7 +604,7 @@ def batch_plan(compiled: CompiledDCOP, dev: DeviceDCOP, params: Dict):
             params["damping"],
             params["damping_nodes"] in ("vars", "both"),
             params["damping_nodes"] in ("factors", "both"),
-            wavefront, "ell", ell.spans, precision,
+            wavefront, "ell", ell.spans, precision, fma_damping=True,
         ),
         extract=extract_values,
         consts=consts,
@@ -617,6 +617,7 @@ def batch_plan(compiled: CompiledDCOP, dev: DeviceDCOP, params: Dict):
         return_final=False,  # anytime best, as the solo solve
         msg_per_cycle=msg_per_cycle(compiled),
         n_cycles_override=int(params["stop_cycle"] or 0),
+        health=health,
     )
 
 
@@ -679,7 +680,7 @@ def solve(
     init = _make_init(layout, precision)
     step = _make_step(
         damping, damp_vars, damp_factors, wavefront, layout, spans,
-        precision,
+        precision, fma_damping=True,
     )
 
     values, curve, extras = run_cycles(

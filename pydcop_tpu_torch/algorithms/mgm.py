@@ -201,6 +201,7 @@ def batch_plan(compiled, dev: DeviceDCOP, params: Dict):
         return_final=True,  # monotone
         msg_per_cycle=msg_per_cycle(compiled),
         n_cycles_override=int(params["stop_cycle"] or 0),
+        health=health,
     )
 
 

@@ -2,14 +2,16 @@
 
 Counterpart of ``pydcop_tpu/commands/_utils.py`` (the part the ``solve``
 verb uses): parse ``--algo_params name:value`` pairs into a validated
-``AlgorithmDef``, write the JSON result, and the CSV, durability and
-pulse flags with their start and finish around a solve.
+``AlgorithmDef``, write the JSON result, and the CSV, durability,
+pulse, trace and metrics flags with their start and finish around a
+solve.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import sys
 from typing import Any, Dict, List, Optional
 
 from ..algorithms import AlgorithmDef
@@ -175,8 +177,19 @@ def finish_durability(args, manager) -> None:
 
 
 def start_telemetry(args) -> None:
-    """``--pulse-out``: per-cycle health vectors computed in the cycle
-    loop, streamed as JSONL, and the flight recorder armed."""
+    """Turn on what the CLI flags ask for: ``--trace-out`` the span
+    tracer, ``--metrics-out`` the metrics registry (both reset first),
+    ``--pulse-out`` the per-cycle health vectors computed in the cycle
+    loop, streamed as JSONL, with the flight recorder armed."""
+    from ..telemetry import metrics_registry, tracer
+
+    if getattr(args, "trace_out", None):
+        tracer.service = "orchestrator"
+        tracer.reset()
+        tracer.enabled = True
+    if getattr(args, "metrics_out", None):
+        metrics_registry.reset()
+        metrics_registry.enabled = True
     pulse_out = getattr(args, "pulse_out", None)
     if pulse_out:
         from ..telemetry.pulse import pulse
@@ -187,9 +200,38 @@ def start_telemetry(args) -> None:
 
 
 def finish_telemetry(args) -> None:
-    """Switch pulse back off and close its stream (in a ``finally``)."""
+    """Export what the flags asked for and switch telemetry back off (in a
+    ``finally``, so a failed solve still writes what it gathered).  The
+    exports are independent, and an export error is reported on stderr,
+    not raised: a bad trace path neither loses the metrics nor changes
+    the command's exit code."""
+    from ..telemetry import metrics_registry, tracer
+
     if getattr(args, "pulse_out", None):
         from ..telemetry.pulse import pulse
 
         pulse.enabled = False
         pulse.stream_close()
+    if getattr(args, "metrics_out", None):
+        metrics_registry.enabled = False
+        try:
+            metrics_registry.dump(args.metrics_out)
+        except OSError as e:
+            print(
+                f"warning: could not write --metrics-out "
+                f"{args.metrics_out}: {e}",
+                file=sys.stderr,
+            )
+    if getattr(args, "trace_out", None):
+        tracer.enabled = False
+        try:
+            if args.trace_out.endswith(".jsonl"):
+                tracer.export_jsonl(args.trace_out)
+            else:
+                tracer.export_chrome(args.trace_out)
+        except OSError as e:
+            print(
+                f"warning: could not write --trace-out "
+                f"{args.trace_out}: {e}",
+                file=sys.stderr,
+            )

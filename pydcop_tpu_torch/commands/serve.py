@@ -14,8 +14,11 @@ one, announced on stdout as ``SERVE_PORT=<n>``):
 - ``POST /shutdown``: a graceful drain, then the process exits.
 
 It drains on SIGINT and SIGTERM too, or after ``--duration`` seconds, and
-writes the drain's summary as JSON.  The JAX verb's chaos schedules,
-pulse rows, fleet checkpoints, SLO objectives, peers and memory guard
+writes the drain's summary as JSON.  Pulse health rows are on by default
+(``--no-pulse`` turns them off): each done tenant's ``/status`` row and
+``/result`` carry its pulse block.  ``--checkpoint [DIR]`` writes the
+fleet checkpoint at the drain (``DIR``, or ``default_checkpoint_dir()``).
+The JAX verb's chaos schedules, SLO objectives, peers and memory guard
 are parsed and refused as not ported yet.
 """
 
@@ -35,10 +38,7 @@ logger = logging.getLogger("pydcop_tpu_torch.cli.serve")
 # (flags, argparse keywords, what the option belongs to): options of the
 # JAX package's ``serve`` that the port does not run yet
 _NOT_PORTED = (
-    (("--no-pulse",), dict(action="store_true"), "pulse health rows"),
     (("--fault-schedule",), dict(default=None), "chaos"),
-    (("--checkpoint",), dict(nargs="?", const="", default=None),
-     "fleet checkpoints"),
     (("--slo",), dict(action="append", default=[]), "SLO objectives"),
     (("--slo-file",), dict(default=None), "SLO objectives"),
     (("--slo-interval",), dict(type=float, default=None), "SLO objectives"),
@@ -78,6 +78,16 @@ def set_parser(subparsers) -> None:
         "block-diagonal union solve from one fleet seed",
     )
     parser.add_argument(
+        "--no-pulse", action="store_true",
+        help="disable the per-tenant pulse health rows (on by default)",
+    )
+    parser.add_argument(
+        "--checkpoint", nargs="?", const="", default=None, metavar="DIR",
+        help="a graceful drain writes a fleet checkpoint (the tenant "
+        "census and terminal results) into DIR (default "
+        "$PYDCOP_TPU_STATE_DIR/checkpoints)",
+    )
+    parser.add_argument(
         "--duration", type=float, default=None,
         help="serve for this many seconds, then drain and exit (default: "
         "until SIGINT/SIGTERM or POST /shutdown)",
@@ -106,11 +116,21 @@ def run_cmd(args, timeout: float = None) -> int:
     if timeout and not args.duration:
         args.duration = max(1.0, timeout - 5.0)
     from ..serve import ServeServer
+    from ..telemetry.pulse import pulse
 
+    checkpoint_dir = args.checkpoint
+    if checkpoint_dir == "":
+        from ..durability import default_checkpoint_dir
+
+        checkpoint_dir = default_checkpoint_dir()
     srv = ServeServer(
         port=args.port, host=args.host, window_ms=args.window_ms,
         max_batch=args.max_batch, mode=args.batch_mode, device=args.device,
+        checkpoint_dir=checkpoint_dir,
     )
+    if not args.no_pulse:
+        pulse.reset()
+        pulse.enabled = True
     print(f"SERVE_PORT={srv.http.port}", flush=True)
     logger.warning(
         "serving on http://%s:%s (window %.0f ms, max batch %d, %s)",
@@ -149,5 +169,8 @@ def run_cmd(args, timeout: float = None) -> int:
         "tenant_counts": final["tenant_counts"],
         "queue_ms": final["queue_ms"],
     }
+    if srv.fleet_checkpoint_path:
+        payload["fleet_checkpoint"] = srv.fleet_checkpoint_path
     write_output(args, payload)
+    pulse.enabled = False
     return 0 if drained else 1

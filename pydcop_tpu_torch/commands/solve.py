@@ -7,7 +7,10 @@ the same text as the JAX package's.  ``--pulse-out`` streams the solve's
 per-cycle health rows as JSONL (and arms the flight recorder, which
 dumps ``postmortem.json`` when a ``--timeout`` runs out);
 ``--checkpoint``/``--resume`` and their cadence flags make the solve
-durable; ``--run_metrics``/``--end_metrics`` write the CSV metrics.  The
+durable; ``--run_metrics``/``--end_metrics`` write the CSV metrics;
+``--trace-out`` writes the engine's window and read-back spans as a
+Chrome trace (or JSONL for a ``.jsonl`` path) and ``--metrics-out`` the
+metrics registry's snapshot as JSON, with the JAX package's names.  The
 options of its other modes (the thread/process agent runtime, the other
 telemetry flags, memory guard, chaos) are parsed, so a command written
 for the JAX package gets a clear refusal naming the option instead of a
@@ -50,8 +53,6 @@ _NOT_PORTED = (
     (("--delay",), dict(type=float, default=None), "the agent runtime"),
     (("--uiport",), dict(type=int, default=None), "the agent runtime"),
     (("--profile",), dict(default=None), "telemetry"),
-    (("--trace-out",), dict(default=None), "telemetry"),
-    (("--metrics-out",), dict(default=None), "telemetry"),
     (("--metrics-port",), dict(type=int, default=None), "telemetry"),
     (("--profile-out",), dict(default=None), "telemetry"),
     (("--dump-hlo",), dict(default=None), "telemetry"),
@@ -105,6 +106,16 @@ def set_parser(subparsers) -> None:
         help="compute per-cycle health vectors in the cycle loop and "
         "stream them to FILE as JSONL; arms the flight recorder "
         "(postmortem.json on a timeout)",
+    )
+    parser.add_argument(
+        "--trace-out", default=None, metavar="FILE",
+        help="record spans (the engine's readback windows and read-backs) "
+        "and write a Chrome trace to FILE (JSONL for a .jsonl path)",
+    )
+    parser.add_argument(
+        "--metrics-out", default=None, metavar="FILE",
+        help="enable the metrics registry and write its JSON snapshot to "
+        "FILE at exit",
     )
     add_csvio_arguments(parser)
     add_durability_arguments(parser)

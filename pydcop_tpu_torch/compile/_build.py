@@ -34,6 +34,7 @@ BUILD_DIR = _PKG / "_build"
 #: every kernel source of the package, by name (``csrc/<name>.cu``)
 KERNELS = (
     "ell_minplus", "factor_arity2_minplus", "xla_tree_sum", "branch_bound",
+    "damp_fma",
 )
 
 NVCC_FLAGS = (

@@ -57,8 +57,15 @@ in ``xla_tree_sum.launches``.  Rows over 1,024 values take tickets from a
 zeroed pool that each launch leaves at zero (``_tickets``).  It is bound
 by its launch at the sizes it runs at.
 
+``damp_fma`` (``csrc/damp_fma.cu``) is the port's own kernel too:
+MaxSum's float32 damping ``d * prev + (1 - d) * new`` as the one fused
+multiply-add XLA's CPU compiler makes of it in the JAX package's MaxSum
+programs, ``fma(d, prev, e * new)`` with both roundings written as
+intrinsics.  It is bound by bytes (12 B a value).  Its plain version
+rounds the same way in float64, with round-to-odd.
+
 The serving layer's batches: ``ell_minplus``, ``xla_tree_sum``,
-``tree_evaluate`` and ``ell_fan_in`` are each reached through a
+``tree_evaluate``, ``ell_fan_in`` and ``damp_fma`` are each reached through a
 ``torch.library`` custom op whose vmap rule turns a call mapped over an
 instance axis into the ``*_batched`` function: K instances of one shape
 stacked on a leading axis, one launch for all of them on the card (the
@@ -75,6 +82,7 @@ import ctypes
 import functools
 from typing import Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -85,6 +93,10 @@ __all__ = [
     "bucket_costs_plain",
     "capture_tally",
     "count_replay",
+    "damp_constants",
+    "damp_fma",
+    "damp_fma_batched",
+    "damp_fma_plain",
     "ell_fan_in",
     "ell_fan_in_batched",
     "ell_fan_in_plain",
@@ -468,6 +480,111 @@ def factor_arity2_minplus(
 
 
 factor_arity2_minplus.launches = 0
+
+
+def damp_constants(damping: float) -> Tuple[float, float]:
+    """``(d, e)``: ``damping`` and ``1 - damping`` as the float32
+    constants of the JAX package's jitted damping (the subtraction in
+    double precision, as JAX's weak-typed Python constant is)."""
+    return float(np.float32(damping)), float(np.float32(1.0 - damping))
+
+
+def damp_fma_plain(
+    prev: torch.Tensor, new: torch.Tensor, d: float, e: float
+) -> torch.Tensor:
+    """``fma(d, prev, e * new)`` over float32 planes, rounded as a fused
+    multiply-add: ``e * new`` rounded to float32, then ONE rounding of
+    the exact ``d * prev`` plus it.  In float64 the product ``d * prev``
+    is exact and the sum rounds once; its cast to float32 rounds a second
+    time, which gives another float32 than one rounding of the exact
+    value only where the float64 sum landed exactly on a float32
+    midpoint.  There (rarely: the values are found with one look at the
+    sums, so this version is for the CPU and checks, not for a captured
+    graph) the sum is made round-to-odd: TwoSum's error term says on
+    which side the exact value lies, and the sum steps one float64 ulp
+    toward it before the cast."""
+    c = new * e
+    a = prev.double().mul_(d)
+    s = a + c
+    out = s.float()
+    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if bool(mid.any()):
+        i = mid.nonzero(as_tuple=True)
+        ai, ci, si = a[i], c[i].double(), s[i]
+        b = si - ai
+        err = (ai - (si - b)) + (ci - b)
+        toward = torch.where(err > 0, torch.inf, -torch.inf).to(si.dtype)
+        out[i] = torch.where(err != 0, torch.nextafter(si, toward),
+                             si).float()
+    return out
+
+
+def damp_fma(damping: float, prev: torch.Tensor,
+             new: torch.Tensor) -> torch.Tensor:
+    """MaxSum's float32 damping ``damping * prev + (1 - damping) * new``
+    in the form XLA's CPU compiler gives the JAX package: one fused
+    multiply-add, ``fma(d, prev, e * new)`` (``damp_constants``).  On CPU
+    tensors this is :func:`damp_fma_plain`; on CUDA tensors it launches
+    ``csrc/damp_fma.cu`` on the current stream.  Mapped over an instance
+    axis it is one launch for the whole batch."""
+    _host_or_card((prev, new), "damp_fma")
+    if prev.dtype != torch.float32 or new.dtype != torch.float32:
+        raise TypeError(
+            f"damp_fma takes float32 planes, got {prev.dtype}, {new.dtype}"
+        )
+    d, e = damp_constants(damping)
+    return _damp_fma_op(prev, new, d, e)
+
+
+damp_fma.launches = 0
+damp_fma.batched = _Count()
+
+
+@torch.library.custom_op(f"{_OPS}::damp_fma", mutates_args=())
+def _damp_fma_op(prev: torch.Tensor, new: torch.Tensor, d: float,
+                 e: float) -> torch.Tensor:
+    if prev.device.type == "cpu":
+        return damp_fma_plain(prev, new, d, e)
+    return _launch_damp_fma(prev, new, d, e, False)
+
+
+@_damp_fma_op.register_vmap
+def _damp_fma_vmap(info, in_dims, prev, new, d, e):
+    prev, new = _batch_first(info.batch_size, in_dims[:2], (prev, new))
+    return damp_fma_batched(prev, new, d, e), 0
+
+
+def damp_fma_batched(prev: torch.Tensor, new: torch.Tensor, d: float,
+                     e: float) -> torch.Tensor:
+    """``damp_fma`` of K planes stacked on a leading axis: elementwise, so
+    on CUDA tensors one launch over the K planes as one (counted in
+    ``damp_fma.launches`` and ``damp_fma.batched.launches``)."""
+    if _host_or_card((prev, new), "damp_fma").type == "cpu":
+        return damp_fma_plain(prev, new, d, e)
+    return _launch_damp_fma(prev.contiguous(), new.contiguous(), d, e, True)
+
+
+# prev, new, out, d, e, n, stream
+_DAMP_FMA_ARGS = (ctypes.c_void_p,) * 3 + (
+    ctypes.c_float, ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p,
+)
+
+
+def _launch_damp_fma(prev, new, d: float, e: float,
+                     batched: bool) -> torch.Tensor:
+    device = prev.device
+    shape = tuple(prev.shape)
+    _check(prev, "prev", torch.float32, shape, device)
+    _check(new, "new", torch.float32, shape, device)
+    out = torch.empty_like(prev)
+    fn = _c_function("damp_fma", _DAMP_FMA_ARGS)
+    with torch.cuda.device(device):
+        rc = fn(prev.data_ptr(), new.data_ptr(), out.data_ptr(), d, e,
+                prev.numel(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"damp_fma launch failed: CUDA error {rc}")
+    _count_launch(damp_fma, batched)
+    return out
 
 
 #: XLA-CPU's window: a float sum over more elements than this is tree-summed

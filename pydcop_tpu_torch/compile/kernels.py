@@ -64,6 +64,7 @@ from .hopper_kernels import (
     _OPS,
     _batch_first,
     bucket_costs_plain,
+    damp_fma,
     ell_fan_in,
     ell_minplus,
     factor_arity2_minplus,
@@ -488,18 +489,15 @@ def damp(
     where the product feeds a float32 add).
 
     ``fma``: a float32 ``prev`` is damped as one fused multiply-add,
-    ``fma(d, prev, (1 - d) * new)``, the form XLA's CPU compiler gives
-    the JAX package's resident DynamicMaxSum program: ``d * prev`` (the
-    float32 ``damping`` times a float32, exact in float64), plus the
-    float32 ``(1 - d) * new``, rounded once in float64 and then to
-    float32.  A bf16 ``prev`` ignores it."""
+    ``fma(d, prev, (1 - d) * new)`` rounded once, the form XLA's CPU
+    compiler gives the JAX package's MaxSum programs
+    (``hopper_kernels.damp_fma``: the ``damp_fma`` kernel on the card,
+    its plain version on the CPU).  A bf16 ``prev`` ignores it: JAX's
+    bf16 program does not contract."""
     if prev.dtype == torch.bfloat16:
         return prev.float() * bf16_scalar(damping) + (1.0 - damping) * new
     if fma:
-        d32 = float(np.float32(damping))
-        return (
-            prev.double() * d32 + ((1.0 - damping) * new).double()
-        ).float()
+        return damp_fma(damping, prev, new)
     return damping * prev + (1.0 - damping) * new
 
 
@@ -923,11 +921,13 @@ def variable_step_with_select_ell(
     f2v_t: torch.Tensor,
     damping: float = 0.0,
     prev_v2f_t: torch.Tensor = None,
+    fma: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Variable half-cycle on ELL planes: per-class dense reshape-sums for
     the fan-in and broadcast for the fan-out (``hopper_kernels.
     ell_fan_in``: one launch over every class on the card), and ONE [V]
-    gather mapping the argmin back to original variable order."""
+    gather mapping the argmin back to original variable order; damped
+    against ``prev_v2f_t`` (``damp``'s ``fma``)."""
     tot, v2f_t = ell_fan_in(spans, unary_ell_t, f2v_t)
     values_ell = torch.argmin(
         torch.where(valid_ell_t, tot, torch.inf), dim=0
@@ -943,5 +943,5 @@ def variable_step_with_select_ell(
         edge_valid_t, v2f_t - mean, real_row.to(v2f_t.dtype) * BIG
     )
     if damping and prev_v2f_t is not None:
-        v2f_t = damp(damping, prev_v2f_t, v2f_t)
+        v2f_t = damp(damping, prev_v2f_t, v2f_t, fma)
     return v2f_t, values

@@ -1,10 +1,12 @@
-"""Durable solves: checkpoint and resume of the cycle engine's carry.
+"""Durable solves: checkpoint and resume of the cycle engine's carry,
+and replayable dynamic workloads.
 
-:mod:`.manager` holds :class:`CheckpointManager` (cadence, rotation,
-atomic manifests with problem fingerprints) and the :data:`durability`
-singleton ``run_cycles`` consults, the port's counterpart of
-``pydcop_tpu/durability/``.  The JAX package's scenario replay
-(``durability/replay.py``) is not ported.
+The port's counterpart of ``pydcop_tpu/durability/``: :mod:`.manager`
+holds :class:`CheckpointManager` (cadence, rotation, atomic manifests
+with problem fingerprints) and the :data:`durability` singleton
+``run_cycles`` consults; :mod:`.replay` holds :class:`ScenarioSession`,
+a ``DynamicMaxSum`` session driven by a scenario, checkpointed after
+every event and resumable from any checkpoint.
 """
 
 from .manager import (
@@ -21,6 +23,7 @@ from .manager import (
     read_manifest,
     resolve_checkpoint_path,
 )
+from .replay import REPLAY_ACTIONS, ScenarioSession
 
 __all__ = [
     "CheckpointManager",
@@ -35,4 +38,6 @@ __all__ = [
     "MANIFEST_FORMAT",
     "DEFAULT_EVERY_CYCLES",
     "DEFAULT_KEEP",
+    "REPLAY_ACTIONS",
+    "ScenarioSession",
 ]

@@ -23,6 +23,13 @@ level, cycle budget and real row count are operands; pad instances
 (K rounded up to a power of two) replicate the last tenant with a budget
 of 0 and are discarded.
 
+With pulse on (``telemetry.pulse``), each vmap tenant gets
+``extras["pulse"]``: its health rows (``[cycles, HEALTH_WIDTH]``, its
+``solve_one``'s bits) and flip counters, computed inside the batch's
+graphs (the plan's ``health`` hook) and read with the batch's looks and
+read-back; pulse on and off capture different graphs.  Fused mode gives
+no rows, as in the JAX package: the union's rows are not a tenant's.
+
 ``mode="fused"`` solves a group as ONE block-diagonal union problem
 (``serve.union``) through the ordinary solve; its trajectories follow one
 fleet seed, not the tenants' own.
@@ -86,6 +93,8 @@ class BatchPlan(NamedTuple):
     msg_per_cycle: Tuple[int, int]
     #: stop_cycle's override of the requested cycle budget (0 = none)
     n_cycles_override: int = 0
+    #: the solver's health hook, run while pulse is on (None: no rows)
+    health: Optional[Callable] = None
 
 
 class SolveRequest(NamedTuple):
@@ -249,6 +258,7 @@ def solve_one(req: SolveRequest, device="cuda") -> TenantResult:
         return_final=plan.return_final,
         noise_draw=dims.n_vars,
         with_best=True,
+        health=plan.health,
     )
     return _tenant_result(
         req, plan, values, extras["cycles"],
@@ -392,13 +402,14 @@ def _dispatch_group(key: BucketKey, reqs: List[SolveRequest],
         same_count=plan0.same_count,
         has_noise=key.has_noise,
         noise_draw=key.dims.n_vars,
+        health=plan0.health,
     )
     t_solved = time.perf_counter()
     out = []
     for req, inst, row in zip(reqs, instances, rows):
         plan = inst.host_plan
         values = row["final"] if plan.return_final else row["best"]
-        out.append(_tenant_result(req, plan, values, row["ran"], "FINISHED", {
+        extras = {
             "best_values": row["best"],
             "best_cost": row["best_cost"],
             "cycles": row["ran"],
@@ -409,7 +420,14 @@ def _dispatch_group(key: BucketKey, reqs: List[SolveRequest],
             "k_pad": k_pad,
             "assemble_s": t_filled - t0,
             "solve_s": t_solved - t_filled,
-        }))
+        }
+        if "health" in row:
+            # pulse on: the tenant's rows and flip counters, cut to its
+            # cycles and real variables as the JAX package cuts them
+            extras["pulse"] = {"health": row["health"],
+                               "flip_count": row["flips"]}
+        out.append(_tenant_result(req, plan, values, row["ran"], "FINISHED",
+                                  extras))
     return out
 
 
@@ -475,6 +493,7 @@ def _dispatch_fused(reqs: List[SolveRequest], device) -> List[TenantResult]:
         same_count=plan.same_count,
         return_final=True,
         with_best=True,
+        health=None,  # union-global health rows are not per-tenant
     )
     best = extras["best_values"]
     cycles = extras["cycles"]

@@ -19,12 +19,18 @@ standard library serves:
   draining;
 - ``GET /result/<tenant>``: the tenant's record (404 when unknown);
 - ``GET /status``: the server's state, counts, queue depth and queue
-  latency p50/p99;
+  latency p50/p99, and the latest tenants' rows (with pulse on, each
+  done tenant's health block: ``telemetry.pulse.analyze`` of its rows);
 - ``POST /shutdown``: answers, then drains in the background.
 
-Chaos kills, pulse rows, SLO objectives, memory admission, fleet
-checkpoints, trace ids, ``/metrics`` and the HA router are not ported
-(ROADMAP).
+With a ``checkpoint_dir``, a drain writes the fleet checkpoint
+``fleet-manifest.json`` there: the tenant census with each terminal
+tenant's result, in the JAX package's manifest format (``kind:
+fleet``), written atomically.
+
+Chaos kills, SLO objectives, memory admission, peer discovery from
+sibling fleet manifests, trace ids, ``/metrics`` and the HA router are
+not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -33,12 +39,14 @@ import http.server
 import itertools
 import json
 import logging
+import os
 import queue
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 from ..compile.kernels import resolve_device
+from ..telemetry.pulse import analyze as analyze_pulse
 from .batch import SolveRequest, TenantResult, solve_batched
 
 logger = logging.getLogger(__name__)
@@ -55,6 +63,9 @@ TENANT_RETAIN = 4096
 
 #: queue-latency samples kept for the p50/p99 surface
 LATENCY_SAMPLES = 2048
+
+#: the latest tenants listed by ``status()``
+STATUS_TENANTS = 256
 
 
 def _percentile(sorted_vals: List[float], q: float) -> Optional[float]:
@@ -86,10 +97,16 @@ class ServeServer:
         host: str = "127.0.0.1",
         mode: str = "vmap",
         device="cuda",
+        checkpoint_dir: Optional[str] = None,
     ) -> None:
         if mode not in ("vmap", "fused"):
             raise ValueError(f"unknown serve batch mode {mode!r}")
         self.device = resolve_device(device)
+        self._host = host
+        #: a drain writes the fleet checkpoint here (``_write_fleet_
+        #: checkpoint``); its path lands in ``fleet_checkpoint_path``
+        self.checkpoint_dir = checkpoint_dir
+        self.fleet_checkpoint_path: Optional[str] = None
         self.window_s = max(0.0, window_ms) / 1e3
         self.max_batch = max(1, int(max_batch))
         self.mode = mode
@@ -178,7 +195,7 @@ class ServeServer:
                    "algo": rec["algo"]}
             for k in ("cost", "violations", "cycles", "best_cost",
                       "cycles_to_best", "assignment", "error", "bucket",
-                      "batch_size", "queue_ms", "degraded"):
+                      "batch_size", "queue_ms", "pulse", "degraded"):
                 if k in rec:
                     out[k] = rec[k]
             return out
@@ -195,11 +212,22 @@ class ServeServer:
         return self.result(tenant)
 
     def status(self) -> Dict[str, Any]:
-        """The server's state: tenant counts by state, queue depth and its
-        high-water mark, batches, solves, dead letters, degraded batches
-        and the queue latency's p50 and p99 (ms, submit to dispatch)."""
+        """The server's state: the latest ``STATUS_TENANTS`` tenants' rows
+        (with a done tenant's pulse block when pulse was on), tenant
+        counts by state, queue depth and its high-water mark, batches,
+        solves, dead letters, degraded batches and the queue latency's p50
+        and p99 (ms, submit to dispatch)."""
         with self._lock:
             lat = sorted(self._latencies[-LATENCY_SAMPLES:])
+            rows = {}
+            for tid, rec in list(self._tenants.items())[-STATUS_TENANTS:]:
+                row = {"status": rec["status"], "algo": rec["algo"]}
+                for k in ("cost", "best_cost", "cycles", "cycles_to_best",
+                          "bucket", "batch_size", "queue_ms", "error",
+                          "pulse"):
+                    if k in rec:
+                        row[k] = rec[k]
+                rows[tid] = row
             counts: Dict[str, int] = {}
             for rec in self._tenants.values():
                 counts[rec["status"]] = counts.get(rec["status"], 0) + 1
@@ -211,6 +239,7 @@ class ServeServer:
                 "queue_depth": self._queue.qsize(),
                 "queue_depth_watermark": self._queue_hwm,
                 "buckets": len(self._buckets_seen),
+                "tenants": rows,
                 "tenant_counts": counts,
                 "batches": self.batches,
                 "solves": self.solves,
@@ -226,7 +255,8 @@ class ServeServer:
 
     def drain(self, timeout: float = 120.0) -> bool:
         """Graceful stop: accept nothing more, finish every queued tenant,
-        stop the worker.  True when the queue drained in time."""
+        stop the worker, and (with ``checkpoint_dir``) write the fleet
+        checkpoint.  True when the queue drained in time."""
         with self._lock:
             if self._state == "serving":
                 self._state = "draining"
@@ -234,7 +264,54 @@ class ServeServer:
         ok = self._drained.wait(timeout)
         with self._lock:
             self._state = "drained" if ok else "drain-timeout"
+        if self.checkpoint_dir:
+            try:
+                self.fleet_checkpoint_path = self._write_fleet_checkpoint()
+            except OSError:
+                logger.exception("fleet checkpoint write failed")
         return ok
+
+    def _write_fleet_checkpoint(self) -> str:
+        """The drain's record, as the JAX package writes it: one JSON
+        manifest (``kind: fleet``, the solver checkpoints' format) with
+        the whole tenant census, terminal tenants with their results and
+        the others listed, written atomically; array-free, so it reads
+        anywhere.  Returns its path."""
+        from ..durability.manager import MANIFEST_FORMAT
+        from ..utils.checkpoint import atomic_write_json
+
+        with self._lock:
+            tenants = {}
+            for tid, rec in self._tenants.items():
+                row = {"status": rec["status"], "algo": rec["algo"]}
+                for k in ("cost", "violations", "cycles", "best_cost",
+                          "cycles_to_best", "assignment", "error",
+                          "bucket", "batch_size", "n_cycles"):
+                    if k in rec:
+                        row[k] = rec[k]
+                tenants[tid] = row
+            worker = (f"{self._host}:{self.http.port}"
+                      if self.http is not None else None)
+            manifest = {
+                "format": MANIFEST_FORMAT,
+                "kind": "fleet",
+                "wrote_unix_s": time.time(),
+                "endpoint": None if worker is None else f"http://{worker}",
+                "worker": worker,
+                "state": self._state,
+                "mode": self.mode,
+                "batches": self.batches,
+                "solves": self.solves,
+                "dead_letters": self.dead_letters,
+                "tenants": tenants,
+            }
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        path = os.path.join(self.checkpoint_dir, "fleet-manifest.json")
+        atomic_write_json(path, manifest, indent=2, sort_keys=True,
+                          default=str)
+        logger.info("fleet checkpoint: %d tenant(s) -> %s", len(tenants),
+                    path)
+        return path
 
     def shutdown(self, drain: bool = True, timeout: float = 120.0) -> bool:
         """Drain (or just stop the worker), then close the HTTP front."""
@@ -351,6 +428,16 @@ class ServeServer:
             rec["batch_size"] = tr.extras["batch_size"]
         if "degraded" in tr.extras:
             rec["degraded"] = tr.extras["degraded"]
+        pulse_blk = tr.extras.get("pulse")
+        if pulse_blk is not None and pulse_blk.get("health") is not None:
+            a = analyze_pulse(pulse_blk["health"])
+            rec["pulse"] = {
+                "diagnosis": a.get("diagnosis_full", a.get("diagnosis")),
+                "churn": round(float(a.get("churn_now", 0.0) or 0.0), 4),
+                "residual": float(a.get("residual_now", 0.0) or 0.0),
+                "violations": int(a.get("violations", 0) or 0),
+                "cycles": a.get("cycles", 0),
+            }
 
     def _evict_terminal(self) -> None:
         """Drop the oldest terminal records past TENANT_RETAIN (the caller

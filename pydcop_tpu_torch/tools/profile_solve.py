@@ -106,7 +106,8 @@ CONFIGS = {
         100, 0, {},
     ),
 }
-KERNELS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum")
+KERNELS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum",
+           "damp_fma")
 COUNTERS = ("captures", "replays", "iterations", "host_syncs")
 
 

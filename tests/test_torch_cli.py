@@ -83,8 +83,8 @@ def test_cli_without_a_card_exits_nonzero():
 
 
 @pytest.mark.parametrize("option", [
-    ["-m", "thread"], ["--trace-out", "t.json"], ["--mem-guard"],
-    ["--fault-schedule", "f.yaml"], ["--metrics-out", "m.json"],
+    ["-m", "thread"], ["--profile", "p"], ["--mem-guard"],
+    ["--fault-schedule", "f.yaml"], ["--dump-hlo", "h"],
     ["--profile-out", "prof"], ["--metrics-port", "9"], ["--delay", "0.1"],
 ])
 def test_cli_refuses_options_not_ported(option, capsys):
@@ -102,7 +102,8 @@ def test_cli_refuses_global_options_not_ported(capsys):
 
 
 @pytest.mark.parametrize("option", [
-    ["--fault-schedule", "f.yaml"], ["--no-pulse"], ["--checkpoint", "ck"],
+    ["--fault-schedule", "f.yaml"], ["--slo-interval", "5"],
+    ["--mem-reserve-pct", "5"],
     ["--slo", "p99<250ms"], ["--slo-file", "s.yaml"], ["--peer", "http://x"],
     ["--mem-guard"],
 ])

@@ -143,21 +143,25 @@ def test_session_damping_drift_is_the_damping_fma(layout):
 
 
 @pytest.mark.parametrize("layout", ["lanes", "edges", "ell"])
-def test_solve_damping_matches_jax_without_the_fma(layout):
-    # the JAX package's fused solve does not contract its damping: the
-    # port's maxsum.solve damps in the plain form (its step leaves
-    # fma_damping off) and gives JAX's result at damping 0.7 on the
-    # session's problem
-    from pydcop_tpu.algorithms import maxsum as jax_maxsum
-    from pydcop_tpu.compile.core import compile_dcop as jax_compile
+def test_solve_damping_matches_jax_without_the_fma(layout, tmp_path):
+    # the name is the old premise, which was wrong: XLA-CPU contracts the
+    # JAX package's fused solve's damping too, and the port's
+    # maxsum.solve damps float32 planes in the FMA form (fma_damping on);
+    # at damping 0.7 on the session's problem its result AND its final
+    # message planes are JAX's bit for bit
+    from test_torch_damping import _bits, _solve_planes
 
     jdcop, pdcop = _coloring()
     params = {"damping": 0.7, "layout": layout}
-    want = jax_maxsum.solve(jax_compile(jdcop), dict(params), n_cycles=60,
-                            seed=5)
-    got = maxsum.solve(compile_dcop(pdcop), dict(params), n_cycles=60,
-                       seed=5, device="cpu")
+    want, jv2f, jf2v = _solve_planes(
+        "maxsum", jax_compile_dcop(jdcop), params, "fused", tmp_path,
+        port=False, n_cycles=60, seed=5)
+    got, pv2f, pf2v = _solve_planes(
+        "maxsum", compile_dcop(pdcop), params, "fused", tmp_path,
+        port=True, n_cycles=60, seed=5)
     assert_same(got, want)
+    for p, j in ((pv2f, jv2f), (pf2v, jf2v)):
+        assert np.array_equal(_bits(p.numpy()), _bits(j))
 
 
 def test_session_defaults_run_lanes_like_jax():

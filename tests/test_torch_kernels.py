@@ -763,3 +763,90 @@ def test_serve_batch_on_card_is_solve_one_on_card():
             for got in (out[r.tenant], again[r.tenant], cpu):
                 assert got.result == one.result
                 assert got.extras["best_cost"] == one.extras["best_cost"]
+
+
+# -- damp_fma: MaxSum's float32 damping as one fused multiply-add ---------
+
+
+def near_midpoints(damping, n, seed):
+    """``(prev, new)`` whose exact ``d * prev + e * new`` is a float32
+    midpoint plus or minus a quarter of a float64 ulp: the float64 sum
+    lands on the midpoint, so only a single rounding (or round-to-odd)
+    rounds it the right way."""
+    d, e = hk.damp_constants(damping)
+    rng = np.random.default_rng(seed)
+    prevs, news = [], []
+    while len(prevs) < n:
+        p = np.float32(rng.uniform(1, 2) * 2.0 ** rng.integers(-4, 8))
+        a = float(p) * d  # exact: 48 significant bits
+        exp = np.frexp(a)[1] - 1  # a in [2**exp, 2**(exp + 1))
+        ulp32 = 2.0 ** (exp - 23)
+        mid = (np.floor(a / ulp32) + 0.5) * ulp32  # a float32 midpoint
+        sign = 1.0 if rng.integers(2) else -1.0
+        # c = mid - a + sign * 2**(exp - 54): float32 if it fits 24 bits
+        c = (mid - a) + sign * 2.0 ** (exp - 54)
+        if c == 0 or np.float32(c) != c:
+            continue
+        # new with float32(e * new) == c
+        for cand in (np.float32(c / e), np.nextafter(np.float32(c / e),
+                                                      np.float32(np.inf)),
+                     np.nextafter(np.float32(c / e), np.float32(-np.inf))):
+            if np.float32(np.float32(e) * cand) == np.float32(c):
+                prevs.append(p)
+                news.append(cand)
+                break
+    return np.array(prevs, np.float32), np.array(news, np.float32)
+
+
+def test_damp_fma_on_cpu_is_its_plain_version_and_launches_nothing():
+    rng = np.random.default_rng(5)
+    prev, new = (torch.as_tensor(rng.normal(size=(3, 40)).astype(np.float32))
+                 for _ in range(2))
+    before = hk.damp_fma.launches
+    d, e = hk.damp_constants(0.7)
+    assert torch.equal(hk.damp_fma(0.7, prev, new),
+                       hk.damp_fma_plain(prev, new, d, e))
+    assert hk.damp_fma.launches == before
+    with pytest.raises(TypeError):
+        hk.damp_fma(0.7, prev.to(torch.bfloat16), new)
+    with pytest.raises(ValueError):
+        hk.damp_fma(0.7, prev.to("meta"), new.to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1027, 3 * 500_598, 2_500_001])
+def test_damp_fma_kernel_equals_plain_on_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(n)
+    prev, new = (torch.as_tensor(rng.normal(size=n).astype(np.float32),
+                                 device="cuda") * 10 for _ in range(2))
+    d, e = hk.damp_constants(0.7)
+    before = hk.damp_fma.launches
+    assert torch.equal(hk.damp_fma(0.7, prev, new),
+                       hk.damp_fma_plain(prev, new, d, e))
+    assert hk.damp_fma.launches == before + 1
+    # an unaligned view takes the scalar path
+    assert torch.equal(hk.damp_fma(0.7, prev[1:], new[1:]),
+                       hk.damp_fma_plain(prev[1:], new[1:], d, e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("damping", [0.7, 0.3])
+def test_damp_fma_kernel_rounds_once_near_midpoints_on_card(damping):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    prev, new = (torch.as_tensor(x) for x in near_midpoints(damping, 2048, 3))
+    d, e = hk.damp_constants(damping)
+    want = hk.damp_fma_plain(prev, new, d, e)
+    got = hk.damp_fma(damping, prev.cuda(), new.cuda()).cpu()
+    assert torch.equal(got, want)
+    # the float64 chain rounds twice and misses some of them
+    chain = (prev.double() * d + ((1.0 - damping) * new).double()).float()
+    assert not torch.equal(chain, want)
+    # batched: K=32 planes, one launch
+    p, q = prev.reshape(32, 64).cuda(), new.reshape(32, 64).cuda()
+    before = hk.damp_fma.batched.launches
+    got = torch.func.vmap(lambda a, b: hk.damp_fma(damping, a, b))(p, q)
+    assert hk.damp_fma.batched.launches == before + 1
+    assert torch.equal(got.cpu(), want.reshape(32, 64))

@@ -11,10 +11,9 @@ rows) against the JAX package, both on the CPU.
   maximum) and ``aux`` (the mean gain, summed with ``xla_sum``), DBA's
   weight delta and GDBA's modifier delta (``xla_sum``) and their
   ``aux``.  The MaxSum family's ``residual`` and ``aux`` are the largest
-  change of each message plane in a cycle; the planes themselves match
-  JAX's to float32 rounding, not bit for bit (the assignment and cost
-  match exactly), so these two fields are held to 1e-6 absolute, which
-  is an ulp of a plane entry of magnitude 8.
+  change of each message plane in a cycle: the planes are JAX's bit for
+  bit (float32 planes damped in XLA's FMA form, ``damp``'s ``fma``), so
+  these two fields are too.
 - Pulse changes no result: the trajectory with pulse on is the one
   with pulse off, and a solve makes as many host syncs with pulse on as
   off; with pulse off the graphs are those captured without it (a warm
@@ -274,8 +273,7 @@ def problems():
     }
 
 
-#: (module, params, problem); the MaxSum family's planes are within
-#: float32 rounding of JAX's
+#: (module, params, problem)
 HEALTH_CASES = {
     "dsa": ("dsa", {}, "coloring"),
     "adsa": ("adsa", {}, "coloring"),
@@ -291,7 +289,6 @@ HEALTH_CASES = {
         "maxsum", {"layout": "edges", "precision": "bf16"}, "coloring"),
     "amaxsum": ("amaxsum", {}, "coloring"),
 }
-PLANE_FIELDS = (F["residual"], F["aux"])
 
 
 def _pulse_extras(mod, run_cycles_owner, *args, **kwargs):
@@ -326,11 +323,7 @@ def test_health_rows_equal_jax_s(case, problems, pulse_on):
     want = np.asarray(jex["pulse"]["health"], dtype=np.float32)
     got = pex["pulse"]["health"]
     assert got.shape == want.shape == (pres.cycles, HEALTH_WIDTH)
-    exact = [i for i in range(HEALTH_WIDTH)
-             if name not in ("maxsum", "amaxsum") or i not in PLANE_FIELDS]
-    assert np.array_equal(got[:, exact].view(np.uint32),
-                          want[:, exact].view(np.uint32))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
     assert np.array_equal(pex["pulse"]["flip_count"],
                           np.asarray(jex["pulse"]["flip_count"]))
     assert pex["pulse"]["report"]["diagnosis"] == (
