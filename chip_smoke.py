@@ -286,7 +286,9 @@ BB_JAX = {
 }
 BB_JAX_VALUES = "021112102211212000011200"
 # a shared-memory load's latency on Hopper, in SM cycles: the unit of the
-# DFS kernel's latency bound (three dependent loads a step)
+# DFS kernel's latency bound (one dependent load a step, which any search
+# that takes JAX's steps pays; the first design's three a step is kept
+# beside it)
 SMEM_LOAD_CYCLES = 30
 ENGINE_COUNTERS = ("captures", "replays", "iterations", "host_syncs")
 # the rows of the kernel table: both TPU kernels with a float32 and with a
@@ -899,7 +901,7 @@ def phase_kernels(c4, c6, c7):
     from pydcop_tpu_torch.algorithms._branch_bound import DEFAULT_MAX_ITERS
 
     timed_sets["branch_bound"] = [
-        [*dict(_bb_searches(cell))["syncbb"], DEFAULT_MAX_ITERS]
+        [*ops, DEFAULT_MAX_ITERS] for _, ops in _bb_searches(cell)
     ]
     emit({"phase": "fan_in", **fan_in_check(c4)})
     return rows, timed_sets
@@ -1243,8 +1245,6 @@ def phase_against(other: Path, timed_sets):
     min-plus kernels and, where its source has one, ``branch_bound``)
     against this one's on the same operand sets: equal outputs, then
     times in turns, theirs, ours, ours, theirs."""
-    import torch
-
     from pydcop_tpu_torch.compile import _build
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
@@ -1256,32 +1256,72 @@ def phase_against(other: Path, timed_sets):
     )
     build_s = time.perf_counter() - t0
     for name in names:
-        sets = timed_sets[name]
         theirs, ours = _launcher(libs[name], name), getattr(hk, name)
-        got, want = theirs(*sets[0]), ours(*sets[0])
-        torch.cuda.synchronize()
-        if isinstance(got, torch.Tensor):
-            got, want = (got,), (want,)
-        check(
-            all(torch.equal(g, w) for g, w in zip(got, want)),
-            f"{name}: {other}'s kernel differs from this one's",
-        )
-        order = [("theirs", theirs), ("ours", ours), ("ours", ours),
-                 ("theirs", theirs)]
+        turns = _AGAINST_TURNS.get(name, _set_turns)
+        for row in turns(name, theirs, ours, timed_sets[name]):
+            emit({
+                "phase": "against", "kernel": name, "other": str(other),
+                "build_s": build_s, "equal": True,
+                "order": [w for w, _ in _turns(theirs, ours)], **row,
+            })
+
+
+def _turns(theirs, ours):
+    """The order of the timed calls: theirs, ours, ours, theirs."""
+    return [("theirs", theirs), ("ours", ours), ("ours", ours),
+            ("theirs", theirs)]
+
+
+def _same_outputs(name, theirs, ours, args):
+    import torch
+
+    got, want = theirs(*args), ours(*args)
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    check(
+        all(torch.equal(g, w) for g, w in zip(got, want)),
+        f"{name}: the other checkout's kernel differs from this one's",
+    )
+
+
+def _set_turns(name, theirs, ours, sets):
+    """A kernel's calls on its operand sets: equal outputs on the first,
+    then the sets' mean time in turns."""
+    _same_outputs(name, theirs, ours, sets[0])
+    times = {"theirs": [], "ours": []}
+    for who, fn in _turns(theirs, ours):
+        times[who].append(time_cuda_ms(fn, sets))
+    yield {
+        "theirs_ms": times["theirs"], "ours_ms": times["ours"],
+        "speedup": statistics.mean(times["theirs"])
+        / statistics.mean(times["ours"]),
+    }
+
+
+def _search_turns(name, theirs, ours, searches):
+    """The DFS kernel on the chip cell's SyncBB and NCBB searches: equal
+    outputs on each, then a whole search a call in turns, timed between
+    CUDA events; ms and ns a step."""
+    for algo, args in zip(("syncbb", "ncbb"), searches):
+        _same_outputs(name, theirs, ours, args)
+        steps = int(ours(*args)[-2])
         times = {"theirs": [], "ours": []}
-        for who, fn in order:
-            times[who].append(
-                # a whole search a call: events around direct launches
-                _events_ms(functools.partial(fn, *sets[0]), 3)
-                if name == "branch_bound" else time_cuda_ms(fn, sets)
-            )
-        emit({
-            "phase": "against", "kernel": name, "other": str(other),
-            "build_s": build_s, "equal": True, "order": [w for w, _ in order],
+        for who, fn in _turns(theirs, ours):
+            times[who].append(_events_ms(functools.partial(fn, *args), 3))
+        yield {
+            "search": algo, "steps": steps,
             "theirs_ms": times["theirs"], "ours_ms": times["ours"],
+            "theirs_ns_per_step": [1e6 * t / steps for t in times["theirs"]],
+            "ours_ns_per_step": [1e6 * t / steps for t in times["ours"]],
             "speedup": statistics.mean(times["theirs"])
             / statistics.mean(times["ours"]),
-        })
+        }
+
+
+# how phase_against compares a kernel with another checkout's: the DFS
+# search by search, every other kernel on its operand sets
+_AGAINST_TURNS = {"branch_bound": _search_turns}
 
 
 def breakout_problems():
@@ -2010,11 +2050,14 @@ def _branch_bound_row(small, cell):
     kernel on SyncBB's complete 16-variable search beside the plain
     step's checked call on it (the same inputs), and the kernel on the
     chip cell's two searches, each beside its bounds: bytes and
-    operations, and the latency of three dependent shared-memory loads a
-    step."""
+    operations, and the latency of one dependent shared-memory load a
+    step (any search that takes JAX's steps pays it), with the first
+    design's three a step beside it.  With the registers and spills of every
+    instantiation of the kernel."""
     import torch
 
     from pydcop_tpu_torch.algorithms._branch_bound import DEFAULT_MAX_ITERS
+    from pydcop_tpu_torch.compile import _build
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
     checked = {}
@@ -2051,20 +2094,23 @@ def _branch_bound_row(small, cell):
         nbytes, n_ops = branch_bound_bytes_ops(ops, steps)
         return steps, ms, nbytes, n_ops
 
+    def latency_ms(steps, loads):
+        return 1e3 * steps * loads * SMEM_LOAD_CYCLES / clock
+
     small_ops = dict(_bb_searches(small))["syncbb"]
     steps, kernel_ms, nbytes, n_ops = timed(small_ops, 5)
-    latency_ms = 1e3 * steps * 3 * SMEM_LOAD_CYCLES / clock
     cells = {}
     for algo, ops in _bb_searches(cell):
         c_steps, ms, c_bytes, c_ops = timed(ops, 3)
         bound_ms, bound_by = _bound(c_bytes, c_ops)
-        c_latency = 1e3 * c_steps * 3 * SMEM_LOAD_CYCLES / clock
         cells[algo] = {
             "n_vars": ops[0].shape[0], "slots": ops[2].shape[1],
             "steps": c_steps, "ms": ms, "ns_per_step": 1e6 * ms / c_steps,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "latency_bound_ms": c_latency,
-            "latency_share": c_latency / ms,
+            "latency_bound_ms": latency_ms(c_steps, 1),
+            "latency_share": latency_ms(c_steps, 1) / ms,
+            "latency_bound_3load_ms": latency_ms(c_steps, 3),
+            "latency_3load_share": latency_ms(c_steps, 3) / ms,
         }
     return _kernel_row(
         "branch_bound", "branch_bound",
@@ -2074,12 +2120,14 @@ def _branch_bound_row(small, cell):
         0.0, kernel_ms, plain_ms, nbytes, n_ops, library_ms=None,
         steps=steps, ns_per_step=1e6 * kernel_ms / steps,
         plain_ns_per_step=1e6 * plain_ms / steps,
-        latency_bound_ms=latency_ms,
+        latency_bound_ms=latency_ms(steps, 1),
         latency_bound=(
-            f"{steps} steps x 3 dependent shared-memory loads x "
+            f"{steps} steps x 1 dependent shared-memory load x "
             f"{SMEM_LOAD_CYCLES} cycles at {clock / 1e6:.0f} MHz"
         ),
+        latency_bound_3load_ms=latency_ms(steps, 3),
         sm_clock_mhz=clock / 1e6, cell=cells,
+        ptxas=_build.resource_usage(_build.library_path("branch_bound")),
     )
 
 

@@ -166,6 +166,11 @@ def branch_and_bound(
     packed = hopper_kernels.branch_bound(
         *operands, int(max_iters) or DEFAULT_MAX_ITERS
     ).cpu().numpy()
+    if packed[n + 1] < 0:
+        raise RuntimeError(
+            "branch_bound refused the operands: an attachment does not name "
+            "an earlier position"
+        )
     values = np.zeros(n, dtype=np.int32)
     values[order] = packed[:n]
     return values, int(packed[n + 1]), bool(packed[n + 2])

@@ -113,7 +113,8 @@ def _ptxas_log(library: Path) -> Path:
 
 def _kernel_name(mangled: str) -> str:
     """``ell_minplus_fixed<3,4>`` for the mangled name of a kernel in a
-    namespace (template arguments are ints), else the input."""
+    namespace (template arguments are ints or bools, a bool as 0 or 1),
+    else the input."""
     if not mangled.startswith("_ZN"):
         return mangled
     pos, parts = 3, []
@@ -123,10 +124,10 @@ def _kernel_name(mangled: str) -> str:
         parts.append(mangled[start:pos])
     if not parts:
         return mangled
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[pos:])
     if args is None:
         return parts[-1]
-    ints = re.findall(r"Li(-?\d+)E", args.group(1))
+    ints = re.findall(r"L[ib](-?\d+)E", args.group(1))
     return f"{parts[-1]}<{','.join(ints)}>"
 
 

@@ -40,11 +40,12 @@ table for both output planes.  See the source for the rest.
 
 ``branch_bound`` (``csrc/branch_bound.cu``) is the port's own kernel too:
 the depth-first branch and bound of SyncBB and NCBB, the whole search in
-one launch of one thread block (``_bb_loop`` of the JAX package's
-``algorithms/_branch_bound.py`` is a ``lax.while_loop``, not a Pallas
-kernel).  It is bound by the latency of its dependent steps.  Its plain
-version runs the same step in PyTorch, 256 masked steps between looks at
-the depth, as the JAX loop does.
+one launch of one thread block whose first warp searches, its lanes in
+step, computing a position's candidate row once a visit (``_bb_loop`` of
+the JAX package's ``algorithms/_branch_bound.py`` is a
+``lax.while_loop``, not a Pallas kernel).  It is bound by the latency of
+its dependent steps.  Its plain version runs JAX's step in PyTorch, 256
+masked steps between looks at the depth, as the JAX loop does.
 
 ``xla_tree_sum`` (``csrc/xla_tree_sum.cu``) is the port's own kernel, not
 a TPU kernel's: the float32 sums whose order decides a result, in the
@@ -1236,7 +1237,8 @@ def launch_branch_bound(
     """One launch of ``branch_bound_launch`` of ``library`` (a build of
     ``csrc/branch_bound.cu``) on checked CUDA operands, on the current
     stream: the attachment tables in shared memory when they fit.
-    Returns the output vector; counts nothing."""
+    Returns the output vector (``steps = -1``: misoriented attachments,
+    see :func:`branch_bound`); counts nothing."""
     unary, att_table = tensors[0], tensors[2]
     n, d = unary.shape
     k = att_table.shape[1]
@@ -1278,10 +1280,17 @@ def branch_bound(
     order: the steps of ``_bb_loop`` until the search is complete or
     ``max_iters`` steps ran.  On CPU tensors this is
     :func:`branch_bound_plain`; on CUDA tensors one launch of
-    ``csrc/branch_bound.cu`` (one thread block; the attachment tables in
-    shared memory when they fit) on the current stream.  Returns the
-    int32 vector ``[best by position | ub's float32 bits | steps |
-    complete]``."""
+    ``csrc/branch_bound.cu`` (one warp searching, a position's candidate
+    row computed once a visit; the attachment tables in shared memory
+    when they fit) on the current stream.  Returns the int32 vector
+    ``[best by position | ub's float32 bits | steps | complete]``.
+
+    The kernel takes attachments oriented as ``_build_attachments``
+    orients them: every slot of position ``p`` with ``att_mask`` set
+    names an earlier position (``0 <= att_other[p, k] < p``).  It
+    refuses other operands by returning the seed (``best0``, ``ub0``'s
+    bits) with ``steps = -1``, which ``branch_and_bound`` raises on; the
+    plain version has no such bound."""
     tensors = (unary, dsize, att_table, att_other, att_mask, lb_suffix,
                ub0, best0)
     if all(t.device.type == "cpu" for t in tensors):

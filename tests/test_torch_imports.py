@@ -41,6 +41,17 @@ def test_no_jax_or_reference_package_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_each_top_level_name_defined_once(path):
+    # a second def of a name silently replaces the first for every caller
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                               ast.ClassDef))]
+    twice = sorted({n for n in names if names.count(n) > 1})
+    assert not twice, f"{path} defines {twice} more than once"
+
+
 def test_kernel_sources_ship_with_the_package():
     from pydcop_tpu_torch.compile import _build
 
@@ -49,6 +60,20 @@ def test_kernel_sources_ship_with_the_package():
         # the library name is keyed by the source: stable across calls
         assert _build.library_path(name) == _build.library_path(name)
         assert _build.library_path(name).parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("mangled, name", [
+    ("_ZN12_GLOBAL__N_117ell_minplus_fixedILi3ELi4EEEvPKfS2_",
+     "ell_minplus_fixed<3,4>"),
+    # int and bool template arguments, as branch_bound_kernel<K, shared>
+    ("_ZN48_GLOBAL__N__7c2c6a17_15_branch_bound_cu_9972bb3219branch_bound"
+     "_kernelILi7ELb1EEEvNS_8OperandsE", "branch_bound_kernel<7,1>"),
+    ("damp_fma_kernel", "damp_fma_kernel"),
+])
+def test_ptxas_report_names_each_instantiation(mangled, name):
+    from pydcop_tpu_torch.compile import _build
+
+    assert _build._kernel_name(mangled) == name
 
 
 def _tiny_problem():

@@ -542,7 +542,7 @@ def _bb_searches(compiled, device="cpu"):
 
 def _dense_bb(n):
     """A complete graph of ``n`` variables: n - 1 attachment slots at the
-    last position (20: three batches of the kernel's gather; 40: the
+    last position (20: the kernel's runtime slot count under 32; 40: the
     sum's windows of 32), tables of mixed magnitudes."""
     from pydcop_tpu_torch.compile.direct import compile_from_edges
 
@@ -552,6 +552,123 @@ def _dense_bb(n):
     table = (rng.random((len(edges), 3, 3)) * 10.0 ** rng.integers(
         -3, 4, (len(edges), 1, 1))).astype(np.float32)
     return compile_from_edges(n, 3, edges, table)
+
+
+def _chain_bb(n):
+    """A chain of ``n`` variables: one attachment slot a position (K =
+    1, the sum's one term), tables of mixed magnitudes."""
+    from pydcop_tpu_torch.compile.direct import compile_from_edges
+
+    rng = np.random.default_rng(n)
+    edges = np.array([(i, i + 1) for i in range(n - 1)], dtype=np.int32)
+    table = (rng.random((len(edges), 3, 3)) * 10.0 ** rng.integers(
+        -3, 4, (len(edges), 1, 1))).astype(np.float32)
+    return compile_from_edges(n, 3, edges, table)
+
+
+# a tree: a scale-free soft coloring with one edge a new variable, so
+# SyncBB's and NCBB's searches attach every position through one slot
+BB_TREE = (14, 3, dict(graph="scalefree", m_edge=1, soft=True, seed=2))
+
+
+def _k1_searches(device="cpu"):
+    """The searches of real problems with K = 1: SyncBB on the chain,
+    SyncBB and NCBB on the tree."""
+    tree = _bb_searches(_bb_compiled(BB_TREE), device)
+    return {
+        "chain12": _bb_searches(_chain_bb(12), device)["syncbb"],
+        "tree_syncbb": tree["syncbb"],
+        "tree_ncbb": tree["ncbb"],
+    }
+
+
+def test_k1_searches_have_one_slot_and_complete():
+    # each search of _k1_searches attaches through one slot and completes
+    # within 5,000 steps, so the card test checks whole searches
+    for name, ops in _k1_searches().items():
+        assert ops[2].shape[1] == 1, name
+        n = ops[0].shape[0]
+        out = hk.branch_bound_plain(*ops, 5_000)
+        assert int(out[n + 2]) == 1, name
+
+
+def bb_operands(n, k, d, seed, ties=False, ub0=np.inf, device="cpu"):
+    """Raw operands of ``branch_bound``, made from ``seed``: n positions
+    of mixed domain sizes (1..d), K attachment slots a position, each
+    later position attached to random earlier ones (the last through all
+    K slots, about a fifth of the others through none), masked-off slots
+    left holding garbage (a random position, nonzero tables) that the
+    search must ignore, tables of mixed magnitudes (``ties``: small
+    integers, so many partial costs tie), the tail bound admissible as
+    ``_operands`` makes it, a random ``best0`` and the given ``ub0``."""
+    rng = np.random.default_rng(seed)
+    dsize = rng.integers(1, d + 1, n)
+    if ties:
+        unary = rng.integers(0, 3, (n, d)).astype(np.float32)
+        table = rng.integers(0, 3, (n, k, d, d)).astype(np.float32)
+    else:
+        unary = rng.random((n, d)).astype(np.float32)
+        table = (rng.random((n, k, d, d)) * 10.0 ** rng.integers(
+            -3, 3, (n, k, 1, 1))).astype(np.float32)
+    other = rng.integers(0, n, (n, k)).astype(np.int32)
+    mask = np.zeros((n, k), dtype=bool)
+    for p in range(1, n):
+        m = k if p == n - 1 else int(rng.integers(0, k + 1))
+        if p != n - 1 and rng.random() < 0.2:
+            m = 0
+        mask[p, :m] = True
+        other[p, :m] = rng.integers(0, p, m)
+    per_pos = [
+        unary[p, :dsize[p]].min() + sum(
+            table[p, s][:dsize[other[p, s]], :dsize[p]].min()
+            for s in range(k) if mask[p, s])
+        for p in range(n)
+    ]
+    lb_suffix = np.zeros(n + 1)
+    lb_suffix[:n] = np.cumsum(per_pos[::-1])[::-1]
+    best0 = rng.integers(0, d, n).astype(np.int32)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
+
+    return (put(unary, np.float32), put(dsize, np.int32),
+            put(table, np.float32), put(other, np.int32), put(mask, bool),
+            put(lb_suffix, np.float32), put(ub0, np.float32),
+            put(best0, np.int32))
+
+
+# name: bb_operands' (n, K, D, seed) and options: K across the sum's cut
+# points (1: the one term; 31, 32: slot order; 33, 64: windows), D across
+# the row's (1, 2, 5, 16; 17 and 33: columns past a warp's 32 lanes with
+# 40 slots), one position, ties, and a seed bound that prunes every value
+# at depth 0
+BB_SYNTH = {
+    "k1": ((6, 1, 3, 1), {}),
+    "k31": ((6, 31, 2, 2), {}),
+    "k32": ((5, 32, 3, 3), {}),
+    "k33": ((5, 33, 2, 4), {}),
+    "k64": ((4, 64, 2, 5), {}),
+    "d1": ((7, 3, 1, 6), {}),
+    "d2": ((8, 4, 2, 7), {}),
+    "d5": ((6, 4, 5, 8), {}),
+    "d16": ((3, 5, 16, 9), {}),
+    "d17": ((3, 2, 17, 10), {}),
+    "k40_d33": ((4, 40, 33, 11), {}),
+    "n1": ((1, 1, 3, 12), {}),
+    "ties": ((8, 3, 3, 13), {"ties": True}),
+    "pruned_at_0": ((6, 3, 3, 14), {"ub0": -1.0}),
+}
+
+
+def test_bb_operands_are_oriented_with_garbage_in_masked_slots():
+    for (n, k, d, seed), kw in BB_SYNTH.values():
+        ops = bb_operands(n, k, d, seed, **kw)
+        other, mask = ops[3], ops[4]
+        pos = torch.arange(n)[:, None].expand(n, k)
+        assert bool(((other < pos) | ~mask).all())
+        assert not bool(mask[0].any())
+        assert int(mask[-1].sum()) == (k if n > 1 else 0)
+        assert bool((ops[1] >= 1).all() and (ops[1] <= d).all())
 
 
 def test_branch_bound_on_cpu_is_the_plain_version_and_uncounted():
@@ -590,14 +707,48 @@ def test_branch_bound_kernel_equals_plain_on_card(tables_shared,
     searches = _bb_searches(_bb_compiled(), "cuda")
     for n in (20, 40):
         searches[f"dense{n}"] = _bb_searches(_dense_bb(n), "cuda")["syncbb"]
+    for name, (args, kw) in BB_SYNTH.items():
+        searches[name] = bb_operands(*args, **kw, device="cuda")
+    searches.update(_k1_searches("cuda"))
     for name, ops in searches.items():
-        for max_iters in (5, 3_000 if name.startswith("dense") else 10 ** 6):
+        # the real problems' searches whole; the others capped
+        full = 3_000 if name in BB_SYNTH or name.startswith("dense") \
+            else 10 ** 6
+        for max_iters in (1, 5, full):
             before = hk.branch_bound.launches
             got = hk.branch_bound(*ops, max_iters)
             torch.cuda.synchronize()
             assert hk.branch_bound.launches == before + 1
             # best, ub's bits, steps, completion: exactly the plain DFS's
-            assert torch.equal(got, hk.branch_bound_plain(*ops, max_iters))
+            want = hk.branch_bound_plain(*ops, max_iters)
+            assert torch.equal(got, want), (name, max_iters)
+    # the seed bound prunes depth 0's values: dsize + 1 steps, complete
+    n = BB_SYNTH["pruned_at_0"][0][0]
+    ops = searches["pruned_at_0"]
+    got = hk.branch_bound(*ops, 10 ** 6)
+    assert int(got[n + 1]) == int(ops[1][0]) + 1 and int(got[n + 2]) == 1
+
+
+@pytest.mark.cuda
+def test_branch_bound_refuses_misoriented_attachments_on_card():
+    # the kernel computes a position's row once a visit, which needs every
+    # attachment to point to an earlier position: others get the seed
+    # back (best0, ub0's bits) with steps = -1, every word defined
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ops = list(_bb_searches(_bb_compiled(), "cuda")["syncbb"])
+    n = ops[0].shape[0]
+    assert int(hk.branch_bound(*ops, 10)[n + 1]) == 10
+    p = int(ops[4].any(dim=1).nonzero()[-1])
+    slot = int(ops[4][p].nonzero()[0])
+    for bad in (p, n, -1):
+        other = ops[3].clone()
+        other[p, slot] = bad
+        got = hk.branch_bound(*ops[:3], other, *ops[4:], 10)
+        seed = torch.cat([ops[7], ops[6].reshape(1).view(torch.int32),
+                          torch.tensor([-1, 0], device="cuda",
+                                       dtype=torch.int32)])
+        assert torch.equal(got, seed)
 
 
 @pytest.mark.cuda
