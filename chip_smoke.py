@@ -833,9 +833,10 @@ def phase_kernels(c4, c6, c7):
     ragged shape, the min-plus kernels with a float32 and with a bf16
     plane; ``xla_tree_sum``'s sum sites (``_tree_sum_row``) on configs 4,
     6 and 7; ``branch_bound`` (``_branch_bound_row``).  Each timed at the
-    main path's shape.  Returns the kernel rows by name and, by kernel,
-    the operand sets the float32 min-plus kernels were timed on (config
-    4) and the chip cell's SyncBB search."""
+    main path's shape.  Returns the kernel rows by name and, by kernel
+    (or ``xla_tree_sum`` entry), the operand sets the float32 min-plus
+    kernels, the fan-in and the domain sum were timed on (config 4) and
+    the chip cell's SyncBB search."""
     import torch
 
     from pydcop_tpu_torch.compile import hopper_kernels as hk
@@ -891,7 +892,8 @@ def phase_kernels(c4, c6, c7):
             # no one PyTorch call does the gathers, adds, mins (and mask)
             library_ms=None, l2_warm_ms=l2_warm_ms, copy_ms=copy_ms,
         )
-    rows["xla_tree_sum"] = _tree_sum_row(c4, c6, c7)
+    rows["xla_tree_sum"], tree_sets = _tree_sum_row(c4, c6, c7)
+    timed_sets.update(tree_sets)
     emit({"phase": "kernel_row", **rows["xla_tree_sum"]})
     rows["damp_fma"] = _damp_fma_row(c4)
     emit({"phase": "kernel_row", **rows["damp_fma"]})
@@ -1099,10 +1101,14 @@ def _tree_sum_row(c4, c6, c7):
     6 and 7.  Each site must be one launch a call.  Timed: config 4's
     constraint total (199,996 values, evaluate's largest sum) beside
     ``torch.sum``, the one PyTorch call that sums the same values (in
-    another order), and config 4's evaluate, fan-in and domain sum, each
-    beside its plain version and its bound."""
+    another order), and config 4's evaluate, fan-in (float32 and bf16
+    planes) and domain sum, each beside its plain version, its bound and
+    its kernel's registers and spills.  Returns the row and, by launch
+    entry, the config-4 operand sets the fan-in and the domain sum were
+    timed on (``phase_against``)."""
     import torch
 
+    from pydcop_tpu_torch.compile import _build
     from pydcop_tpu_torch.compile import hopper_kernels as hk
     from pydcop_tpu_torch.compile.kernels import build_ell
 
@@ -1157,13 +1163,19 @@ def _tree_sum_row(c4, c6, c7):
     launches_per_call = _one_launch("xla_tree_sum", hk.xla_tree_sum, sets[0])
     # config 4's sites, four operand sets each (together past the L2)
     ell4 = ells["config4"]
+    fan_sets = {
+        dtype: [fan_in_inputs(ell4.spans, ell4.n_pad, 3, "cuda", s, dtype)
+                for s in range(4)]
+        for dtype in ("float32", "bfloat16")
+    }
     timed = {
         "evaluate": (hk.tree_evaluate, hk.tree_evaluate_plain, None,
                      [evaluate_inputs(c4, "cuda", s) for s in range(4)],
                      evaluate_bytes_ops),
-        "fan_in": (_fan_in_call, _fan_in_plain, None,
-                   [fan_in_inputs(ell4.spans, ell4.n_pad, 3, "cuda", s)
-                    for s in range(4)], fan_in_bytes_ops),
+        "fan_in": (_fan_in_call, _fan_in_plain, None, fan_sets["float32"],
+                   fan_in_bytes_ops),
+        "fan_in_bf16": (_fan_in_call, _fan_in_plain, None,
+                        fan_sets["bfloat16"], fan_in_bytes_ops),
         "domain_sum": (
             _domain_sum_call, _domain_sum_plain,
             lambda x: torch.sum(x, 0, keepdim=True),
@@ -1172,26 +1184,60 @@ def _tree_sum_row(c4, c6, c7):
             lambda a: (a[0].numel() * 4 + a[0].shape[1] * 4, a[0].numel()),
         ),
     }
+    # each site's kernel instantiation, as ptxas reported it
+    usage = _build.resource_usage(_build.library_path("xla_tree_sum"))
+    site_kernels = {
+        "evaluate": "tree_sum_kernel<EvalSite>",
+        "fan_in": "tree_sum_kernel<FanSite<float>>",
+        "fan_in_bf16": "tree_sum_kernel<FanSite<__nv_bfloat16>>",
+        "domain_sum": "short_rows_kernel<3>",
+    }
     extra = {}
     for site, (call, plain, library, site_sets, bytes_ops) in timed.items():
         _one_launch(site, call, site_sets[0])
         site_bytes, site_ops = bytes_ops(site_sets[0])
         bound_ms, bound_by = _bound(site_bytes, site_ops)
+        ms = time_cuda_ms(call, site_sets)
+        ptxas = [u for u in usage if u["kernel"] == site_kernels[site]]
+        check(len(ptxas) == 1,
+              f"ptxas reports {site_kernels[site]} {len(ptxas)} times")
         extra[f"{site}_config4"] = {
-            "ms": time_cuda_ms(call, site_sets),
+            "ms": ms,
             "plain_ms": time_cuda_ms(plain, site_sets),
             "library_ms": (
                 time_cuda_ms(library, site_sets) if library else None
             ),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
             "bound_bytes": site_bytes, "launches_per_call": 1,
+            "ptxas": ptxas,
         }
-    return _kernel_row(
+    # where the fan-in's time goes: its classes of up to 32 slots (the
+    # warp tiles) alone and its longer classes (the row paths) alone, each
+    # one launch of its own (the long classes' sets fit in L2 together)
+    for part, short in (("short_classes", True), ("long_classes", False)):
+        spans = tuple(s for s in ell4.spans if (s[1] <= 32) == short)
+        part_sets = [
+            fan_in_inputs(spans, sum(nb * db for nb, db in spans), 3,
+                          "cuda", s)
+            for s in range(4)
+        ]
+        extra["fan_in_config4"][part] = {
+            "spans": [list(s) for s in spans],
+            "ms": time_cuda_ms(_fan_in_call, part_sets),
+            "bound_ms": _bound(*fan_in_bytes_ops(part_sets[0]))[0],
+        }
+    row = _kernel_row(
         "xla_tree_sum", "xla_tree_sum",
         "none: the port's own kernel (evaluate's totals in XLA-CPU's order)",
         max_err, kernel_ms, plain_ms, nbytes, ops, library_ms=library_ms,
         n=n_total, launches_per_call=launches_per_call, **extra,
     )
+    return row, {
+        "xla_tree_sum_ell_fan_in": fan_sets["float32"],
+        "xla_tree_sum_ell_fan_in_bf16": fan_sets["bfloat16"],
+        "xla_tree_sum_rows": timed["domain_sum"][3],
+    }
 
 
 def _launcher(library, name):
@@ -1205,6 +1251,8 @@ def _launcher(library, name):
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
     lib = ctypes.CDLL(str(library))
+    if name.startswith("xla_tree_sum"):
+        return _tree_sum_launcher(lib, name)
     if name == "branch_bound":
         def call(*args):
             *ops, max_iters = args
@@ -1240,23 +1288,55 @@ def _launcher(library, name):
     return call
 
 
+def _tree_sum_launcher(lib, name):
+    """Another build's ``xla_tree_sum_ell_fan_in[_bf16]_launch`` (called
+    as ``_fan_in_call``) or ``xla_tree_sum_rows_launch`` (called as
+    ``_domain_sum_call``: the [D, n] plane summed over D in place),
+    marshalled by the port's own wrappers; its launches are not
+    counted."""
+    from pydcop_tpu_torch.compile import hopper_kernels as hk
+
+    if name == "xla_tree_sum_rows":
+        def call(x):
+            return hk._launch_rows(x.movedim(0, -1), x.device, False,
+                                   library=lib).unsqueeze(0)
+        return call
+
+    def call(f2v, u, spans):
+        return hk._launch_fan_in(tuple(spans), u, f2v, f2v.device,
+                                 library=lib)
+    return call
+
+
+def _source(name):
+    """The ``csrc`` source of a kernel or of an ``xla_tree_sum`` entry."""
+    return "xla_tree_sum" if name.startswith("xla_tree_sum") else name
+
+
 def phase_against(other: Path, timed_sets):
     """Another checkout's kernels (built from ``other``: the float32
-    min-plus kernels and, where its source has one, ``branch_bound``)
-    against this one's on the same operand sets: equal outputs, then
-    times in turns, theirs, ours, ours, theirs."""
+    min-plus kernels, the ``xla_tree_sum`` fan-in and domain-sum entries
+    and, where its source has one, ``branch_bound``) against this one's
+    on the same operand sets: equal outputs, then times in turns,
+    theirs, ours, ours, theirs."""
     from pydcop_tpu_torch.compile import _build
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
     pkg = other / "pydcop_tpu_torch"
-    names = [n for n in timed_sets if (pkg / "csrc" / f"{n}.cu").is_file()]
+    names = [n for n in timed_sets
+             if (pkg / "csrc" / f"{_source(n)}.cu").is_file()]
     t0 = time.perf_counter()
     libs = _build.build_all(
-        names, csrc=pkg / "csrc", build_dir=pkg / "_build"
+        sorted({_source(n) for n in names}), csrc=pkg / "csrc",
+        build_dir=pkg / "_build",
     )
     build_s = time.perf_counter() - t0
     for name in names:
-        theirs, ours = _launcher(libs[name], name), getattr(hk, name)
+        theirs = _launcher(libs[_source(name)], name)
+        # an xla_tree_sum entry: this build's library through the same
+        # marshalling; every other kernel: its wrapper
+        ours = (_launcher(_build.library_path("xla_tree_sum"), name)
+                if _source(name) != name else getattr(hk, name))
         turns = _AGAINST_TURNS.get(name, _set_turns)
         for row in turns(name, theirs, ours, timed_sets[name]):
             emit({

@@ -111,24 +111,51 @@ def _ptxas_log(library: Path) -> Path:
     return library.with_name(library.name + ".ptxas.txt")
 
 
+def _demangler() -> str:
+    """binutils' ``c++filt`` (there wherever nvcc's host compiler is),
+    else the CUDA toolkit's ``cu++filt`` beside ``nvcc``."""
+    found = shutil.which("c++filt")
+    if found is not None:
+        return found
+    tool = Path(_nvcc()).with_name("cu++filt")
+    if not tool.is_file():
+        raise RuntimeError(f"neither c++filt on PATH nor {tool} found")
+    return str(tool)
+
+
+def _kernel_names(mangled: Sequence[str]) -> List[str]:
+    """``ell_minplus_fixed<3,4>`` or ``tree_sum_kernel<FanSite<float>>``
+    for each kernel name as ptxas reports it: demangled, without its
+    namespaces, return type or parameters, bools as 0 or 1."""
+    if not mangled:
+        return []
+    out = subprocess.run(
+        [_demangler(), *mangled], capture_output=True, text=True, check=True,
+    ).stdout.splitlines()
+    if len(out) != len(mangled):
+        raise RuntimeError(f"demangled {len(out)} of {len(mangled)} names")
+    return [_short_name(name) for name in out]
+
+
+def _short_name(name: str) -> str:
+    # anonymous namespaces as either demangler prints them, and
+    # cu++filt's casts of literals ((int)3, (bool)1)
+    name = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", name)
+    name = re.sub(r"\(\w[\w ]*\)(?=-?\d)", "", name)
+    depth = 0
+    for i, ch in enumerate(name):  # the parameters: "(" outside the <>
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    name = name[len("void "):] if name.startswith("void ") else name
+    name = re.sub(r"\b\w+::", "", name).replace(", ", ",")
+    name = re.sub(r"\btrue\b", "1", re.sub(r"\bfalse\b", "0", name))
+    return name.replace(" >", ">").strip()
+
+
 def _kernel_name(mangled: str) -> str:
-    """``ell_minplus_fixed<3,4>`` for the mangled name of a kernel in a
-    namespace (template arguments are ints or bools, a bool as 0 or 1),
-    else the input."""
-    if not mangled.startswith("_ZN"):
-        return mangled
-    pos, parts = 3, []
-    while (m := re.match(r"\d+", mangled[pos:])) is not None:
-        start = pos + m.end()
-        pos = start + int(m.group())
-        parts.append(mangled[start:pos])
-    if not parts:
-        return mangled
-    args = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[pos:])
-    if args is None:
-        return parts[-1]
-    ints = re.findall(r"L[ib](-?\d+)E", args.group(1))
-    return f"{parts[-1]}<{','.join(ints)}>"
+    return _kernel_names([mangled])[0]
 
 
 def resource_usage(library: Path) -> List[dict]:
@@ -138,7 +165,7 @@ def resource_usage(library: Path) -> List[dict]:
     for line in _ptxas_log(library).read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            row = {"kernel": _kernel_name(m.group(1))}
+            row = {"kernel": m.group(1)}
             rows.append(row)
             continue
         if row is None:
@@ -149,4 +176,6 @@ def resource_usage(library: Path) -> List[dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             row["registers"] = int(m.group(1))
+    for row, name in zip(rows, _kernel_names([r["kernel"] for r in rows])):
+        row["kernel"] = name
     return rows

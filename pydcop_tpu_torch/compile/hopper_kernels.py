@@ -55,8 +55,13 @@ plain versions define it).  Each sum site is one launch: ``xla_tree_sum``
 ``tree_evaluate`` (``evaluate``'s gathers, sums and combine) and
 ``ell_fan_in`` (every degree class of MaxSum's ELL fan-in), all counted
 in ``xla_tree_sum.launches``.  Rows over 1,024 values take tickets from a
-zeroed pool that each launch leaves at zero (``_tickets``).  It is bound
-by its launch at the sizes it runs at.
+zeroed pool that each launch leaves at zero (``_tickets``).  The fan-in
+and the domain sum stream their planes and are bound by bytes: the
+fan-in's classes of up to 32 slots run as warp tiles (32 rows a warp,
+staged through shared memory, the plane read once and both planes
+written coalesced), the domain sum's rows of up to 32 values take a
+short-row kernel of vector loads; ``evaluate`` and one-row sums move a
+few MB at most, near the cost of their one launch.
 
 ``damp_fma`` (``csrc/damp_fma.cu``) is the port's own kernel too:
 MaxSum's float32 damping ``d * prev + (1 - d) * new`` as the one fused
@@ -128,7 +133,11 @@ def _c_function(name: str, argtypes: tuple, variant: str = ""):
     """``<name><variant>_launch`` of ``csrc/<name>.cu``, built at first
     use and loaded with ctypes; every launch function returns
     cudaGetLastError()."""
-    fn = getattr(_library(name), f"{name}{variant}_launch")
+    return _bind(_library(name), f"{name}{variant}_launch", argtypes)
+
+
+def _bind(library: ctypes.CDLL, symbol: str, argtypes: tuple):
+    fn = getattr(library, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -695,28 +704,34 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _tree_launch(name: str, argtypes: tuple, device, segments,
-                 extra_scratch=0, extra_tickets=0):
+                 extra_scratch=0, extra_tickets=0, library=None):
     """(C launch function, scratch, tickets) of one tree-sum launch over
     ``segments`` of (n, rows): a fresh float32 scratch (plus
     ``extra_scratch`` floats) and the device's ticket pool (plus
-    ``extra_tickets``).  A batch's rows are all its instances' rows."""
+    ``extra_tickets``).  A batch's rows are all its instances' rows.  The
+    function is ``library``'s where one is given (another build of
+    ``csrc/xla_tree_sum.cu``), else this package's."""
     scratch, tickets = _tree_needs(segments)
     return (
-        _c_function("xla_tree_sum", argtypes, name),
+        _c_function("xla_tree_sum", argtypes, name) if library is None
+        else _bind(library, f"xla_tree_sum{name}_launch", argtypes),
         torch.empty(max(scratch + extra_scratch, 1), dtype=torch.float32,
                     device=device),
         _tickets(device, tickets + extra_tickets),
     )
 
 
-def _run(fn, device, what: str, *args, batched: bool = False) -> None:
+def _run(fn, device, what: str, *args, batched: bool = False,
+         count: bool = True) -> None:
     """Call a launch function with the current stream; raise on a CUDA
-    error or a refusal (-1: a buffer too small, a table too long)."""
+    error or a refusal (-1: a buffer too small, a table too long).  The
+    launch is counted unless ``count`` is false (another build's)."""
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: error {rc}")
-    _count_launch(xla_tree_sum, batched)
+    if count:
+        _count_launch(xla_tree_sum, batched)
 
 
 def _scratch_args(scratch: torch.Tensor, tickets: torch.Tensor):
@@ -805,8 +820,9 @@ def xla_tree_sum_batched(x: torch.Tensor) -> torch.Tensor:
     return _launch_rows(x, device, True).reshape(lead)
 
 
-def _launch_rows(x: torch.Tensor, device: torch.device,
-                 batched: bool) -> torch.Tensor:
+def _launch_rows(x: torch.Tensor, device: torch.device, batched: bool,
+                 library=None) -> torch.Tensor:
+    """The rows' sums (see ``_tree_launch`` for ``library``)."""
     if x.dtype != torch.float32:
         raise TypeError(f"x has dtype {x.dtype}, expected torch.float32")
     rows, inner, s_outer, s_inner, s_elem = _row_layout(x)
@@ -815,11 +831,11 @@ def _launch_rows(x: torch.Tensor, device: torch.device,
         return out
     n = x.shape[-1]
     fn, scratch, tickets = _tree_launch(
-        "_rows", _ROWS_ARGS, device, [(n, rows)]
+        "_rows", _ROWS_ARGS, device, [(n, rows)], library=library
     )
     _run(fn, device, "xla_tree_sum", x.data_ptr(), out.data_ptr(), n, rows,
          inner, s_outer, s_inner, s_elem, *_scratch_args(scratch, tickets),
-         batched=batched)
+         batched=batched, count=library is None)
     return out
 
 
@@ -1101,7 +1117,9 @@ _FAN_IN_BATCHED_ARGS = (_P, ctypes.c_int, _LL, _P, _LL, _LL, ctypes.c_int,
                         _P, _P, _P) + _SCRATCH + (_P,)
 
 
-def _launch_fan_in(spans, unary_t, f2v_t, device, batched=False):
+def _launch_fan_in(spans, unary_t, f2v_t, device, batched=False,
+                   library=None):
+    """``(tot, v2f_raw)`` (see ``_tree_launch`` for ``library``)."""
     lead = tuple(f2v_t.shape[:1]) if batched else ()
     k = lead[0] if batched else 1
     d, n_pad = f2v_t.shape[-2:]
@@ -1113,6 +1131,7 @@ def _launch_fan_in(spans, unary_t, f2v_t, device, batched=False):
     fn, scratch, tickets = _tree_launch(
         "_ell_fan_in" + variant + ("_batched" if batched else ""),
         _FAN_IN_BATCHED_ARGS if batched else _FAN_IN_ARGS, device, segments,
+        library=library,
     )
     tot = unary_t.new_empty(lead + (d, n_vars))
     v2f = unary_t.new_empty(lead + (d, n_pad))
@@ -1120,7 +1139,8 @@ def _launch_fan_in(spans, unary_t, f2v_t, device, batched=False):
     _run(fn, device, "ell_fan_in", f2v_t.data_ptr(), d, n_pad,
          unary_t.data_ptr(), n_vars, *inst, len(spans),
          _span_table(tuple(spans)), tot.data_ptr(), v2f.data_ptr(),
-         *_scratch_args(scratch, tickets), batched=batched)
+         *_scratch_args(scratch, tickets), batched=batched,
+         count=library is None)
     return tot, v2f
 
 

@@ -37,14 +37,15 @@
 // How one launch keeps the order.  A row of n values is split by its
 // size.  n <= 32: one window (or the value itself), summed by one thread;
 // a block takes 256 such rows, so classes of different widths share the
-// launch.  32 < n <= 1024: one warp sums the row's level-1 windows and
-// then, in order, their sums (the final reduce).  n > 1024: level L's
-// window w covers level L-1's windows w*32 - lo_L .. +31, which cover one
-// contiguous range of inputs, so one block owns one window of level 2
-// (1,024 inputs with the levels' offsets) and writes one partial with no
-// grid-wide sync.  Its warps load the range coalesced, four level-1
-// windows a warp, into a padded shared tile (a thread's loads are in
-// flight together: they go to registers first); lane jj of warp 0 then
+// launch (the fan-in's and the domain sum's short rows have designs of
+// their own, below).  32 < n <= 1024: one warp sums the row's level-1
+// windows and then, in order, their sums (the final reduce).  n > 1024:
+// level L's window w covers level L-1's windows w*32 - lo_L .. +31, which
+// cover one contiguous range of inputs, so one block owns one window of
+// level 2 (1,024 inputs with the levels' offsets) and writes one partial
+// with no grid-wide sync.  Its warps load the range coalesced, four
+// level-1 windows a warp, into a padded shared tile (a thread's loads are
+// in flight together: they go to registers first); lane jj of warp 0 then
 // sums window jj across the tile in index order, and the lanes' sums are
 // added in order.  The block that writes a row's last partial finishes
 // the row: each block fences its partial (__threadfence) before it takes
@@ -56,13 +57,57 @@
 // contraction, no fast-math, no flush to zero), so the result is the
 // plain version's bit for bit.  Padding adds of +0.0 change nothing (a
 // sum from +0.0 never is -0.0), and windows wholly in the padding are
-// skipped.
+// skipped.  A block finds its segment by a binary search of the
+// segments' first blocks, and reserves only the shared memory its site's
+// segments use (dynamic, sized on the host: none for a site of short
+// rows).
 //
-// What bounds it on the card: the launch.  At config 4's sizes a site
-// moves a few MB at most (evaluate's 300,000 gathered costs, 0.24 us of
-// HBM time for the 199,996-value bucket alone), under the cost of one
-// launch, so half the byte bound is out of reach by construction; the
-// design's target is one launch a site, no slower than torch.sum.
+// The ELL fan-in's short classes (1 <= db <= 32 slots: 89.6% of config
+// 4's 500,598 slots) are warp tiles.  A warp task is 32 * g consecutive
+// rows (d, j0 ..) of one class, g groups of 32 so that a lane moves at
+// least 16 values (g = 16 for db = 0 or 1, ceil(16 / db) up to 16 slots,
+// 1 above).  Config 4's launch is then 521 blocks (315 of short classes),
+// against 760 at 8 values a lane; at the float32 kernel's 80 registers
+// an SM holds 3 blocks of 256 threads, 396 on an H100, so both take a
+// second, partial wave, and 16 values a lane ran 8% faster in turns.  Its
+// (class, d, j0) come from the segment table built on the host, one
+// 32-bit divide a warp, and the rows' db * 32g values are one contiguous
+// range of the plane.  The lanes load the range coalesced (lane l values
+// l, l + 32, ...; a bf16 plane widened), all of a lane's loads and its
+// rows' unary entries in flight together, and store them into the warp's
+// tile, row r at r * pitch with an odd pitch (db | 1) so that the lanes'
+// row reads are free of bank conflicts.  Lane l then sums row l (and l +
+// 32, ...) from the tile in index order from +0.0, rounds it as the
+// plane's type does, adds u, stores tot (coalesced across the lanes), and
+// writes t - x back over its row; after a __syncwarp the warp stores the
+// range of v2f_raw coalesced.  The plane is read once.  A 1-slot row is
+// its value (no tile), a 0-slot row copies u.  The tail task of a class
+// is masked.  Classes over 32 slots keep the warp-a-row and
+// block-a-level-2-window paths above and come first in the launch,
+// longest first, so the rows with tickets start with it.  The class sizes
+// 2, 4, 8, 16 and 32 (ELL's power-of-two classes) are compiled unrolled;
+// any other size takes a runtime body.
+//
+// The domain sum's rows (n <= 32 values s_elem apart, the rows
+// themselves contiguous: MaxSum's [D, n_pad] plane summed over D in
+// place, a serving batch's [K, D, n_pad]) take a kernel of their own,
+// with no shared memory: a thread sums 4 consecutive rows, loading each
+// of the n plane rows once at the widest width its alignment allows (16,
+// 8 or 4 bytes: config 4's n_pad of 500,598 leaves every other plane row
+// 8- but not 16-byte aligned; a scalar tail where the row count is not a
+// multiple of 4), in XLA's order ((0 + x0) + x1) + ..., a single value
+// being itself; n = 1..16 compiled unrolled, 17..32 at run time; a
+// grid-stride loop over a grid sized to the card, the instance on the
+// grid's y axis (no divide).
+//
+// What bounds each site on the card.  The fan-in and the domain sum
+// stream their planes (config 4: 14.4 MB and 8.0 MB, 4.30 and 2.39 us
+// at the H100's 3.35 TB/s): bytes, and the launch.  The fan-in's classes
+// over 32 slots end on a dependent chain (a window's 32 adds, a ticket,
+// the tail), which starting them first hides behind the short classes'
+// streams.  `evaluate` and one-row sums gather or move a few MB at most,
+// near the cost of one launch; their design's target is one launch a
+// site, no slower than torch.sum.
 //
 // Plain C interface (loaded with ctypes): each launch function returns
 // the first CUDA error of the launch (cudaGetLastError() after it), 0 on
@@ -80,10 +125,13 @@ constexpr int kW = 32;  // XLA-CPU's window
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPitch = kW + 1;  // a tile row, padded: no bank conflicts
+constexpr int kTile = kW * kPitch;  // floats of one warp's window tile
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBatch = 8;  // loads a thread keeps in flight at once
 constexpr int kMaxBuckets = 16;
 constexpr int kMaxClasses = 40;
+constexpr int kBlocksPerSm = 8;  // the short-row kernel's grid
+constexpr int kTileValues = 16;  // the least values a lane of a tile task
 
 __host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) {
   return (a + b - 1) / b;
@@ -91,17 +139,19 @@ __host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) {
 
 // Rows of n values of one size class share a segment.  block_begin is
 // its first block task; scratch and ticket its first float of scratch and
-// its first counter (rows over 1,024 values only).
+// its first counter (rows over 1,024 values only).  A site whose short
+// rows are warp tiles (the fan-in) counts warp tasks in `rows` of a
+// segment of n <= 32.
 struct Seg {
   int64_t n, rows, block_begin, scratch, ticket;
 };
 
 // Block tasks, scratch floats and tickets of `rows` rows of n values: a
-// block per 256 rows of up to 32 values, per 8 rows up to 1,024, per
-// level-2 window above, each of those rows with its k2 level-2 partials
-// and room for its next level.
-inline int64_t seg_blocks(int64_t n, int64_t rows) {
-  if (n <= kW) return cdiv(rows, kThreads);
+// block per 256 rows of up to 32 values (per 8 warp tasks where `tiled`),
+// per 8 rows up to 1,024, per level-2 window above, each of those rows
+// with its k2 level-2 partials and room for its next level.
+inline int64_t seg_blocks(int64_t n, int64_t rows, bool tiled) {
+  if (n <= kW) return cdiv(rows, tiled ? kWarps : kThreads);
   if (n <= kW * kW) return cdiv(rows, kWarps);
   return rows * cdiv(cdiv(n, kW), kW);
 }
@@ -110,19 +160,30 @@ __host__ __device__ inline int64_t row_scratch(int64_t n) {
   const int64_t k2 = cdiv(cdiv(n, kW), kW);
   return k2 + cdiv(k2, kW);
 }
+// Shared floats a block of a segment uses: a window tile a warp up to
+// 1,024 values, one tile for a level-2 window, none for short rows (a
+// warp tile's are the site's own).
+inline int64_t seg_smem(int64_t n) {
+  if (n <= kW) return 0;
+  return n <= kW * kW ? kWarps * kTile : kTile;
+}
 
 // Lays out segs[0..count) (n and rows set) one after another; returns the
-// block tasks, and adds the scratch floats and tickets to *scratch and
-// *tickets.
-int64_t layout(Seg* segs, int count, int64_t* scratch, int64_t* tickets) {
+// block tasks, adds the scratch floats and tickets to *scratch and
+// *tickets, and raises *smem to the shared floats a block needs.
+int64_t layout(Seg* segs, int count, bool tiled, int64_t* scratch,
+               int64_t* tickets, int64_t* smem) {
   int64_t blocks = 0;
   for (int s = 0; s < count; ++s) {
     segs[s].block_begin = blocks;
     segs[s].scratch = *scratch;
     segs[s].ticket = *tickets;
-    blocks += seg_blocks(segs[s].n, segs[s].rows);
+    blocks += seg_blocks(segs[s].n, segs[s].rows, tiled);
     *scratch += segs[s].rows * row_scratch(segs[s].n);
     if (segs[s].n > kW * kW) *tickets += segs[s].rows;
+    if (segs[s].rows > 0 && seg_smem(segs[s].n) > *smem) {
+      *smem = seg_smem(segs[s].n);
+    }
   }
   return blocks;
 }
@@ -237,24 +298,30 @@ __device__ float tail(float* part, int64_t m, int lane) {
 }
 
 // One block task of segment s of a site: 256 rows of up to 32 values (a
-// thread each), 8 rows of up to 1,024 (a warp each), or one level-2
-// window of a longer row (the block stages its 32 level-1 windows, 4 a
-// warp, and warp 0 sums them; the warp that draws the row's last ticket
-// then sums the rest of the row).  site.visit(s, r, f) calls f with row
-// r's loader; site.finish(s, r, row, total, lane, lanes) consumes its
-// total, called by one thread (lane 0 of 1) for a small row and by a whole
-// warp (the total in every lane) otherwise.
+// thread each; a site with kTiled runs 8 warp tasks instead, run_tile), 8
+// rows of up to 1,024 (a warp each), or one level-2 window of a longer
+// row (the block stages its 32 level-1 windows, 4 a warp, and warp 0 sums
+// them; the warp that draws the row's last ticket then sums the rest of
+// the row).  site.visit(s, r, f) calls f with row r's loader;
+// site.finish(s, r, row, total, lane) consumes its total, called by one
+// thread (lane 0) for a short row and by a whole warp (the total in every
+// lane) otherwise.
 template <class Site>
-__device__ void run_task(const Site& site, int s, int64_t t,
-                         float (*tiles)[kW * kPitch], int warp, int lane) {
+__device__ void run_task(const Site& site, int s, int64_t t, float* smem,
+                         int warp, int lane) {
   const Seg& g = site.segs[s];
   const int64_t n = g.n;
   if (n <= kW) {
-    const int64_t r = t * kThreads + warp * kW + lane;
-    if (r >= g.rows) return;
-    site.visit(s, r, [&](const auto& row) {
-      site.finish(s, r, row, sum_small(row, n), 0, 1);
-    });
+    if constexpr (Site::kTiled) {
+      site.run_tile(s, t * kWarps + warp, smem + warp * site.warp_floats,
+                    lane);
+    } else {
+      const int64_t r = t * kThreads + warp * kW + lane;
+      if (r >= g.rows) return;
+      site.visit(s, r, [&](const auto& row) {
+        site.finish(s, r, row, sum_small(row, n), 0);
+      });
+    }
     return;
   }
   const int64_t k1 = cdiv(n, kW);
@@ -262,14 +329,14 @@ __device__ void run_task(const Site& site, int s, int64_t t,
   if (n <= kW * kW) {
     const int64_t r = t * kWarps + warp;
     if (r >= g.rows) return;
+    float* tile = smem + warp * kTile;
     site.visit(s, r, [&](const auto& row) {
       for (int jj0 = 0; jj0 < k1; jj0 += kBatch) {
-        stage<kBatch>(row, n, lo1, 0, jj0, tiles[warp], lane);
+        stage<kBatch>(row, n, lo1, 0, jj0, tile, lane);
       }
       __syncwarp();
-      const float total = reduce_tile(tiles[warp], 0, static_cast<int>(k1),
-                                      lane);
-      site.finish(s, r, row, total, lane, kW);
+      const float total = reduce_tile(tile, 0, static_cast<int>(k1), lane);
+      site.finish(s, r, row, total, lane);
     });
     return;
   }
@@ -279,13 +346,12 @@ __device__ void run_task(const Site& site, int s, int64_t t,
   const int64_t w2 = t - r * k2;
   const int64_t j0 = w2 * kW - lo2;
   site.visit(s, r, [&](const auto& row) {
-    stage<kW / kWarps>(row, n, lo1, j0, warp * (kW / kWarps), tiles[0],
-                       lane);
+    stage<kW / kWarps>(row, n, lo1, j0, warp * (kW / kWarps), smem, lane);
     __syncthreads();
     if (warp != 0) return;
     const int jlo = j0 < 0 ? static_cast<int>(-j0) : 0;
     const int jhi = k1 - j0 < kW ? static_cast<int>(k1 - j0) : kW;
-    const float p = reduce_tile(tiles[0], jlo, jhi, lane);
+    const float p = reduce_tile(smem, jlo, jhi, lane);
     float* part = site.scratch + g.scratch + r * row_scratch(n);
     unsigned* ticket = site.tickets + g.ticket + r;
     int last = 0;
@@ -298,18 +364,26 @@ __device__ void run_task(const Site& site, int s, int64_t t,
     __threadfence();
     const float total = tail(part, k2, lane);
     if (lane == 0) *ticket = 0u;  // every block of the row has drawn
-    site.finish(s, r, row, total, lane, kW);
+    site.finish(s, r, row, total, lane);
   });
 }
 
 template <class Site>
 __global__ void __launch_bounds__(kThreads)
     tree_sum_kernel(const __grid_constant__ Site site) {
-  __shared__ float tiles[kWarps][kW * kPitch];
+  extern __shared__ float smem[];
+  // the segment of this block: the last whose first block is not after it
   const int64_t b = blockIdx.x;
-  int s = 0;
-  while (s + 1 < site.n_segs && b >= site.segs[s + 1].block_begin) ++s;
-  run_task(site, s, b - site.segs[s].block_begin, tiles, threadIdx.x >> 5,
+  int lo = 0, hi = site.n_segs - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (site.segs[mid].block_begin <= b) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  run_task(site, lo, b - site.segs[lo].block_begin, smem, threadIdx.x >> 5,
            threadIdx.x & 31);
 }
 
@@ -318,7 +392,8 @@ int launch(const Site& site, void* stream) {
   if (site.blocks == 0) return 0;
   if (site.blocks > 0x7fffffff) return -1;
   tree_sum_kernel<Site>
-      <<<static_cast<unsigned int>(site.blocks), kThreads, 0,
+      <<<static_cast<unsigned int>(site.blocks), kThreads,
+         static_cast<size_t>(site.smem) * sizeof(float),
          static_cast<cudaStream_t>(stream)>>>(site);
   return static_cast<int>(cudaGetLastError());
 }
@@ -332,8 +407,9 @@ struct StridedRow {
 };
 
 struct RowsSite {
+  static constexpr bool kTiled = false;
   int n_segs;
-  int64_t blocks;
+  int64_t blocks, smem;
   Seg segs[1];
   float* scratch;
   unsigned* tickets;
@@ -346,7 +422,7 @@ struct RowsSite {
     f(StridedRow{x + o * s_outer + (r - o * inner) * s_inner, s_elem});
   }
   __device__ void finish(int, int64_t r, const StridedRow&, float total,
-                         int lane, int) const {
+                         int lane) const {
     if (lane == 0) out[r] = total;
   }
 };
@@ -379,8 +455,9 @@ struct BucketRow {
 };
 
 struct EvalSite {
+  static constexpr bool kTiled = false;
   int n_segs;  // 1 + buckets
-  int64_t blocks;
+  int64_t blocks, smem;
   Seg segs[kMaxBuckets + 1];
   float* scratch;  // the instances' totals, then the large rows' partials
   unsigned* tickets;  // the large rows', then one an instance
@@ -422,8 +499,8 @@ struct EvalSite {
   // combines them as the JAX package does,
   // `unary + (0 + b0 + b1 + ...) + constant`
   template <class Row>
-  __device__ void finish(int s, int64_t r, const Row&, float total, int lane,
-                         int) const {
+  __device__ void finish(int s, int64_t r, const Row&, float total,
+                         int lane) const {
     if (lane != 0) return;
     float* mine = totals + r * n_segs;
     mine[s] = total;
@@ -466,15 +543,154 @@ struct PlaneRow {
   __device__ float load(int64_t i) const { return widen(p + i); }
 };
 
+// Groups of 32 rows a warp task of a class of db <= 32 slots takes, so
+// that each lane moves at least kTileValues values: 16 for 0 or 1 slot,
+// ceil(16 / db) up to 16 slots, 1 above.
+__host__ __device__ constexpr int tile_groups(int db) {
+  return db <= 1 ? kTileValues
+                 : (db >= kTileValues ? 1 : (kTileValues + db - 1) / db);
+}
+// The most groups a class outside the unrolled sizes (db = 3..31) takes.
+constexpr int kRuntimeGroups = tile_groups(3);
+
+// One warp task of a short class: `rows` consecutive rows (at most 32 *
+// groups) of a plane row, their values from src (the range of the plane),
+// the unary entries from u; tot and v2f_raw to tot and dst.
+template <typename T>
+struct TileTask {
+  const T* src;
+  float* dst;
+  const float* u;
+  float* tot;
+  int rows;
+  int lane;
+
+  // a 0-slot class: tot is u (sign and all)
+  __device__ void copy_u() const {
+    float uv[kTileValues];
+#pragma unroll
+    for (int q = 0; q < kTileValues; ++q) {
+      const int r = lane + q * kW;
+      uv[q] = r < rows ? __ldg(u + r) : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kTileValues; ++q) {
+      const int r = lane + q * kW;
+      if (r < rows) tot[r] = uv[q];
+    }
+  }
+
+  // a 1-slot class: a row's sum is its value (a bf16 value rounds to
+  // itself), so no tile: lane l takes rows l, l + 32, ...
+  __device__ void single() const {
+    float x[kTileValues], uv[kTileValues];
+#pragma unroll
+    for (int q = 0; q < kTileValues; ++q) {
+      const int r = lane + q * kW;
+      x[q] = r < rows ? widen(src + r) : 0.0f;
+      uv[q] = r < rows ? __ldg(u + r) : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kTileValues; ++q) {
+      const int r = lane + q * kW;
+      if (r < rows) {
+        const float t = __fadd_rn(x[q], uv[q]);
+        tot[r] = t;
+        dst[r] = __fsub_rn(t, x[q]);
+      }
+    }
+  }
+
+  // rows of kDb slots (kDb = 0: db_rt, 3..31, at run time) through the
+  // warp's tile: value e = lane + 32 k of the range is slot e % db of row
+  // e / db, at row * pitch + slot
+  template <int kDb>
+  __device__ void staged(int db_rt, float* tile) const {
+    constexpr int kG = kDb ? tile_groups(kDb) : kRuntimeGroups;
+    const int db = kDb ? kDb : db_rt;
+    const int groups = kDb ? kG : tile_groups(db);
+    const int count = groups * db;  // values a lane
+    const int n = rows * db;
+    const int pitch = db | 1;
+    const int dr = kW / db, di = kW - dr * db;
+    float uv[kG];
+#pragma unroll
+    for (int q = 0; q < kG; ++q) {
+      const int r = lane + q * kW;
+      uv[q] = q < groups && r < rows ? __ldg(u + r) : 0.0f;
+    }
+    int r = lane / db, i = lane - r * db;
+#pragma unroll
+    for (int k0 = 0; k0 < (kDb ? kG * kDb : count); k0 += kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int e = lane + (k0 + q) * kW;
+        v[q] = k0 + q < count && e < n ? widen(src + e) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        if (k0 + q < count) {
+          tile[r * pitch + i] = v[q];
+          r += dr;
+          i += di;
+          if (i >= db) {
+            i -= db;
+            ++r;
+          }
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < kG; ++q) {
+      const int row = lane + q * kW;
+      if (q < groups && row < rows) {
+        float* x = tile + row * pitch;
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < (kDb ? kDb : db); ++k) acc = __fadd_rn(acc, x[k]);
+        const float t = __fadd_rn(round_as(acc, src), uv[q]);
+        tot[row] = t;
+#pragma unroll
+        for (int k = 0; k < (kDb ? kDb : db); ++k) x[k] = __fsub_rn(t, x[k]);
+      }
+    }
+    __syncwarp();
+    r = lane / db;
+    i = lane - r * db;
+#pragma unroll
+    for (int k = 0; k < (kDb ? kG * kDb : count); ++k) {
+      const int e = lane + k * kW;
+      if (e < n) dst[e] = tile[r * pitch + i];
+      r += dr;
+      i += di;
+      if (i >= db) {
+        i -= db;
+        ++r;
+      }
+    }
+  }
+};
+
+// A degree class in its segment: nb rows of db slots from plane offset
+// off_e and variable off_v; a short class (db <= 32) runs as warp tasks of
+// `group` rows, per_d of them a plane row.
+struct FanSeg {
+  int64_t nb, off_e, off_v, per_d;
+  int db, group;
+};
+
 template <typename T>
 struct FanSite {
+  static constexpr bool kTiled = true;
   int n_segs;  // classes; rows of class c: D * nb, row (d, j)
-  int64_t blocks;
+  int64_t blocks, smem;
+  int64_t warp_floats;  // a short class's warp tile
   Seg segs[kMaxClasses];
+  FanSeg cls[kMaxClasses];
   float* scratch;
   unsigned* tickets;
-  int64_t nb[kMaxClasses], db[kMaxClasses], off_e[kMaxClasses],
-      off_v[kMaxClasses];
   const T* plane;  // [D, n_pad]
   int64_t n_pad;
   const float* u;  // [D, n_vars] in ell order
@@ -482,34 +698,63 @@ struct FanSite {
   float* tot;  // [D, n_vars]
   float* v2f;  // [D, n_pad]
 
+  // warp task `task` of short class s: rows (d, j0 ..) of the task table
+  __device__ void run_tile(int s, int64_t task, float* tile, int lane) const {
+    if (task >= segs[s].rows) return;
+    const FanSeg& c = cls[s];
+    // the host keeps a segment's tasks under 2^31: one 32-bit divide
+    const unsigned per_d = static_cast<unsigned>(c.per_d);
+    const unsigned d = static_cast<unsigned>(task) / per_d;
+    const int64_t j0 =
+        static_cast<int64_t>(static_cast<unsigned>(task) - d * per_d) *
+        c.group;
+    const int64_t left = c.nb - j0;
+    const int64_t e0 = d * n_pad + c.off_e + j0 * c.db;
+    const int64_t v0 = d * n_vars + c.off_v + j0;
+    const TileTask<T> w{plane + e0, v2f + e0, u + v0, tot + v0,
+                        static_cast<int>(left < c.group ? left : c.group),
+                        lane};
+    switch (c.db) {
+      case 0: w.copy_u(); break;
+      case 1: w.single(); break;
+      case 2: w.template staged<2>(2, tile); break;
+      case 4: w.template staged<4>(4, tile); break;
+      case 8: w.template staged<8>(8, tile); break;
+      case 16: w.template staged<16>(16, tile); break;
+      case 32: w.template staged<32>(32, tile); break;
+      default: w.template staged<0>(c.db, tile); break;
+    }
+  }
+
+  // a row of a class over 32 slots, a warp (or a level-2 window's block)
   template <class F>
   __device__ void visit(int s, int64_t r, F&& f) const {
-    const int64_t d = r / nb[s];
-    f(PlaneRow<T>{plane + d * n_pad + off_e[s] + (r - d * nb[s]) * db[s]});
+    const int64_t d = r / cls[s].nb;
+    f(PlaneRow<T>{plane + d * n_pad + cls[s].off_e +
+                  (r - d * cls[s].nb) * cls[s].db});
   }
-  // tot = sum + u (a class of degree 0 copies u); v2f_raw = tot - seg
+  // tot = sum + u; v2f_raw = tot - seg, the whole warp
   __device__ void finish(int s, int64_t r, const PlaneRow<T>& row,
-                         float total, int lane, int lanes) const {
-    const int64_t d = r / nb[s];
-    const int64_t j = r - d * nb[s];
-    const int64_t v = d * n_vars + off_v[s] + j;
-    const float uv = __ldg(u + v);
-    const float t =
-        db[s] == 0 ? uv : __fadd_rn(round_as(total, plane), uv);
+                         float total, int lane) const {
+    const FanSeg& c = cls[s];
+    const int64_t d = r / c.nb;
+    const int64_t j = r - d * c.nb;
+    const int64_t v = d * n_vars + c.off_v + j;
+    const float t = __fadd_rn(round_as(total, plane), __ldg(u + v));
     if (lane == 0) tot[v] = t;
     // kBatch loads in flight a lane, then their stores
-    float* o = v2f + d * n_pad + off_e[s] + j * db[s];
-    for (int64_t i0 = lane; i0 < db[s]; i0 += kBatch * lanes) {
+    float* o = v2f + d * n_pad + c.off_e + j * c.db;
+    for (int64_t i0 = lane; i0 < c.db; i0 += kBatch * kW) {
       float x[kBatch];
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
-        const int64_t i = i0 + q * lanes;
-        x[q] = i < db[s] ? row.load(i) : 0.0f;
+        const int64_t i = i0 + q * kW;
+        x[q] = i < c.db ? row.load(i) : 0.0f;
       }
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
-        const int64_t i = i0 + q * lanes;
-        if (i < db[s]) o[i] = __fsub_rn(t, x[q]);
+        const int64_t i = i0 + q * kW;
+        if (i < c.db) o[i] = __fsub_rn(t, x[q]);
       }
     }
   }
@@ -523,21 +768,59 @@ int fan_in(const void* plane, int d, long long n_pad, const void* u,
   if (n_classes < 1 || n_classes > kMaxClasses) return -1;
   FanSite<T> site{};
   site.n_segs = n_classes;
-  int64_t off_e = 0, off_v = 0;
+  // classes over 32 slots first, longest first (their rows end on a
+  // dependent chain), then the short classes in plane order
+  int order[kMaxClasses];
+  int placed = 0;
   for (int c = 0; c < n_classes; ++c) {
-    site.nb[c] = spans[2 * c];
-    site.db[c] = spans[2 * c + 1];
-    site.off_e[c] = off_e;
-    site.off_v[c] = off_v;
-    site.segs[c].n = site.db[c];
-    site.segs[c].rows = d * site.nb[c];
-    off_e += site.nb[c] * site.db[c];
-    off_v += site.nb[c];
+    if (spans[2 * c + 1] <= kW) continue;
+    int at = placed++;
+    while (at > 0 && spans[2 * order[at - 1] + 1] < spans[2 * c + 1]) {
+      order[at] = order[at - 1];
+      --at;
+    }
+    order[at] = c;
   }
-  if (off_e != n_pad || off_v != n_vars) return -1;
-  int64_t need = 0, n_tickets = 0;
-  site.blocks = layout(site.segs, n_classes, &need, &n_tickets);
+  for (int c = 0; c < n_classes; ++c) {
+    if (spans[2 * c + 1] <= kW) order[placed++] = c;
+  }
+  int64_t off_e[kMaxClasses], off_v[kMaxClasses];
+  int64_t e = 0, v = 0;
+  for (int c = 0; c < n_classes; ++c) {
+    off_e[c] = e;
+    off_v[c] = v;
+    e += spans[2 * c] * spans[2 * c + 1];
+    v += spans[2 * c];
+  }
+  if (e != n_pad || v != n_vars) return -1;
+  int64_t tile_floats = 0;
+  for (int s = 0; s < n_classes; ++s) {
+    const int c = order[s];
+    const int64_t nb = spans[2 * c], db = spans[2 * c + 1];
+    if (nb < 0 || db < 0 || db > 0x7fffffff) return -1;
+    FanSeg& k = site.cls[s];
+    k.nb = nb;
+    k.db = static_cast<int>(db);
+    k.off_e = off_e[c];
+    k.off_v = off_v[c];
+    site.segs[s].n = db;
+    if (db > kW) {
+      site.segs[s].rows = d * nb;
+      continue;
+    }
+    k.group = kW * tile_groups(k.db);
+    k.per_d = cdiv(nb, k.group);
+    site.segs[s].rows = d * k.per_d;  // warp tasks
+    if (site.segs[s].rows > 0x7fffffff) return -1;
+    if (db > 1 && k.group * (db | 1) > tile_floats) {
+      tile_floats = k.group * (db | 1);
+    }
+  }
+  int64_t need = 0, n_tickets = 0, smem = 0;
+  site.blocks = layout(site.segs, n_classes, true, &need, &n_tickets, &smem);
   if (need > scratch_cap || n_tickets > ticket_cap) return -1;
+  site.warp_floats = tile_floats;
+  site.smem = smem > kWarps * tile_floats ? smem : kWarps * tile_floats;
   site.scratch = static_cast<float*>(scratch);
   site.tickets = static_cast<unsigned*>(tickets);
   site.plane = static_cast<const T*>(plane);
@@ -549,23 +832,178 @@ int fan_in(const void* plane, int d, long long n_pad, const void* u,
   return launch(site, stream);
 }
 
+// --- the domain sum: short rows, the rows contiguous ----------------------
+
+constexpr int kQuad = 4;  // consecutive rows a thread sums
+
+// 4 consecutive floats at p, at the widest width p's alignment allows
+__device__ __forceinline__ float4 load4(const float* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if ((a & 15) == 0) return __ldg(reinterpret_cast<const float4*>(p));
+  if ((a & 7) == 0) {
+    const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
+    const float2 hi = __ldg(reinterpret_cast<const float2*>(p + 2));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if ((a & 15) == 0) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else if ((a & 7) == 0) {
+    reinterpret_cast<float2*>(p)[0] = make_float2(v.x, v.y);
+    reinterpret_cast<float2*>(p)[1] = make_float2(v.z, v.w);
+  } else {
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// The sums of Vec-wide columns (a float4 of 4 rows, or one float) of n
+// values s_elem apart from p, in XLA's order: ((0 + x0) + x1) + ..., a
+// single value itself.  kN = n compiled unrolled, all n loads in flight;
+// kN = 0: n at run time, kBatch loads at once.
+template <int kN, class Vec, class Load, class Add>
+__device__ __forceinline__ Vec sum_column(const float* p, int64_t s_elem,
+                                          int n_rt, Vec zero, Load load,
+                                          Add add) {
+  const int n = kN ? kN : n_rt;
+  if (n == 1) return load(p);
+  Vec acc = zero;
+  if constexpr (kN > 0) {
+    Vec v[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = load(p + k * s_elem);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) acc = add(acc, v[k]);
+  } else {
+    for (int k0 = 0; k0 < n; k0 += kBatch) {
+      Vec v[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        v[q] = k0 + q < n ? load(p + (k0 + q) * s_elem) : zero;
+      }
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        if (k0 + q < n) acc = add(acc, v[q]);
+      }
+    }
+  }
+  return acc;
+}
+
+// out[o * inner + i] = the sum over k < n of x[o * s_outer + k * s_elem +
+// i]: a thread 4 consecutive i of one o (the grid's y), a scalar tail.
+template <int kN>
+__global__ void __launch_bounds__(kThreads)
+    short_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      int n_rt, int64_t inner, int64_t outer,
+                      int64_t s_outer, int64_t s_elem) {
+  const int64_t quads = cdiv(inner, kQuad);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const auto load1 = [](const float* p) { return __ldg(p); };
+  const auto add1 = [](float a, float b) { return __fadd_rn(a, b); };
+  const auto load = [](const float* p) { return load4(p); };
+  const auto add = [](float4 a, float4 b) { return add4(a, b); };
+  for (int64_t o = blockIdx.y; o < outer; o += gridDim.y) {
+    const float* xo = x + o * s_outer;
+    float* oo = out + o * inner;
+    for (int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+         q < quads; q += stride) {
+      const int64_t i0 = q * kQuad;
+      if (i0 + kQuad <= inner) {
+        store4(oo + i0, sum_column<kN>(xo + i0, s_elem, n_rt,
+                                       make_float4(0.f, 0.f, 0.f, 0.f),
+                                       load, add));
+      } else {
+        for (int64_t i = i0; i < inner; ++i) {
+          oo[i] = sum_column<kN>(xo + i, s_elem, n_rt, 0.0f, load1, add1);
+        }
+      }
+    }
+  }
+}
+
+template <int kN>
+void launch_short(dim3 grid, cudaStream_t st, const float* x, float* out,
+                  int n, int64_t inner, int64_t outer, int64_t s_outer,
+                  int64_t s_elem) {
+  short_rows_kernel<kN>
+      <<<grid, kThreads, 0, st>>>(x, out, n, inner, outer, s_outer, s_elem);
+}
+
+// n = 1..16 unrolled, 17..32 at run time
+template <int kN = 16>
+void launch_short_n(dim3 grid, cudaStream_t st, const float* x, float* out,
+                    int n, int64_t inner, int64_t outer, int64_t s_outer,
+                    int64_t s_elem) {
+  if constexpr (kN == 0) {
+    launch_short<0>(grid, st, x, out, n, inner, outer, s_outer, s_elem);
+  } else if (n == kN) {
+    launch_short<kN>(grid, st, x, out, n, inner, outer, s_outer, s_elem);
+  } else {
+    launch_short_n<kN - 1>(grid, st, x, out, n, inner, outer, s_outer,
+                           s_elem);
+  }
+}
+
+int short_rows(const float* x, float* out, int n, int64_t inner,
+               int64_t outer, int64_t s_outer, int64_t s_elem,
+               void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t ys = outer < 65535 ? outer : 65535;
+  const int64_t full = static_cast<int64_t>(sms) * kBlocksPerSm;
+  const int64_t per_o = full / ys > 1 ? full / ys : 1;
+  const int64_t need = cdiv(cdiv(inner, kQuad), kThreads);
+  const dim3 grid(static_cast<unsigned>(need < per_o ? need : per_o),
+                  static_cast<unsigned>(ys));
+  launch_short_n(grid, static_cast<cudaStream_t>(stream), x, out, n, inner,
+                 outer, s_outer, s_elem);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // out[r] = the sum of row r: rows r = (o, i), o < rows / inner, at x +
 // o * s_outer + i * s_inner, each of n values s_elem apart.  Scratch:
-// rows * row_scratch(n) floats; tickets: rows (n > 1,024 only).
+// rows * row_scratch(n) floats; tickets: rows (n > 1,024 only).  Rows of
+// 1..32 values whose starts are contiguous (s_inner = 1: a [D, n] plane
+// summed over D in place) take the short-row kernel.
 extern "C" int xla_tree_sum_rows_launch(
     const void* x, void* out, long long n, long long rows, long long inner,
     long long s_outer, long long s_inner, long long s_elem, void* scratch,
     long long scratch_cap, void* tickets, long long ticket_cap,
     void* stream) {
+  if (inner < 1) return -1;
+  if (n >= 1 && n <= kW && s_inner == 1 && rows % inner == 0) {
+    if (rows == 0) return 0;
+    return short_rows(static_cast<const float*>(x), static_cast<float*>(out),
+                      static_cast<int>(n), inner, rows / inner, s_outer,
+                      s_elem, stream);
+  }
   RowsSite site{};
   site.n_segs = 1;
   site.segs[0].n = n;
   site.segs[0].rows = rows;
-  int64_t need = 0, n_tickets = 0;
-  site.blocks = layout(site.segs, 1, &need, &n_tickets);
-  if (need > scratch_cap || n_tickets > ticket_cap || inner < 1) return -1;
+  int64_t need = 0, n_tickets = 0, smem = 0;
+  site.blocks = layout(site.segs, 1, false, &need, &n_tickets, &smem);
+  if (need > scratch_cap || n_tickets > ticket_cap) return -1;
+  site.smem = smem;
   site.scratch = static_cast<float*>(scratch);
   site.tickets = static_cast<unsigned*>(tickets);
   site.x = static_cast<const float*>(x);
@@ -602,9 +1040,11 @@ int evaluate(const void* values, int values_i64, int d, const void* unary,
     for (int t = 0; t < site.arity[b]; ++t) len *= d;
     site.table_len[b] = len;
   }
-  int64_t need = n_inst * site.n_segs, n_tickets = 0;
-  site.blocks = layout(site.segs, site.n_segs, &need, &n_tickets);
+  int64_t need = n_inst * site.n_segs, n_tickets = 0, smem = 0;
+  site.blocks =
+      layout(site.segs, site.n_segs, false, &need, &n_tickets, &smem);
   if (need > scratch_cap || n_tickets + n_inst > ticket_cap) return -1;
+  site.smem = smem;
   site.scratch = static_cast<float*>(scratch);
   site.totals = site.scratch;
   site.tickets = static_cast<unsigned*>(tickets);

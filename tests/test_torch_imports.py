@@ -69,11 +69,41 @@ def test_kernel_sources_ship_with_the_package():
     ("_ZN48_GLOBAL__N__7c2c6a17_15_branch_bound_cu_9972bb3219branch_bound"
      "_kernelILi7ELb1EEEvNS_8OperandsE", "branch_bound_kernel<7,1>"),
     ("damp_fma_kernel", "damp_fma_kernel"),
+    # class template arguments, as tree_sum_kernel<Site>
+    ("_ZN12_GLOBAL__N_115tree_sum_kernelINS_7FanSiteIfEEEEvT_",
+     "tree_sum_kernel<FanSite<float>>"),
+    ("_ZN12_GLOBAL__N_115tree_sum_kernelINS_7FanSiteI13__nv_bfloat16EEEE"
+     "vT_", "tree_sum_kernel<FanSite<__nv_bfloat16>>"),
+    ("_ZN12_GLOBAL__N_115tree_sum_kernelINS_8RowsSiteEEEvT_",
+     "tree_sum_kernel<RowsSite>"),
+    ("_ZN12_GLOBAL__N_117short_rows_kernelILi3EEEvPKfPfillll",
+     "short_rows_kernel<3>"),
 ])
 def test_ptxas_report_names_each_instantiation(mangled, name):
     from pydcop_tpu_torch.compile import _build
 
     assert _build._kernel_name(mangled) == name
+
+
+@pytest.mark.parametrize("demangled, name", [
+    # binutils' c++filt
+    ("void (anonymous namespace)::tree_sum_kernel<(anonymous namespace)::"
+     "FanSite<__nv_bfloat16> >((anonymous namespace)::FanSite<"
+     "__nv_bfloat16>)", "tree_sum_kernel<FanSite<__nv_bfloat16>>"),
+    ("void (anonymous namespace)::branch_bound_kernel<7, true>((anonymous "
+     "namespace)::Operands)", "branch_bound_kernel<7,1>"),
+    # the CUDA toolkit's cu++filt: <unnamed> namespaces, cast literals
+    ("void <unnamed>::short_rows_kernel<(int)3>(const float *, float *, "
+     "int, long, long, long, long)", "short_rows_kernel<3>"),
+    ("void <unnamed>::branch_bound_kernel<(int)7, (bool)1>(<unnamed>::"
+     "Operands)", "branch_bound_kernel<7,1>"),
+    ("<unnamed>::tree_sum_kernel<<unnamed>::FanSite<float>>(<unnamed>::"
+     "FanSite<float>)", "tree_sum_kernel<FanSite<float>>"),
+])
+def test_either_demangler_gives_the_same_kernel_name(demangled, name):
+    from pydcop_tpu_torch.compile import _build
+
+    assert _build._short_name(demangled) == name
 
 
 def _tiny_problem():

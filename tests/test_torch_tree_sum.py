@@ -164,10 +164,10 @@ def test_tree_evaluate_plain_equals_jitted_jax_evaluate(case):
 FAN_IN_SPANS = ((4, 0), (50, 1), (40, 2), (9, 32), (5, 64), (2, 2048))
 
 
-def _fan_in_inputs(d, dtype, seed=0):
+def _fan_in_inputs(d, dtype, seed=0, spans=FAN_IN_SPANS):
     rng = np.random.default_rng(seed)
-    n_pad = sum(nb * db for nb, db in FAN_IN_SPANS)
-    n_vars = sum(nb for nb, _ in FAN_IN_SPANS)
+    n_pad = sum(nb * db for nb, db in spans)
+    n_vars = sum(nb for nb, _ in spans)
     u = _costs(rng, (d, n_vars))
     u[:, 0] = -0.0  # a degree-0 class copies u, sign and all
     f2v = (rng.normal(size=(d, n_pad)) * 100).astype(np.float32)
@@ -200,31 +200,38 @@ def test_ell_fan_in_plain_is_the_per_class_composition(dtype):
     assert bool(torch.signbit(tot[0, 0]))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ell_fan_in_plain_equals_jitted_jax(dtype):
-    # the fan-in of the JAX package's ELL variable step, class by class
+def _jax_fan_in(spans, u, f2v_t):
+    """The JAX package's ELL fan-in, class by class, jitted (the
+    reshape-sums and broadcasts of its ELL variable step)."""
     jax, jnp, _ = _jax()
-    u, f2v_t = _fan_in_inputs(3, dtype, seed=1)
+    d = u.shape[0]
 
-    def jax_fan_in(u, f2v):
+    def fan_in(u, f2v):
         tot_parts, v2f_parts = [], []
         off_e = off_v = 0
-        for nb, db in FAN_IN_SPANS:
+        for nb, db in spans:
             ub = u[:, off_v:off_v + nb]
             if db == 0:
                 tot_parts.append(ub)
             else:
-                seg = f2v[:, off_e:off_e + nb * db].reshape(3, nb, db)
+                seg = f2v[:, off_e:off_e + nb * db].reshape(d, nb, db)
                 tot_b = seg.sum(axis=2) + ub
                 tot_parts.append(tot_b)
-                v2f_parts.append((tot_b[:, :, None] - seg).reshape(3, -1))
+                v2f_parts.append((tot_b[:, :, None] - seg).reshape(d, -1))
             off_e += nb * db
             off_v += nb
         return (jnp.concatenate(tot_parts, axis=1),
                 jnp.concatenate(v2f_parts, axis=1))
 
+    dtype = "bfloat16" if f2v_t.dtype == torch.bfloat16 else "float32"
     f2v_j = jnp.asarray(f2v_t.float().numpy()).astype(dtype)
-    want_tot, want_v2f = jax.jit(jax_fan_in)(jnp.asarray(u.numpy()), f2v_j)
+    return jax.jit(fan_in)(jnp.asarray(u.numpy()), f2v_j)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_fan_in_plain_equals_jitted_jax(dtype):
+    u, f2v_t = _fan_in_inputs(3, dtype, seed=1)
+    want_tot, want_v2f = _jax_fan_in(FAN_IN_SPANS, u, f2v_t)
     tot, v2f = hk.ell_fan_in(FAN_IN_SPANS, u, f2v_t)
     assert np.array_equal(_bits(tot), _bits(want_tot))
     assert np.array_equal(_bits(v2f), _bits(want_v2f))
@@ -468,3 +475,338 @@ def test_rows_sum_batched_kernel_equals_plain_on_card(n, k):
     for i in range(k):
         assert np.array_equal(_bits(got[i].cpu()),
                               _bits(hk.xla_tree_sum_plain(x[i])))
+
+
+# -- the fan-in's warp tiles and the domain sum's short rows ----------------
+#
+# On the card the fan-in's classes of up to 32 slots run as warp tasks of
+# 32 * g consecutive rows of one class, staged through a shared tile
+# (``csrc/xla_tree_sum.cu``, ``TileTask``); the domain sum's rows of up to
+# 32 values take a short-row kernel.  ``_tile_fan_in`` is that warp tiling
+# as numpy, lane by lane: the host's task table, the lanes' coalesced
+# loads into a tile of pitch ``db | 1`` (the slot of each value found by
+# the kernel's own carry rule), each lane's sum of its rows in index order
+# from +0.0, the plane's rounding, the write-back of ``t - x`` and the
+# lanes' stores.  It must give the plain version's and JAX's bits, on
+# ragged classes (rows not a multiple of 32), classes of every size up to
+# 32 (the unrolled 2, 4, 8, 16, 32 and the runtime ones, odd and even)
+# and config 4's span table.
+
+# ragged classes: (37, 3), (70, 5), (33, 17), (31, 31) and (65, 32) end
+# in a part-filled task; 6, 12 and 24 slots take the runtime body with an
+# even db (pitch db + 1), 3, 5, 17 and 31 with an odd one
+TILE_SPANS = ((4, 0), (50, 1), (37, 3), (70, 5), (33, 17), (31, 31),
+              (65, 32), (45, 6), (21, 12), (11, 24), (40, 2), (9, 4),
+              (300, 8), (5, 64), (2, 2048))
+_LANES = 32
+
+
+def _tile_groups(db):
+    """Groups of 32 rows a warp task of a class of db slots takes (the
+    source's ``tile_groups``): at least 16 values a lane."""
+    return 16 if db <= 1 else (1 if db >= 16 else -(-16 // db))
+
+
+def _tile_tasks(spans, d):
+    """The short classes' warp tasks in the host's table: by class, its
+    plane offset, variable offset, group and ``(plane row, first row,
+    rows)`` of each task ``t``: ``t // per_d``, ``(t % per_d) * group``."""
+    tasks = {}
+    off_e = off_v = 0
+    for c, (nb, db) in enumerate(spans):
+        if db <= _LANES:
+            group = _LANES * _tile_groups(db)
+            per_d = -(-nb // group)
+            tasks[c] = (off_e, off_v, group, [
+                (t // per_d, (t % per_d) * group,
+                 min(group, nb - (t % per_d) * group))
+                for t in range(d * per_d)
+            ])
+        off_e += nb * db
+        off_v += nb
+    return tasks
+
+
+def _round_plane(x, plane_dtype):
+    """A float32 total as the plane's type rounds it (bf16: once)."""
+    if plane_dtype == torch.bfloat16:
+        return torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+    return x
+
+
+def _tile_fan_in(spans, unary_t, f2v_t):
+    """``ell_fan_in`` with its short classes as the card's warp tiles, in
+    numpy, vectorised over a class's tasks ([T, 32]: a task's lanes); the
+    classes over 32 slots (the kernel's row paths) are the plain
+    version's.  Every output the tiles own starts as NaN."""
+    d = f2v_t.shape[0]
+    plane = f2v_t.float().numpy()
+    u = unary_t.numpy()
+    tot_plain, v2f_plain = hk.ell_fan_in_plain(spans, unary_t, f2v_t)
+    tot, v2f = tot_plain.numpy().copy(), v2f_plain.numpy().copy()
+    lane = np.arange(_LANES)[None, :]
+    for c, (off_e, off_v, group, tasks) in _tile_tasks(spans, d).items():
+        nb, db = spans[c]
+        tot[:, off_v:off_v + nb] = np.nan
+        v2f[:, off_e:off_e + nb * db] = np.nan
+        dd, j0, rows = (np.array(col)[:, None] for col in zip(*tasks))
+        dd = np.broadcast_to(dd, (len(tasks), _LANES))
+
+        def put(out, at, value, live):
+            out[dd[live], at[live]] = value[live]
+
+        def u_at(row):  # the lanes' unary entries, 0.0 where masked
+            live = row < rows
+            return live, np.where(
+                live, u[dd, off_v + j0 + np.minimum(row, rows - 1)],
+                np.float32(0.0))
+
+        if db <= 1:  # copy u, or a 1-slot row: its value, no tile
+            for q in range(group // _LANES):
+                row = lane + q * _LANES
+                live, uv = u_at(row)
+                if db == 0:
+                    put(tot, off_v + j0 + row, uv, live)
+                    continue
+                x = plane[dd, off_e + j0 + np.minimum(row, rows - 1)]
+                t = (x + uv).astype(np.float32)
+                put(tot, off_v + j0 + row, t, live)
+                put(v2f, off_e + j0 + row, (t - x).astype(np.float32), live)
+            continue
+        pitch = db | 1
+        n = rows * db  # values of each task
+        base = off_e + j0 * db
+        dr, di = _LANES // db, _LANES % db
+        tile = np.full((len(tasks), group * pitch), np.nan, np.float32)
+        tix = np.arange(len(tasks))[:, None]
+        # the lanes' loads, value e = lane + 32 k to row e // db, slot
+        # e % db, found by the kernel's carry rule
+        r, i = lane // db, lane % db
+        slots = []
+        for k in range(_tile_groups(db) * db):
+            e = lane + k * _LANES
+            at = np.broadcast_to(r * pitch + i, (len(tasks), _LANES))
+            tile[tix, at] = np.where(
+                e < n, plane[dd, base + np.minimum(e, n - 1)],
+                np.float32(0.0))
+            slots.append((e, at))
+            r, i = r + dr, i + di
+            r, i = np.where(i >= db, r + 1, r), np.where(i >= db, i - db, i)
+        # each lane sums its rows from +0.0 in index order
+        for q in range(_tile_groups(db)):
+            row = lane + q * _LANES
+            live, uv = u_at(row)
+            cols = np.minimum(row, group - 1) * pitch
+            acc = np.zeros((len(tasks), _LANES), np.float32)
+            for k in range(db):
+                acc = (acc + tile[tix, cols + k]).astype(np.float32)
+            t = (_round_plane(acc, f2v_t.dtype) + uv).astype(np.float32)
+            put(tot, off_v + j0 + row, t, live)
+            for k in range(db):
+                x = tile[tix, cols + k]
+                tile[tix, cols + k] = np.where(
+                    live, (t - x).astype(np.float32), x)
+        # the lanes' stores of the range
+        for e, at in slots:
+            put(v2f, base + e, tile[tix, at], e < n)
+    return torch.as_tensor(tot), torch.as_tensor(v2f)
+
+
+def _at_offset(t, offset):
+    """``t``'s values in fresh contiguous storage that starts ``offset``
+    elements in (an odd offset: no 8- or 16-byte aligned row)."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _config4_ell():
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_coloring_arrays,
+    )
+
+    c = generate_coloring_arrays(100_000, 3, graph="scalefree", m_edge=2,
+                                 seed=7)
+    return c, tk.build_ell(c)
+
+
+@pytest.mark.parametrize("d", [1, 3, 17])
+def test_tile_tasks_cover_each_short_row_once(d):
+    for spans in (TILE_SPANS, FAN_IN_SPANS, ((1, 1), (33, 2), (1, 32))):
+        tasks = _tile_tasks(spans, d)
+        short = [c for c, (_, db) in enumerate(spans) if db <= _LANES]
+        assert sorted(tasks) == short
+        for c, (_, _, group, class_tasks) in tasks.items():
+            nb, db = spans[c]
+            assert group % _LANES == 0 and group // _LANES * max(db, 1) >= 16
+            seen = [(dd, j0 + r) for dd, j0, rows in class_tasks
+                    for r in range(rows)]
+            assert sorted(seen) == [(dd, j) for dd in range(d)
+                                    for j in range(nb)]
+            # a task's rows are one contiguous range of the plane
+            assert all(0 < rows <= group for _, _, rows in class_tasks)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1, 3, 17])
+def test_tile_model_equals_plain(dtype, d):
+    u, f2v_t = _fan_in_inputs(d, dtype, seed=d, spans=TILE_SPANS)
+    f2v_t[:, :9] = -0.0  # the 1-slot class's rows: t - x of a -0.0
+    tot, v2f = _tile_fan_in(TILE_SPANS, u, f2v_t)
+    want_tot, want_v2f = hk.ell_fan_in_plain(TILE_SPANS, u, f2v_t)
+    assert np.array_equal(_bits(tot), _bits(want_tot))
+    assert np.array_equal(_bits(v2f), _bits(want_v2f))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_model_equals_jitted_jax(dtype):
+    u, f2v_t = _fan_in_inputs(3, dtype, seed=11, spans=TILE_SPANS)
+    want_tot, want_v2f = _jax_fan_in(TILE_SPANS, u, f2v_t)
+    tot, v2f = _tile_fan_in(TILE_SPANS, u, f2v_t)
+    assert np.array_equal(_bits(tot), _bits(want_tot))
+    assert np.array_equal(_bits(v2f), _bits(want_v2f))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_tile_model_on_config4_equals_plain_and_jitted_jax_step(
+        precision, monkeypatch):
+    # config 4's span table (classes 2..32 hold 89.6% of its slots): the
+    # model against the plain fan-in, then in the port's ELL variable step
+    # against the JAX package's jitted one
+    jax, jnp, jk = _jax()
+    c, ell = _config4_ell()
+    assert ell.spans[:5] == ((49911, 2), (29990, 4), (13430, 8), (4708, 16),
+                             (1432, 32))
+    rng = np.random.default_rng(4)
+    unary_t = np.asarray(c.unary)[ell.var_perm].T.astype(np.float32).copy()
+    f2v = np.where(ell.real_row, rng.normal(size=(3, ell.n_pad)), 0.0)
+    f2v = f2v.astype(np.float32)
+    prev = np.where(ell.real_row, rng.normal(size=(3, ell.n_pad)), 0.0)
+    plane = jnp.bfloat16 if precision == "bf16" else jnp.float32
+    f2v_j = jnp.asarray(f2v).astype(plane)
+    prev_j = jnp.asarray(prev.astype(np.float32)).astype(plane)
+    f2v_t = torch.as_tensor(np.asarray(f2v_j.astype(jnp.float32)))
+    prev_t = torch.as_tensor(np.asarray(prev_j.astype(jnp.float32)))
+    if precision == "bf16":
+        f2v_t, prev_t = f2v_t.to(torch.bfloat16), prev_t.to(torch.bfloat16)
+    u_t = torch.as_tensor(unary_t)
+    tot, v2f = _tile_fan_in(ell.spans, u_t, f2v_t)
+    want_tot, want_v2f = hk.ell_fan_in_plain(ell.spans, u_t, f2v_t)
+    assert np.array_equal(_bits(tot), _bits(want_tot))
+    assert np.array_equal(_bits(v2f), _bits(want_v2f))
+    args = [ell.valid_ell_t, ell.edge_valid_t, ell.dsize_edges,
+            ell.pos_of_var, ell.real_row]
+    want_v2f, want_vals = jax.jit(
+        lambda u, f, p, *a: jk.variable_step_with_select_ell(
+            ell.spans, u, *a[:2], a[2], a[3], a[4], f, damping=0.5,
+            prev_v2f_t=p,
+        )
+    )(jnp.asarray(unary_t), f2v_j, prev_j, *[jnp.asarray(a) for a in args])
+    monkeypatch.setattr(tk, "ell_fan_in", _tile_fan_in)
+    got_v2f, got_vals = tk.variable_step_with_select_ell(
+        ell.spans, u_t, *[torch.as_tensor(a) for a in args], f2v_t,
+        damping=0.5, prev_v2f_t=prev_t,
+    )
+    assert np.array_equal(got_vals.numpy(), np.asarray(want_vals))
+    assert np.array_equal(_bits(got_v2f.float()), _bits(want_v2f))
+
+
+@pytest.mark.parametrize("d", [2, 5, 16, 17, 32])
+def test_domain_sum_short_rows_equal_jitted_jax(d):
+    # the short-row kernel's sums: ((0 + x0) + x1) + ..., rows of an odd
+    # count read in place, and a batch of three instances
+    jax, jnp, _ = _jax()
+    rng = np.random.default_rng(100 + d)
+    x = _costs(rng, (3, d, 3001))
+    x[:, 0, :5] = -0.0
+    want = jax.jit(jax.vmap(lambda a: jnp.sum(a, axis=0, keepdims=True)))(
+        jnp.asarray(x))
+    for i in range(3):
+        got = tk.domain_sum(torch.as_tensor(x[i]), 0)
+        assert np.array_equal(_bits(got), _bits(want[i]))
+    got = hk.xla_tree_sum_batched(torch.as_tensor(x).movedim(1, -1))
+    assert np.array_equal(_bits(got), _bits(want[:, 0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [1, 3, 17])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_fan_in_tiles_kernel_equals_plain_on_card(dtype, d, offset):
+    # ragged short classes, 0 and 1 slot, runtime sizes; at an odd
+    # offset no plane row is 8-byte aligned
+    _card()
+    u, f2v_t = _fan_in_inputs(d, dtype, seed=d, spans=TILE_SPANS)
+    u_c, f2v_c = _at_offset(u.cuda(), offset), _at_offset(f2v_t.cuda(), offset)
+    for _ in range(2):  # the second launch finds its tickets at zero
+        (tot, v2f), n = _launches_of(
+            lambda: hk.ell_fan_in(TILE_SPANS, u_c, f2v_c))
+        assert n == 1
+        want_tot, want_v2f = hk.ell_fan_in_plain(TILE_SPANS, u, f2v_t)
+        assert np.array_equal(_bits(tot.cpu()), _bits(want_tot))
+        assert np.array_equal(_bits(v2f.cpu()), _bits(want_v2f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_fan_in_config4_kernel_equals_plain_on_card(dtype):
+    _card()
+    _, ell = _config4_ell()
+    g = torch.Generator().manual_seed(4)
+    f2v_t = torch.randn((3, ell.n_pad), generator=g).to(getattr(torch, dtype))
+    u = torch.rand((3, len(ell.var_perm)), generator=g) * 10
+    (tot, v2f), n = _launches_of(
+        lambda: hk.ell_fan_in(ell.spans, u.cuda(), f2v_t.cuda()))
+    assert n == 1
+    want_tot, want_v2f = hk.ell_fan_in_plain(ell.spans, u, f2v_t)
+    assert np.array_equal(_bits(tot.cpu()), _bits(want_tot))
+    assert np.array_equal(_bits(v2f.cpu()), _bits(want_v2f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_fan_in_tiles_batched_kernel_equals_plain_on_card(dtype, k):
+    _card()
+    parts = [_fan_in_inputs(3, dtype, seed=i, spans=TILE_SPANS)
+             for i in range(k)]
+    u = torch.stack([p[0] for p in parts])
+    f2v = torch.stack([p[1] for p in parts])
+    (tot, v2f), n = _batched_launches_of(
+        lambda: hk.ell_fan_in_batched(TILE_SPANS, u.cuda(), f2v.cuda()))
+    assert n == (1, 1)
+    for i in range(k):
+        want_tot, want_v2f = hk.ell_fan_in_plain(TILE_SPANS, u[i], f2v[i])
+        assert np.array_equal(_bits(tot[i].cpu()), _bits(want_tot))
+        assert np.array_equal(_bits(v2f[i].cpu()), _bits(want_v2f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [3001, 4098])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 16, 17, 32, 33])
+def test_domain_sum_short_rows_kernel_equals_plain_on_card(d, n, offset):
+    # n odd or 2 mod 4: plane rows of every alignment and a scalar tail
+    _card()
+    x = torch.as_tensor(_costs(np.random.default_rng(d * n), (d, n)))
+    x[0, :3] = -0.0
+    x_c = _at_offset(x.cuda(), offset)
+    got, launches = _launches_of(lambda: tk.domain_sum(x_c, 0))
+    assert launches == 1
+    assert np.array_equal(_bits(got.cpu()), _bits(tk.domain_sum(x, 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 17])
+@pytest.mark.parametrize("k", [1, 3, 32])
+def test_domain_sum_short_rows_batched_kernel_equals_plain_on_card(k, d):
+    # [K, D, n] read in place: the instance on the grid's y axis
+    _card()
+    x = torch.as_tensor(_costs(np.random.default_rng(k * d), (k, d, 1003)))
+    got, launches = _batched_launches_of(
+        lambda: hk.xla_tree_sum_batched(x.cuda().movedim(1, -1)))
+    assert launches == (1, 1)
+    for i in range(k):
+        want = hk.xla_tree_sum_plain(x[i].movedim(0, -1))
+        assert np.array_equal(_bits(got[i].cpu()), _bits(want))
