@@ -695,6 +695,27 @@ def evaluate_bytes_ops(args):
     return nbytes, n_vars + sum(vs.shape[0] for _, vs in buckets)
 
 
+def evaluate_parts(args):
+    """``evaluate``'s operands cut to its two parts: the unary entries
+    alone (no bucket), and the buckets alone behind a one-variable unary
+    segment: the first row of the unary and a one-element view of the
+    assignment, whose storage the kernel reads whole through the buckets'
+    slots (neither build bounds a slot by the view).  Each with its
+    (bytes, ops): the buckets' bytes count the whole assignment."""
+    unary, values, buckets, constant = args
+    n_vars = values.numel()
+    unary_only = [unary, values, [], constant]
+    buckets_only = [unary[:1], values[:1], buckets, constant]
+    whole_bytes, whole_ops = evaluate_bytes_ops(args)
+    unary_bytes, unary_ops = evaluate_bytes_ops(unary_only)
+    bucket_bytes = whole_bytes - unary_bytes + n_vars * values.element_size()
+    return {
+        "unary_only": (unary_only, (unary_bytes, unary_ops)),
+        "buckets_only": (buckets_only, (bucket_bytes + 4,
+                                        whole_ops - unary_ops)),
+    }
+
+
 def fan_in_inputs(spans, n_pad, d, device, seed=0, dtype="float32"):
     """[f2v_t, unary_t, spans]: a random [D, n_pad] factor->variable plane
     and [D, V] unary plane of an ELL layout's degree classes."""
@@ -1101,10 +1122,11 @@ def _tree_sum_row(c4, c6, c7):
     6 and 7.  Each site must be one launch a call.  Timed: config 4's
     constraint total (199,996 values, evaluate's largest sum) beside
     ``torch.sum``, the one PyTorch call that sums the same values (in
-    another order), and config 4's evaluate, fan-in (float32 and bf16
-    planes) and domain sum, each beside its plain version, its bound and
-    its kernel's registers and spills.  Returns the row and, by launch
-    entry, the config-4 operand sets the fan-in and the domain sum were
+    another order), and config 4's evaluate (whole, and its unary and
+    bucket parts alone), fan-in (float32 and bf16 planes) and domain sum,
+    each beside its plain version, its bound and its kernel's registers
+    and spills; evaluate at config 6 too.  Returns the row and, by launch
+    entry, the operand sets evaluate, the fan-in and the domain sum were
     timed on (``phase_against``)."""
     import torch
 
@@ -1129,12 +1151,17 @@ def _tree_sum_row(c4, c6, c7):
     checked, max_err = _check_equal(
         "xla_tree_sum", hk.xla_tree_sum, hk.xla_tree_sum_plain, operands
     )
+    evaluate_ops = {
+        name: functools.partial(evaluate_inputs, c, "cuda", 7)
+        for name, c in (("config4", c4), ("config6", c6), ("config7", c7))
+    }
+    # the kernel's other instantiation: an int64 assignment
+    evaluate_ops["config4_int64"] = lambda: [
+        a.long() if i == 1 else a
+        for i, a in enumerate(evaluate_inputs(c4, "cuda", 8))
+    ]
     sites = {
-        "evaluate": (hk.tree_evaluate, hk.tree_evaluate_plain, {
-            name: functools.partial(evaluate_inputs, c, "cuda", 7)
-            for name, c in (("config4", c4), ("config6", c6),
-                            ("config7", c7))
-        }),
+        "evaluate": (hk.tree_evaluate, hk.tree_evaluate_plain, evaluate_ops),
         "ell_fan_in": (_fan_in_call, _fan_in_plain, {
             f"{name}_{dtype}": functools.partial(
                 fan_in_inputs, ell.spans, ell.n_pad, 3, "cuda", 3, dtype
@@ -1187,7 +1214,7 @@ def _tree_sum_row(c4, c6, c7):
     # each site's kernel instantiation, as ptxas reported it
     usage = _build.resource_usage(_build.library_path("xla_tree_sum"))
     site_kernels = {
-        "evaluate": "tree_sum_kernel<EvalSite>",
+        "evaluate": "evaluate_kernel<int>",
         "fan_in": "tree_sum_kernel<FanSite<float>>",
         "fan_in_bf16": "tree_sum_kernel<FanSite<__nv_bfloat16>>",
         "domain_sum": "short_rows_kernel<3>",
@@ -1227,6 +1254,26 @@ def _tree_sum_row(c4, c6, c7):
             "ms": time_cuda_ms(_fan_in_call, part_sets),
             "bound_ms": _bound(*fan_in_bytes_ops(part_sets[0]))[0],
         }
+    # where evaluate's time goes: its unary entries alone and its buckets
+    # alone (evaluate_parts), each one launch
+    evaluate_sets = {}
+    for part in ("unary_only", "buckets_only"):
+        cut = [evaluate_parts(a)[part] for a in timed["evaluate"][3]]
+        evaluate_sets[part] = [ops for ops, _ in cut]
+        extra["evaluate_config4"][part] = {
+            "ms": time_cuda_ms(hk.tree_evaluate, evaluate_sets[part]),
+            "bound_ms": _bound(*cut[0][1])[0],
+        }
+    # evaluate at config 6 (1,000,000 variables), four operand sets
+    evaluate_sets["config6"] = [evaluate_inputs(c6, "cuda", s)
+                                for s in range(4)]
+    c6_bytes, c6_ops = evaluate_bytes_ops(evaluate_sets["config6"][0])
+    c6_ms = time_cuda_ms(hk.tree_evaluate, evaluate_sets["config6"])
+    extra["evaluate_config6"] = {
+        "ms": c6_ms, "bound_ms": _bound(c6_bytes, c6_ops)[0],
+        "bound_share": _bound(c6_bytes, c6_ops)[0] / c6_ms,
+        "bound_bytes": c6_bytes,
+    }
     row = _kernel_row(
         "xla_tree_sum", "xla_tree_sum",
         "none: the port's own kernel (evaluate's totals in XLA-CPU's order)",
@@ -1234,6 +1281,10 @@ def _tree_sum_row(c4, c6, c7):
         n=n_total, launches_per_call=launches_per_call, **extra,
     )
     return row, {
+        "xla_tree_sum_evaluate": timed["evaluate"][3],
+        "xla_tree_sum_evaluate_unary": evaluate_sets["unary_only"],
+        "xla_tree_sum_evaluate_buckets": evaluate_sets["buckets_only"],
+        "xla_tree_sum_evaluate_config6": evaluate_sets["config6"],
         "xla_tree_sum_ell_fan_in": fan_sets["float32"],
         "xla_tree_sum_ell_fan_in_bf16": fan_sets["bfloat16"],
         "xla_tree_sum_rows": timed["domain_sum"][3],
@@ -1289,13 +1340,24 @@ def _launcher(library, name):
 
 
 def _tree_sum_launcher(lib, name):
-    """Another build's ``xla_tree_sum_ell_fan_in[_bf16]_launch`` (called
-    as ``_fan_in_call``) or ``xla_tree_sum_rows_launch`` (called as
+    """Another build's ``xla_tree_sum_evaluate[_batched]_launch`` (called
+    as ``tree_evaluate[_batched]``; the ``_unary`` and ``_buckets``
+    entries are the solo one on ``evaluate_parts``' operands),
+    ``xla_tree_sum_ell_fan_in[_bf16]_launch`` (called as
+    ``_fan_in_call``) or ``xla_tree_sum_rows_launch`` (called as
     ``_domain_sum_call``: the [D, n] plane summed over D in place),
     marshalled by the port's own wrappers; its launches are not
     counted."""
     from pydcop_tpu_torch.compile import hopper_kernels as hk
 
+    if name.startswith("xla_tree_sum_evaluate"):
+        launch = (hk._launch_evaluate_batched if name.endswith("_batched")
+                  else hk._launch_evaluate)
+
+        def call(unary, values, buckets, constant):
+            return launch(unary, values, buckets, constant, unary.device,
+                          library=lib)
+        return call
     if name == "xla_tree_sum_rows":
         def call(x):
             return hk._launch_rows(x.movedim(0, -1), x.device, False,
@@ -1315,8 +1377,9 @@ def _source(name):
 
 def phase_against(other: Path, timed_sets):
     """Another checkout's kernels (built from ``other``: the float32
-    min-plus kernels, the ``xla_tree_sum`` fan-in and domain-sum entries
-    and, where its source has one, ``branch_bound``) against this one's
+    min-plus kernels, the ``xla_tree_sum`` evaluate (solo, its parts and
+    batched), fan-in and domain-sum entries and, where its source has
+    one, ``branch_bound``) against this one's
     on the same operand sets: equal outputs, then times in turns,
     theirs, ours, ours, theirs."""
     from pydcop_tpu_torch.compile import _build
@@ -2585,7 +2648,9 @@ def _batched_row(name, wrapper, replaces, batched, solo, plain, sets,
 def batched_kernel_rows():
     """The batched variants at K=32 on SERVE_GRID's bucket: each equal to
     its plain version instance by instance and timed (``_batched_row``);
-    four operand sets of other random values."""
+    four operand sets of other random values.  Returns the rows and, by
+    launch entry, the operand sets ``evaluate``'s batch was timed on
+    (``phase_against``)."""
     import torch
 
     from pydcop_tpu_torch.compile import hopper_kernels as hk
@@ -2632,7 +2697,7 @@ def batched_kernel_rows():
         torch.func.vmap(kernel), kernel, plain,
         [[ops[0][0], torch.randn_like(ops[0][0])] for ops in sets],
         damp_bytes_ops, library=plain_form, plain_in_graph=False)
-    return rows
+    return rows, {"xla_tree_sum_evaluate_batched": [ops[1] for ops in sets]}
 
 
 def phase_serve_config8():
@@ -3682,7 +3747,9 @@ def main() -> int:
           "n_vars": c6.n_vars, "n_edges": c6.n_edges})
     breakout = breakout_problems()
     rows, timed_sets = phase_kernels(c4, c6, breakout["config7"])
-    rows.update(batched_kernel_rows())
+    batched_rows, batched_sets = batched_kernel_rows()
+    rows.update(batched_rows)
+    timed_sets.update(batched_sets)
     for other in args.against:
         phase_against(other.resolve(), timed_sets)
     del timed_sets

@@ -60,8 +60,12 @@ and the domain sum stream their planes and are bound by bytes: the
 fan-in's classes of up to 32 slots run as warp tiles (32 rows a warp,
 staged through shared memory, the plane read once and both planes
 written coalesced), the domain sum's rows of up to 32 values take a
-short-row kernel of vector loads; ``evaluate`` and one-row sums move a
-few MB at most, near the cost of their one launch.
+short-row kernel of vector loads; one-row sums move a few MB at most,
+near the cost of their one launch.  ``tree_evaluate`` is a kernel of its
+own, bound by its dependent gathers (slots, the assignment, the table
+entry) and the sectors they move: a block gathers and sums one level-2
+window of 1,024 costs, takes one ticket of its instance, and the block
+that draws the last one finishes every segment's sum and combines them.
 
 ``damp_fma`` (``csrc/damp_fma.cu``) is the port's own kernel too:
 MaxSum's float32 damping ``d * prev + (1 - d) * new`` as the one fused
@@ -893,10 +897,11 @@ def tree_evaluate(
 ) -> torch.Tensor:
     """``evaluate``'s total cost of an assignment, a 0-dim float32
     tensor.  On CPU tensors this is :func:`tree_evaluate_plain`; on CUDA
-    tensors it is one launch of ``csrc/xla_tree_sum.cu`` (counted in
-    ``xla_tree_sum.launches``) whose level 1 gathers each cost from the
-    assignment and whose last warp combines the totals.  Mapped over an
-    instance axis it is one launch for the K totals
+    tensors it is one launch of ``csrc/xla_tree_sum.cu``'s
+    ``evaluate_kernel`` (counted in ``xla_tree_sum.launches``), whose
+    blocks gather and sum 1,024 costs each and whose last block (one
+    ticket an instance) finishes the sums and combines the totals.
+    Mapped over an instance axis it is one launch for the K totals
     (``tree_evaluate_batched``)."""
     tables = [t for t, _ in buckets]
     var_slots = [vs for _, vs in buckets]
@@ -955,7 +960,9 @@ def tree_evaluate_batched(
     )
 
 
-def _launch_evaluate(unary, values, buckets, constant, device):
+def _launch_evaluate(unary, values, buckets, constant, device,
+                     library=None):
+    """The total (see ``_tree_launch`` for ``library``)."""
     n_vars, d = unary.shape
     if unary.dtype != torch.float32 or unary.stride(1) != 1:
         raise ValueError("unary must be float32 with unit-stride rows")
@@ -968,16 +975,15 @@ def _launch_evaluate(unary, values, buckets, constant, device):
         _check(var_slots, "var_slots", torch.int64, (n_c, a), device)
         desc += [tables.data_ptr(), var_slots.data_ptr(), n_c, a]
     segments = [(n_vars, 1)] + [(vs.shape[0], 1) for _, vs in buckets]
-    fn, scratch, tickets = _tree_launch(
-        "_evaluate", _EVALUATE_ARGS, device, segments,
-        extra_scratch=len(segments), extra_tickets=1,
-    )
+    fn, scratch, tickets = _evaluate_tree_launch(
+        "_evaluate", _EVALUATE_ARGS, device, segments, 1, library)
     out = unary.new_empty(())
     desc = (ctypes.c_longlong * max(len(desc), 1))(*desc)
     _run(fn, device, "tree_evaluate", values.data_ptr(),
          int(values.dtype == torch.int64), d, unary.data_ptr(),
          unary.stride(0), n_vars, len(buckets), desc, constant.data_ptr(),
-         out.data_ptr(), *_scratch_args(scratch, tickets))
+         out.data_ptr(), *_scratch_args(scratch, tickets),
+         count=library is None)
     return out
 
 
@@ -987,7 +993,21 @@ _EVALUATE_BATCHED_ARGS = (_P, ctypes.c_int, ctypes.c_int, _P, _LL, _LL, _LL,
                           _LL, ctypes.c_int, _P, _P, _P) + _SCRATCH + (_P,)
 
 
-def _launch_evaluate_batched(unary, values, buckets, constant, device):
+def _evaluate_tree_launch(name, argtypes, device, segments, k, library):
+    """``_tree_launch`` of an evaluate entry over K instances' segments.
+    Its scratch is the rows' tree needs and one total a segment, and its
+    tickets one a row over 1,024 values and one an instance: more than
+    ``evaluate_kernel`` takes (a partial a block, one ticket an instance),
+    as an earlier build of the source took it, so that ``--against`` can
+    run either build through this one marshalling."""
+    return _tree_launch(name, argtypes, device, segments,
+                        extra_scratch=k * len(segments), extra_tickets=k,
+                        library=library)
+
+
+def _launch_evaluate_batched(unary, values, buckets, constant, device,
+                             library=None):
+    """The K totals (see ``_tree_launch`` for ``library``)."""
     k, n_vars, d = unary.shape
     _check(unary, "unary", torch.float32, (k, n_vars, d), device)
     _check(values, "values", _VALUE_DTYPES, (k, n_vars), device)
@@ -1000,16 +1020,16 @@ def _launch_evaluate_batched(unary, values, buckets, constant, device):
         _check(var_slots, "var_slots", torch.int64, (k, n_c, a), device)
         desc += [tables.data_ptr(), var_slots.data_ptr(), n_c, a]
     segments = [(n_vars, k)] + [(vs.shape[1], k) for _, vs in buckets]
-    fn, scratch, tickets = _tree_launch(
-        "_evaluate_batched", _EVALUATE_BATCHED_ARGS, device, segments,
-        extra_scratch=k * len(segments), extra_tickets=k,
-    )
+    fn, scratch, tickets = _evaluate_tree_launch(
+        "_evaluate_batched", _EVALUATE_BATCHED_ARGS, device, segments, k,
+        library)
     out = unary.new_empty((k,))
     desc = (ctypes.c_longlong * max(len(desc), 1))(*desc)
     _run(fn, device, "tree_evaluate", values.data_ptr(),
          int(values.dtype == torch.int64), d, unary.data_ptr(), d,
          n_vars * d, n_vars, k, len(buckets), desc, constant.data_ptr(),
-         out.data_ptr(), *_scratch_args(scratch, tickets), batched=True)
+         out.data_ptr(), *_scratch_args(scratch, tickets), batched=True,
+         count=library is None)
     return out
 
 

@@ -29,7 +29,8 @@
 //   - xla_tree_sum_evaluate_launch: evaluate's total, the unary entry and
 //     each bucket's table entry gathered by level 1 from the assignment,
 //     then `unary + (0 + b0 + b1 + ...) + constant` as the JAX package
-//     combines them;
+//     combines them (a kernel of its own, below: one handoff an
+//     instance);
 //   - xla_tree_sum_ell_fan_in_launch: every degree class of MaxSum's ELL
 //     fan-in, `tot = sum(seg) + u` into the [D, V] plane and
 //     `v2f_raw = tot - seg` into the [D, n_pad] plane.
@@ -105,9 +106,10 @@
 // at the H100's 3.35 TB/s): bytes, and the launch.  The fan-in's classes
 // over 32 slots end on a dependent chain (a window's 32 adds, a ticket,
 // the tail), which starting them first hides behind the short classes'
-// streams.  `evaluate` and one-row sums gather or move a few MB at most,
-// near the cost of one launch; their design's target is one launch a
-// site, no slower than torch.sum.
+// streams.  One-row sums move a few MB at most, near the cost of one
+// launch; their design's target is one launch a site, no slower than
+// torch.sum.  `evaluate` is bound by its dependent gathers and the
+// sectors they move (its section below).
 //
 // Plain C interface (loaded with ctypes): each launch function returns
 // the first CUDA error of the launch (cudaGetLastError() after it), 0 on
@@ -427,112 +429,411 @@ struct RowsSite {
   }
 };
 
-// --- evaluate: the unary total and each bucket's, gathered, combined -----
+// --- evaluate: a kernel of its own ---------------------------------------
 //
-// A batch of n_inst assignments of one shape (the serving layer's K
-// tenants) is one launch: each segment has a row an instance, every
-// operand a leading instance axis, and each instance's totals combine on
-// their own, by the thread that finishes the instance's last segment.
+// evaluate's total of each of n_inst instances (one, or the serving
+// layer's K tenants of one shape): the unary entry of every variable under
+// the assignment and each bucket's table entry of every constraint, each
+// segment of values summed in XLA's order, then `unary + (0 + b0 + b1 +
+// ...) + constant`.  What bounds it: a bucket's value takes three
+// dependent loads (its slots, the assignment's values, the table entry),
+// and the card moves whole 32-byte sectors, so a gathered entry of a
+// table of 36-byte rows (D = 3, binary) reads every sector of the table:
+// config 4 moves ~12 MB (3.6 us at 3.35 TB/s) where the entries alone
+// are 4.8 MB (1.43 us).  Its design:
+//   - The grid is (blocks of an instance, instances).  A block is one
+//     window of level 2 of one segment (32 level-1 windows, 1,024 inputs
+//     with the levels' offsets), or a whole segment of up to 1,024 values
+//     (its sum is then the segment's total).  The block finds its segment
+//     by counting the segments' first blocks at or before it: 16 compares
+//     of 32-bit kernel parameters, no search and no divide.
+//   - Gathers issued together: a thread gathers 4 values (input l of each
+//     of its warp's 4 level-1 windows, so a warp's loads are coalesced),
+//     each step's 4 loads in flight at once: the slots (arity 2: one
+//     16-byte load, arity 4: two), then the assignment's values (400 KB
+//     at config 4: they stay in L2), then the table entries.  The value
+//     type (int32 or int64) is a template parameter, the arity 1..4
+//     compiled unrolled (another arity a runtime loop).  Issuing the
+//     table's sectors ahead of the values (an L2 prefetch, or the rows
+//     copied into shared memory by cp.async) made the launch slower on
+//     the card: it moves the same sectors with more instructions.
+//   - Every warp reduces: a warp stores its 4 windows into rows of the
+//     block's shared tile, and lane q of the warp sums its window q across
+//     the row in index order (32 loads, then 32 adds, unrolled); thread 0
+//     then adds the 32 window sums in order (unrolled).
+//   - One handoff an instance: each block writes its partial and takes
+//     one ticket of its instance (no ticket a row) with one atomic that
+//     releases the partial and acquires the others' (take_ticket).  The block
+//     that draws the instance's last ticket finishes every segment, a
+//     warp a segment in parallel: at most 1,024 partials (config 4: 98 and
+//     196) take one level of windows, lane w loading window w's 32 values
+//     unrolled, all in flight together, then the final reduce of the
+//     lanes' sums in order (32 shuffles and adds, unrolled); more than
+//     1,024 partials (config 6's 1,954) take levels of windows in a loop
+//     first, through the segment's room in the scratch.  One thread then
+//     combines the segments' totals as the JAX package does (the constant
+//     loaded before its ticket) and resets the ticket to 0 for the next
+//     launch or graph replay.
+//   - 32-bit arithmetic for every index inside an instance; the table and
+//     slot rows' offsets widen once.
 
-struct EvalSite;
+constexpr int kEvalSegs = kMaxBuckets + 1;
+constexpr int kPerLane = kW / kWarps;  // level-1 windows a warp stages
+constexpr int kUnrolledTail = kW * kW;  // partials the tail's one level takes
 
-// The unary entry of variable i of instance `inst`.
-struct UnaryRow {
-  const EvalSite* site;
-  int64_t inst;
-  __device__ float load(int64_t i) const;
+// A segment of values: the unary entries (arity 0) or a bucket's.
+struct EvalSeg {
+  int n;  // values
+  int lo1;  // level 1's front padding (0 up to 32 values: one window)
+  int k2;  // blocks: level-2 windows, 1 up to 1,024 values
+  int lo2;  // level 2's front padding (0 up to 1,024 values)
+  int block_begin;  // its first block in an instance's row of blocks
+  int part;  // its first partial in an instance's scratch
+  int room;  // its next level's room (over 1,024 partials only)
+  int arity;  // 0: the unary entries
+  int row;  // floats between two rows: D**arity (unary: its row stride)
+  int vec;  // arity 2 or 4 with 16-byte aligned slot rows
+  const float* table;  // instance 0's [n, row] table (or unary)
+  const long long* slots;  // instance 0's [n, arity] var_slots
+  long long table_inst, slots_inst;  // elements between two instances
 };
 
-// Constraint i's table entry under instance `inst`'s assignment: its
-// slots' values as a flat C-order index; arity kA, or any (kA = 0: the
-// bucket's own).
-template <int kA>
-struct BucketRow {
-  const EvalSite* site;
-  int b;
-  int64_t inst;
-  __device__ float load(int64_t i) const;
-};
-
-struct EvalSite {
-  static constexpr bool kTiled = false;
+struct EvalArgs {
   int n_segs;  // 1 + buckets
-  int64_t blocks, smem;
-  Seg segs[kMaxBuckets + 1];
-  float* scratch;  // the instances' totals, then the large rows' partials
-  unsigned* tickets;  // the large rows', then one an instance
-  const void* values;  // [n_inst, n_vars]
-  int values_i64;
-  int64_t n_vars;
   int d;
-  const float* unary;
-  int64_t unary_stride;  // between two variables' rows
-  int64_t unary_inst;  // between two instances
-  const float* tables[kMaxBuckets];  // [n_inst, n_c, D**a]
-  const long long* var_slots[kMaxBuckets];  // [n_inst, n_c, a]
-  int64_t table_len[kMaxBuckets];
-  int64_t n_c[kMaxBuckets];
-  int arity[kMaxBuckets];
+  int row_blocks;  // blocks of an instance
+  int part_stride;  // scratch floats of an instance
+  long long n_vars;  // the assignment's values between two instances
+  const void* values;  // [n_inst, n_vars] int32 or int64
   const float* constant;  // [n_inst]
   float* out;  // [n_inst]
-  float* totals;  // [n_inst, n_segs]
-  unsigned* site_tickets;  // [n_inst]
-
-  __device__ int64_t value(int64_t inst, int64_t v) const {
-    const int64_t k = inst * n_vars + v;
-    return values_i64 ? __ldg(static_cast<const long long*>(values) + k)
-                      : __ldg(static_cast<const int*>(values) + k);
-  }
-  // binary buckets (the common case) get a loader with its slot loop
-  // unrolled, so a thread's gathers are in flight together
-  template <class F>
-  __device__ void visit(int s, int64_t r, F&& f) const {
-    if (s == 0) {
-      f(UnaryRow{this, r});
-    } else if (arity[s - 1] == 2) {
-      f(BucketRow<2>{this, s - 1, r});
-    } else {
-      f(BucketRow<0>{this, s - 1, r});
-    }
-  }
-  // the segment's total; the thread that finishes an instance's last one
-  // combines them as the JAX package does,
-  // `unary + (0 + b0 + b1 + ...) + constant`
-  template <class Row>
-  __device__ void finish(int s, int64_t r, const Row&, float total,
-                         int lane) const {
-    if (lane != 0) return;
-    float* mine = totals + r * n_segs;
-    mine[s] = total;
-    __threadfence();
-    if (atomicAdd(site_tickets + r, 1u) !=
-        static_cast<unsigned>(n_segs - 1)) {
-      return;
-    }
-    __threadfence();
-    float cons = 0.0f;
-    for (int b = 1; b < n_segs; ++b) cons = __fadd_rn(cons, __ldcg(mine + b));
-    out[r] = __fadd_rn(__fadd_rn(__ldcg(mine), cons), __ldg(constant + r));
-    site_tickets[r] = 0u;
-  }
+  float* scratch;  // [n_inst, part_stride]
+  unsigned* tickets;  // [n_inst]
+  EvalSeg segs[kEvalSegs];
 };
 
-__device__ float UnaryRow::load(int64_t i) const {
-  return __ldg(site->unary + inst * site->unary_inst + i * site->unary_stride +
-               site->value(inst, i));
+// The unary entries of variables c[q] (0.0 outside [0, n)).
+template <typename V>
+__device__ __forceinline__ void gather_unary(const EvalSeg& g,
+                                             const V* values,
+                                             const float* unary,
+                                             const int (&c)[kPerLane],
+                                             float (&x)[kPerLane]) {
+  bool live[kPerLane];
+  V v[kPerLane];
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) {
+    live[q] = c[q] >= 0 && c[q] < g.n;
+    v[q] = live[q] ? __ldg(values + c[q]) : V(0);
+  }
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) {
+    x[q] = live[q] ? __ldg(unary + static_cast<long long>(c[q]) * g.row +
+                           static_cast<int>(v[q]))
+                   : 0.0f;
+  }
 }
 
-template <int kA>
-__device__ float BucketRow<kA>::load(int64_t i) const {
-  const int a = kA ? kA : site->arity[b];
-  const int64_t row = inst * site->n_c[b] + i;
-  const long long* vs = site->var_slots[b] + row * a;
-  int64_t flat = 0;
+// The table entries of constraints c[q] (0.0 outside [0, n)): arity kA,
+// or any (kA = 0) in a runtime loop.
+template <int kA, typename V>
+__device__ __forceinline__ void gather_bucket(const EvalSeg& g, int d,
+                                              const V* values,
+                                              const float* table,
+                                              const long long* slots,
+                                              const int (&c)[kPerLane],
+                                              float (&x)[kPerLane]) {
+  bool live[kPerLane];
+  const float* rows[kPerLane];
 #pragma unroll
-  for (int t = 0; t < (kA ? kA : a); ++t) {
-    flat = flat * site->d + site->value(inst, __ldg(vs + t));
+  for (int q = 0; q < kPerLane; ++q) {
+    live[q] = c[q] >= 0 && c[q] < g.n;
+    rows[q] = table + static_cast<long long>(live[q] ? c[q] : 0) * g.row;
   }
-  return __ldg(site->tables[b] + row * site->table_len[b] + flat);
+  if constexpr (kA == 0) {
+    const int a = g.arity;
+#pragma unroll
+    for (int q = 0; q < kPerLane; ++q) {
+      x[q] = 0.0f;
+      if (!live[q]) continue;
+      const long long* vs = slots + static_cast<long long>(c[q]) * a;
+      int flat = 0;
+      for (int t = 0; t < a; ++t) {
+        flat = flat * d + static_cast<int>(__ldg(values + __ldg(vs + t)));
+      }
+      x[q] = __ldg(rows[q] + flat);
+    }
+  } else {
+    long long s[kPerLane][kA];
+#pragma unroll
+    for (int q = 0; q < kPerLane; ++q) {
+      const long long* vs =
+          slots + static_cast<long long>(live[q] ? c[q] : 0) * kA;
+      if constexpr (kA % 2 == 0) {
+        if (g.vec) {
+#pragma unroll
+          for (int t = 0; t < kA; t += 2) {
+            const longlong2 p =
+                live[q] ? __ldg(reinterpret_cast<const longlong2*>(vs + t))
+                        : make_longlong2(0, 0);
+            s[q][t] = p.x;
+            s[q][t + 1] = p.y;
+          }
+          continue;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kA; ++t) s[q][t] = live[q] ? __ldg(vs + t) : 0;
+    }
+    int v[kPerLane][kA];
+#pragma unroll
+    for (int q = 0; q < kPerLane; ++q) {
+#pragma unroll
+      for (int t = 0; t < kA; ++t) {
+        v[q][t] = live[q] ? static_cast<int>(__ldg(values + s[q][t])) : 0;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPerLane; ++q) {
+      int flat = v[q][0];
+#pragma unroll
+      for (int t = 1; t < kA; ++t) flat = flat * d + v[q][t];
+      x[q] = live[q] ? __ldg(rows[q] + flat) : 0.0f;
+    }
+  }
+}
+
+// The sum of window values c0 .. c0 + 31 of src (0.0 outside [0, m)) in
+// index order from +0.0, its 32 loads in flight together.
+__device__ __forceinline__ float window_sum(const float* src, int m, int c0) {
+  float v[kW];
+#pragma unroll
+  for (int i = 0; i < kW; ++i) {
+    const int c = c0 + i;
+    v[i] = c >= 0 && c < m ? __ldcg(src + c) : 0.0f;
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kW; ++i) acc = __fadd_rn(acc, v[i]);
+  return acc;
+}
+
+// The final reduce: the 32 lanes' values in lane order from +0.0, in every
+// lane (a lane past the values holds +0.0, which adds nothing to a sum
+// from +0.0).
+__device__ __forceinline__ float lanes_in_order(float v) {
+  float total = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kW; ++i) {
+    total = __fadd_rn(total, __shfl_sync(kFull, v, i));
+  }
+  return total;
+}
+
+// A segment's total from its m level-2 partials at part (m = 1: the
+// partial is the total), in every lane of the warp.
+__device__ float upper_levels(float* part, int m, float* room, int lane) {
+  if (m == 1) return __ldcg(part);
+  float* src = part;
+  float* dst = room;
+  while (m > kUnrolledTail) {  // levels of windows, lane w takes w, w + 32..
+    const int k = static_cast<int>(cdiv(m, kW));
+    const int lo = (k * kW - m) / 2;
+    for (int w = lane; w < k; w += kW) dst[w] = window_sum(src, m, w * kW - lo);
+    __threadfence();
+    __syncwarp();
+    float* t = src;
+    src = dst;
+    dst = t;
+    m = k;
+  }
+  float v;
+  if (m > kW) {  // one level, lane w window w, then the final reduce
+    const int k = static_cast<int>(cdiv(m, kW));
+    v = lane < k ? window_sum(src, m, lane * kW - (k * kW - m) / 2) : 0.0f;
+  } else {
+    v = lane < m ? __ldcg(src + lane) : 0.0f;
+  }
+  return lanes_in_order(v);
+}
+
+// A ticket of an instance: one atomic add, acquire and release at the
+// card's scope.  It releases this block's partial, written before it,
+// and each earlier block's add heads a release sequence that the later
+// adds on the counter continue, so the block that draws the last ticket
+// acquires every partial; its threads read them after a __syncthreads.
+// (On an H100, a __threadfence before the add and another after it took
+// 0.4 us more a launch at config 4.)
+__device__ __forceinline__ unsigned take_ticket(unsigned* ticket) {
+  unsigned drawn;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(drawn)
+               : "l"(ticket)
+               : "memory");
+  return drawn;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+    evaluate_kernel(const __grid_constant__ EvalArgs a) {
+  __shared__ float tile[kW * kPitch];  // level-1 window jj in row jj
+  __shared__ float sums[kW];  // their sums
+  __shared__ float totals[kEvalSegs];
+  __shared__ int last;
+  const int x = blockIdx.x;
+  const int inst = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int s = 0;
+#pragma unroll
+  for (int t = 1; t < kEvalSegs; ++t) {
+    s += t < a.n_segs && a.segs[t].block_begin <= x;
+  }
+  const EvalSeg& g = a.segs[s];
+  const int w2 = x - g.block_begin;
+  // this warp's level-1 windows jj = 4 * warp + q: lane l takes input l
+  const int jj0 = warp * kPerLane;
+  int c[kPerLane];
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) {
+    c[q] = (w2 * kW - g.lo2 + jj0 + q) * kW - g.lo1 + lane;
+  }
+  const V* values = static_cast<const V*>(a.values) + inst * a.n_vars;
+  const float* table = g.table + inst * g.table_inst;
+  const long long* slots = g.slots + inst * g.slots_inst;
+  float v[kPerLane];
+  switch (g.arity) {
+    case 0: gather_unary<V>(g, values, table, c, v); break;
+    case 1: gather_bucket<1, V>(g, a.d, values, table, slots, c, v); break;
+    case 2: gather_bucket<2, V>(g, a.d, values, table, slots, c, v); break;
+    case 3: gather_bucket<3, V>(g, a.d, values, table, slots, c, v); break;
+    case 4: gather_bucket<4, V>(g, a.d, values, table, slots, c, v); break;
+    default: gather_bucket<0, V>(g, a.d, values, table, slots, c, v); break;
+  }
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) tile[(jj0 + q) * kPitch + lane] = v[q];
+  __syncwarp();
+  if (lane < kPerLane) {  // lane q: window jj0 + q in index order
+    const float* row = tile + (jj0 + lane) * kPitch;
+    float r[kW];
+#pragma unroll
+    for (int i = 0; i < kW; ++i) r[i] = row[i];
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) acc = __fadd_rn(acc, r[i]);
+    sums[jj0 + lane] = acc;
+  }
+  __syncthreads();
+  float* part = a.scratch + static_cast<long long>(inst) * a.part_stride;
+  float constant = 0.0f;
+  if (threadIdx.x == 0) {
+    constant = __ldg(a.constant + inst);  // in flight through the handoff
+    float r[kW];
+#pragma unroll
+    for (int i = 0; i < kW; ++i) r[i] = sums[i];
+    float p = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) p = __fadd_rn(p, r[i]);
+    // a one-value segment's total is the value itself (input 0 is lane 0
+    // of window 0: -0.0 stays -0.0)
+    if (g.n == 1) p = tile[0];
+    part[g.part + w2] = p;
+    last = take_ticket(a.tickets + inst) ==
+           static_cast<unsigned>(a.row_blocks - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int t = warp; t < a.n_segs; t += kWarps) {
+    const EvalSeg& h = a.segs[t];
+    const float total = upper_levels(part + h.part, h.k2, part + h.room, lane);
+    if (lane == 0) totals[t] = total;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float cons = 0.0f;
+    for (int b = 1; b < a.n_segs; ++b) cons = __fadd_rn(cons, totals[b]);
+    a.out[inst] = __fadd_rn(__fadd_rn(totals[0], cons), constant);
+    a.tickets[inst] = 0u;  // every block of the instance has drawn
+  }
+}
+
+// Lays out segment g of n values from block *blocks and partial *parts
+// on; false if n is too large for 32-bit indices.
+bool eval_segment(EvalSeg& g, long long n, int* blocks, long long* parts) {
+  if (n < 0 || n > 0x7fffffffLL - 2 * kW * kW) return false;
+  const long long k1 = cdiv(n, kW);
+  const long long k2 = cdiv(k1, kW);
+  g.n = static_cast<int>(n);
+  g.lo1 = n <= kW ? 0 : static_cast<int>((k1 * kW - n) / 2);
+  g.lo2 = k1 <= kW ? 0 : static_cast<int>((k2 * kW - k1) / 2);
+  g.k2 = k2 > 1 ? static_cast<int>(k2) : 1;  // n = 0: one block, +0.0
+  g.block_begin = *blocks;
+  g.part = static_cast<int>(*parts);
+  *parts += g.k2;
+  g.room = static_cast<int>(*parts);
+  if (g.k2 > kUnrolledTail) *parts += cdiv(g.k2, kW);
+  *blocks += g.k2;
+  return *blocks > 0 && *parts < 0x7fffffffLL;
+}
+
+int evaluate(const void* values, int values_i64, int d, const void* unary,
+             long long unary_stride, long long unary_inst, long long n_vars,
+             long long n_inst, int n_buckets, const long long* buckets,
+             const void* constant, void* out, void* scratch,
+             long long scratch_cap, void* tickets, long long ticket_cap,
+             void* stream) {
+  if (n_buckets < 0 || n_buckets > kMaxBuckets || n_inst < 1 ||
+      n_inst > 65535 || d < 1 || unary_stride < d ||
+      unary_stride > 0x7fffffff) {
+    return -1;
+  }
+  EvalArgs a{};
+  a.n_segs = 1 + n_buckets;
+  a.d = d;
+  a.n_vars = n_vars;
+  a.values = values;
+  a.constant = static_cast<const float*>(constant);
+  a.out = static_cast<float*>(out);
+  a.scratch = static_cast<float*>(scratch);
+  a.tickets = static_cast<unsigned*>(tickets);
+  int blocks = 0;
+  long long parts = 0;
+  EvalSeg& u = a.segs[0];
+  if (!eval_segment(u, n_vars, &blocks, &parts)) return -1;
+  u.row = static_cast<int>(unary_stride);
+  u.table = static_cast<const float*>(unary);
+  u.table_inst = unary_inst;
+  for (int b = 0; b < n_buckets; ++b) {
+    EvalSeg& g = a.segs[b + 1];
+    const long long n_c = buckets[4 * b + 2];
+    const long long arity = buckets[4 * b + 3];
+    long long len = 1;
+    for (long long t = 0; t < arity && len <= 0x7fffffff; ++t) len *= d;
+    if (arity < 1 || len > 0x7fffffff ||
+        !eval_segment(g, n_c, &blocks, &parts)) {
+      return -1;
+    }
+    g.arity = static_cast<int>(arity);
+    g.row = static_cast<int>(len);
+    g.table = reinterpret_cast<const float*>(buckets[4 * b]);
+    g.slots = reinterpret_cast<const long long*>(buckets[4 * b + 1]);
+    g.table_inst = n_c * len;
+    g.slots_inst = n_c * arity;
+    g.vec = arity % 2 == 0 && arity <= 4 &&
+            reinterpret_cast<uintptr_t>(g.slots) % 16 == 0;
+  }
+  a.row_blocks = blocks;
+  a.part_stride = static_cast<int>(parts);
+  if (parts * n_inst > scratch_cap || n_inst > ticket_cap) return -1;
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(n_inst));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (values_i64) {
+    evaluate_kernel<long long><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    evaluate_kernel<int><<<grid, kThreads, 0, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // --- the ELL fan-in: every degree class -----------------------------------
@@ -1015,60 +1316,13 @@ extern "C" int xla_tree_sum_rows_launch(
   return launch(site, stream);
 }
 
-namespace {
-
-int evaluate(const void* values, int values_i64, int d, const void* unary,
-             long long unary_stride, long long unary_inst, long long n_vars,
-             long long n_inst, int n_buckets, const long long* buckets,
-             const void* constant, void* out, void* scratch,
-             long long scratch_cap, void* tickets, long long ticket_cap,
-             void* stream) {
-  if (n_buckets < 0 || n_buckets > kMaxBuckets || n_inst < 1) return -1;
-  EvalSite site{};
-  site.n_segs = 1 + n_buckets;
-  site.segs[0].n = n_vars;
-  site.segs[0].rows = n_inst;
-  for (int b = 0; b < n_buckets; ++b) {
-    site.tables[b] = reinterpret_cast<const float*>(buckets[4 * b]);
-    site.var_slots[b] =
-        reinterpret_cast<const long long*>(buckets[4 * b + 1]);
-    site.n_c[b] = buckets[4 * b + 2];
-    site.segs[b + 1].n = buckets[4 * b + 2];
-    site.segs[b + 1].rows = n_inst;
-    site.arity[b] = static_cast<int>(buckets[4 * b + 3]);
-    int64_t len = 1;
-    for (int t = 0; t < site.arity[b]; ++t) len *= d;
-    site.table_len[b] = len;
-  }
-  int64_t need = n_inst * site.n_segs, n_tickets = 0, smem = 0;
-  site.blocks =
-      layout(site.segs, site.n_segs, false, &need, &n_tickets, &smem);
-  if (need > scratch_cap || n_tickets + n_inst > ticket_cap) return -1;
-  site.smem = smem;
-  site.scratch = static_cast<float*>(scratch);
-  site.totals = site.scratch;
-  site.tickets = static_cast<unsigned*>(tickets);
-  site.site_tickets = site.tickets + n_tickets;
-  site.values = values;
-  site.values_i64 = values_i64;
-  site.n_vars = n_vars;
-  site.d = d;
-  site.unary = static_cast<const float*>(unary);
-  site.unary_stride = unary_stride;
-  site.unary_inst = unary_inst;
-  site.constant = static_cast<const float*>(constant);
-  site.out = static_cast<float*>(out);
-  return launch(site, stream);
-}
-
-}  // namespace
-
 // *out = evaluate's total: the unary entries unary[v, values[v]] (rows
 // unary_stride apart), and per bucket b (buckets[4b .. 4b+3]: its [n_c,
 // D**a] tables, its [n_c, a] int64 var_slots, n_c, a) the entries
 // tables[c, flat(values[var_slots[c]])].  values: int32, or int64 when
-// values_i64.  Scratch: 1 + n_buckets totals, then the large rows';
-// tickets: the large rows', then one.
+// values_i64.  Scratch: a partial a block (a segment's level-2 windows,
+// at least one) and, for a segment of over 1,024 level-2 windows, room
+// for its next level; tickets: one.
 extern "C" int xla_tree_sum_evaluate_launch(
     const void* values, int values_i64, int d, const void* unary,
     long long unary_stride, long long n_vars, int n_buckets,
@@ -1084,8 +1338,7 @@ extern "C" int xla_tree_sum_evaluate_launch(
 // [n_inst, n_vars]; unary rows unary_stride apart, instances unary_inst
 // apart; each bucket's tables [n_inst, n_c, D**a] and var_slots [n_inst,
 // n_c, a] (instance-local variable ids); constant and out [n_inst].
-// Scratch: n_inst * (1 + n_buckets) totals, then the large rows'; tickets:
-// the large rows', then n_inst.
+// Scratch: n_inst times a solo launch's; tickets: n_inst.
 extern "C" int xla_tree_sum_evaluate_batched_launch(
     const void* values, int values_i64, int d, const void* unary,
     long long unary_stride, long long unary_inst, long long n_vars,

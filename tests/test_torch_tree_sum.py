@@ -21,6 +21,10 @@ the host's CPU, so the port keeps XLA's order for an unfused sum (the
 order of ``jnp.sum`` of those values), and the JAX comparisons below use
 sums outside that range; the composition test holds a 32-value bucket.
 
+``_tile_fan_in`` and ``_eval_model`` are the card's fan-in tiles and
+``evaluate`` kernel as numpy (which lane sums what, in which order),
+held to the same references on the CPU.
+
 The tests marked ``cuda`` hold each kernel to its plain version on the
 card and count its one launch; they skip without a card.  JAX is imported
 only by the tests that compare with it, so on the card this file runs
@@ -810,3 +814,371 @@ def test_domain_sum_short_rows_batched_kernel_equals_plain_on_card(k, d):
     for i in range(k):
         want = hk.xla_tree_sum_plain(x[i].movedim(0, -1))
         assert np.array_equal(_bits(got[i].cpu()), _bits(want))
+
+
+# -- evaluate's kernel: a level-2 window a block, one handoff an instance ----
+#
+# On the card ``tree_evaluate`` is ``evaluate_kernel`` (``csrc/
+# xla_tree_sum.cu``).  A block is one level-2 window of one segment (the
+# unary entries, or a bucket's table entries): warp w stages level-1
+# windows 4w .. 4w + 3 of it, lane l gathering input l of each; lane q of
+# warp w sums window 4w + q across the shared tile in index order from
+# +0.0, and thread 0 sums the 32 window sums in order into the block's
+# partial (a one-value segment's partial is its value).  Every block then
+# takes one ticket of its instance; the block that draws the last one
+# finishes each segment, a warp a segment (segments w, w + 8, ...): levels
+# of windows in a loop while over 1,024 partials are left, then one level
+# (lane w sums window w) or the partials themselves, then the lanes' sums
+# in lane order from +0.0; thread 0 combines the totals as
+# ``unary + (0 + b0 + b1 + ...) + constant``.  ``_eval_model`` is that
+# kernel as numpy (blocks in a random order, partials NaN until written),
+# held bit for bit to the plain version, to ``xla_tree_sum_plain`` segment
+# by segment (a one-value segment's -0.0 shows only there: the combine's
+# adds turn it into +0.0) and to the jitted JAX ``evaluate``.
+
+_WARPS = 8
+_PER_WARP = _LANES // _WARPS  # level-1 windows a warp stages
+_UNROLLED_TAIL = _LANES * _LANES  # partials the tail's one level takes
+
+
+def _eval_layout(n):
+    """``(k1, lo1, k2, lo2)`` of a segment of n values as the host lays it
+    out: level 1's windows and front padding (none up to 32 values, one
+    window), the blocks (level-2 windows; one up to 1,024 values, whose
+    sum is then the total; one for no value) and level 2's padding."""
+    k1 = -(-n // _LANES)
+    k2 = -(-k1 // _LANES)
+    lo1 = 0 if n <= _LANES else (k1 * _LANES - n) // 2
+    lo2 = 0 if k1 <= _LANES else (k2 * _LANES - k1) // 2
+    return k1, lo1, max(k2, 1), lo2
+
+
+def _seq(cols):
+    """Sums along the last axis in index order from +0.0 (float32)."""
+    acc = np.zeros(cols.shape[:-1], np.float32)
+    for i in range(cols.shape[-1]):
+        acc = (acc + cols[..., i]).astype(np.float32)
+    return acc
+
+
+def _eval_gather(unary, values, buckets):
+    """The segments' values as the kernel gathers them: the unary entry of
+    each variable, then each bucket's table entry at the flat index
+    ``((v0 * D + v1) * D + ...)`` of its slots' values (float32)."""
+    d = unary.shape[1]
+    vals = values.astype(np.int64)
+    segs = [unary[np.arange(len(vals)), vals]]
+    for tables, slots in buckets:
+        flat = vals[slots[:, 0]]
+        for t in range(1, slots.shape[1]):
+            flat = flat * d + vals[slots[:, t]]
+        segs.append(tables[np.arange(len(flat)), flat])
+    return [np.asarray(s, np.float32) for s in segs]
+
+
+def _eval_partials(x):
+    """The level-2 partial of each block of a segment's values: input
+    ``((w2 * 32 - lo2 + 4 * warp + q) * 32 - lo1 + lane`` (0.0 outside
+    [0, n)) at [block w2, warp, q, lane]; the window sums of lane q of each
+    warp, then thread 0's sum of them in window order."""
+    n = len(x)
+    _, lo1, k2, lo2 = _eval_layout(n)
+    w2, warp, q, lane = np.ix_(np.arange(k2), np.arange(_WARPS),
+                               np.arange(_PER_WARP), np.arange(_LANES))
+    c = ((w2 * _LANES - lo2 + warp * _PER_WARP + q) * _LANES - lo1 + lane)
+    live = (c >= 0) & (c < n)
+    tile = np.where(live, x[np.clip(c, 0, max(n - 1, 0))] if n else 0.0,
+                    np.float32(0.0)).astype(np.float32)
+    sums = _seq(tile)  # [k2, warp, q]: lane q of each warp
+    part = _seq(sums.reshape(k2, _LANES))  # thread 0, windows in order
+    if n == 1:  # input 0 is lane 0 of window 0
+        part = tile[:, 0, 0, 0]
+    return part
+
+
+def _windows(src):
+    """One level of windows of 32 over src with XLA's front padding."""
+    m = len(src)
+    k = -(-m // _LANES)
+    lo = (k * _LANES - m) // 2
+    padded = np.zeros(k * _LANES, np.float32)
+    padded[lo:lo + m] = src
+    return _seq(padded.reshape(k, _LANES))
+
+
+def _eval_upper(part):
+    """A segment's total from its partials, as one warp of the finishing
+    block computes it."""
+    if len(part) == 1:
+        return part[0]
+    src = part
+    while len(src) > _UNROLLED_TAIL:  # lane w takes windows w, w + 32, ...
+        src = _windows(src)
+    lanes = np.zeros(_LANES, np.float32)
+    w = _windows(src) if len(src) > _LANES else src
+    lanes[:len(w)] = w
+    return _seq(lanes)  # the lanes in order, every lane past them +0.0
+
+
+def _eval_model(unary, values, buckets, constant, seed=0):
+    """``(total, segment totals)`` of one instance (numpy operands) as
+    ``evaluate_kernel`` computes them, its blocks in a random order."""
+    segs = _eval_gather(unary, values, buckets)
+    written = [_eval_partials(x) for x in segs]  # each block's partial
+    parts = [np.full(len(p), np.nan, np.float32) for p in written]
+    blocks = [(s, w2) for s, p in enumerate(parts) for w2 in range(len(p))]
+    ticket, finisher = 0, None
+    for b in np.random.default_rng(seed).permutation(len(blocks)):
+        s, w2 = blocks[b]
+        parts[s][w2] = written[s][w2]
+        if ticket == len(blocks) - 1:  # the instance's last ticket
+            assert finisher is None
+            assert not any(np.isnan(p).any() for p in parts)
+            finisher = b
+        ticket += 1
+    assert finisher is not None
+    totals = [None] * len(segs)
+    for warp in range(_WARPS):
+        for t in range(warp, len(segs), _WARPS):
+            totals[t] = np.float32(_eval_upper(parts[t]))
+    cons = np.float32(0.0)
+    for b in totals[1:]:
+        cons = np.float32(cons + b)
+    return np.float32(np.float32(totals[0] + cons) + constant), totals
+
+
+def _model_levels(n):
+    """The tree levels the kernel's structure gives a sum of n values, as
+    ``xla_tree_levels`` writes them."""
+    if n == 1:
+        return []
+    k1, lo1, k2, lo2 = _eval_layout(n)
+    if n <= _LANES:
+        return [(n, 1, 0, n)]
+    levels = [(n, k1, lo1, _LANES)]
+    if k1 <= _LANES:
+        return levels + [(k1, 1, 0, k1)]
+    levels.append((k1, k2, lo2, _LANES))
+    m = k2
+    while m > _LANES:
+        k = -(-m // _LANES)
+        levels.append((m, k, (k * _LANES - m) // 2, _LANES))
+        m = k
+    return levels + [(m, 1, 0, m)]
+
+
+MODEL_SIZES = (1, 32, 33, 1024, 1025, 32768, 32769, 100_000)
+
+
+@pytest.mark.parametrize("n", MODEL_SIZES + (0, 2, 31, 1023, 2049, 65_536,
+                                             1_048_576, 1_048_577,
+                                             33_554_433))
+def test_eval_model_levels_are_xla_levels(n):
+    # the blocks' two levels, then the finisher's loop and its one level
+    # (33,554,433 values: two turns of the loop over 1,024 partials)
+    assert _model_levels(n) == hk.xla_tree_levels(n)
+    assert _eval_layout(n)[2] >= 1  # no value: one block, its sum +0.0
+
+
+# the model's cases: (n_vars, D, [(n_c, arity) of each bucket]); every
+# size of MODEL_SIZES as a unary and a bucket segment, arities 1 to 4,
+# 16 buckets, a level loop over 1,024 partials (1,048,577 values)
+MODEL_EVALUATE = {
+    **{f"n{n}": (n, 3, [(n, 2), (max(n // 3, 1), 1 + n % 4)])
+       for n in MODEL_SIZES},
+    "arities_1_to_4": (2049, 3, [(33, 1), (1025, 2), (40, 3), (1, 4)]),
+    "buckets_16": (1025, 2, [(n, 1 + b % 4) for b, n in enumerate(
+        (1, 2, 31, 33, 64, 1024, 1025, 2048, 3000, 5, 1, 40, 32_769, 7, 900,
+         1030))]),
+    "level_loop": (1_048_577, 2, [(1_048_577, 1), (35, 2)]),
+}
+# the cases with no sum of 22 to 32 gathered values (XLA vectorizes those)
+JAX_MODEL_EVALUATE = sorted(
+    case for case, (n_vars, _, specs) in MODEL_EVALUATE.items()
+    if not any(22 <= n <= 32 for n in [n_vars] + [n for n, _ in specs])
+)
+
+
+def _model_inputs(case, seed=0):
+    """numpy (unary, values, [(tables_flat, var_slots)], constant) of a
+    MODEL_EVALUATE case; the first variable's unary entry and the first
+    constraint's table row are -0.0."""
+    n_vars, d, specs = MODEL_EVALUATE[case]
+    rng = np.random.default_rng([n_vars, seed])
+    unary = _costs(rng, (n_vars, d))
+    values = rng.integers(0, d, n_vars).astype(np.int32)
+    buckets = [
+        (_costs(rng, (n_c, d ** a)),
+         rng.integers(0, n_vars, (n_c, a)).astype(np.int64))
+        for n_c, a in specs
+    ]
+    unary[0, values[0]] = -0.0
+    for tables, _ in buckets:
+        tables[0, :] = -0.0
+    return unary, values, buckets, np.float32(rng.random() * 5)
+
+
+def _as_torch(unary, values, buckets, constant, value_dtype=torch.int32,
+              device="cpu"):
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return (t(unary), t(values).to(value_dtype),
+            [(t(a), t(b)) for a, b in buckets], t(constant))
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_EVALUATE))
+def test_eval_model_segments_equal_xla_tree_sum_plain(case):
+    unary, values, buckets, constant = _model_inputs(case)
+    _, totals = _eval_model(unary, values, buckets, constant)
+    for x, total in zip(_eval_gather(unary, values, buckets), totals):
+        want = hk.xla_tree_sum_plain(torch.as_tensor(x))
+        assert _bits(total) == _bits(want.numpy())
+    if MODEL_EVALUATE[case][0] == 1:  # a one-value sum keeps its -0.0
+        assert np.signbit(totals[0])
+
+
+@pytest.mark.parametrize("value_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", sorted(MODEL_EVALUATE))
+def test_eval_model_equals_plain(case, value_dtype):
+    ops = _model_inputs(case, seed=1)
+    got, _ = _eval_model(*ops, seed=2)
+    want = hk.tree_evaluate_plain(*_as_torch(*ops, value_dtype))
+    assert _bits(got) == _bits(want.numpy())
+
+
+@pytest.mark.parametrize("case", JAX_MODEL_EVALUATE)
+def test_eval_model_equals_jitted_jax_evaluate(case):
+    jax, jnp, jk = _jax()
+    unary, values, buckets, constant = _model_inputs(case, seed=3)
+    arities = [b.shape[1] for _, b in buckets]
+
+    def jax_evaluate(unary, values, tables, slots, constant):
+        dev = types.SimpleNamespace(
+            unary=unary, max_domain=unary.shape[1], constant_cost=constant,
+            buckets=[
+                jk.DeviceBucket(a, t, s, None, None)
+                for a, t, s in zip(arities, tables, slots)
+            ],
+        )
+        return jk.evaluate(dev, values)
+
+    want = jax.jit(jax_evaluate)(
+        jnp.asarray(unary), jnp.asarray(values),
+        [jnp.asarray(t) for t, _ in buckets],
+        [jnp.asarray(s.astype(np.int32)) for _, s in buckets],
+        jnp.asarray(constant),
+    )
+    got, _ = _eval_model(unary, values, buckets, constant, seed=4)
+    assert _bits(got) == _bits(want)
+
+
+def _model_batch(case, k, seed=0):
+    """K instances of a MODEL_EVALUATE case (instance i from seed 100 *
+    seed + 10 + i), numpy, stacked on a leading axis."""
+    inst = [_model_inputs(case, seed=100 * seed + 10 + i) for i in range(k)]
+    return (np.stack([p[0] for p in inst]), np.stack([p[1] for p in inst]),
+            [(np.stack([p[2][b][0] for p in inst]),
+              np.stack([p[2][b][1] for p in inst]))
+             for b in range(len(inst[0][2]))],
+            np.stack([p[3] for p in inst]))
+
+
+@pytest.mark.parametrize("k, case", [(1, "n1025"), (3, "buckets_16"),
+                                     (32, "n33"), (32, "arities_1_to_4")])
+def test_eval_model_batched_equals_plain(k, case):
+    # a batch's instances are independent rows of blocks (the grid's y),
+    # each with its own ticket: instance i's total is its solo total
+    unary, values, buckets, constant = _model_batch(case, k)
+    want = hk.tree_evaluate_batched(
+        *_as_torch(unary, values, buckets, constant))
+    for i in range(k):
+        got, _ = _eval_model(unary[i], values[i],
+                             [(t[i], s[i]) for t, s in buckets], constant[i],
+                             seed=i)
+        assert _bits(got) == _bits(want[i].numpy())
+
+
+@pytest.mark.parametrize("n", MODEL_SIZES + (0, 1_048_577, 40_000_000))
+def test_eval_scratch_fits_the_wrappers_allocation(n):
+    # evaluate_kernel takes a partial a block and, over 1,024 partials,
+    # room for the next level; the wrappers allocate what the source's
+    # earlier kernel took, which covers it (so --against runs either
+    # build through one marshalling)
+    for sizes, k in (([n], 1), ([n, 7, n], 3)):
+        need = 0
+        for m in sizes:
+            k2 = _eval_layout(m)[2]
+            need += k2 + (-(-k2 // _LANES) if k2 > _UNROLLED_TAIL else 0)
+        given = hk._tree_needs([(m, k) for m in sizes])[0] + k * len(sizes)
+        assert k * need <= given
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", sorted(MODEL_EVALUATE))
+def test_evaluate_kernel_model_cases_equal_plain_on_card(case, value_dtype):
+    _card()
+    ops = _model_inputs(case, seed=1)
+    args = _as_torch(*ops, value_dtype, device="cuda")
+    want = hk.tree_evaluate_plain(*_as_torch(*ops, value_dtype))
+    for _ in range(2):  # the second launch finds its ticket at zero
+        got, n = _launches_of(lambda: hk.tree_evaluate(*args))
+        assert n == 1
+        assert _bits(got.cpu().numpy()) == _bits(want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k, case", [(1, "n1025"), (3, "buckets_16"),
+                                     (32, "n33"), (32, "arities_1_to_4"),
+                                     (3, "n100000")])
+def test_evaluate_kernel_batched_model_cases_on_card(k, case, value_dtype):
+    _card()
+    batch = _model_batch(case, k)
+    want = hk.tree_evaluate_batched(*_as_torch(*batch, value_dtype))
+    args = _as_torch(*batch, value_dtype, device="cuda")
+    got, n = _batched_launches_of(lambda: hk.tree_evaluate_batched(*args))
+    assert n == (1, 1)
+    assert np.array_equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [None, 3])
+def test_evaluate_kernel_graph_replays_on_card(k):
+    # one launch captured into a CUDA graph, replayed over three other
+    # operand sets copied into its inputs: each replay's total is its set's
+    # (the finishing block left every ticket at zero for the next)
+    _card()
+    case = "buckets_16"
+
+    def operands(seed):
+        return _as_torch(*(_model_inputs(case, seed) if k is None
+                           else _model_batch(case, k, seed)))
+
+    call = hk.tree_evaluate if k is None else hk.tree_evaluate_batched
+    host = operands(0)
+    unary, values, buckets, constant = (
+        x.cuda() if isinstance(x, torch.Tensor)
+        else [(a.cuda(), b.cuda()) for a, b in x] for x in host)
+    call(unary, values, buckets, constant)  # the ticket pool, outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with hk.capture_tally() as tally, torch.cuda.graph(graph):
+        out = call(unary, values, buckets, constant)
+    assert tally == ({hk.xla_tree_sum: 1} if k is None else
+                     {hk.xla_tree_sum: 1, hk.xla_tree_sum.batched: 1})
+    for seed in (1, 2, 3):
+        u, v, bs, c = operands(seed)
+        unary.copy_(u)
+        values.copy_(v)
+        for (t, s), (t_new, s_new) in zip(buckets, bs):
+            t.copy_(t_new)
+            s.copy_(s_new)
+        constant.copy_(c)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = (hk.tree_evaluate_plain(u, v, bs, c) if k is None
+                else hk.tree_evaluate_batched(u, v, bs, c))
+        assert np.array_equal(_bits(out.cpu()), _bits(want))
+
