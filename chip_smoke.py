@@ -103,7 +103,20 @@ captured CUDA graphs:
   uninterrupted run, which equals the CPU's;
 - ``solve --trace-out/--metrics-out`` (``trace_cli``): the engine's
   window and read-back spans and metrics with the JAX package's names,
-  the windows' cycles adding up to the solve's.
+  the windows' cycles adding up to the solve's;
+- a config-4 durable MaxSum solve in a child process killed by a
+  ``kill_process`` fault schedule and resumed here bit for bit
+  (``fault_kill_resume_config4``);
+- the ``generate`` verb for all nine families, no card visible, each
+  file's sha256 the JAX package's (``generate_verb``); MaxSum at damping
+  0.7 and DSA on the generated IoT (1,000 variables), small-world
+  (10,000) and SECP problems, against the CPU and the JAX package's
+  pinned costs (``generated_*``); ``solve --fault-schedule`` killing the
+  CLI after the solve returned and mid-solve, each exiting 137 and
+  resumed to the uninterrupted JSON (``fault_kill_resume_cli``); and a
+  ``ServeServer`` whose schedule kills ``dead*`` tenants and holds
+  ``hold*`` ones, the others keeping their solo bits
+  (``serve_fault_schedule``).
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -435,6 +448,91 @@ DAMP_REPLACES = (
     "pydcop_tpu/algorithms/maxsum.py:213, :252; "
     "pydcop_tpu/compile/kernels.py:520, :645, :1011)"
 )
+
+
+# the generate verb (generate_verb): each family of ``python -m
+# pydcop_tpu_torch generate`` ("{dir}": the output directory), and the
+# sha256 of each file that ``python -m pydcop_tpu generate`` writes for
+# the same arguments (JAX_PLATFORMS=cpu, jax 0.9.0).  The older families
+# at their bench_all.py sizes (configs 2, 3, 5, 7); the small world's
+# seed given, since its default draws from the OS
+GENERATE_VERB = (
+    ("iot", ["-n", "1000"], {
+        "iot.yaml": "74587b9d190bba67f36ca818b8502cf6"
+                    "591a5fa2d68196702142b1f6661b2a16",
+        "dist_iot.yaml": "f1e8833aba9c0a956b9bce88630652aa"
+                         "a2bb2eba212a81fd716e66b256242680"}),
+    ("small_world", ["-n", "10000", "-k", "4", "-p", "0.1", "-d", "5",
+                     "--seed", "1"], {
+        "small_world.yaml": "bb7e3da37ef82b18025dab0446c47a4d"
+                            "abf6569ee704fa400bc0067b7b8f6cad"}),
+    ("secp", ["-l", "100", "-m", "20", "-r", "40"], {
+        "secp.yaml": "fa4308a39de758d8cd7edefc2a5931f8"
+                     "8b73db44d2303fe68aca896366f8f1ff"}),
+    ("agents", ["--count", "1000"], {
+        "agents.yaml": "bf8fc82e2801a659e846e1304a4a53e9"
+                       "cee003d0806b348f8afeb99a9784643e"}),
+    ("graph_coloring", ["-v", "1000", "-c", "3", "-g", "random",
+                        "--p_edge", "0.005", "--soft", "--seed", "11"], {
+        "graph_coloring.yaml": "9645fd29ac30d1e63be7c9c7f38db859"
+                               "905ad9dc64c7864b26371600002cb14e"}),
+    ("ising", ["--row_count", "100", "--seed", "3"], {
+        "ising.yaml": "f9e0bdec00b7096306db76c4b5c4ed74"
+                      "c6260954ca74104c7978cbaf16aaa997"}),
+    ("meeting_scheduling", ["--slots_count", "8", "--resources_count",
+                            "30", "--events_count", "30",
+                            "--max_resources_event", "2", "--seed", "5"], {
+        "meeting_scheduling.yaml": "ea1dc2bd8363914466a1456551f39645"
+                                   "5be1e00cb9c1ca0c3b0eee70a7c1c68e"}),
+    ("mixed_problem", ["-v", "2000", "-c", "2000", "-H", "0.4", "-A", "2",
+                       "-r", "5", "-d", "0.0025", "--seed", "13"], {
+        "mixed_problem.yaml": "7c2b17796b61ecd173ba237cf0b9b1af"
+                              "66a18b89d73ee302e35b3b23094edaac"}),
+    # over the iot file's agents, once that file is written
+    ("scenario", ["--evts_count", "10", "--actions_count", "5",
+                  "--dcop_files", "{dir}/iot.yaml", "--seed", "2"], {
+        "scenario.yaml": "b18cb0b547d76cae5f0fd77d4189c4cb"
+                         "decbd5d0f0ae792981864cefb9a5851f"}),
+)
+# the generated problems the verb writes, solved (generated_solves): the
+# generator call, and the JAX package's (cost, violations, cycles) for
+# MaxSum at damping 0.7 and DSA, 30 cycles, seed 0, solved from the
+# verb's file (load_dcop_from_file, compile_dcop, solve; JAX_PLATFORMS=cpu)
+GENERATED_SOLVES = {
+    "iot": (("iot", "generate_iot", dict(num=1000)),
+            {"maxsum": (45425.0, 0, 30), "dsa": (38123.0, 0, 30)}),
+    "small_world": (("smallworld", "generate_small_world",
+                     dict(n=10000, k=4, p=0.1, domain_size=5, seed=1)),
+                    {"maxsum": (37138.0, 0, 30), "dsa": (37065.0, 0, 30)}),
+    "secp": (("secp", "generate_secp", dict(lights=100, models=20,
+                                            rules=40)),
+             {"maxsum": (229.85, 0, 30), "dsa": (413.86, 0, 30)}),
+}
+GENERATED_RUNS = (("maxsum", {"damping": 0.7}), ("dsa", {}))
+# a process kill through the CLI (fault_kill_resume): MaxSum at damping
+# 0.7 on KILL_PROBLEM, a snapshot every FAULT_EVERY cycles; the first
+# schedule's kill falls after the solve has returned, the second's
+# halfway between the first's first and last snapshots.  The CLI's cold
+# start (lazy imports compiled from source, the CUDA context, the
+# kernels' libraries, graph capture) counts in a kill's ``at``: 6.4–10.6
+# s to the first snapshot, then ~4.5 s to the last (H100 80GB HBM3,
+# 700 W), so the first kill waits 25 s and the second falls in a ~4.5 s
+# window
+FAULT_CYCLES = 30_000
+FAULT_EVERY = 1000
+FAULT_AFTER_S = 25.0
+# the same at config 4 in a child process (``--fault-child``): MaxSum
+# ``ell`` at damping 0.7, a snapshot every FAULT4_EVERY cycles
+FAULT4_CYCLES = 3000
+FAULT4_EVERY = 100
+# serving under a fault schedule (serve_fault_schedule): grid tenants of
+# SERVE_GRID's bucket, MaxSum at damping 0.7; "hold*" held 0.2 s by a
+# delay rule (p = 1), "dead*" killed at t = 0, the others untouched
+SERVE_FAULT_HOLD_S = 0.2
+SERVE_FAULT_TENANTS = [
+    (f"{kind}{i}", 1024, 900 + 4 * i + j, i)
+    for i in range(4) for j, kind in enumerate(("ok", "dead", "hold"))
+]
 
 
 def emit(obj) -> None:
@@ -1637,6 +1735,7 @@ def phase_solve(name, compiled, run, per_cycle, *, per_start=None,
         "cost": cold.cost, "violations": cold.violations,
         "cycles": cold.cycles, "status": cold.status,
         "cold_counts": cold_counts, "warm_counts": warm_counts,
+        "launches_per_iteration": per_cycle,
         "cpu_s": cpu_s, "cpu_cost": cpu.cost,
         "cpu_violations": cpu.violations, "cpu_cycles": cpu.cycles,
         "same_assignment_as_cpu": cold.assignment == cpu.assignment,
@@ -3705,6 +3804,460 @@ def phase_trace_cli():
     })
 
 
+def _wait_timed(proc, t0):
+    """Wait for ``proc`` (started at ``t0``): (exit code, wall seconds,
+    CPU seconds of the process)."""
+    import os
+
+    _, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    return (proc.returncode, time.perf_counter() - t0,
+            usage.ru_utime + usage.ru_stime)
+
+
+def phase_generate_verb():
+    """``python -m pydcop_tpu_torch generate`` for all nine families
+    (``generate_verb``) at GENERATE_VERB's sizes, with no card visible:
+    each file's sha256 must be the JAX package's for the same arguments.
+    The eight independent families run at once, then the scenario over
+    the iot file's agents; each one's wall and CPU seconds (the host's:
+    the verb never touches the card)."""
+    import hashlib
+    import os
+    import tempfile
+    import threading
+
+    import yaml
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = {"phase": "generate_verb",
+           "libyaml": bool(getattr(yaml, "__with_libyaml__", False)),
+           "families": {}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(family, args, pinned):
+            args = [a.replace("{dir}", tmp) for a in args]
+            with open(os.path.join(tmp, f"{family}.log"), "w+") as log:
+                t0 = time.perf_counter()
+                proc = subprocess.Popen(
+                    [*PORT_CLI, "generate", family, *args, "-o",
+                     os.path.join(tmp, f"{family}.yaml")],
+                    cwd=ROOT, stdout=subprocess.DEVNULL, stderr=log,
+                    env=env,
+                )
+                rc, wall, cpu = _wait_timed(proc, t0)
+                log.seek(0)
+                row = {"rc": rc, "wall_s": wall, "cpu_s": cpu,
+                       "stderr": log.read()[-2000:], "files": {}}
+            for name, sha in pinned.items():
+                path = Path(tmp, name)
+                data = path.read_bytes() if path.exists() else b""
+                row["files"][name] = {
+                    "bytes": len(data),
+                    "jax_sha256": hashlib.sha256(data).hexdigest() == sha,
+                }
+            out["families"][family] = row
+
+        first = [
+            threading.Thread(target=run, args=case)
+            for case in GENERATE_VERB if case[0] != "scenario"
+        ]
+        for th in first:
+            th.start()
+        for th in first:
+            th.join()
+        run(*[case for case in GENERATE_VERB if case[0] == "scenario"][0])
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for family, row in out["families"].items():
+        check(row["rc"] == 0,
+              f"generate_verb {family}: exit {row['rc']}: {row['stderr']}")
+        for name, got in row["files"].items():
+            check(got["jax_sha256"],
+                  f"generate_verb {family}: {name} is not the JAX "
+                  f"package's file")
+    check(len(out["families"]) == 9, "generate_verb: not all nine families")
+
+
+def generated_problem(family):
+    """The compiled problem of GENERATED_SOLVES' ``family``: the
+    generator's DCOP (the verb's file's problem) through compile_dcop,
+    and the host seconds of each stage."""
+    import importlib
+
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    (module, fn, kw), _pins = GENERATED_SOLVES[family]
+    gen = getattr(importlib.import_module(
+        f"pydcop_tpu_torch.commands.generators.{module}"), fn)
+    t0 = time.perf_counter()
+    dcop = gen(**kw)
+    if isinstance(dcop, tuple):  # generate_iot: (dcop, distribution)
+        dcop = dcop[0]
+    t1 = time.perf_counter()
+    compiled = compile_dcop(dcop)
+    emit({"phase": f"generated_{family}_problem",
+          "generate_s": t1 - t0, "compile_s": time.perf_counter() - t1,
+          "n_vars": compiled.n_vars, "n_edges": compiled.n_edges,
+          "max_domain": compiled.max_domain})
+    return compiled
+
+
+def phase_generated_solves(counts):
+    """MaxSum (damping 0.7) and DSA through ``solve`` on the card on the
+    generated IoT, small-world and SECP problems (``generated_*``), each
+    cold, warm and on the CPU (``phase_solve``: the CPU's result exactly,
+    the JAX package's pinned cost, launches an iteration by kernel).
+    MaxSum runs ``auto``: ELL on the binary IoT and small-world problems,
+    lanes on SECP's n-ary one.  ``counts`` gives a solve's launches an
+    iteration and in its prologue (``main``'s).  Returns the warm solves'
+    launches by kernel."""
+    from pydcop_tpu_torch.algorithms.maxsum import resolve_layout
+
+    generated = {}
+    for family in GENERATED_SOLVES:
+        compiled = generated_problem(family)
+        for algo, params in GENERATED_RUNS:
+            if algo == "maxsum":
+                layout = resolve_layout(compiled, "auto")
+                per_cycle, per_start = counts(
+                    "ell_minplus" if layout == "ell"
+                    else "factor_arity2_minplus",
+                    ell=layout == "ell", maxsum=True, damp=True,
+                )
+            else:
+                per_cycle, per_start = counts()
+            _, warm = phase_solve(
+                f"generated_{family}_{algo}", compiled,
+                (algo, dict(params), 30, 0), per_cycle,
+                per_start=per_start,
+                recorded=GENERATED_SOLVES[family][1][algo],
+            )
+            for name in per_cycle:
+                generated[name] = generated.get(name, 0) + warm[name]
+    return generated
+
+
+def _fault_schedule_file(path, at):
+    path.write_text(f"seed: 0\nevents:\n  - kill_process: true\n"
+                    f"    at: {at!r}\n")
+    return path
+
+
+def _manifests(directory):
+    """(cycle, unix seconds written) of each snapshot in ``directory``,
+    by cycle."""
+    return sorted(
+        (m["cycle"], m["wrote_unix_s"])
+        for m in (json.loads(p.read_text())
+                  for p in Path(directory).glob("ckpt-c*.json"))
+    )
+
+
+def phase_fault_kill_resume_cli():
+    """``solve --fault-schedule`` killing the process (``fault_kill_resume``
+    through the CLI): MaxSum on a generated coloring with a snapshot
+    every FAULT_EVERY cycles, under a ``kill_process`` schedule due after
+    the solve has returned (FAULT_AFTER_S), then under one due halfway
+    between the first run's first and last snapshots (its arming read off
+    its exit time less the kill's ``at``).  Each run must exit 137 with no
+    result and leave snapshots, the first all of them, the second not the
+    last; ``solve --resume`` from each prints the uninterrupted JSON
+    (``time`` aside)."""
+    args = ["solve", "-a", "maxsum", "-p", "damping:0.7", "-n",
+            str(FAULT_CYCLES), "--seed", "3"]
+    out = {"phase": "fault_kill_resume_cli", "n_cycles": FAULT_CYCLES,
+           "every": FAULT_EVERY}
+    try:
+        _fault_kill_resume_cli(args, out)
+    finally:
+        emit(out)  # what was measured, also when a check failed
+
+
+def _fault_kill_resume_cli(args, out):
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+    from pydcop_tpu_torch.api import solve_result
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, load_dcop_from_file
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        n, d, kw = KILL_PROBLEM
+        path = tmp / "coloring.yaml"
+        path.write_text(dcop_yaml(generate_graph_coloring(n, d, **kw)))
+        dcop = load_dcop_from_file(str(path))
+        algo = AlgorithmDef.build_with_default_param(
+            "maxsum", {"damping": "0.7"}, mode=dcop.objective
+        )
+        t0 = time.perf_counter()
+        want = json.loads(json.dumps(solve_result(
+            dcop, algo, distribution="oneagent", n_cycles=FAULT_CYCLES,
+            seed=3, device="cuda",
+        ), default=str))
+        out["uninterrupted_s"] = time.perf_counter() - t0
+        want.pop("time")
+        last = want["cycle"] // FAULT_EVERY * FAULT_EVERY
+
+        def killed(tag, at):
+            ck = tmp / tag
+            sched = _fault_schedule_file(tmp / f"{tag}.yaml", at)
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [*PORT_CLI, *args, "--checkpoint", str(ck),
+                 "--checkpoint-every", str(FAULT_EVERY),
+                 "--checkpoint-keep", "1000", "--fault-schedule",
+                 str(sched), str(path)],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate(timeout=60)
+            exited = time.time()
+            check(proc.returncode == 137 and not stdout,
+                  f"fault_kill_resume_cli {tag}: exit {proc.returncode}, "
+                  f"{len(stdout)} bytes out: {stderr[-2000:]}")
+            snaps = _manifests(ck)
+            check(snaps, f"fault_kill_resume_cli {tag}: no snapshot")
+            armed = exited - at
+            row = {"at_s": at, "wall_s": time.perf_counter() - t0,
+                   "snapshots": len(snaps), "last_cycle": snaps[-1][0],
+                   "first_snapshot_s": snaps[0][1] - armed,
+                   "last_snapshot_s": snaps[-1][1] - armed}
+            out[tag] = row
+            return ck, row
+
+        after_ck, after = killed("after_return", FAULT_AFTER_S)
+        check(after["last_cycle"] == last,
+              f"fault_kill_resume_cli: the first run's last snapshot is "
+              f"cycle {after['last_cycle']}, not {last}: the kill came "
+              f"before the solve returned")
+        check(after["last_snapshot_s"] < FAULT_AFTER_S,
+              "fault_kill_resume_cli: the last snapshot after the kill")
+        mid_at = round(
+            (after["first_snapshot_s"] + after["last_snapshot_s"]) / 2, 3)
+        mid_ck, mid = killed("mid_solve", mid_at)
+        check(mid["last_cycle"] < last,
+              f"fault_kill_resume_cli: the mid-solve kill at {mid_at} s "
+              f"came after the last snapshot")
+        t0 = time.perf_counter()
+        procs = {
+            tag: subprocess.Popen(
+                [*PORT_CLI, *args, "--resume", str(ck), str(path)],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )
+            for tag, ck in (("after_return", after_ck),
+                            ("mid_solve", mid_ck))
+        }
+        for tag, proc in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate(timeout=60)
+            check(proc.returncode == 0,
+                  f"fault_kill_resume_cli: the resume of {tag} exited "
+                  f"{proc.returncode}: {stderr[-2000:]}")
+            got = json.loads(stdout)
+            got.pop("time")
+            check(got == want, f"fault_kill_resume_cli: the resume of {tag} "
+                  f"differs from the uninterrupted run")
+        out.update(resumes_s=time.perf_counter() - t0,
+                   resumed_equal_uninterrupted=True, cost=want["cost"],
+                   cycles=want["cycle"])
+
+
+def _fault_child(directory: str) -> None:
+    """The config-4 process to kill (``--fault-child DIR``): a durable
+    MaxSum ``ell`` solve of FAULT4_CYCLES cycles (a snapshot every
+    FAULT4_EVERY) run twice, the second timed from its snapshots, then a
+    third with a ``kill_process`` schedule armed just before it, due
+    halfway between the timed run's first and last snapshots.  Writes
+    the timed run's result and window to DIR/window.json first."""
+    import os
+
+    from pydcop_tpu_torch.algorithms import maxsum
+    from pydcop_tpu_torch.chaos import (
+        ChaosController,
+        FaultSchedule,
+        KillProcessEvent,
+    )
+    from pydcop_tpu_torch.durability import CheckpointManager, durability
+
+    c4 = generate(CONFIG_4["gen"])
+
+    def durable(sub):
+        durability.configure(manager=CheckpointManager(
+            os.path.join(directory, sub), every_cycles=FAULT4_EVERY,
+            keep=1000))
+        try:
+            return maxsum.solve(
+                c4, dict(CONFIG_4["params"], layout="ell"),
+                n_cycles=FAULT4_CYCLES, seed=CONFIG_4["seed"],
+                device="cuda",
+            )
+        finally:
+            durability.reset()
+
+    durable("cold")
+    t0 = time.time()
+    res = durable("timed")
+    snaps = _manifests(os.path.join(directory, "timed"))
+    first, last = snaps[0][1] - t0, snaps[-1][1] - t0
+    at = round((first + last) / 2, 3)
+    Path(directory, "window.json").write_text(json.dumps({
+        "first_snapshot_s": first, "last_snapshot_s": last, "at_s": at,
+        "solve_s": time.time() - t0, "cost": res.cost,
+        "cycles": res.cycles, "last_cycle": snaps[-1][0],
+    }))
+    chaos = ChaosController(FaultSchedule(
+        events=[KillProcessEvent(at=at)]))
+    chaos.start(None)
+    durable("killed")
+    chaos.wait_timeline(timeout=at + 60.0)
+
+
+def phase_fault_kill_resume_config4(c4):
+    """A config-4 durable solve killed by a fault schedule
+    (``fault_kill_resume_config4``): ``chip_smoke.py --fault-child DIR``
+    dies by its ``kill_process`` (exit 137) partway through its third
+    solve; resumed here on the card from its newest snapshot, the solve
+    gives the uninterrupted result (assignment, cost, cycles) bit for
+    bit, and the child's own uninterrupted run's cost and cycles."""
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import maxsum
+    from pydcop_tpu_torch.durability import durability
+
+    def solve(resume=None):
+        durability.configure(resume=resume)
+        try:
+            return maxsum.solve(
+                c4, dict(CONFIG_4["params"], layout="ell"),
+                n_cycles=FAULT4_CYCLES, seed=CONFIG_4["seed"],
+                device="cuda",
+            )
+        finally:
+            durability.reset()
+
+    out = {"phase": "fault_kill_resume_config4", "n_vars": c4.n_vars,
+           "n_cycles": FAULT4_CYCLES, "every": FAULT4_EVERY}
+    t0 = time.perf_counter()
+    want = solve()
+    out["uninterrupted_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fault-child",
+             tmp], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        out["child_s"] = time.perf_counter() - t0
+        check(child.returncode == 137,
+              f"fault_kill_resume_config4: the child exited "
+              f"{child.returncode}: {child.stderr[-2000:]}")
+        window = json.loads(Path(tmp, "window.json").read_text())
+        snaps = _manifests(Path(tmp, "killed"))
+        check(snaps and snaps[-1][0] < window["last_cycle"],
+              f"fault_kill_resume_config4: snapshots {snaps[-1:]} of the "
+              f"killed run, the timed run's last {window['last_cycle']}")
+        newest = Path(tmp, "killed", f"ckpt-c{snaps[-1][0]:09d}.npz")
+        _zero_launches()
+        t0 = time.perf_counter()
+        got = solve(resume=str(newest))
+        out["resume_s"] = time.perf_counter() - t0
+        out["resume_launches"] = _launch_counts()
+    key = (got.assignment, got.cost, got.cycles, got.violations)
+    check(key == (want.assignment, want.cost, want.cycles, want.violations),
+          f"fault_kill_resume_config4: resumed {got.cost}/{got.cycles} vs "
+          f"uninterrupted {want.cost}/{want.cycles}")
+    check((window["cost"], window["cycles"]) == (want.cost, want.cycles),
+          "fault_kill_resume_config4: the child's uninterrupted run differs")
+    check(out["resume_launches"]["ell_minplus"] > 0,
+          "fault_kill_resume_config4: the resume launched no ell_minplus")
+    out.update(window=window, killed_snapshots=len(snaps),
+               resumed_from_cycle=snaps[-1][0], cost=want.cost,
+               cycles=want.cycles, resumed_equals_uninterrupted=True)
+    emit(out)
+
+
+def phase_serve_fault_schedule():
+    """``ServeServer(fault_schedule=)`` on the card
+    (``serve_fault_schedule``): SERVE_FAULT_TENANTS under a schedule
+    holding "hold*" SERVE_FAULT_HOLD_S by a delay rule and killing
+    "dead*" at t = 0.  The killed tenants end ``killed`` (each a dead
+    letter), each held tenant's queue latency is at least the hold, and
+    every tenant not killed, held or not, gets its solo ``solve_one``
+    bits, though the untouched ones rode a batch with the victims."""
+    from pydcop_tpu_torch.chaos import FaultSchedule, KillEvent, MessageRule
+    from pydcop_tpu_torch.serve import ServeServer, solve_one
+
+    schedule = FaultSchedule(seed=0, events=[
+        MessageRule(action="delay", pattern="solve", dest="hold*", p=1.0,
+                    seconds=SERVE_FAULT_HOLD_S),
+        KillEvent(agent="dead*", at=0.0),
+    ])
+    reqs = serve_requests(SERVE_FAULT_TENANTS, SERVE_PULSE_GRID_RUN)
+    solo = {r.tenant: solve_one(r, device="cuda") for r in reqs
+            if not r.tenant.startswith("dead")}
+    srv = ServeServer(port=None, window_ms=50, max_batch=32,
+                      fault_schedule=schedule)
+    _zero_all_launches()
+    t0 = time.perf_counter()
+    try:
+        for r in reqs:
+            srv.submit(r)
+        rows = {r.tenant: srv.wait(r.tenant, timeout=300) for r in reqs}
+        wall = time.perf_counter() - t0
+        launches = _all_launch_counts()
+    finally:
+        drained = srv.shutdown(drain=True)
+    st = srv.status()
+    for tenant, row in rows.items():
+        if tenant.startswith("dead"):
+            check(row["status"] == "killed"
+                  and row["error"] == "killed by chaos schedule",
+                  f"serve_fault_schedule {tenant}: {row}")
+            continue
+        want = solo[tenant]
+        got = (row["status"], row["assignment"], row["cost"],
+               row["cycles"], row["best_cost"], row["cycles_to_best"])
+        check(got == ("done", want.result.assignment, want.result.cost,
+                      want.result.cycles, want.extras["best_cost"],
+                      want.extras["cycles_to_best"]),
+              f"serve_fault_schedule {tenant}: not its solo bits")
+        if tenant.startswith("hold"):
+            check(row["queue_ms"] >= 1e3 * SERVE_FAULT_HOLD_S,
+                  f"serve_fault_schedule {tenant}: queued "
+                  f"{row['queue_ms']} ms")
+    n_dead = sum(t.startswith("dead") for t in rows)
+    check(drained and st["dead_letters"] == n_dead
+          and st["tenant_counts"] == {"done": len(rows) - n_dead,
+                                      "killed": n_dead},
+          f"serve_fault_schedule: {st['tenant_counts']}, "
+          f"{st['dead_letters']} dead letters")
+    check(launches["ell_minplus_batched"] and launches["damp_fma_batched"],
+          f"serve_fault_schedule: batched launches {launches}")
+    ok_batch = [rows[t]["batch_size"] for t in rows if t.startswith("ok")]
+    check(min(ok_batch) > sum(t.startswith("ok") for t in rows),
+          f"serve_fault_schedule: the untouched tenants rode batches of "
+          f"{ok_batch}, without the victims")
+    emit({"phase": "serve_fault_schedule", "tenants": len(rows),
+          "killed": n_dead, "wall_s": wall, "batches": st["batches"],
+          "queue_ms": {t: rows[t]["queue_ms"] for t in rows
+                       if not t.startswith("dead")},
+          "ok_batch_sizes": ok_batch, "launches": launches,
+          "solo_bits": True})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -3713,6 +4266,8 @@ def main() -> int:
     )
     # the replay phase's process to kill (not for direct use)
     ap.add_argument("--replay-child", default=None, help=argparse.SUPPRESS)
+    # the config-4 fault schedule's process to kill (not for direct use)
+    ap.add_argument("--fault-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
     if not (ROOT / "pydcop_tpu_torch" / "compile").is_dir():
@@ -3733,6 +4288,9 @@ def main() -> int:
     if args.replay_child:
         _replay_child(args.replay_child)
         return 1  # not reached: the child kills itself
+    if args.fault_child:
+        _fault_child(args.fault_child)
+        return 1  # not reached: the schedule kills the child
     from pydcop_tpu_torch.commands.generators.ising import (
         generate_ising_arrays,
     )
@@ -3894,6 +4452,9 @@ def main() -> int:
     phase_pulse_config4(c4)
     phase_durable_config4(c4)
     new_phases_s += time.perf_counter() - t_new
+    t_fault = time.perf_counter()
+    phase_fault_kill_resume_config4(c4)
+    fault_s = time.perf_counter() - t_fault
     del c4, c2, mixed, problems, breakout
     dynamic = phase_dynamic_config4()
     rows["factor_arity2_minplus"]["dynamic_launches"] = dynamic[
@@ -3929,6 +4490,15 @@ def main() -> int:
     phase_trace_cli()
     emit({"phase": "serve_replay_trace_seconds",
           "seconds": time.perf_counter() - t_new})
+    # the generate verb, its problems solved, process kills through the
+    # CLI and the server's fault schedule
+    t_new = time.perf_counter()
+    phase_generate_verb()
+    generated = phase_generated_solves(counts)
+    phase_fault_kill_resume_cli()
+    phase_serve_fault_schedule()
+    emit({"phase": "generate_fault_seconds",
+          "seconds": time.perf_counter() - t_new + fault_s})
     rows["ell_minplus_batched"]["launches"] = grid["f32"][
         "ell_minplus_batched"]
     rows["ell_minplus_bf16_batched"]["launches"] = grid["bf16"][
@@ -3945,6 +4515,7 @@ def main() -> int:
         + serve_pulse["maxsum_grid"]["damp_fma_batched"],
     }
     for name, row in rows.items():
+        row["generated_launches"] = generated.get(name, 0)
         row["batched_launches"] = (
             row["launches"] if name in BATCHED_ROWS
             else batched.get(name, 0)

@@ -69,6 +69,8 @@ logger = logging.getLogger(__name__)
 
 GRAPH_TYPE = "factor_graph"
 
+HEADER_SIZE = 0
+UNIT_SIZE = 1
 STABILITY_COEFF = 0.1
 
 algo_params = [
@@ -120,6 +122,37 @@ class MaxSumState:
 
 #: the message-plane dtype of each ``precision``
 PLANE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def computation_memory(computation) -> float:
+    """Footprint model of a factor-graph node (the JAX package's): a
+    factor stores one cost vector per neighbor variable, a variable one
+    per neighbor factor.  Host only; the IoT generator sizes its agents'
+    capacities with it."""
+    node_type = computation.type
+    if node_type == "FactorComputation":
+        return float(
+            sum(len(v.domain) for v in computation.variables)
+        )
+    if node_type == "VariableComputation":
+        return float(
+            len(computation.variable.domain) * len(computation.links)
+        )
+    raise ValueError(
+        f"invalid computation node type for maxsum: {computation}"
+    )
+
+
+def communication_load(src, target: str) -> float:
+    """Message size over one factor-graph edge: the domain size."""
+    if src.type == "VariableComputation":
+        return UNIT_SIZE * len(src.variable.domain) + HEADER_SIZE
+    if src.type == "FactorComputation":
+        for v in src.variables:
+            if v.name == target:
+                return UNIT_SIZE * len(v.domain) + HEADER_SIZE
+        raise ValueError(f"variable {target} not in factor {src.name}")
+    raise ValueError(f"invalid computation node type for maxsum: {src}")
 
 
 @functools.lru_cache(maxsize=None)

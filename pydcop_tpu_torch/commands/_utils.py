@@ -1,10 +1,10 @@
 """Shared helpers for CLI commands.
 
 Counterpart of ``pydcop_tpu/commands/_utils.py`` (the part the ``solve``
-verb uses): parse ``--algo_params name:value`` pairs into a validated
-``AlgorithmDef``, write the JSON result, and the CSV, durability,
+and ``serve`` verbs use): parse ``--algo_params name:value`` pairs into
+a validated ``AlgorithmDef``, write the JSON result, the CSV, durability,
 pulse, trace and metrics flags with their start and finish around a
-solve.
+solve, and the ``--fault-schedule`` flag with its controller.
 """
 
 from __future__ import annotations
@@ -17,9 +17,10 @@ from typing import Any, Dict, List, Optional
 from ..algorithms import AlgorithmDef
 
 __all__ = [
-    "add_csvio_arguments", "add_durability_arguments", "build_algo_def",
-    "finish_durability", "finish_telemetry", "parse_params",
-    "start_durability", "start_telemetry", "write_output",
+    "add_chaos_arguments", "add_csvio_arguments", "add_durability_arguments",
+    "build_algo_def", "build_chaos_controller", "finish_durability",
+    "finish_telemetry", "parse_params", "start_durability",
+    "start_telemetry", "write_output",
 ]
 
 
@@ -174,6 +175,27 @@ def finish_durability(args, manager) -> None:
                 manager.every_cycles, manager.every_seconds,
             )
     durability.reset()
+
+
+def add_chaos_arguments(parser) -> None:
+    """--fault-schedule: the chaos flag of ``solve``."""
+    parser.add_argument(
+        "--fault-schedule", default=None, metavar="FILE",
+        help="YAML fault schedule (seeded kills / message faults / device "
+        "faults) injected into the run; the port's direct solve runs its "
+        "process kills (kill_process) and ignores the others, which need "
+        "the agent runtime",
+    )
+
+
+def build_chaos_controller(args):
+    """A ChaosController from --fault-schedule, or None when unset."""
+    path = getattr(args, "fault_schedule", None)
+    if not path:
+        return None
+    from ..chaos import ChaosController, load_fault_schedule
+
+    return ChaosController(load_fault_schedule(path))
 
 
 def start_telemetry(args) -> None:

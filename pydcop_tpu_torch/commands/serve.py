@@ -18,8 +18,11 @@ writes the drain's summary as JSON.  Pulse health rows are on by default
 (``--no-pulse`` turns them off): each done tenant's ``/status`` row and
 ``/result`` carry its pulse block.  ``--checkpoint [DIR]`` writes the
 fleet checkpoint at the drain (``DIR``, or ``default_checkpoint_dir()``).
-The JAX verb's chaos schedules, SLO objectives, peers and memory guard
-are parsed and refused as not ported yet.
+``--fault-schedule FILE`` loads a chaos schedule into the server: timed
+kills match tenant ids (a killed tenant is a dead letter, its batch's
+other tenants untouched) and ``delay`` rules hold the matching tenants
+alone.  The JAX verb's SLO objectives, peers and memory guard are parsed
+and refused as not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ logger = logging.getLogger("pydcop_tpu_torch.cli.serve")
 # (flags, argparse keywords, what the option belongs to): options of the
 # JAX package's ``serve`` that the port does not run yet
 _NOT_PORTED = (
-    (("--fault-schedule",), dict(default=None), "chaos"),
     (("--slo",), dict(action="append", default=[]), "SLO objectives"),
     (("--slo-file",), dict(default=None), "SLO objectives"),
     (("--slo-interval",), dict(type=float, default=None), "SLO objectives"),
@@ -88,6 +90,11 @@ def set_parser(subparsers) -> None:
         "$PYDCOP_TPU_STATE_DIR/checkpoints)",
     )
     parser.add_argument(
+        "--fault-schedule", default=None, metavar="FILE",
+        help="chaos YAML schedule: timed kills match tenant ids, delay "
+        "rules hold the matching tenants",
+    )
+    parser.add_argument(
         "--duration", type=float, default=None,
         help="serve for this many seconds, then drain and exit (default: "
         "until SIGINT/SIGTERM or POST /shutdown)",
@@ -118,6 +125,11 @@ def run_cmd(args, timeout: float = None) -> int:
     from ..serve import ServeServer
     from ..telemetry.pulse import pulse
 
+    schedule = None
+    if args.fault_schedule:
+        from ..chaos.schedule import load_fault_schedule
+
+        schedule = load_fault_schedule(args.fault_schedule)
     checkpoint_dir = args.checkpoint
     if checkpoint_dir == "":
         from ..durability import default_checkpoint_dir
@@ -126,7 +138,7 @@ def run_cmd(args, timeout: float = None) -> int:
     srv = ServeServer(
         port=args.port, host=args.host, window_ms=args.window_ms,
         max_batch=args.max_batch, mode=args.batch_mode, device=args.device,
-        checkpoint_dir=checkpoint_dir,
+        checkpoint_dir=checkpoint_dir, fault_schedule=schedule,
     )
     if not args.no_pulse:
         pulse.reset()

@@ -7,12 +7,15 @@ the same text as the JAX package's.  ``--pulse-out`` streams the solve's
 per-cycle health rows as JSONL (and arms the flight recorder, which
 dumps ``postmortem.json`` when a ``--timeout`` runs out);
 ``--checkpoint``/``--resume`` and their cadence flags make the solve
-durable; ``--run_metrics``/``--end_metrics`` write the CSV metrics;
-``--trace-out`` writes the engine's window and read-back spans as a
-Chrome trace (or JSONL for a ``.jsonl`` path) and ``--metrics-out`` the
-metrics registry's snapshot as JSON, with the JAX package's names.  The
-options of its other modes (the thread/process agent runtime, the other
-telemetry flags, memory guard, chaos) are parsed, so a command written
+durable, and ``--fault-schedule`` arms a schedule's process kills
+(``kill_process``: ``os._exit`` at its time, the crash that a
+``--resume`` recovers from) around the solve, as the JAX package's
+direct mode does; ``--run_metrics``/``--end_metrics`` write the CSV
+metrics; ``--trace-out`` writes the engine's window and read-back spans
+as a Chrome trace (or JSONL for a ``.jsonl`` path) and ``--metrics-out``
+the metrics registry's snapshot as JSON, with the JAX package's names.
+The options of its other modes (the thread/process agent runtime, the
+other telemetry flags, memory guard) are parsed, so a command written
 for the JAX package gets a clear refusal naming the option instead of a
 usage error.
 """
@@ -28,9 +31,11 @@ import time
 from ..constants import INFINITY
 from ..dcop.yamldcop import load_dcop_from_file
 from ._utils import (
+    add_chaos_arguments,
     add_csvio_arguments,
     add_durability_arguments,
     build_algo_def,
+    build_chaos_controller,
     finish_durability,
     finish_telemetry,
     start_durability,
@@ -61,7 +66,6 @@ _NOT_PORTED = (
      "the memory guard"),
     (("--mem-limit-bytes",), dict(type=int, default=None),
      "the memory guard"),
-    (("--fault-schedule",), dict(default=None), "chaos"),
 )
 
 
@@ -118,6 +122,7 @@ def set_parser(subparsers) -> None:
         "FILE at exit",
     )
     add_csvio_arguments(parser)
+    add_chaos_arguments(parser)
     add_durability_arguments(parser)
     for flags, kwargs, _what in _NOT_PORTED:
         parser.add_argument(*flags, help="not ported yet", **kwargs)
@@ -165,6 +170,28 @@ def run_cmd(args, timeout: float = None) -> int:
         finish_telemetry(args)
 
 
+def _arm_process_kills(args):
+    """The --fault-schedule controller with its timeline started, or None
+    when the schedule has no process kill.  Agent kills, message rules
+    and device faults need the agent runtime: logged and ignored."""
+    chaos = build_chaos_controller(args)
+    if chaos is None:
+        return None
+    sched = chaos.schedule
+    if sched.kills or sched.rules or sched.device_faults:
+        logger.warning(
+            "--fault-schedule: agent kills / message rules / device "
+            "faults need the agent runtime; direct mode ignores them "
+            "(the port runs --mode direct only)"
+        )
+    if not sched.process_kills:
+        return None
+    # whole-process kills need no agents: arm the timeline around the
+    # device solve
+    chaos.start(None)
+    return chaos
+
+
 def _run_cmd(args, timeout: float = None) -> int:
     t_load = time.perf_counter()
     dcop = load_dcop_from_file(args.dcop_files)
@@ -177,6 +204,7 @@ def _run_cmd(args, timeout: float = None) -> int:
     )
     from ..api import solve_result
 
+    chaos = _arm_process_kills(args)
     result = solve_result(
         dcop,
         algo_def,
@@ -188,6 +216,15 @@ def _run_cmd(args, timeout: float = None) -> int:
         infinity=args.infinity,
         device=args.device,
     )
+    if chaos is not None:
+        # the fault timeline is part of the run: a process kill due at t
+        # fires even when the solve returned early, or the same schedule
+        # would exercise different faults depending on machine speed
+        pending = max(
+            (k.at for k in chaos.schedule.process_kills), default=0.0
+        )
+        chaos.wait_timeline(timeout=pending + 10.0)
+        chaos.stop()
     if args.run_metrics:
         offset = 0
         if getattr(args, "resume", None):

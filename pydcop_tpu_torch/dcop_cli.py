@@ -4,14 +4,16 @@ Counterpart of ``pydcop_tpu/dcop_cli.py``: argparse top level with the
 global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
 per verb.  The port has the ``solve`` and ``serve`` verbs, and the
-host-only ``checkpoints`` and ``postmortem`` verbs.  Its global
-``--device {cuda,cpu}`` takes the place of JAX's ``JAX_PLATFORMS``: the
-default is the card, and without one the CLI exits nonzero unless
-``--device cpu`` is given; it never falls back to the CPU by itself.  The JAX CLI's
-multi-host and platform options are parsed and refused as not ported.
+host-only ``generate``, ``checkpoints`` and ``postmortem`` verbs.  Its
+global ``--device {cuda,cpu}`` takes the place of JAX's
+``JAX_PLATFORMS``: the default is the card, and without one the CLI
+exits nonzero unless ``--device cpu`` is given; it never falls back to
+the CPU by itself.  The JAX CLI's multi-host and platform options are
+parsed and refused as not ported.
 
-Run as ``python -m pydcop_tpu_torch [--device cpu] solve -a ALGO FILE``
-or ``python -m pydcop_tpu_torch [--device cpu] serve --port 0``.
+Run as ``python -m pydcop_tpu_torch [--device cpu] solve -a ALGO FILE``,
+``python -m pydcop_tpu_torch [--device cpu] serve --port 0`` or
+``python -m pydcop_tpu_torch generate FAMILY ...``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import signal
 import sys
 from typing import List, Optional
 
-from .commands import checkpoints, postmortem, serve, solve
+from .commands import checkpoints, generate, postmortem, serve, solve
 
 __all__ = ["main"]
 
@@ -31,8 +33,8 @@ __all__ = ["main"]
 # finish its chunk and report TIMEOUT itself
 TIMEOUT_SLACK = 20
 
-# verbs that only read files on the host: they run without a card
-_HOST_ONLY = ("checkpoints", "postmortem")
+# verbs that only read or write files on the host: they run without a card
+_HOST_ONLY = ("checkpoints", "generate", "postmortem")
 
 # global options of the JAX CLI that the port does not run yet
 _NOT_PORTED = (
@@ -95,6 +97,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     subparsers = parser.add_subparsers(dest="command")
     solve.set_parser(subparsers)
     serve.set_parser(subparsers)
+    generate.set_parser(subparsers)
     checkpoints.set_parser(subparsers)
     postmortem.set_parser(subparsers)
 

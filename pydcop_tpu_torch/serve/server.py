@@ -28,13 +28,23 @@ With a ``checkpoint_dir``, a drain writes the fleet checkpoint
 tenant's result, in the JAX package's manifest format (``kind:
 fleet``), written atomically.
 
-Chaos kills, SLO objectives, memory admission, peer discovery from
-sibling fleet manifests, trace ids, ``/metrics`` and the HA router are
-not ported (ROADMAP).
+With a ``fault_schedule`` (``chaos.FaultSchedule``), as in the JAX
+package: a ``delay`` rule whose ``dest`` matches a tenant id holds that
+tenant alone for ``seconds`` before it may enter a batch (with ``p`` <
+1, decided by the schedule's keyed hash, so the same tenants every run),
+and a timed ``kill`` whose name matches a tenant id kills it when it
+rides a batch dispatched at or after ``at``: its solve still runs with
+the batch, its result is dropped (``killed``, a dead letter), and the
+batch's other tenants keep their own results.
+
+SLO objectives, memory admission, peer discovery from sibling fleet
+manifests, trace ids, ``/metrics`` and the HA router are not ported
+(ROADMAP).
 """
 
 from __future__ import annotations
 
+import fnmatch
 import http.server
 import itertools
 import json
@@ -98,6 +108,7 @@ class ServeServer:
         mode: str = "vmap",
         device="cuda",
         checkpoint_dir: Optional[str] = None,
+        fault_schedule: Any = None,
     ) -> None:
         if mode not in ("vmap", "fused"):
             raise ValueError(f"unknown serve batch mode {mode!r}")
@@ -110,6 +121,9 @@ class ServeServer:
         self.window_s = max(0.0, window_ms) / 1e3
         self.max_batch = max(1, int(max_batch))
         self.mode = mode
+        #: the chaos schedule: tenant holds (``delay`` rules) and timed
+        #: tenant kills (``kill`` events), or None
+        self.fault_schedule = fault_schedule
         self._queue: "queue.Queue[str]" = queue.Queue()
         self._tenants: Dict[str, Dict[str, Any]] = {}
         self._lock = threading.RLock()
@@ -117,6 +131,8 @@ class ServeServer:
         self._stop = threading.Event()
         self._drained = threading.Event()
         self._ids = itertools.count()
+        self._t0 = time.monotonic()
+        self._kills_fired: set = set()
         self._latencies: List[float] = []
         self._queue_hwm = 0
         self._buckets_seen: set = set()
@@ -153,16 +169,48 @@ class ServeServer:
                 tenant = f"t{next(self._ids)}"  # a free generated id
             if tenant in self._tenants:
                 raise ValueError(f"tenant id {tenant!r} already known")
-            self._tenants[tenant] = {
+            hold_s = self._chaos_hold_s(tenant)
+            rec = {
                 "status": "queued",
                 "request": req._replace(tenant=tenant),
                 "algo": req.algo,
                 "n_cycles": req.n_cycles,
                 "submitted_s": now,
             }
+            if hold_s:
+                rec["hold_until_s"] = now + hold_s
+            self._tenants[tenant] = rec
             self._queue.put(tenant)
             self._queue_hwm = max(self._queue_hwm, self._queue.qsize())
+        if hold_s:
+            logger.info(
+                "chaos delay: tenant %s held %.3fs before dispatch",
+                tenant, hold_s,
+            )
         return tenant
+
+    def _chaos_hold_s(self, tenant: str) -> float:
+        """Seconds the schedule's ``delay`` rules hold this tenant before
+        it may enter a batch (0: none).  A rule with p < 1 decides by the
+        schedule's keyed hash, never a shared PRNG, so the same schedule
+        holds the same tenants every run."""
+        sched = self.fault_schedule
+        if sched is None or not getattr(sched, "rules", None):
+            return 0.0
+        from ..chaos.schedule import unit_draw
+
+        total = 0.0
+        for i, rule in enumerate(sched.rules):
+            if rule.action != "delay":
+                continue
+            if not rule.matches("serve", tenant, "solve"):
+                continue
+            if rule.p < 1.0 and unit_draw(
+                sched.seed, f"serve.delay|{i}|{tenant}", 0
+            ) >= rule.p:
+                continue
+            total += rule.seconds
+        return total
 
     def kill(self, tenant: str) -> bool:
         """Kill a tenant that has not finished: a queued one never runs,
@@ -331,10 +379,32 @@ class ServeServer:
 
     # -- the worker ----------------------------------------------------
 
+    def _next_ready(self, timeout: float) -> str:
+        """Pop the next tenant that may be dispatched.  A tenant held by a
+        ``delay`` rule is put back until its release time: the hold
+        applies to that tenant alone, so the tenants batched beside it
+        never wait for someone else's injected stall."""
+        if self.fault_schedule is None:
+            return self._queue.get(timeout=timeout)
+        deadline = time.monotonic() + timeout
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining < 0:
+                raise queue.Empty
+            tid = self._queue.get(timeout=max(0.0, remaining))
+            with self._lock:
+                rec = self._tenants.get(tid)
+                hold = rec.get("hold_until_s", 0.0) if rec else 0.0
+            now = time.monotonic()
+            if hold <= now:
+                return tid
+            self._queue.put(tid)
+            time.sleep(min(0.005, hold - now))
+
     def _run(self) -> None:
         while True:
             try:
-                first = self._queue.get(timeout=0.05)
+                first = self._next_ready(0.05)
             except queue.Empty:
                 if self._stop.is_set() and not self._queue.qsize():
                     break
@@ -346,9 +416,7 @@ class ServeServer:
                 if remaining <= 0 and not self._stop.is_set():
                     break
                 try:
-                    batch.append(self._queue.get(
-                        timeout=max(0.0, remaining)
-                    ))
+                    batch.append(self._next_ready(max(0.0, remaining)))
                 except queue.Empty:
                     break
             try:
@@ -366,6 +434,20 @@ class ServeServer:
                             rec.pop("request", None)
                             self.dead_letters += 1
         self._drained.set()
+
+    def _fired_kills(self) -> List[str]:
+        """Tenant-id patterns of the schedule's kills due by now, each
+        fired once."""
+        if self.fault_schedule is None:
+            return []
+        elapsed = time.monotonic() - self._t0
+        out = []
+        for ev in self.fault_schedule.kills:
+            key = (ev.agent, ev.at)
+            if ev.at <= elapsed and key not in self._kills_fired:
+                self._kills_fired.add(key)
+                out.append(ev.agent)
+        return out
 
     def _dispatch(self, tenant_ids: List[str]) -> None:
         now = time.monotonic()
@@ -386,8 +468,13 @@ class ServeServer:
         if not reqs:
             return
         degraded = solve_batched.degraded
+        # the schedule's kills due before or while this batch runs: the
+        # victims' solves still run (the batch is one program), their
+        # results are dropped, and only theirs
+        kill_patterns = self._fired_kills()
         results = solve_batched(reqs, max_batch=self.max_batch,
                                 mode=self.mode, device=self.device)
+        kill_patterns += self._fired_kills()
         with self._lock:
             if solve_batched.degraded != degraded:
                 self.degraded += 1
@@ -401,6 +488,10 @@ class ServeServer:
                 rec.pop("request", None)
                 if rec.get("kill"):
                     self._finish_killed(rec, done)
+                elif any(fnmatch.fnmatchcase(tid, pat)
+                         for pat in kill_patterns):
+                    self._finish_killed(rec, done)
+                    rec["error"] = "killed by chaos schedule"
                 elif tr is None or tr.result is None:
                     rec["status"] = "failed"
                     rec["error"] = (tr.extras if tr else {}).get(

@@ -1,7 +1,8 @@
 """Where a warm solve's time goes on the card.
 
     python -m pydcop_tpu_torch.tools.profile_solve [--algo ALGO]
-        [--config 4|6|3|2|5|7|hard10k] [--reps N] [--layout LAYOUT]
+        [--config 4|6|3|2|5|7|hard10k|iot|small_world|secp] [--reps N]
+        [--layout LAYOUT]
         [--precision f32|bf16] [--trace FILE] [--resources N]
 
 ``--algo`` is ``maxsum`` (default), ``amaxsum``, ``dsa``, ``adsa``,
@@ -13,8 +14,12 @@ variables), 3 (the 100x100 Ising grid of
 seed 3, 30 cycles, seed 0), 2 (1k random coloring, 60 cycles, seed 0;
 MaxSum with damping 0.5 and stop_cycle 60), 7 (bench config 7: the
 mixed hard/soft problem of 2,000 variables and 5,050 constraints, 50
-cycles, seed 0) or ``hard10k`` (a hard scale-free coloring of 10,000
-variables, 100 cycles, seed 0); DPOP runs config 5, meeting scheduling
+cycles, seed 0), ``hard10k`` (a hard scale-free coloring of 10,000
+variables, 100 cycles, seed 0) or a problem of the ``generate`` verb,
+30 cycles, seed 0, MaxSum with damping 0.7: ``iot`` (``generate iot -n
+1000``), ``small_world`` (``generate small_world -n 10000 -k 4 -p 0.1
+-d 5 --seed 1``) or ``secp`` (``generate secp -l 100 -m 20 -r 40``);
+DPOP runs config 5, meeting scheduling
 with 8 slots, 30 events of up to 2 resources, seed 5, and
 ``--resources`` resources (30, the default, is bench config 5; fewer
 share more and widen the tree).  The local-search solvers run their
@@ -63,11 +68,14 @@ from ..commands.generators.graphcoloring import (
     generate_coloring_arrays,
     generate_graph_coloring,
 )
+from ..commands.generators.iot import generate_iot
 from ..commands.generators.ising import generate_ising_arrays
 from ..commands.generators.meetingscheduling import (
     generate_meeting_scheduling,
 )
 from ..commands.generators.mixedproblem import generate_mixed_problem
+from ..commands.generators.secp import generate_secp
+from ..commands.generators.smallworld import generate_small_world
 from ..compile import hopper_kernels
 from ..compile.core import compile_dcop
 
@@ -104,6 +112,20 @@ CONFIGS = {
             10_000, 3, graph="scalefree", m_edge=2, soft=False, seed=7,
         )),
         100, 0, {},
+    ),
+    "iot": (
+        lambda: compile_dcop(generate_iot(1000)[0]), 30, 0,
+        {"damping": 0.7},
+    ),
+    "small_world": (
+        lambda: compile_dcop(generate_small_world(
+            10_000, 4, 0.1, domain_size=5, seed=1,
+        )),
+        30, 0, {"damping": 0.7},
+    ),
+    "secp": (
+        lambda: compile_dcop(generate_secp(100, 20, 40)), 30, 0,
+        {"damping": 0.7},
     ),
 }
 KERNELS = ("ell_minplus", "factor_arity2_minplus", "xla_tree_sum",

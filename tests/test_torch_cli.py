@@ -6,7 +6,8 @@ CLI's JSON (``python -m pydcop_tpu solve`` under ``JAX_PLATFORMS=cpu``),
 within rel 1e-5, a cost curve within rel 1e-6, every other field equal).
 Without a card and without ``--device cpu`` it refuses; the options of
 the JAX CLI's other modes are refused as not ported.  ``--pulse-out``,
-``--checkpoint``/``--resume`` and the CSV metrics run, and the host-only
+``--checkpoint``/``--resume``, ``--fault-schedule`` (on ``solve`` and
+``serve``) and the CSV metrics run, and the host-only
 ``checkpoints`` and ``postmortem`` verbs read the files either package
 writes.
 """
@@ -84,7 +85,7 @@ def test_cli_without_a_card_exits_nonzero():
 
 @pytest.mark.parametrize("option", [
     ["-m", "thread"], ["--profile", "p"], ["--mem-guard"],
-    ["--fault-schedule", "f.yaml"], ["--dump-hlo", "h"],
+    ["--dump-hlo", "h"],
     ["--profile-out", "prof"], ["--metrics-port", "9"], ["--delay", "0.1"],
 ])
 def test_cli_refuses_options_not_ported(option, capsys):
@@ -102,8 +103,7 @@ def test_cli_refuses_global_options_not_ported(capsys):
 
 
 @pytest.mark.parametrize("option", [
-    ["--fault-schedule", "f.yaml"], ["--slo-interval", "5"],
-    ["--mem-reserve-pct", "5"],
+    ["--slo-interval", "5"], ["--mem-reserve-pct", "5"],
     ["--slo", "p99<250ms"], ["--slo-file", "s.yaml"], ["--peer", "http://x"],
     ["--mem-guard"],
 ])
@@ -158,6 +158,71 @@ def test_serve_verb_serves_then_drains(tmp_path):
     assert summary["drained"] is True
     assert (summary["solves"], summary["dead_letters"]) == (1, 0)
     assert summary["tenant_counts"] == {"done": 1}
+
+
+def test_cli_solve_runs_with_a_fault_schedule(tmp_path, caplog):
+    # a schedule without a process kill: the direct solve logs that it
+    # ignores the agent kill and the message rule, and gives the plain
+    # solve's JSON
+    sched = tmp_path / "f.yaml"
+    sched.write_text("seed: 1\nevents:\n  - kill: a1\n    at: 0.0\n"
+                     "  - drop: '*'\n    p: 0.5\n")
+    want = _solve(tmp_path, "ref")
+    assert _solve(tmp_path, "chaos", "--fault-schedule", str(sched)) == want
+    assert "direct mode ignores them" in caplog.text
+
+
+def test_serve_verb_runs_with_a_fault_schedule(tmp_path):
+    # serve --fault-schedule: a kill of "dead*" at t=0 kills the tenant
+    # that matches it, a dead letter, and solves the other one
+    import time
+    import urllib.request
+
+    sched = tmp_path / "f.yaml"
+    sched.write_text("events:\n  - kill: 'dead*'\n    at: 0.0\n")
+    out = tmp_path / "serve.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pydcop_tpu_torch", "--device", "cpu",
+         "--output", str(out), "serve", "--port", "0", "--window-ms",
+         "200", "--duration", "30", "--fault-schedule", str(sched)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("SERVE_PORT="), proc.stderr.read()
+        base = f"http://127.0.0.1:{int(line.split('=')[1])}"
+        with open(_path("graph_coloring")) as f:
+            text = f.read()
+        for tenant in ("dead-1", "alive"):
+            body = json.dumps({"dcop_yaml": text, "algo": "dsa",
+                               "n_cycles": 10, "tenant": tenant}).encode()
+            req = urllib.request.Request(base + "/solve", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                assert json.loads(resp.read()) == {"tenant": tenant}
+        rows = {}
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and len(rows) < 2:
+            for tenant in ("dead-1", "alive"):
+                with urllib.request.urlopen(base + f"/result/{tenant}") as r:
+                    row = json.loads(r.read())
+                if row["status"] in ("done", "killed", "failed"):
+                    rows[tenant] = row
+            time.sleep(0.05)
+        assert rows["dead-1"]["status"] == "killed"
+        assert rows["dead-1"]["error"] == "killed by chaos schedule"
+        assert rows["alive"]["status"] == "done"
+        stop = urllib.request.Request(base + "/shutdown", data=b"{}",
+                                      method="POST")
+        with urllib.request.urlopen(stop, timeout=60) as resp:
+            assert json.loads(resp.read()) == {"state": "draining"}
+        assert proc.wait(timeout=60) == 0
+    finally:
+        proc.kill()
+        proc.communicate()
+    summary = json.loads(out.read_text())
+    assert (summary["solves"], summary["dead_letters"]) == (1, 1)
+    assert summary["tenant_counts"] == {"done": 1, "killed": 1}
 
 
 def test_serve_verb_needs_the_card_unless_asked(capsys):

@@ -34,6 +34,17 @@ def test_port_files_found():
     assert "pydcop_tpu_torch/compile/hopper_kernels.py" in PORT_FILES
 
 
+@pytest.mark.parametrize("path", [
+    "pydcop_tpu_torch/chaos/schedule.py",
+    "pydcop_tpu_torch/chaos/controller.py",
+    "pydcop_tpu_torch/computations_graph/objects.py",
+    "pydcop_tpu_torch/computations_graph/factor_graph.py",
+    "pydcop_tpu_torch/commands/generate.py",
+])
+def test_subpackages_are_scanned(path):
+    assert path in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_no_jax_or_reference_package_import(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)

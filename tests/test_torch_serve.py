@@ -573,3 +573,149 @@ def test_union_is_the_disjoint_union():
     other = dataclasses.replace(parts[1], objective="max")
     with pytest.raises(ValueError):
         union_compiled([parts[0], other])
+
+
+# ---------------------------------------------------------------------------
+# fault schedules on the server: tenant kills and holds
+# ---------------------------------------------------------------------------
+
+
+def _kill_schedule(pkg, pattern="victim*", at=0.0):
+    return pkg.FaultSchedule(seed=0, events=[pkg.KillEvent(agent=pattern,
+                                                            at=at)])
+
+
+@pytest.mark.parametrize("algo, params", [
+    ("dsa", {}), ("maxsum", {"damping": 0.7}),
+])
+def test_chaos_kill_degrades_only_the_victims(algo, params):
+    # a kill of "victim*" at t=0: the victims ride the batch, their
+    # results are dropped (killed, dead letters), and every tenant beside
+    # them keeps its solo bits; the JAX server kills the same tenants
+    from pydcop_tpu import chaos as jax_chaos
+    from pydcop_tpu.serve import ServeServer as JaxServer
+    from pydcop_tpu_torch import chaos
+
+    def tenants(jax=False):
+        return _reqs(algo, params, (25, 25, 25), 12, seed0=40, jax=jax), [
+            r._replace(tenant=f"victim-{i}") for i, r in enumerate(
+                _reqs(algo, params, (25, 25), 12, seed0=90, jax=jax))
+        ]
+
+    statuses = {}
+    for name, make in (
+        ("port", lambda: ServeServer(
+            window_ms=200, max_batch=8, device="cpu",
+            fault_schedule=_kill_schedule(chaos))),
+        ("jax", lambda: JaxServer(
+            port=None, window_ms=200, max_batch=8,
+            fault_schedule=_kill_schedule(jax_chaos))),
+    ):
+        reqs, victims = tenants(jax=name == "jax")
+        srv = make()
+        try:
+            for r in reqs + victims:
+                srv.submit(r)
+            rows = {r.tenant: srv.wait(r.tenant, timeout=120)
+                    for r in reqs + victims}
+            st = srv.status()
+        finally:
+            srv.shutdown(drain=True)
+        statuses[name] = {t: row["status"] for t, row in rows.items()}
+        assert st["dead_letters"] == 2
+        assert st["tenant_counts"] == {"done": 3, "killed": 2}
+        if name == "port":
+            for r in reqs:
+                want = solve_one(r, device="cpu")
+                assert rows[r.tenant]["cost"] == want.result.cost
+                assert rows[r.tenant]["assignment"] == \
+                    want.result.assignment
+            for v in victims:
+                assert rows[v.tenant]["error"] == "killed by chaos schedule"
+                assert "cost" not in rows[v.tenant]
+    assert statuses["port"] == statuses["jax"]
+
+
+def test_chaos_kill_due_later_spares_earlier_batches():
+    # a kill due at t=60 s has not fired when these batches run
+    from pydcop_tpu_torch import chaos
+
+    srv = ServeServer(window_ms=20, max_batch=8, device="cpu",
+                      fault_schedule=_kill_schedule(chaos, "v*", at=60.0))
+    try:
+        reqs = [r._replace(tenant=f"v{i}") for i, r in
+                enumerate(_reqs("dsa", {}, (9, 9), 6, seed0=5))]
+        for r in reqs:
+            srv.submit(r)
+        assert [srv.wait(r.tenant)["status"] for r in reqs] == ["done"] * 2
+        assert srv.status()["dead_letters"] == 0
+    finally:
+        srv.shutdown()
+
+
+def test_chaos_delay_holds_only_the_victims_deterministically():
+    from pydcop_tpu_torch.chaos import FaultSchedule, MessageRule
+
+    schedule = FaultSchedule(seed=3, events=[
+        MessageRule(action="delay", pattern="solve", dest="lag*",
+                    seconds=0.6),
+    ])
+    held = []
+    for _run in range(2):
+        srv = ServeServer(window_ms=10, max_batch=8, device="cpu",
+                          fault_schedule=schedule)
+        try:
+            ok = _reqs("dsa", {}, (9, 9), 8, seed0=60)
+            lag = [r._replace(tenant=f"lag-{i}") for i, r in
+                   enumerate(_reqs("dsa", {}, (9, 9), 8, seed0=60))]
+            for r in ok + lag:
+                srv.submit(r)
+            out = {}
+            for r in ok + lag:
+                rec = srv.wait(r.tenant, timeout=120)
+                assert rec["status"] == "done"
+                out[r.tenant] = rec["queue_ms"]
+                # a held tenant still gets its solo bits
+                want = solve_one(r, device="cpu").result
+                assert (rec["cost"], rec["assignment"]) == (
+                    want.cost, want.assignment)
+        finally:
+            srv.shutdown(drain=True)
+        for t, q_ms in out.items():
+            if t.startswith("lag-"):
+                assert q_ms >= 600.0, (t, q_ms)
+            else:
+                assert q_ms < 600.0, (t, q_ms)
+        held.append({t: q >= 600.0 for t, q in out.items()})
+    assert held[0] == held[1]
+
+
+@pytest.mark.parametrize("p, seed", [(0.5, 1), (0.2, 7), (1.0, 2)])
+def test_chaos_hold_decisions_are_jaxs(p, seed):
+    # which tenants a probabilistic delay rule holds, and for how long:
+    # the JAX server's keyed-hash decisions, tenant by tenant
+    from pydcop_tpu import chaos as jax_chaos
+    from pydcop_tpu.serve import ServeServer as JaxServer
+    from pydcop_tpu_torch import chaos
+
+    def schedule(pkg):
+        return pkg.FaultSchedule(seed=seed, events=[
+            pkg.MessageRule(action="delay", pattern="solve", dest="t*",
+                            p=p, seconds=0.25),
+            pkg.MessageRule(action="drop", pattern="*"),
+            pkg.MessageRule(action="delay", pattern="solve", dest="t1*",
+                            seconds=0.5),
+        ])
+
+    port = ServeServer(window_ms=0, device="cpu",
+                       fault_schedule=schedule(chaos))
+    ref = JaxServer(port=None, window_ms=0,
+                    fault_schedule=schedule(jax_chaos))
+    try:
+        tenants = [f"t{i}" for i in range(60)] + ["other", "x1"]
+        got = [port._chaos_hold_s(t) for t in tenants]
+        assert got == [ref._chaos_hold_s(t) for t in tenants]
+        assert 0.0 in got and 0.25 in got
+    finally:
+        port.shutdown()
+        ref.shutdown()
