@@ -116,7 +116,18 @@ captured CUDA graphs:
   resumed to the uninterrupted JSON (``fault_kill_resume_cli``); and a
   ``ServeServer`` whose schedule kills ``dead*`` tenants and holds
   ``hold*`` ones, the others keeping their solo bits
-  (``serve_fault_schedule``).
+  (``serve_fault_schedule``);
+- the memory plane (``memory``): the model's device table held to the
+  card's reported memory and bandwidth; MaxSum (``ell``, ``lanes``,
+  ``pallas``), DSA and GDBA at config 4, MGM-2 at config 3 and DPOP at
+  config 5, each solved cold and warm on a fresh copy of its problem,
+  its rise in peak allocated memory printed beside
+  ``predict_solve_bytes`` and the workspace factor it implies; config 6
+  (MaxSum ``ell``), out of the fit, solved under the guard with the
+  card's own limit and predicted within ``MEMORY_HELD_RATIO`` of its
+  rise; a solve refused under ``limit_bytes`` that leaves
+  ``memory_allocated`` as it was; and a serve admission refused over
+  HTTP with a 503 that carries the breach (``mem``).
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -129,7 +140,7 @@ one JSON object per phase, then the kernel table (seven rows: both TPU
 kernels with a float32 and with a bf16 plane, ``xla_tree_sum``, the DFS
 kernel ``branch_bound``, held equal to its plain version at 16
 variables, and ``damp_fma``; and the six batched variants' rows; each
-row with its ``batched_launches``), the card's
+row with its ``batched_launches`` and ``memory_launches``), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
 exits nonzero, with no result, when no CUDA device is present or the
@@ -533,6 +544,27 @@ SERVE_FAULT_TENANTS = [
     (f"{kind}{i}", 1024, 900 + 4 * i + j, i)
     for i in range(4) for j, kind in enumerate(("ok", "dead", "hold"))
 ]
+
+
+# the memory phase: the solves whose rise in peak memory fits the model's
+# workspace factors (label, problem, algo, params, n_cycles), and the solve
+# held to the fit, bench config 6, about 10x config 4
+MEMORY_FIT = (
+    ("maxsum_ell_config4", "config4", "maxsum",
+     {"damping": 0.7, "layout": "ell"}, 30),
+    ("maxsum_lanes_config4", "config4", "maxsum",
+     {"damping": 0.7, "layout": "lanes"}, 30),
+    ("maxsum_pallas_config4", "config4", "maxsum",
+     {"damping": 0.7, "layout": "pallas"}, 30),
+    ("dsa_config4", "config4", "dsa", {}, 30),
+    ("gdba_config4", "config4", "gdba", {}, 30),
+    ("mgm2_config3", "config3", "mgm2", {}, 30),
+    ("dpop_config5", "config5", "dpop", {}, 1),
+)
+MEMORY_HELD = ("maxsum_ell_config6", "config6", "maxsum",
+               {"damping": 0.7, "layout": "ell"}, 30)
+# predicted over measured peak at config 6, left out of the fit
+MEMORY_HELD_RATIO = (0.9, 1.5)
 
 
 def emit(obj) -> None:
@@ -3578,6 +3610,218 @@ def phase_serve_pulse():
     return launches
 
 
+def _fresh(compiled):
+    """A copy of ``compiled`` without its device caches: a solve of it
+    uploads, builds and captures anew, as the first solve of a problem
+    does."""
+    import copy
+
+    out = copy.copy(compiled)
+    out.__dict__.pop("_device_consts", None)
+    return out
+
+
+def _peak_rise(solve):
+    """``solve()``'s result, its rise in allocated device memory (the
+    peak over the solve, ``max_memory_allocated`` after
+    ``reset_peak_memory_stats``, less what was allocated before it) and
+    the same of the caching allocator's reserved memory."""
+    import torch
+
+    from pydcop_tpu_torch.telemetry.memplane import measured_peak_bytes
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    out = solve()
+    torch.cuda.synchronize()
+    return (out, measured_peak_bytes() - before,
+            torch.cuda.max_memory_reserved() - reserved)
+
+
+def _device_table_row():
+    """The model's device table held to what the card reports: its total
+    memory against the row's capacity, and, where torch reports the
+    memory clock and bus width, the bandwidth they give against the
+    row's."""
+    import torch
+
+    from pydcop_tpu_torch.telemetry import memplane
+
+    name = torch.cuda.get_device_name(0)
+    row = memplane.device_generation(name)
+    check(row is not None, f"memory: no device table row for {name!r}")
+    _free, total = torch.cuda.mem_get_info(0)
+    check(0.9 <= total / row[2] <= 1.0,
+          f"memory: {name} reports {total} B, the table {row[2]} B")
+    props = torch.cuda.get_device_properties(0)
+    clock_khz = getattr(props, "memory_clock_rate", None)
+    bus_bits = getattr(props, "memory_bus_width", None)
+    out = {"name": name, "row": list(row), "total_bytes": total,
+           "capacity_share": total / row[2]}
+    if clock_khz and bus_bits:
+        gbps = 2 * clock_khz * 1e3 * bus_bits / 8 / 1e9
+        check(abs(gbps / row[1] - 1) <= 0.05,
+              f"memory: {name} reports {gbps:.0f} GB/s, the table {row[1]}")
+        out["reported_gbps"] = gbps
+    else:
+        out["reported_gbps"] = "not reported by torch"
+    return out
+
+
+def phase_memory(c4, c6):
+    """The memory plane on the card.  Each solve of ``MEMORY_FIT`` runs
+    cold on a fresh copy of its problem and then warm; its rise in peak
+    allocated memory stands beside ``predict_solve_bytes``'s total, and
+    the workspace factor it implies (the rise less the exact components,
+    over the family's dominant plane) beside ``memplane._WORKSPACE``.
+    Config 6, out of the fit, must be predicted within
+    ``MEMORY_HELD_RATIO`` of its cold rise, by a guarded solve (no
+    override: the card's own limit) that the guard lets pass.  A refused
+    solve must leave ``memory_allocated`` as it was, and a serve
+    admission refused over HTTP must answer 503 with the breach."""
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
+    from pydcop_tpu_torch.commands.generators.ising import (
+        generate_ising_arrays,
+    )
+    from pydcop_tpu_torch.serve import ServeServer
+    from pydcop_tpu_torch.telemetry import memplane
+
+    out = {"phase": "memory", "device": _device_table_row()}
+    problems = {
+        "config4": c4, "config6": c6, "config5": _meetings(30),
+        "config3": generate_ising_arrays(*CONFIG_3["gen"]),
+    }
+
+    def measured(label, problem, algo, params, n_cycles):
+        mod = load_algorithm_module(algo)
+        compiled = _fresh(problems[problem])
+
+        def solve():
+            return mod.solve(compiled, dict(params), n_cycles=n_cycles,
+                             seed=7, device="cuda")
+
+        cold, cold_rise, cold_reserved = _peak_rise(solve)
+        warm, warm_rise, _ = _peak_rise(solve)
+        check((cold.cost, cold.violations) == (warm.cost, warm.violations),
+              f"memory {label}: cold and warm solves differ")
+        pred = memplane.predict_solve_bytes(
+            compiled, algo, params, n_cycles=n_cycles)
+        family = memplane._FAMILY[algo]
+        _consts, _state, plane, key = memplane._family_bytes(
+            family, algo, memplane.shape_of(compiled), params, compiled,
+            pred["layout"])
+        fixed = pred["total_bytes"] - pred["components"]["workspace"]
+        tree_sum = (pred["components"]["workspace"]
+                    - int(memplane._WORKSPACE[key] * plane))
+        return {
+            "predicted_bytes": pred["total_bytes"],
+            "cold_rise_bytes": cold_rise, "warm_rise_bytes": warm_rise,
+            "cold_reserved_rise_bytes": cold_reserved,
+            "ratio": pred["total_bytes"] / cold_rise,
+            "workspace_key": key,
+            "factor": memplane._WORKSPACE[key],
+            "implied_factor": (cold_rise - fixed - tree_sum) / plane,
+            "components": pred["components"],
+        }
+
+    _zero_all_launches()
+    rows = {}
+    for label, *run in MEMORY_FIT:
+        rows[label] = measured(label, *run)
+        emit({"phase": "memory_solve", "solve": label, **rows[label]})
+    launches = _all_launch_counts()
+    out["fit"] = {k: {f: v[f] for f in ("predicted_bytes",
+                                         "cold_rise_bytes", "ratio",
+                                         "implied_factor")}
+                  for k, v in rows.items()}
+    # config 6 through the guard, with the card's own limit
+    memplane.memguard.reset()
+    memplane.memguard.configure(enabled=True)
+    try:
+        held = measured(*MEMORY_HELD)
+    finally:
+        memplane.memguard.reset()
+    emit({"phase": "memory_solve", "solve": MEMORY_HELD[0], **held})
+    limit = memplane.device_limit_bytes("cuda")
+    lo, hi = MEMORY_HELD_RATIO
+    check(held["predicted_bytes"] <= limit * 0.9,
+          f"memory: config 6 predicted over the card's budget ({limit} B)")
+    check(lo <= held["ratio"] <= hi,
+          f"memory: config 6 predicted/measured {held['ratio']:.3f} "
+          f"outside [{lo}, {hi}]")
+    out["held"] = {"solve": MEMORY_HELD[0], "limit_bytes": limit,
+                   **{f: held[f] for f in ("predicted_bytes",
+                                           "cold_rise_bytes", "ratio")}}
+
+    # a refusal uploads nothing
+    label, problem, algo, params, n_cycles = MEMORY_FIT[0]
+    compiled = _fresh(problems[problem])
+    pred = memplane.predict_solve_bytes(compiled, algo, params,
+                                        n_cycles=n_cycles)
+    memplane.memguard.configure(enabled=True,
+                                limit_bytes=pred["total_bytes"] // 2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        load_algorithm_module(algo).solve(
+            compiled, dict(params), n_cycles=n_cycles, seed=7,
+            device="cuda")
+        refused = None
+    except memplane.MemoryBudgetExceeded as e:
+        refused = e.breach
+    finally:
+        memplane.memguard.reset()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(refused is not None, "memory: the guard let a refusal through")
+    check(after == before,
+          f"memory: a refused solve moved memory_allocated {before} -> "
+          f"{after}")
+    check(refused["predicted_bytes"] == pred["total_bytes"],
+          f"memory: refusal {refused}")
+    out["refusal"] = {"solve": label, "allocated_before": before,
+                      "allocated_after": after,
+                      "breach_keys": sorted(refused)}
+
+    # a serve admission refused over HTTP
+    srv = ServeServer(port=0, window_ms=5, device="cuda")
+    memplane.memguard.configure(enabled=True, limit_bytes=1000)
+    try:
+        base = f"http://127.0.0.1:{srv.http.port}"
+        body = json.dumps({
+            "dcop_yaml": (ROOT / FRONT_DOOR_YAML[0]).read_text(),
+            "algo": "dsa", "n_cycles": 30, "seed": 3, "tenant": "big",
+        }).encode()
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                base + "/solve", data=body, method="POST"))
+            code, doc = 200, {}
+        except urllib.error.HTTPError as e:
+            code, doc = e.code, json.loads(e.read())
+        with urllib.request.urlopen(base + "/status") as resp:
+            status = json.loads(resp.read())
+    finally:
+        memplane.memguard.reset()
+        srv.shutdown()
+    check(code == 503 and doc.get("mem", {}).get("context") == "serve",
+          f"memory: POST /solve over the budget answered {code} {doc}")
+    check(status["memory"]["guard"]["enabled"]
+          and status["memory"]["refusals_total"] >= 0,
+          f"memory: /status memory block {status.get('memory')}")
+    out["serve_refusal"] = {"code": code, "mem": doc["mem"],
+                            "status_memory": status["memory"]}
+    out["launches"] = launches
+    emit(out)
+    return launches
+
+
 def analyze_first(tenant_result):
     """The diagnosis of a tenant's health rows."""
     from pydcop_tpu_torch.telemetry.pulse import analyze
@@ -4002,7 +4246,7 @@ def _fault_kill_resume_cli(args, out):
         want.pop("time")
         last = want["cycle"] // FAULT_EVERY * FAULT_EVERY
 
-        def killed(tag, at):
+        def killed(tag, at, want_snapshot=True):
             ck = tmp / tag
             sched = _fault_schedule_file(tmp / f"{tag}.yaml", at)
             t0 = time.perf_counter()
@@ -4025,13 +4269,16 @@ def _fault_kill_resume_cli(args, out):
                   f"fault_kill_resume_cli {tag}: exit {proc.returncode}, "
                   f"{len(stdout)} bytes out: {stderr[-2000:]}")
             snaps = _manifests(ck)
-            check(snaps, f"fault_kill_resume_cli {tag}: no snapshot")
-            armed = exited - at
             row = {"at_s": at, "wall_s": time.perf_counter() - t0,
-                   "snapshots": len(snaps), "last_cycle": snaps[-1][0],
-                   "first_snapshot_s": snaps[0][1] - armed,
-                   "last_snapshot_s": snaps[-1][1] - armed}
+                   "snapshots": len(snaps)}
             out[tag] = row
+            check(snaps or not want_snapshot,
+                  f"fault_kill_resume_cli {tag}: no snapshot")
+            if snaps:
+                armed = exited - at
+                row.update(last_cycle=snaps[-1][0],
+                           first_snapshot_s=snaps[0][1] - armed,
+                           last_snapshot_s=snaps[-1][1] - armed)
             return ck, row
 
         after_ck, after = killed("after_return", FAULT_AFTER_S)
@@ -4041,12 +4288,25 @@ def _fault_kill_resume_cli(args, out):
               f"before the solve returned")
         check(after["last_snapshot_s"] < FAULT_AFTER_S,
               "fault_kill_resume_cli: the last snapshot after the kill")
-        mid_at = round(
-            (after["first_snapshot_s"] + after["last_snapshot_s"]) / 2, 3)
-        mid_ck, mid = killed("mid_solve", mid_at)
-        check(mid["last_cycle"] < last,
+        # halfway through the first run's snapshots; a CLI process's cold
+        # start varies by seconds between processes, so a kill that falls
+        # before this one's first snapshot, or after its last, is tried
+        # again a quarter of the window later, or earlier
+        window = after["last_snapshot_s"] - after["first_snapshot_s"]
+        mid_at = after["first_snapshot_s"] + window / 2
+        for attempt in range(3):
+            mid_ck, mid = killed(f"mid_solve_{attempt}", round(mid_at, 3),
+                                 want_snapshot=False)
+            if not mid["snapshots"]:
+                mid_at += window / 4
+            elif mid["last_cycle"] >= last:
+                mid_at -= window / 4
+            else:
+                break
+        out["mid_solve"] = mid
+        check(mid["snapshots"] and mid["last_cycle"] < last,
               f"fault_kill_resume_cli: the mid-solve kill at {mid_at} s "
-              f"came after the last snapshot")
+              f"found no snapshot or came after the last one: {mid}")
         t0 = time.perf_counter()
         procs = {
             tag: subprocess.Popen(
@@ -4366,6 +4626,10 @@ def main() -> int:
     )
     phase_fma("fma_config6", c6, CONFIG_6, MAXSUM_CONFIG6_JAX,
               planes_vs_cpu=False)
+    t_memory = time.perf_counter()
+    memory = phase_memory(c4, c6)
+    emit({"phase": "memory_seconds",
+          "seconds": time.perf_counter() - t_memory})
     t_durable = time.perf_counter()
     phase_durable_config6(c6, c6_ref)
     new_phases_s = time.perf_counter() - t_durable
@@ -4516,6 +4780,7 @@ def main() -> int:
     }
     for name, row in rows.items():
         row["generated_launches"] = generated.get(name, 0)
+        row["memory_launches"] = memory.get(name, 0)
         row["batched_launches"] = (
             row["launches"] if name in BATCHED_ROWS
             else batched.get(name, 0)

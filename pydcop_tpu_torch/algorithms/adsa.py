@@ -21,7 +21,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..compile.core import CompiledDCOP
-from ..compile.kernels import DeviceDCOP, resolve_device, to_device
+from ..compile.kernels import DeviceDCOP, resolve_device
 from ..random import split, uniform
 from . import (
     AlgoParameterDef,
@@ -31,6 +31,7 @@ from . import (
 )
 from .base import (
     cached_const,
+    device_problem,
     extract_values,
     field_io,
     finalize,
@@ -117,8 +118,8 @@ def solve(
     if params["stop_cycle"]:
         n_cycles = params["stop_cycle"]
     device = resolve_device(device)
-    dev = cached_const(
-        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    dev = device_problem(
+        compiled, device, "adsa", params, n_cycles, collect_curve
     )
     probability = cached_const(
         compiled,

@@ -27,13 +27,12 @@ from ..compile.kernels import (
     factor_step,
     masked_argmin,
     resolve_device,
-    to_device,
     variable_step_with_select,
 )
 from ..random import split, uniform
 from . import SolveResult, prepare_algo_params, warn_inert_params
 from .base import (
-    cached_const,
+    device_problem,
     extract_values,
     field_io,
     finalize,
@@ -148,8 +147,8 @@ def solve(
         n_cycles = params["stop_cycle"]
     damping = params["damping"]
     device = resolve_device(device)
-    dev = cached_const(
-        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    dev = device_problem(
+        compiled, device, "amaxsum", params, n_cycles, collect_curve
     )
     values, curve, extras = run_cycles(
         compiled, dev, _init,

@@ -109,11 +109,13 @@ from ..compile.kernels import (
     evaluate,
     local_costs,
     take_rows,
+    to_device,
     violation_count,
     xla_sum,
 )
 from ..durability.manager import CheckpointManager, durability
 from ..random import PRNGKey, fold_in, uniform
+from ..telemetry.memplane import memguard, sample_device_memory
 from ..telemetry.metrics import metrics_registry
 from ..telemetry.pulse import HEALTH_FIELDS, HEALTH_WIDTH, pulse
 from ..telemetry.tracing import tracer
@@ -123,7 +125,7 @@ __all__ = [
     "TIMEOUT_CHUNK", "MAX_CHUNK", "apply_noise", "assign_", "cached_const",
     "run_batch", "run_cycles", "finalize", "extract_values",
     "neighbor_pairs_dev", "pad_rows_np", "PulseCarry", "gain_health",
-    "CarryIO", "field_io",
+    "CarryIO", "field_io", "device_problem",
 ]
 
 # chunk schedule: start small for early clock granularity, grow
@@ -157,11 +159,13 @@ def _telemetry_on() -> bool:
 
 
 def _record_window(
-    kind: str, phase: str, offset: int, cycles: int, t0: float, t1: float
+    kind: str, phase: str, offset: int, cycles: int, t0: float, t1: float,
+    device=None,
 ) -> None:
     """One readback window: the device cycles between two host syncs,
-    attributed to the solver's ``phase``.  The caller checked that
-    telemetry is on."""
+    attributed to the solver's ``phase``, and a live memory sample of
+    ``device`` riding that sync.  The caller checked that telemetry is
+    on."""
     tracer.complete(
         "solve.window", t0, t1 - t0, cat="device",
         kind=kind, phase=phase, offset=offset, cycles=cycles,
@@ -169,6 +173,7 @@ def _record_window(
     _m_windows.inc()
     _m_device_cycles.inc(cycles)
     _m_chunk_ms.observe((t1 - t0) * 1e3, phase=phase, kind=kind)
+    sample_device_memory("chunk" if kind == "chunk" else "solve_end", device)
 
 
 def _record_readback(nbytes: int, t0: float, t1: float) -> None:
@@ -195,6 +200,24 @@ def cached_const(compiled, key: Tuple, build: Callable[[], Any]):
     if key not in cache:
         cache[key] = build()
     return cache[key]
+
+
+def device_problem(
+    compiled, device, algo: str, params: Optional[Dict] = None,
+    n_cycles: int = 64, collect_curve: bool = False,
+) -> DeviceDCOP:
+    """``compiled`` on ``device``, uploaded once and cached on the
+    problem, after the memory guard's check (``telemetry/memplane.py``):
+    a solve the guard refuses has put nothing on the device."""
+    if memguard.enabled:
+        memguard.check(
+            compiled, algo, params, n_cycles=n_cycles,
+            pulse_on=pulse.enabled, collect_curve=collect_curve,
+            device=device,
+        )
+    return cached_const(
+        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    )
 
 
 def neighbor_pairs_dev(compiled, device) -> Tuple[torch.Tensor, ...]:
@@ -1136,7 +1159,8 @@ class _Looks:
         with ``ran`` cycles run."""
         if self.phase is not None:
             _record_window("chunk", self.phase, self.done,
-                           max(0, ran - self.done), self.t_window, t1)
+                           max(0, ran - self.done), self.t_window, t1,
+                           self.runner.dev.unary.device)
         self.t_window = t1
 
     def took(self, ran: int, rows: Optional[np.ndarray]) -> None:
@@ -1343,6 +1367,8 @@ def run_cycles(
             ckpt = None
         else:
             resume_path = durability.take_resume()
+    if metrics_registry.enabled:
+        sample_device_memory("solve_start", dev.unary.device)
     hook = health if (health is not None and pulse.enabled) else None
     if hook is not None:
         pulse.begin_run({
@@ -1531,7 +1557,8 @@ def run_batch(
         # instance runs none)
         _record_readback(nbytes, t_rb, t_end)
         _record_window("batch", _phase_of(step), 0,
-                       sum(row["ran"] for row in out), t0, t_end)
+                       sum(row["ran"] for row in out), t0, t_end,
+                       dev.unary.device)
     if hook is not None:
         if rows is not None:
             seen.append(rows)

@@ -37,12 +37,11 @@ from ..compile.kernels import (
     segment_min,
     segment_sum,
     take_rows,
-    to_device,
     xla_sum,
 )
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
-    cached_const,
+    device_problem,
     extract_values,
     field_io,
     finalize,
@@ -204,8 +203,8 @@ def solve(
             "minimization"
         )
     device = resolve_device(device)
-    dev = cached_const(
-        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    dev = device_problem(
+        compiled, device, "dba", params, n_cycles, collect_curve
     )
     neigh = neighbor_pairs_dev(compiled, device)
     values, curve, extras = run_cycles(

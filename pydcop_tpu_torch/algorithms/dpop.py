@@ -54,6 +54,7 @@ import torch
 
 from ..compile.core import CompiledDCOP
 from ..compile.kernels import resolve_device, segment_offsets, segment_sum
+from ..telemetry.memplane import memguard
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import _capture, _side_stream, cached_const, finalize
 
@@ -265,6 +266,10 @@ def solve(
                 f"induced width too large — use an approximate algorithm"
             )
 
+    if memguard.enabled:
+        # before the first upload: a refused solve puts nothing on the
+        # device
+        memguard.check(compiled, "dpop", params, device=device)
     bucket_tables = [
         _up(compiled, b.tables.reshape(b.tables.shape[0], -1), device)
         for b in compiled.buckets

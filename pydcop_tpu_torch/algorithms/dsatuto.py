@@ -22,12 +22,11 @@ from ..compile.kernels import (
     masked_argmin,
     resolve_device,
     take_rows,
-    to_device,
 )
 from ..random import uniform
 from . import SolveResult, prepare_algo_params
 from .base import (
-    cached_const,
+    device_problem,
     extract_values,
     field_io,
     finalize,
@@ -86,8 +85,8 @@ def solve(
     caller asks for the CPU); reports the best assignment seen."""
     prepare_algo_params(params or {}, algo_params)
     device = resolve_device(device)
-    dev = cached_const(
-        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    dev = device_problem(
+        compiled, device, "dsatuto", params, n_cycles, collect_curve
     )
     values, curve, extras = run_cycles(
         compiled, dev, _init, _step, extract_values,

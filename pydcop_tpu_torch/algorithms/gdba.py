@@ -44,12 +44,12 @@ from ..compile.kernels import (
     per_slot_to_edges,
     resolve_device,
     take_rows,
-    to_device,
     xla_sum,
 )
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     cached_const,
+    device_problem,
     extract_values,
     field_io,
     finalize,
@@ -280,8 +280,8 @@ def solve(
     caller asks for the CPU); reports the best assignment seen."""
     params = prepare_algo_params(params or {}, algo_params)
     device = resolve_device(device)
-    dev = cached_const(
-        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    dev = device_problem(
+        compiled, device, "gdba", params, n_cycles, collect_curve
     )
     neigh = neighbor_pairs_dev(compiled, device)
     table_min, table_max = _extrema_dev(compiled, device)

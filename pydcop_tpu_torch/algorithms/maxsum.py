@@ -60,6 +60,7 @@ from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     CarryIO,
     cached_const,
+    device_problem,
     extract_values,
     finalize,
     run_cycles,
@@ -678,8 +679,8 @@ def solve(
     wavefront = start_mode != "all"
     layout = resolve_layout(compiled, params["layout"])
 
-    dev = cached_const(
-        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    dev = device_problem(
+        compiled, device, "maxsum", params, n_cycles, collect_curve
     )
     inert = cached_const(
         compiled, ("inert_act", str(device)),

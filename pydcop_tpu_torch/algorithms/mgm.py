@@ -27,12 +27,12 @@ from ..compile.kernels import (
     resolve_device,
     segment_max,
     take_rows,
-    to_device,
 )
 from ..random import uniform
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     cached_const,
+    device_problem,
     extract_values,
     field_io,
     finalize,
@@ -221,8 +221,8 @@ def solve(
     if params["stop_cycle"]:
         n_cycles = params["stop_cycle"]
     device = resolve_device(device)
-    dev = cached_const(
-        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    dev = device_problem(
+        compiled, device, "mgm", params, n_cycles, collect_curve
     )
     neigh = neighbor_pairs_dev(compiled, device)
     values, curve, extras = run_cycles(

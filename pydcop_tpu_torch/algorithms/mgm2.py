@@ -38,7 +38,6 @@ from ..compile.kernels import (
     segment_offsets,
     segment_sum,
     take_rows,
-    to_device,
 )
 from ..random import split, uniform
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
@@ -47,6 +46,7 @@ from .base import (
     _flatten,
     _jax_dtype,
     cached_const,
+    device_problem,
     extract_values,
     field_io,
     finalize,
@@ -640,8 +640,8 @@ def solve(
     if params["stop_cycle"]:
         n_cycles = params["stop_cycle"]
     device = resolve_device(device)
-    dev = cached_const(
-        compiled, ("dev", str(device)), lambda: to_device(compiled, device)
+    dev = device_problem(
+        compiled, device, "mgm2", params, n_cycles, collect_curve
     )
     neigh = neighbor_pairs_dev(compiled, device)
     offers = _offers_dev(compiled, dev)

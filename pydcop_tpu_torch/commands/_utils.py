@@ -4,7 +4,8 @@ Counterpart of ``pydcop_tpu/commands/_utils.py`` (the part the ``solve``
 and ``serve`` verbs use): parse ``--algo_params name:value`` pairs into
 a validated ``AlgorithmDef``, write the JSON result, the CSV, durability,
 pulse, trace and metrics flags with their start and finish around a
-solve, and the ``--fault-schedule`` flag with its controller.
+solve, the ``--fault-schedule`` flag with its controller, and the memory
+guard's flags.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ from ..algorithms import AlgorithmDef
 
 __all__ = [
     "add_chaos_arguments", "add_csvio_arguments", "add_durability_arguments",
-    "build_algo_def", "build_chaos_controller", "finish_durability",
-    "finish_telemetry", "parse_params", "start_durability",
-    "start_telemetry", "write_output",
+    "add_memguard_arguments", "build_algo_def", "build_chaos_controller",
+    "configure_memguard", "finish_durability", "finish_telemetry",
+    "parse_params", "start_durability", "start_telemetry", "write_output",
 ]
 
 
@@ -70,6 +71,47 @@ def add_csvio_arguments(parser) -> None:
         default=None,
         help="CSV file to append end-of-run metrics to",
     )
+
+
+def add_memguard_arguments(parser) -> None:
+    """The memory guard's flags, shared by ``solve`` and ``serve``."""
+    parser.add_argument(
+        "--mem-guard", action="store_true",
+        help="refuse a solve or admission whose predicted device bytes "
+        "exceed the device's memory minus the reserve: a named refusal "
+        "(predicted against the budget, the dominant component) before "
+        "anything is uploaded, instead of a torch.OutOfMemoryError "
+        "partway through the solve",
+    )
+    parser.add_argument(
+        "--mem-reserve-pct", type=float, default=None, metavar="PCT",
+        help="percent of the device's memory the guard keeps free "
+        "(default 10); implies --mem-guard",
+    )
+    parser.add_argument(
+        "--mem-limit-bytes", type=int, default=None, metavar="BYTES",
+        help="the byte limit the guard budgets against, in place of the "
+        "card's total memory (a CPU has none); implies --mem-guard",
+    )
+
+
+def configure_memguard(args) -> bool:
+    """Arm the memory guard as the flags say (any of the three arms
+    it); True when armed."""
+    if not (
+        getattr(args, "mem_guard", False)
+        or getattr(args, "mem_reserve_pct", None) is not None
+        or getattr(args, "mem_limit_bytes", None) is not None
+    ):
+        return False
+    from ..telemetry.memplane import memguard
+
+    memguard.configure(
+        enabled=True,
+        reserve_pct=getattr(args, "mem_reserve_pct", None),
+        limit_bytes=getattr(args, "mem_limit_bytes", None),
+    )
+    return True
 
 
 def add_durability_arguments(parser) -> None:

@@ -10,7 +10,8 @@ one, announced on stdout as ``SERVE_PORT=<n>``):
   ``{"tenant": id}``;
 - ``GET /result/<tenant>``: its state, and its cost and assignment once
   done;
-- ``GET /status``: the server's state, queue depth and queue latency;
+- ``GET /status``: the server's state, queue depth, queue latency and
+  the ``memory`` block;
 - ``POST /shutdown``: a graceful drain, then the process exits.
 
 It drains on SIGINT and SIGTERM too, or after ``--duration`` seconds, and
@@ -21,8 +22,10 @@ fleet checkpoint at the drain (``DIR``, or ``default_checkpoint_dir()``).
 ``--fault-schedule FILE`` loads a chaos schedule into the server: timed
 kills match tenant ids (a killed tenant is a dead letter, its batch's
 other tenants untouched) and ``delay`` rules hold the matching tenants
-alone.  The JAX verb's SLO objectives, peers and memory guard are parsed
-and refused as not ported yet.
+alone.  ``--mem-guard`` (or ``--mem-reserve-pct``, ``--mem-limit-bytes``)
+arms the admission guard: a tenant predicted not to fit is answered 503
+with the breach under ``mem``.  The JAX verb's SLO objectives and peers
+are parsed and refused as not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +37,11 @@ import threading
 import time
 from typing import Any, Dict
 
-from ._utils import write_output
+from ._utils import (
+    add_memguard_arguments,
+    configure_memguard,
+    write_output,
+)
 
 logger = logging.getLogger("pydcop_tpu_torch.cli.serve")
 
@@ -45,11 +52,6 @@ _NOT_PORTED = (
     (("--slo-file",), dict(default=None), "SLO objectives"),
     (("--slo-interval",), dict(type=float, default=None), "SLO objectives"),
     (("--peer",), dict(action="append", default=[]), "the HA fleet"),
-    (("--mem-guard",), dict(action="store_true"), "the memory guard"),
-    (("--mem-reserve-pct",), dict(type=float, default=None),
-     "the memory guard"),
-    (("--mem-limit-bytes",), dict(type=int, default=None),
-     "the memory guard"),
 )
 
 
@@ -99,6 +101,7 @@ def set_parser(subparsers) -> None:
         help="serve for this many seconds, then drain and exit (default: "
         "until SIGINT/SIGTERM or POST /shutdown)",
     )
+    add_memguard_arguments(parser)
     for flags, kwargs, _what in _NOT_PORTED:
         parser.add_argument(*flags, help="not ported yet", **kwargs)
 
@@ -125,6 +128,15 @@ def run_cmd(args, timeout: float = None) -> int:
     from ..serve import ServeServer
     from ..telemetry.pulse import pulse
 
+    if configure_memguard(args):
+        from ..telemetry.memplane import memguard
+
+        logger.warning(
+            "memory admission guard armed (reserve %.1f%%%s)",
+            memguard.reserve_pct,
+            f", limit override {memguard.limit_bytes} B"
+            if memguard.limit_bytes else "",
+        )
     schedule = None
     if args.fault_schedule:
         from ..chaos.schedule import load_fault_schedule

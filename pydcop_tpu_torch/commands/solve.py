@@ -14,10 +14,13 @@ direct mode does; ``--run_metrics``/``--end_metrics`` write the CSV
 metrics; ``--trace-out`` writes the engine's window and read-back spans
 as a Chrome trace (or JSONL for a ``.jsonl`` path) and ``--metrics-out``
 the metrics registry's snapshot as JSON, with the JAX package's names.
+``--mem-guard``, ``--mem-reserve-pct`` and ``--mem-limit-bytes`` arm the
+memory guard: a solve predicted not to fit is refused before anything is
+uploaded, with an ``ERROR`` result that carries the breach (``mem``).
 The options of its other modes (the thread/process agent runtime, the
-other telemetry flags, memory guard) are parsed, so a command written
-for the JAX package gets a clear refusal naming the option instead of a
-usage error.
+other telemetry flags) are parsed, so a command written for the JAX
+package gets a clear refusal naming the option instead of a usage
+error.
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ from ._utils import (
     add_chaos_arguments,
     add_csvio_arguments,
     add_durability_arguments,
+    add_memguard_arguments,
     build_algo_def,
     build_chaos_controller,
+    configure_memguard,
     finish_durability,
     finish_telemetry,
     start_durability,
@@ -61,11 +66,6 @@ _NOT_PORTED = (
     (("--metrics-port",), dict(type=int, default=None), "telemetry"),
     (("--profile-out",), dict(default=None), "telemetry"),
     (("--dump-hlo",), dict(default=None), "telemetry"),
-    (("--mem-guard",), dict(action="store_true"), "the memory guard"),
-    (("--mem-reserve-pct",), dict(type=float, default=None),
-     "the memory guard"),
-    (("--mem-limit-bytes",), dict(type=int, default=None),
-     "the memory guard"),
 )
 
 
@@ -124,6 +124,7 @@ def set_parser(subparsers) -> None:
     add_csvio_arguments(parser)
     add_chaos_arguments(parser)
     add_durability_arguments(parser)
+    add_memguard_arguments(parser)
     for flags, kwargs, _what in _NOT_PORTED:
         parser.add_argument(*flags, help="not ported yet", **kwargs)
 
@@ -162,6 +163,7 @@ def run_cmd(args, timeout: float = None) -> int:
         return 2
     start_telemetry(args)
     manager = start_durability(args)
+    configure_memguard(args)
     try:
         return _run_cmd(args, timeout)
     finally:
@@ -203,19 +205,26 @@ def _run_cmd(args, timeout: float = None) -> int:
         args.algo, args.algo_params, mode=dcop.objective
     )
     from ..api import solve_result
+    from ..telemetry.memplane import MemoryBudgetExceeded
 
     chaos = _arm_process_kills(args)
-    result = solve_result(
-        dcop,
-        algo_def,
-        distribution=args.distribution,
-        n_cycles=args.n_cycles,
-        seed=args.seed,
-        collect_curve=bool(args.collect_curve or args.run_metrics),
-        timeout=timeout,
-        infinity=args.infinity,
-        device=args.device,
-    )
+    try:
+        result = solve_result(
+            dcop,
+            algo_def,
+            distribution=args.distribution,
+            n_cycles=args.n_cycles,
+            seed=args.seed,
+            collect_curve=bool(args.collect_curve or args.run_metrics),
+            timeout=timeout,
+            infinity=args.infinity,
+            device=args.device,
+        )
+    except MemoryBudgetExceeded as e:
+        # the guard's refusal, before anything was uploaded: its numbers
+        # in the result, as the JAX package's CLI writes them
+        logger.error("%s", e)
+        result = {"status": "ERROR", "error": str(e), "mem": e.breach}
     if chaos is not None:
         # the fault timeline is part of the run: a process kill due at t
         # fires even when the solve returned early, or the same schedule

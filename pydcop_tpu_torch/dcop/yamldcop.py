@@ -10,9 +10,8 @@ tables with ``default``), agents with capacity/extras, symmetric
 ``routes``, ``hosting_costs`` and ``distribution_hints``.  Multi-file merge
 is supported by concatenating documents.  Text is parsed and written by
 PyYAML's libyaml-backed ``CSafeLoader``/``CSafeDumper`` where PyYAML was
-built with libyaml (the same objects and the same text as its pure-Python
-safe loader and dumper, several times faster on large problems), else by
-those.
+built with libyaml and they agree with its pure-Python safe loader and
+dumper (several times faster on large problems), else by those.
 """
 
 from __future__ import annotations
@@ -56,19 +55,29 @@ __all__ = [
     "DcopInvalidFormatError",
 ]
 
-# libyaml's safe loader and dumper where PyYAML has them: the same
-# results as yaml.safe_load / yaml.safe_dump
-_SafeLoader = getattr(yaml, "CSafeLoader", yaml.SafeLoader)
-_SafeDumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+# libyaml's safe loader and dumper where PyYAML has them.  They give
+# yaml.safe_load's objects and yaml.safe_dump's text except in two cases,
+# which go to the pure-Python classes: libyaml folds a long double-quoted
+# scalar at other places, and it accepts a tab that the pure-Python scanner
+# refuses (a tab inside a plain scalar).
+_CSafeLoader = getattr(yaml, "CSafeLoader", yaml.SafeLoader)
+_CSafeDumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+# text that both loaders read alike: printable ASCII and line feeds
+_PLAIN_TEXT = re.compile(r"[\x20-\x7e\n]*")
 
 
 def _safe_load(text: str) -> Any:
-    return yaml.load(text, Loader=_SafeLoader)
+    plain = _PLAIN_TEXT.fullmatch(text) is not None
+    return yaml.load(text, Loader=_CSafeLoader if plain else yaml.SafeLoader)
 
 
 def _safe_dump(data: Any) -> str:
-    return yaml.dump(data, Dumper=_SafeDumper, default_flow_style=False,
+    text = yaml.dump(data, Dumper=_CSafeDumper, default_flow_style=False,
                      sort_keys=False)
+    if '"' in text:  # a double-quoted scalar may be folded otherwise
+        text = yaml.safe_dump(data, default_flow_style=False,
+                              sort_keys=False)
+    return text
 
 
 _RANGE_RE = re.compile(r"^\s*(-?\d+)\s*\.\.\s*(-?\d+)\s*$")

@@ -4,7 +4,8 @@ Counterpart of ``pydcop_tpu/dcop_cli.py``: argparse top level with the
 global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
 per verb.  The port has the ``solve`` and ``serve`` verbs, and the
-host-only ``generate``, ``checkpoints`` and ``postmortem`` verbs.  Its
+host-only ``generate``, ``checkpoints``, ``memplan`` and ``postmortem``
+verbs.  Its
 global ``--device {cuda,cpu}`` takes the place of JAX's
 ``JAX_PLATFORMS``: the default is the card, and without one the CLI
 exits nonzero unless ``--device cpu`` is given; it never falls back to
@@ -25,7 +26,14 @@ import signal
 import sys
 from typing import List, Optional
 
-from .commands import checkpoints, generate, postmortem, serve, solve
+from .commands import (
+    checkpoints,
+    generate,
+    memplan,
+    postmortem,
+    serve,
+    solve,
+)
 
 __all__ = ["main"]
 
@@ -34,7 +42,7 @@ __all__ = ["main"]
 TIMEOUT_SLACK = 20
 
 # verbs that only read or write files on the host: they run without a card
-_HOST_ONLY = ("checkpoints", "generate", "postmortem")
+_HOST_ONLY = ("checkpoints", "generate", "memplan", "postmortem")
 
 # global options of the JAX CLI that the port does not run yet
 _NOT_PORTED = (
@@ -99,6 +107,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     serve.set_parser(subparsers)
     generate.set_parser(subparsers)
     checkpoints.set_parser(subparsers)
+    memplan.set_parser(subparsers)
     postmortem.set_parser(subparsers)
 
     args = parser.parse_args(argv)

@@ -56,6 +56,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from ..compile.kernels import resolve_device
+from ..telemetry.memplane import MemoryBudgetExceeded, memguard, memory_status
 from ..telemetry.pulse import analyze as analyze_pulse
 from .batch import SolveRequest, TenantResult, solve_batched
 
@@ -155,8 +156,19 @@ class ServeServer:
         or a generated ``t<n>`` that no tenant has).  Raises RuntimeError
         while draining: a drain promises that nothing new enters the queue
         (the put happens under the lock of the state check, so a drain
-        cannot miss it)."""
+        cannot miss it).  With the memory guard on, a tenant whose
+        bucket-padded solve cannot fit the device is refused first
+        (``MemoryBudgetExceeded``, a RuntimeError) instead of entering a
+        batch that would run the card out of memory for every tenant in
+        it."""
         now = time.monotonic()
+        if memguard.enabled:
+            # outside the lock: the model is host arithmetic
+            memguard.check(
+                req.compiled, req.algo, req.params,
+                context="serve", n_cycles=req.n_cycles,
+                serve_bucket=True, device=self.device,
+            )
         with self._lock:
             if self._state != "serving":
                 raise RuntimeError(
@@ -263,8 +275,9 @@ class ServeServer:
         """The server's state: the latest ``STATUS_TENANTS`` tenants' rows
         (with a done tenant's pulse block when pulse was on), tenant
         counts by state, queue depth and its high-water mark, batches,
-        solves, dead letters, degraded batches and the queue latency's p50
-        and p99 (ms, submit to dispatch)."""
+        solves, dead letters, degraded batches, the queue latency's p50
+        and p99 (ms, submit to dispatch) and the ``memory`` block (the
+        latest live sample, the guard's settings and refusals)."""
         with self._lock:
             lat = sorted(self._latencies[-LATENCY_SAMPLES:])
             rows = {}
@@ -297,6 +310,8 @@ class ServeServer:
                     "p50": _percentile(lat, 0.50),
                     "p99": _percentile(lat, 0.99),
                 },
+                # the latest live memory sample and the guard's settings
+                "memory": memory_status(),
             }
 
     # -- lifecycle -----------------------------------------------------
@@ -560,7 +575,11 @@ class ServeServer:
         except RuntimeError as e:
             with self._lock:
                 state = self._state
-            return 503, {"error": str(e), "state": state}
+            doc = {"error": str(e), "state": state}
+            if isinstance(e, MemoryBudgetExceeded):
+                # "never fits here", not "busy now": the breach's numbers
+                doc["mem"] = e.breach
+            return 503, doc
         return 200, {"tenant": tenant}
 
     def http_result(self, tenant: str):

@@ -84,7 +84,7 @@ def test_cli_without_a_card_exits_nonzero():
 
 
 @pytest.mark.parametrize("option", [
-    ["-m", "thread"], ["--profile", "p"], ["--mem-guard"],
+    ["-m", "thread"], ["--profile", "p"], ["--uiport", "9"],
     ["--dump-hlo", "h"],
     ["--profile-out", "prof"], ["--metrics-port", "9"], ["--delay", "0.1"],
 ])
@@ -103,9 +103,9 @@ def test_cli_refuses_global_options_not_ported(capsys):
 
 
 @pytest.mark.parametrize("option", [
-    ["--slo-interval", "5"], ["--mem-reserve-pct", "5"],
+    ["--slo-interval", "5"], ["--peer", "http://x", "--peer", "http://y"],
     ["--slo", "p99<250ms"], ["--slo-file", "s.yaml"], ["--peer", "http://x"],
-    ["--mem-guard"],
+    ["--slo", "p50<10ms", "--slo-interval", "1"],
 ])
 def test_serve_refuses_options_not_ported(option, capsys):
     rc = dcop_cli.main(["--device", "cpu", "serve", "--port", "0", *option])

@@ -40,9 +40,28 @@ def test_port_files_found():
     "pydcop_tpu_torch/computations_graph/objects.py",
     "pydcop_tpu_torch/computations_graph/factor_graph.py",
     "pydcop_tpu_torch/commands/generate.py",
+    "pydcop_tpu_torch/telemetry/memplane.py",
+    "pydcop_tpu_torch/commands/memplan.py",
 ])
 def test_subpackages_are_scanned(path):
     assert path in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "pydcop_tpu_torch.telemetry.memplane",
+    "pydcop_tpu_torch.commands.memplan",
+])
+def test_host_only_modules_import_no_torch(module):
+    # the memplan verb plans without a card: importing it pulls in
+    # neither torch nor numpy
+    import subprocess
+    import sys
+
+    code = (f"import sys, {module}; "
+            "print(sorted({'torch', 'numpy', 'jax'} & set(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
