@@ -127,7 +127,19 @@ captured CUDA graphs:
   card's own limit and predicted within ``MEMORY_HELD_RATIO`` of its
   rise; a solve refused under ``limit_bytes`` that leaves
   ``memory_allocated`` as it was; and a serve admission refused over
-  HTTP with a 503 that carries the breach (``mem``).
+  HTTP with a 503 that carries the breach (``mem``);
+- serving's live surface (``serve_observability``): the serve grid's 32
+  MaxSum tenants POSTed as YAML to a ``ServeServer`` with the registry,
+  the tracer, pulse and an SLO engine on and a schedule killing
+  ``dead*``, scraped (``/metrics`` classic and OpenMetrics,
+  ``/metrics.json``, ``/status``, ``/healthz``, ``/slo``) while their
+  batch runs; then the same problems as one warm batch and a killed
+  tenant's trace id resubmitted.  The survivors equal a plain batch bit
+  for bit, the warm batch captures nothing and launches what the plain
+  one does, the counts add up, exemplars carry submitted trace ids, the
+  availability alert fires with its postmortem, ``watch --once --json``
+  reads the server without importing torch, and the ``telemetry`` verb
+  validates the trace and reads the registry.
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -140,7 +152,8 @@ one JSON object per phase, then the kernel table (seven rows: both TPU
 kernels with a float32 and with a bf16 plane, ``xla_tree_sum``, the DFS
 kernel ``branch_bound``, held equal to its plain version at 16
 variables, and ``damp_fma``; and the six batched variants' rows; each
-row with its ``batched_launches`` and ``memory_launches``), the card's
+row with its ``batched_launches``, ``memory_launches`` and
+``observability_launches``), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
 exits nonzero, with no result, when no CUDA device is present or the
@@ -544,6 +557,13 @@ SERVE_FAULT_TENANTS = [
     (f"{kind}{i}", 1024, 900 + 4 * i + j, i)
     for i in range(4) for j, kind in enumerate(("ok", "dead", "hold"))
 ]
+# serving's live surface (serve_observability): the serve grid's tenants,
+# the first SERVE_OBS_KILLED killed by the schedule (8 of 32: a bad share
+# of 25% burns a 1% budget at 25, past the fast threshold of 14.4), under
+# a latency objective a killed request also fails (so p50: its budget of
+# 50% burns at 0.5) and availability
+SERVE_OBS_KILLED = 8
+SERVE_OBS_SLO = ("lat=p50<30s", "availability>=99%")
 
 
 # the memory phase: the solves whose rise in peak memory fits the model's
@@ -3035,8 +3055,9 @@ def phase_serve_server():
                            "tenant": "http"}).encode()
         with urllib.request.urlopen(urllib.request.Request(
                 base + "/solve", data=body, method="POST")) as resp:
-            check(json.loads(resp.read()) == {"tenant": "http"},
-                  "POST /solve")
+            doc = json.loads(resp.read())
+            check(doc["tenant"] == "http" and len(doc["trace"]) == 16,
+                  f"POST /solve: {doc}")
         srv.wait("http", timeout=120)
         with urllib.request.urlopen(base + "/result/http") as resp:
             row = json.loads(resp.read())
@@ -3865,8 +3886,9 @@ def phase_serve_fleet_checkpoint():
             with urllib.request.urlopen(urllib.request.Request(
                     base_url + "/solve", data=body, method="POST"),
                     timeout=120) as resp:
-                check(json.loads(resp.read()) == {"tenant": "fleet"},
-                      "serve_fleet_checkpoint: POST /solve")
+                doc = json.loads(resp.read())
+                check(doc["tenant"] == "fleet" and len(doc["trace"]) == 16,
+                      f"serve_fleet_checkpoint: POST /solve {doc}")
             deadline = time.perf_counter() + 300
             while True:
                 with urllib.request.urlopen(base_url + "/result/fleet",
@@ -4518,6 +4540,468 @@ def phase_serve_fault_schedule():
           "solo_bits": True})
 
 
+def _http_json(url, body=None, timeout=120):
+    """(status, JSON document) of a GET (``body`` None) or a POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode(),
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _http_text(url, timeout=120):
+    """(status, body text, seconds) of a GET."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        text = resp.read().decode("utf-8")
+    return resp.status, text, time.perf_counter() - t0
+
+
+class _Scraper:
+    """Scrapes the live surface in a loop on a thread of its own: each
+    round reads ``/status``, then every surface route, then ``/status``
+    again; a route's read lies inside a batch when both ``/status`` reads
+    around it show running tenants."""
+
+    ROUTES = ("/metrics", "/metrics?format=openmetrics", "/metrics.json",
+              "/healthz", "/slo")
+
+    def __init__(self, base):
+        import threading
+
+        self.base, self.rounds, self.errors = base, [], []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _running(self):
+        code, text, _ = _http_text(self.base + "/status")
+        return code == 200 and json.loads(text)["tenant_counts"].get(
+            "running", 0) > 0
+
+    def _run(self):
+        while not self.stop.wait(0.02):
+            try:
+                before = self._running()
+                reads = {path: _http_text(self.base + path)
+                         for path in self.ROUTES}
+                self.rounds.append((before and self._running(), {
+                    path: (code, secs) for path, (code, _, secs)
+                    in reads.items()}))
+            except Exception as e:  # noqa: BLE001 (checked after the run)
+                self.errors.append(f"{type(e).__name__}: {e}")
+                return
+
+    def finish(self):
+        self.stop.set()
+        self.thread.join(timeout=120)
+        check(not self.thread.is_alive() and not self.errors,
+              f"serve_observability: scrapes failed: {self.errors[:3]}")
+        check(all(code == 200 for _, reads in self.rounds
+                  for code, _ in reads.values()),
+              "serve_observability: a scrape answered other than 200")
+        inside = [reads["/metrics"][1] for busy, reads in self.rounds
+                  if busy]
+        check(inside, "serve_observability: no scrape inside a batch "
+              f"({len(self.rounds)} rounds)")
+        return inside
+
+
+def _imports_torch(importtime_stderr: str) -> bool:
+    """Whether a ``python -X importtime`` run imported torch."""
+    return any(line.rsplit("|", 1)[-1].strip().split(".")[0] == "torch"
+               for line in importtime_stderr.splitlines()
+               if line.startswith("import time:"))
+
+
+def _generated_yaml(n, gen_seed):
+    """The ``generate graph_coloring`` verb's YAML text of a soft grid
+    coloring (a host-only subprocess: ``generate_graph_coloring(n, 3,
+    graph="grid", seed=gen_seed)`` written by ``dcop_yaml``)."""
+    run = subprocess.run(
+        [*PORT_CLI, "generate", "graph_coloring", "-v", str(n), "-c", "3",
+         "-g", "grid", "--soft", "--seed", str(gen_seed)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0,
+          f"serve_observability: generate rc {run.returncode}: "
+          f"{run.stderr[-500:]}")
+    return run.stdout
+
+
+def phase_serve_observability():
+    """Serving's live surface on the card (``serve_observability``): a
+    ``ServeServer`` on a free port with pulse on, the metrics registry and
+    the tracer on, an SLO engine (``SERVE_OBS_SLO``: a latency objective
+    that holds, and availability) and a schedule killing ``dead*``, on
+    the serve grid's tenants at damping 0.7.  All 32 go in over ``POST
+    /solve``, their problems as the ``generate`` verb's YAML (made in
+    subprocesses while the plain batches run), the even ones with a trace
+    id, while a scraper reads ``/metrics`` (classic and OpenMetrics),
+    ``/metrics.json``, ``/status``, ``/healthz`` and ``/slo``.  Then the
+    same 32 problems as warm batches, in turns with a plain server
+    (registry, tracer and SLO off): plain, instrumented, instrumented,
+    plain; then a killed tenant's trace id resubmitted under a new
+    tenant.  Checks: the surviving tenants equal a plain
+    ``solve_batched`` of the same requests bit for bit; a warm
+    instrumented batch captures nothing and launches ``ell_minplus``,
+    ``xla_tree_sum`` and ``damp_fma`` as often as the plain warm batch,
+    with at most one host sync more (the ``t_solved`` synchronize);
+    ``serve.solves``, ``serve.dead_letters`` and ``slo.events`` add up;
+    OpenMetrics exemplars carry submitted trace ids and every ``/result``
+    its own; the availability alert fires and writes its postmortem, the
+    latency objective stays quiet; ``/healthz`` answers 200 while serving
+    and 503 once the drain began; ``watch --once --json`` reads the
+    server without importing torch; ``telemetry --validate`` passes the
+    trace and ``telemetry --metrics`` reads the registry.  Returns the
+    warm instrumented batch's launches."""
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pydcop_tpu_torch.chaos import FaultSchedule, KillEvent
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.compile.core import compile_dcop
+    from pydcop_tpu_torch.serve import ServeServer, SolveRequest, solve_batched
+    from pydcop_tpu_torch.telemetry import (
+        SloEngine,
+        metrics_registry,
+        parse_objective,
+        tracer,
+    )
+    from pydcop_tpu_torch.telemetry.prom import parse_prometheus_text
+    from pydcop_tpu_torch.telemetry.pulse import pulse
+    from pydcop_tpu_torch.telemetry.slo import DEFAULT_FAST_BURN
+
+    algo, params, n_cycles = SERVE_PULSE_GRID_RUN
+    n_dead = SERVE_OBS_KILLED
+    # the killed share of the batch burns the availability budget past the
+    # fast threshold: the alert must fire
+    check(n_dead / len(SERVE_GRID) / 0.01 > DEFAULT_FAST_BURN,
+          "serve_observability: too few kills to burn the budget")
+    out = {"phase": "serve_observability", "slo": list(SERVE_OBS_SLO)}
+    t_phase = time.perf_counter()
+    gen_pool = ThreadPoolExecutor(8)
+    texts, seeds, reqs = {}, {}, []
+    for i, (tenant, n, gen_seed, seed) in enumerate(SERVE_GRID):
+        tenant = f"dead{i}" if i < n_dead else tenant
+        texts[tenant] = gen_pool.submit(_generated_yaml, n, gen_seed)
+        seeds[tenant] = seed
+        # the same problem as the verb's file compiles to (the arrays of
+        # compile_dcop(load_dcop(text)), tests/test_torch_generate.py)
+        reqs.append(SolveRequest(tenant, compile_dcop(generate_graph_coloring(
+            n, 3, graph="grid", seed=gen_seed)), algo, dict(params),
+            n_cycles, seed))
+
+    def warm_batch(tenants):
+        return solve_batched(tenants, device="cuda")
+
+    # the plain batch: pulse on as the server has it, everything else off
+    metrics_registry.enabled = tracer.enabled = False
+    pulse.reset()
+    pulse.enabled = True
+    _, plain_cold_s, plain_cold = _counted(lambda: warm_batch(reqs))
+    plain, _, plain_counts = _counted(lambda: warm_batch(reqs))
+    check(plain_counts["captures"] == 0,
+          "serve_observability: the plain warm batch captured")
+
+    metrics_registry.reset()
+    tracer.reset()
+    metrics_registry.enabled = tracer.enabled = True
+    tmp = tempfile.TemporaryDirectory()
+    engine = SloEngine([parse_objective(s) for s in SERVE_OBS_SLO],
+                       eval_interval_s=0.25,
+                       postmortem_path=str(Path(tmp.name) / "slo.json"))
+    schedule = FaultSchedule(seed=0, events=[KillEvent(agent="dead*",
+                                                       at=0.0)])
+    srv = ServeServer(port=0, window_ms=60_000, max_batch=len(reqs),
+                      fault_schedule=schedule, slo=engine)
+    plain_srv = ServeServer(port=None, window_ms=60_000,
+                            max_batch=len(reqs))
+    base = f"http://127.0.0.1:{srv.http.port}"
+    try:
+        # 1. every tenant over HTTP, the even ones with a trace id
+        scraper = _Scraper(base)
+        given = {t: f"{i:016x}" for i, t in enumerate(texts) if i % 2 == 0}
+
+        def post(tenant):
+            body = {"dcop_yaml": texts[tenant].result(), "algo": algo,
+                    "params": params, "n_cycles": n_cycles,
+                    "seed": seeds[tenant], "tenant": tenant}
+            if tenant in given:
+                body["trace"] = given[tenant]
+            return _http_json(base + "/solve", body)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            answers = dict(zip(texts, pool.map(post, texts)))
+        post_s = time.perf_counter() - t0
+        gen_pool.shutdown()
+        for tenant, (code, doc) in answers.items():
+            check(code == 200 and doc["tenant"] == tenant
+                  and doc["trace"] == given.get(tenant, doc["trace"])
+                  and len(doc["trace"]) == 16,
+                  f"serve_observability: POST /solve {tenant}: {code} {doc}")
+        traces = {t: doc["trace"] for t, (_, doc) in answers.items()}
+        rows = {t: srv.wait(t, timeout=600) for t in texts}
+        http_s = time.perf_counter() - t0
+        inside = scraper.finish()
+        for i, r in enumerate(reqs):
+            row = rows[r.tenant]
+            check(row["trace"] == traces[r.tenant],
+                  f"serve_observability: {r.tenant}'s /result trace")
+            if i < n_dead:
+                check(row["status"] == "killed",
+                      f"serve_observability: {r.tenant} {row['status']}")
+                continue
+            want = plain[r.tenant]
+            got = (row["status"], row["assignment"], row["cost"],
+                   row["violations"], row["cycles"], row["best_cost"],
+                   row["cycles_to_best"])
+            check(got == ("done", want.result.assignment, want.result.cost,
+                          want.result.violations, want.result.cycles,
+                          want.extras["best_cost"],
+                          want.extras["cycles_to_best"]),
+                  f"serve_observability: {r.tenant} is not the plain "
+                  "batch's")
+        check(len({row["batch_seq"] for row in rows.values()}) == 1,
+              "serve_observability: the HTTP tenants rode more than one "
+              "batch")
+        # the alert: an evaluator tick past the kills fires it
+        deadline = time.perf_counter() + 30
+        while not engine.transitions and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        _, status = _http_json(base + "/status")
+        check(status["slo"]["objectives"]["availability"]["alert"]
+              == "fast" and status["slo"]["objectives"]["availability"][
+                  "bad"] == n_dead,
+              f"serve_observability: /status slo {status['slo']}")
+
+        # 2. the same problems as warm batches, submitted in process, in
+        # turns: the plain server (telemetry off), the instrumented one
+        # twice, the plain one
+        recorded = [len(rows)]  # tenants the instrumented server finished
+
+        def turn(server, tag, on):
+            # the instrumented server records a batch's tenants (metrics,
+            # spans, the SLO engine) just after their results are out: let
+            # it finish before the flags go off, or its last counts drop
+            deadline = time.perf_counter() + 30
+            while (engine.report()["requests"] < recorded[0]
+                   and time.perf_counter() < deadline):
+                time.sleep(0.01)
+            metrics_registry.enabled = tracer.enabled = on
+            _zero_all_launches()
+            before = _engine_counts()
+            t0 = time.perf_counter()
+            ids = [server.submit(r._replace(tenant=f"{tag}{i}"),
+                                 trace=f"{0xbeef0000 + i:016x}")
+                   for i, r in enumerate(reqs)]
+            got = {t: server.wait(t, timeout=600) for t in ids}
+            wall = time.perf_counter() - t0
+            counts = {k: v - before[k] for k, v in _engine_counts().items()}
+            counts.update(_all_launch_counts())
+            if on:
+                recorded[0] += len(ids)
+            for tid, r in zip(ids, reqs):
+                want = plain[r.tenant]
+                check((got[tid]["status"], got[tid]["assignment"],
+                       got[tid]["cost"], got[tid]["best_cost"])
+                      == ("done", want.result.assignment, want.result.cost,
+                          want.extras["best_cost"]),
+                      f"serve_observability: warm {tid} is not the plain "
+                      "batch's")
+            return got, wall, counts
+
+        turns = [turn(plain_srv, "p", False), turn(srv, "w", True),
+                 turn(srv, "x", True), turn(plain_srv, "q", False)]
+        metrics_registry.enabled = tracer.enabled = True
+        warm_rows, _, counts = turns[1]
+        check(not any(r.get("cold_compile") for r in warm_rows.values()),
+              "serve_observability: a warm tenant paid a capture")
+        for (_, _, c), name in zip(turns, ("plain", "instrumented",
+                                           "instrumented", "plain")):
+            check(c["captures"] == 0,
+                  f"serve_observability: a warm {name} batch captured")
+        for name in ("ell_minplus", "xla_tree_sum", "damp_fma"):
+            for key in (name, f"{name}_batched"):
+                check(counts[key] == plain_counts[key] > 0,
+                      f"serve_observability: {key} {counts[key]} "
+                      f"launches, the plain batch {plain_counts[key]}")
+        check(plain_counts["host_syncs"] <= counts["host_syncs"]
+              <= plain_counts["host_syncs"] + 1
+              and turns[0][2]["host_syncs"] == plain_counts["host_syncs"],
+              f"serve_observability: host syncs {counts['host_syncs']}, "
+              f"plain {plain_counts['host_syncs']}")
+        seqs = [{row["batch_seq"] for row in t[0].values()}
+                for t in turns[1:3]]
+        check(all(len(s) == 1 for s in seqs),
+              f"serve_observability: warm batch sequence numbers {seqs}")
+        spans = {e["args"]["batch"]: e["dur"] / 1e6 for e in tracer.events()
+                 if e.get("name") == "serve.batch"}
+
+        # 3. a killed tenant's trace id resubmitted under a new tenant,
+        # in a window narrowed live
+        code, doc = _http_json(base + "/window", {"window_ms": 5})
+        check((code, doc) == (200, {"window_ms": 5.0}),
+              f"serve_observability: POST /window {code} {doc}")
+        code, doc = _http_json(base + "/solve", {
+            "dcop_yaml": texts["dead0"].result(), "algo": algo,
+            "params": params, "n_cycles": n_cycles,
+            "seed": seeds["dead0"], "tenant": "retry-dead0",
+            "trace": traces["dead0"]})
+        check(code == 200 and doc["trace"] == traces["dead0"],
+              f"serve_observability: resubmit {code} {doc}")
+        retry = srv.wait("retry-dead0", timeout=600)
+        check(retry["status"] == "done"
+              and retry["trace"] == traces["dead0"]
+              and retry["assignment"] == plain["dead0"].result.assignment,
+              f"serve_observability: the resubmitted tenant {retry}")
+
+        code, om, om_s = _http_text(base + "/metrics?format=openmetrics")
+        parsed = parse_prometheus_text(om)
+        ex_ids = {s["exemplar"]["labels"]["trace_id"]
+                  for s in parsed["samples"] if s["exemplar"]}
+        submitted = set(traces.values()) | {f"{0xbeef0000 + i:016x}"
+                                            for i in range(len(reqs))}
+        check(parsed["eof"] and ex_ids and ex_ids <= submitted,
+              f"serve_observability: exemplars {sorted(ex_ids)[:4]}")
+        code, classic, _ = _http_text(base + "/metrics")
+        check(not parse_prometheus_text(classic)["eof"],
+              "serve_observability: classic text")
+        _, slo_report = _http_json(base + "/slo")
+        _, health = _http_json(base + "/healthz")
+        check(health == {"state": "serving", "queue_depth": 0},
+              f"serve_observability: /healthz before the drain {health}")
+
+        # watch, from a second process, against the live server
+        t0 = time.perf_counter()
+        watch = subprocess.run(
+            [sys.executable, "-X", "importtime", *PORT_CLI[1:], "watch",
+             base, "--once", "--json"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        watch_s = time.perf_counter() - t0
+        check(watch.returncode == 0 and not _imports_torch(watch.stderr),
+              f"serve_observability: watch rc {watch.returncode}, "
+              f"imports torch: {_imports_torch(watch.stderr)}")
+        seen = json.loads(watch.stdout)
+        check(seen["status"]["solves"] == 3 * len(reqs) + 1 - n_dead
+              and "serve.solves" in seen["metrics"],
+              "serve_observability: watch's document")
+
+        # the drain: /healthz answers 503 from its start
+        drainer = threading.Thread(target=srv.drain, daemon=True)
+        drainer.start()
+        drainer.join(timeout=300)
+        code, drained_health = _http_json(base + "/healthz")
+        check(code == 503 and drained_health["state"] == "drained",
+              f"serve_observability: /healthz after the drain {code} "
+              f"{drained_health}")
+        _, final_snap = _http_json(base + "/metrics.json")
+    finally:
+        gen_pool.shutdown()
+        srv.shutdown()
+        plain_srv.shutdown()
+        metrics_registry.enabled = tracer.enabled = pulse.enabled = False
+
+    # the counts add up: the HTTP batch, two warm ones and the resubmit
+    metrics = final_snap["metrics"]
+
+    def total(name):
+        return sum(v["value"] for v in metrics[name]["values"])
+
+    n_terminal = 3 * len(reqs) + 1
+    check(total("serve.solves") == n_terminal,
+          f"serve_observability: serve.solves {total('serve.solves')} of "
+          f"{n_terminal}")
+    check(total("serve.dead_letters") == n_dead,
+          f"serve_observability: {total('serve.dead_letters')} dead "
+          f"letters, {n_dead} kills")
+    events = {}
+    for v in metrics["slo.events"]["values"]:
+        key = v["labels"]["objective"]
+        events[key] = events.get(key, 0) + v["value"]
+    check(set(events.values()) == {n_terminal},
+          f"serve_observability: slo.events {events}, {n_terminal} "
+          "terminal tenants")
+    fired = {(t["objective"], t["severity"]) for t in engine.transitions
+             if t["state"] == "firing"}
+    check(("availability", "fast") in fired
+          and not any(o == "lat" for o, _ in fired),
+          f"serve_observability: alerts {sorted(fired)}")
+    pm = json.loads((Path(tmp.name) / "slo.json").read_text())
+    check(pm["reason"] == "slo-alert:availability"
+          and {r["trace"] for r in pm["slo"]["bad_requests"]}
+          <= set(traces.values()),
+          f"serve_observability: postmortem {pm['reason']}")
+
+    # the trace and the registry through the telemetry verb
+    trace_path = Path(tmp.name) / "trace.json"
+    metrics_path = Path(tmp.name) / "metrics.json"
+    tracer.export_chrome(str(trace_path))
+    metrics_registry.dump(str(metrics_path))
+    names = {e.get("name") for e in tracer.events()}
+    for span in ("serve.batch", "serve.assemble", "serve.dispatch",
+                 "serve.solve", "serve.readback", "serve.queued",
+                 "serve.request", "serve.result_ready"):
+        check(span in names, f"serve_observability: no {span} span")
+    # a capture inside a dispatch (the resubmit's batch of one, a new K
+    # class, captures unless an earlier run of this process did) is its
+    # own span, and marks the tenants that paid it
+    check(("serve.cold_compile" in names) == bool(retry.get("cold_compile")),
+          "serve_observability: serve.cold_compile span against the "
+          f"resubmit's record {retry.get('cold_compile')}")
+    verbs = {}
+    for key, argv in (("validate", ["--validate", str(trace_path)]),
+                      ("metrics", ["--metrics", str(metrics_path)])):
+        t0 = time.perf_counter()
+        run = subprocess.run([*PORT_CLI, "telemetry", *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+        verbs[key] = time.perf_counter() - t0
+        check(run.returncode == 0 and "serve." in run.stdout,
+              f"serve_observability: telemetry {key} rc {run.returncode}: "
+              f"{run.stderr[-500:]}")
+    tmp.cleanup()
+
+    warm_seqs = [next(iter(s)) for s in seqs]
+    out.update({
+        "tenants": len(reqs), "killed": n_dead,
+        "post_s": post_s, "http_batch_s": http_s,
+        "plain_cold_s": plain_cold_s,
+        "plain_cold_captures": plain_cold["captures"],
+        # submit to the last tenant done: plain, instrumented,
+        # instrumented, plain
+        "warm_turns_s": [t[1] for t in turns],
+        "warm_batch_span_s": [spans[s] for s in warm_seqs],
+        "host_syncs": {"plain": plain_counts["host_syncs"],
+                       "plain_server": turns[0][2]["host_syncs"],
+                       "instrumented": counts["host_syncs"]},
+        "launches": {"plain": plain_counts, "instrumented": counts},
+        "phase_percentiles": slo_report["phase_percentiles"],
+        "metrics_scrape_s": {"inside_batches": len(inside),
+                             "median": statistics.median(inside),
+                             "max": max(inside), "openmetrics": om_s,
+                             "rounds": len(scraper.rounds)},
+        "watch_s": watch_s, "telemetry_verb_s": verbs,
+        "exemplar_trace_ids": len(ex_ids),
+        "alerts": sorted(fired), "slo_events": events,
+        "retry_cold_compile": bool(retry.get("cold_compile")),
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    emit(out)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -4763,6 +5247,8 @@ def main() -> int:
     phase_serve_fault_schedule()
     emit({"phase": "generate_fault_seconds",
           "seconds": time.perf_counter() - t_new + fault_s})
+    # serving's live surface: metrics, traces, SLOs, watch and telemetry
+    observability = phase_serve_observability()
     rows["ell_minplus_batched"]["launches"] = grid["f32"][
         "ell_minplus_batched"]
     rows["ell_minplus_bf16_batched"]["launches"] = grid["bf16"][
@@ -4779,6 +5265,11 @@ def main() -> int:
         + serve_pulse["maxsum_grid"]["damp_fma_batched"],
     }
     for name, row in rows.items():
+        # the serve_observability batch is float32: its batched launches,
+        # xla_tree_sum's three sum sites on one count as in grid's rows
+        row["observability_launches"] = observability.get(
+            "xla_tree_sum_batched" if name in BATCHED_ROWS[2:5]
+            else name if name in BATCHED_ROWS else f"{name}_batched", 0)
         row["generated_launches"] = generated.get(name, 0)
         row["memory_launches"] = memory.get(name, 0)
         row["batched_launches"] = (

@@ -146,6 +146,17 @@ _m_readback_bytes = metrics_registry.counter(
 _m_readback_seconds = metrics_registry.histogram(
     "solve.readback_seconds", "device->host readback latency"
 )
+# the anytime best and the cycle it was first seen at: published at every
+# look that improves it (the look reads them with the cycles run, no
+# extra sync) and once with the final values
+_m_best_cost = metrics_registry.gauge(
+    "solve.best_cost", "anytime best (internal minimization) cost so far"
+)
+_m_cycles_to_best = metrics_registry.gauge(
+    "solve.cycles_to_best",
+    "1-based cycle at which the best cost was first attained, tracked on "
+    "device on every path (0 = the initial assignment was never improved)",
+)
 _m_chunk_ms = metrics_registry.histogram(
     "device.chunk_ms",
     "device window latency (dispatch to host sync) per chunk, ms",
@@ -659,20 +670,35 @@ def _final_values(solver: _Solver, dev: DeviceDCOP, carry: _Carry):
     )
 
 
-def _pack(final: torch.Tensor, carry: _Carry) -> torch.Tensor:
-    """Everything the host reads, as one int32 vector, a row an instance
-    of a batch: ``[final values | best values | best_cycle | ran | stable
-    | best_cost (float32 bits)]``; a look between chunks reads ``ran`` and
-    ``stable``.  Not mapped: the bit view of the cost has no vmap rule."""
+# the columns of a look's status, the packed result's last four: the
+# anytime best's cycle, the cycles run, the stability counter and the
+# anytime best cost (float32 bits)
+_BEST_CYCLE, _RAN, _STABLE, _BEST_COST = range(4)
+
+
+def _status_parts(carry: _Carry) -> List[torch.Tensor]:
+    """The columns a look reads (``_BEST_CYCLE``, ``_RAN``, ``_STABLE``,
+    ``_BEST_COST``), each int32 ``[..., 1]``."""
     lead = tuple(carry.best_cost.shape)
 
     def col(x):
         return x.reshape(lead + (1,))
 
-    return torch.cat([
-        final.to(torch.int32), carry.best_vals.to(torch.int32),
+    return [
         col(carry.best_cycle), col(carry.ran), col(carry.stable),
         col(carry.best_cost.to(torch.float32)).view(torch.int32),
+    ]
+
+
+def _pack(final: torch.Tensor, carry: _Carry) -> torch.Tensor:
+    """Everything the host reads, as one int32 vector, a row an instance
+    of a batch: ``[final values | best values | best_cycle | ran | stable
+    | best_cost (float32 bits)]``; a look between chunks reads its last
+    four columns.  Not mapped: the bit view of the cost has no vmap
+    rule."""
+    return torch.cat([
+        final.to(torch.int32), carry.best_vals.to(torch.int32),
+        *_status_parts(carry),
     ], dim=-1)
 
 
@@ -812,8 +838,9 @@ class _Runner:
         return out_head, out_rows, out_tail
 
     def look(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        """Each instance's (cycles run, stability counter), ``[..., 2]``,
-        and the health rows replayed since the last look, in one read."""
+        """Each instance's status, ``[..., 4]`` (the columns ``_BEST_CYCLE``,
+        ``_RAN``, ``_STABLE`` and ``_BEST_COST``), and the health rows
+        replayed since the last look, in one read."""
         status, rows, _ = self._read(self._status(), [])
         return status, rows
 
@@ -879,7 +906,7 @@ class _Eager(_Runner):
         return self._pack(self.carry)
 
     def _status(self) -> torch.Tensor:
-        return torch.stack([self.carry.ran, self.carry.stable], dim=-1)
+        return torch.cat(_status_parts(self.carry), dim=-1)
 
     def state(self):
         """The final solver state: this solve's own tensors."""
@@ -992,7 +1019,7 @@ class _Graphs(_Runner):
         return self.packed_buf
 
     def _status(self) -> torch.Tensor:
-        return self.packed_buf[..., -3:-1]
+        return self.packed_buf[..., -4:]
 
     def write_carry(self, **fields) -> None:
         """Copy ``fields`` into the carry buffers the chunk graph reads
@@ -1082,9 +1109,9 @@ def _drive(runner, solver: _Solver, n_limits: np.ndarray,
         chunk = min(2 * chunk, MAX_CHUNK)
         if issued >= limit:
             break  # every cycle ran or the stop rule fired: nothing to ask
-        status = look().reshape(-1, 2)
+        status = look().reshape(-1, 4)
         run_cycles.host_syncs += 1
-        ran, stable = status[:, 0], status[:, 1]
+        ran, stable = status[:, _RAN], status[:, _STABLE]
         done = ran >= n_limits
         if solver.use_stability:
             done |= stable >= solver.same_count
@@ -1122,7 +1149,7 @@ def _drive_durable(runner, solver: _Solver, n_cycles: int, start: int,
         status = look().reshape(-1)
         run_cycles.host_syncs += 1
         cycle = done + solver.length
-        done, stable = int(status[0]), int(status[1])
+        done, stable = int(status[_RAN]), int(status[_STABLE])
         if ckpt.due(done):
             save(done)
         if solver.use_stability and stable >= solver.same_count:
@@ -1138,7 +1165,9 @@ class _Looks:
     rows to the pulse monitor and keeps the live part of the curve.  The
     live iterations between two looks come first: the budget and the
     stability stop only ever end a run of them.  With a ``phase``
-    (telemetry on), each look closes a readback window."""
+    (telemetry on), each look closes a readback window; with the metrics
+    registry on, a look that finds a better anytime best publishes it
+    (``solve.best_cost``, ``solve.cycles_to_best``)."""
 
     def __init__(self, runner, start: int, keep_rows: bool,
                  phase: Optional[str] = None):
@@ -1146,12 +1175,20 @@ class _Looks:
         self.rows: Optional[List[np.ndarray]] = [] if keep_rows else None
         self.phase = phase
         self.t_window = time.perf_counter()
+        self.best_seen: Optional[float] = None
 
     def look(self) -> np.ndarray:
         status, rows = self.runner.look()
-        ran = int(status.reshape(-1)[0])
+        status = status.reshape(-1)
+        ran = int(status[_RAN])
         self.window(ran, time.perf_counter())
         self.took(ran, rows)
+        if metrics_registry.enabled:
+            best = float(status[_BEST_COST:].view(np.float32)[0])
+            if self.best_seen is None or best < self.best_seen:
+                self.best_seen = best
+                _m_cycles_to_best.set(int(status[_BEST_CYCLE]))
+                _m_best_cost.set(best)
         return status
 
     def window(self, ran: int, t1: float) -> None:
@@ -1466,6 +1503,10 @@ def run_cycles(
             # a solve out of wall clock leaves its last health rows and
             # its configuration behind for the ``postmortem`` verb
             pulse.recorder.maybe_dump("solve-timeout")
+    if metrics_registry.enabled:
+        # the final values, also where no look ran
+        _m_best_cost.set(extras["best_cost"])
+        _m_cycles_to_best.set(extras["cycles_to_best"])
     values = out["final"] if return_final else out["best"]
     curve = runner.curve() if collect_curve else None
     return values, curve, extras
@@ -1494,6 +1535,7 @@ def run_batch(
     has_noise: bool = False,
     noise_draw: Optional[int] = None,
     health: Optional[Callable] = None,
+    times: Optional[Dict[str, float]] = None,
 ) -> List[Dict[str, Any]]:
     """K solves of one solver as one: ``dev`` and ``consts`` hold K
     problems of one shape stacked on a leading instance axis (the
@@ -1517,7 +1559,14 @@ def run_batch(
     runner's ``[K, length, HEALTH_WIDTH]`` buffer and are read with the
     looks the batch makes anyway and with its packed read-back: as many
     host syncs as with pulse off.  A dead iteration's row is cut, as the
-    JAX package cuts it: an instance's live iterations come first."""
+    JAX package cuts it: an instance's live iterations come first.
+
+    ``times`` (a dict, the serving layer's request phases): the batch
+    then waits for the device before its read-back (one
+    ``torch.cuda.synchronize`` on the card, counted as a host sync, that
+    the read-back would have waited for anyway) and records
+    ``t_dispatched`` (every replay issued) and ``t_solved`` (the device
+    done), on ``time.perf_counter``'s clock."""
     n_limits = np.asarray(n_limits, dtype=np.int64)
     hook = health if (health is not None and pulse.enabled) else None
     solver = _Solver(
@@ -1548,6 +1597,12 @@ def run_batch(
 
     _drive(runner, solver, n_limits, None, look=look)
     t_rb = time.perf_counter()
+    if times is not None:
+        times["t_dispatched"] = t_rb
+        if dev.unary.device.type == "cuda":
+            torch.cuda.synchronize(dev.unary.device)
+            run_cycles.host_syncs += 1
+        times["t_solved"] = time.perf_counter()
     packed, rows, flips, nbytes = runner.result()
     t_end = time.perf_counter()
     run_cycles.host_syncs += 1

@@ -244,23 +244,28 @@ def start_telemetry(args) -> None:
     """Turn on what the CLI flags ask for: ``--trace-out`` the span
     tracer, ``--metrics-out`` the metrics registry (both reset first),
     ``--pulse-out`` the per-cycle health vectors computed in the cycle
-    loop, streamed as JSONL, with the flight recorder armed."""
+    loop, streamed as JSONL, with the flight recorder armed.
+    ``--metrics-port`` turns on the registry and pulse, as the JAX
+    package's flag does for the live surface (which its direct mode, the
+    port's only mode, does not serve)."""
     from ..telemetry import metrics_registry, tracer
 
+    watched = getattr(args, "metrics_port", None) is not None
     if getattr(args, "trace_out", None):
         tracer.service = "orchestrator"
         tracer.reset()
         tracer.enabled = True
-    if getattr(args, "metrics_out", None):
+    if getattr(args, "metrics_out", None) or watched:
         metrics_registry.reset()
         metrics_registry.enabled = True
     pulse_out = getattr(args, "pulse_out", None)
-    if pulse_out:
+    if pulse_out or watched:
         from ..telemetry.pulse import pulse
 
         pulse.reset()
         pulse.enabled = True
-        pulse.stream_open(pulse_out)
+        if pulse_out:
+            pulse.stream_open(pulse_out)
 
 
 def finish_telemetry(args) -> None:
@@ -271,11 +276,14 @@ def finish_telemetry(args) -> None:
     the command's exit code."""
     from ..telemetry import metrics_registry, tracer
 
-    if getattr(args, "pulse_out", None):
+    watched = getattr(args, "metrics_port", None) is not None
+    if getattr(args, "pulse_out", None) or watched:
         from ..telemetry.pulse import pulse
 
         pulse.enabled = False
         pulse.stream_close()
+    if watched:
+        metrics_registry.enabled = False
     if getattr(args, "metrics_out", None):
         metrics_registry.enabled = False
         try:

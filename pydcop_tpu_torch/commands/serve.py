@@ -10,9 +10,21 @@ one, announced on stdout as ``SERVE_PORT=<n>``):
   ``{"tenant": id}``;
 - ``GET /result/<tenant>``: its state, and its cost and assignment once
   done;
-- ``GET /status``: the server's state, queue depth, queue latency and
-  the ``memory`` block;
+- ``GET /status``: the server's state, queue depth, queue latency, the
+  ``memory`` block and, with objectives, the ``slo`` block;
+- ``GET /metrics`` (Prometheus text; OpenMetrics with the requests'
+  trace ids as exemplars on ``?format=openmetrics``), ``GET
+  /metrics.json``, ``GET /healthz``, ``POST /window`` and, with
+  objectives, ``GET /slo``;
 - ``POST /shutdown``: a graceful drain, then the process exits.
+
+The metrics registry is on for the server's life, as in the JAX
+package's verb.  ``--slo SPEC`` (repeatable) and ``--slo-file FILE``
+declare objectives (``p99<250ms``, ``availability>=99.9%``,
+``dead_letter_rate<=0.1%``); the SLO engine then evaluates burn rates
+every ``--slo-interval`` seconds, alerts, and writes the first alert's
+postmortem to ``$PYDCOP_TPU_STATE_DIR/slo_postmortem.json``; the drain's
+summary gains its ``slo`` block.
 
 It drains on SIGINT and SIGTERM too, or after ``--duration`` seconds, and
 writes the drain's summary as JSON.  Pulse health rows are on by default
@@ -24,13 +36,14 @@ kills match tenant ids (a killed tenant is a dead letter, its batch's
 other tenants untouched) and ``delay`` rules hold the matching tenants
 alone.  ``--mem-guard`` (or ``--mem-reserve-pct``, ``--mem-limit-bytes``)
 arms the admission guard: a tenant predicted not to fit is answered 503
-with the breach under ``mem``.  The JAX verb's SLO objectives and peers
-are parsed and refused as not ported yet.
+with the breach under ``mem``.  The JAX verb's ``--peer`` (the HA fleet)
+is parsed and refused as not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import signal
 import sys
 import threading
@@ -48,9 +61,6 @@ logger = logging.getLogger("pydcop_tpu_torch.cli.serve")
 # (flags, argparse keywords, what the option belongs to): options of the
 # JAX package's ``serve`` that the port does not run yet
 _NOT_PORTED = (
-    (("--slo",), dict(action="append", default=[]), "SLO objectives"),
-    (("--slo-file",), dict(default=None), "SLO objectives"),
-    (("--slo-interval",), dict(type=float, default=None), "SLO objectives"),
     (("--peer",), dict(action="append", default=[]), "the HA fleet"),
 )
 
@@ -62,8 +72,8 @@ def set_parser(subparsers) -> None:
     parser.set_defaults(func=run_cmd)
     parser.add_argument(
         "--port", type=int, default=9010,
-        help="HTTP port for /solve, /result, /status (default 9010; 0 = "
-        "a free one, printed on stdout)",
+        help="HTTP port for /solve, /result, /status, /metrics (default "
+        "9010; 0 = a free one, printed on stdout)",
     )
     parser.add_argument("--host", default="127.0.0.1", help="bind address")
     parser.add_argument(
@@ -101,6 +111,22 @@ def set_parser(subparsers) -> None:
         help="serve for this many seconds, then drain and exit (default: "
         "until SIGINT/SIGTERM or POST /shutdown)",
     )
+    parser.add_argument(
+        "--slo", action="append", default=[], metavar="SPEC",
+        help="SLO objective (repeatable): p99<250ms, "
+        "availability>=99.9%%, dead_letter_rate<=0.1%%, optionally "
+        "NAME=... and ...@WINDOW.  Turns on the burn-rate evaluator, the "
+        "/slo endpoint, the /status slo block and alert postmortems",
+    )
+    parser.add_argument(
+        "--slo-file", default=None, metavar="FILE",
+        help="YAML file of objectives (and fast_burn, slow_burn, "
+        "eval_interval_s); composes with --slo",
+    )
+    parser.add_argument(
+        "--slo-interval", type=float, default=None, metavar="SECONDS",
+        help="burn-rate evaluator tick interval (default 1 s)",
+    )
     add_memguard_arguments(parser)
     for flags, kwargs, _what in _NOT_PORTED:
         parser.add_argument(*flags, help="not ported yet", **kwargs)
@@ -126,8 +152,10 @@ def run_cmd(args, timeout: float = None) -> int:
     if timeout and not args.duration:
         args.duration = max(1.0, timeout - 5.0)
     from ..serve import ServeServer
+    from ..telemetry.metrics import metrics_registry
     from ..telemetry.pulse import pulse
 
+    metrics_registry.enabled = True
     if configure_memguard(args):
         from ..telemetry.memplane import memguard
 
@@ -147,10 +175,11 @@ def run_cmd(args, timeout: float = None) -> int:
         from ..durability import default_checkpoint_dir
 
         checkpoint_dir = default_checkpoint_dir()
+    engine = _slo_engine(args)
     srv = ServeServer(
         port=args.port, host=args.host, window_ms=args.window_ms,
         max_batch=args.max_batch, mode=args.batch_mode, device=args.device,
-        checkpoint_dir=checkpoint_dir, fault_schedule=schedule,
+        checkpoint_dir=checkpoint_dir, fault_schedule=schedule, slo=engine,
     )
     if not args.no_pulse:
         pulse.reset()
@@ -195,6 +224,40 @@ def run_cmd(args, timeout: float = None) -> int:
     }
     if srv.fleet_checkpoint_path:
         payload["fleet_checkpoint"] = srv.fleet_checkpoint_path
+    if engine is not None:
+        # the drain ran the engine's last tick: the run's whole verdict
+        payload["slo"] = engine.bench_block()
+        payload["slo"]["alert_transitions"] = engine.transitions
+        payload["slo"]["postmortem"] = (
+            engine.postmortem_path if engine.transitions else None
+        )
     write_output(args, payload)
     pulse.enabled = False
+    metrics_registry.enabled = False
     return 0 if drained else 1
+
+
+def _slo_engine(args):
+    """The SLO engine of ``--slo``/``--slo-file``/``--slo-interval``, its
+    postmortem under ``$PYDCOP_TPU_STATE_DIR`` (or ``.bench_state``), or
+    None without objectives."""
+    if not (args.slo or args.slo_file):
+        return None
+    from ..telemetry.slo import SloEngine, load_slo_file, parse_objective
+
+    objectives, options = (
+        load_slo_file(args.slo_file) if args.slo_file else ([], {})
+    )
+    objectives += [parse_objective(spec) for spec in args.slo]
+    if args.slo_interval is not None:
+        options["eval_interval_s"] = args.slo_interval
+    state = os.environ.get("PYDCOP_TPU_STATE_DIR") or ".bench_state"
+    os.makedirs(state, exist_ok=True)
+    engine = SloEngine(
+        objectives,
+        postmortem_path=os.path.join(state, "slo_postmortem.json"),
+        **options,
+    )
+    for o in objectives:
+        logger.warning("slo objective: %s = %s", o.name, o.describe())
+    return engine

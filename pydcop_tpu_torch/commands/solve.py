@@ -14,6 +14,10 @@ direct mode does; ``--run_metrics``/``--end_metrics`` write the CSV
 metrics; ``--trace-out`` writes the engine's window and read-back spans
 as a Chrome trace (or JSONL for a ``.jsonl`` path) and ``--metrics-out``
 the metrics registry's snapshot as JSON, with the JAX package's names.
+``--metrics-port`` turns the registry and pulse on for the run, as the
+JAX package's direct mode does, and logs its warning: the live surface
+belongs to the agent runtime's orchestrator, and direct mode starts no
+server.
 ``--mem-guard``, ``--mem-reserve-pct`` and ``--mem-limit-bytes`` arm the
 memory guard: a solve predicted not to fit is refused before anything is
 uploaded, with an ``ERROR`` result that carries the breach (``mem``).
@@ -63,7 +67,6 @@ _NOT_PORTED = (
     (("--delay",), dict(type=float, default=None), "the agent runtime"),
     (("--uiport",), dict(type=int, default=None), "the agent runtime"),
     (("--profile",), dict(default=None), "telemetry"),
-    (("--metrics-port",), dict(type=int, default=None), "telemetry"),
     (("--profile-out",), dict(default=None), "telemetry"),
     (("--dump-hlo",), dict(default=None), "telemetry"),
 )
@@ -120,6 +123,12 @@ def set_parser(subparsers) -> None:
         "--metrics-out", default=None, metavar="FILE",
         help="enable the metrics registry and write its JSON snapshot to "
         "FILE at exit",
+    )
+    parser.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="enable the metrics registry and pulse for the run; the live "
+        "surface (/metrics, /status) is the agent runtime orchestrator's, "
+        "so direct mode serves none (the serve verb's port does)",
     )
     add_csvio_arguments(parser)
     add_chaos_arguments(parser)
@@ -208,6 +217,12 @@ def _run_cmd(args, timeout: float = None) -> int:
     from ..telemetry.memplane import MemoryBudgetExceeded
 
     chaos = _arm_process_kills(args)
+    if args.metrics_port is not None:
+        logger.warning(
+            "--metrics-port serves the orchestrator's live surface; direct "
+            "mode has no orchestrator (the port runs --mode direct only; "
+            "metrics are still collected and dumped via --metrics-out)"
+        )
     try:
         result = solve_result(
             dcop,

@@ -59,7 +59,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from .core import BIG, CompiledDCOP
+from ..telemetry.metrics import metrics_registry
+from .core import BIG, CompiledDCOP, table_bytes
 from .hopper_kernels import (
     _OPS,
     _batch_first,
@@ -71,6 +72,10 @@ from .hopper_kernels import (
     minplus_marginals_plain,
     tree_evaluate,
     xla_tree_sum,
+)
+
+_m_upload_bytes = metrics_registry.counter(
+    "solve.upload_bytes", "host->device problem upload bytes"
 )
 
 __all__ = [
@@ -197,6 +202,17 @@ def to_device(c: CompiledDCOP, device="cuda") -> DeviceDCOP:
             "CompiledDCOP.edge_var must be sorted by variable id"
         )
     device = resolve_device(device)
+    if metrics_registry.enabled:
+        # the host->device upload: the host arrays the JAX package counts
+        # (the tables, the unary plane and the index arrays)
+        _m_upload_bytes.inc(
+            table_bytes(c)
+            + sum(int(b.var_slots.nbytes) + int(b.edge_ids.nbytes)
+                  + int(b.con_ids.nbytes) for b in c.buckets)
+            + int(c.edge_var.nbytes) + int(c.edge_con.nbytes)
+            + int(c.var_degree.nbytes) + int(c.domain_size.nbytes)
+            + int(c.valid_mask.nbytes)
+        )
     fdt = torch.float32
 
     def idx(a):

@@ -4,8 +4,8 @@ Counterpart of ``pydcop_tpu/dcop_cli.py``: argparse top level with the
 global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
 per verb.  The port has the ``solve`` and ``serve`` verbs, and the
-host-only ``generate``, ``checkpoints``, ``memplan`` and ``postmortem``
-verbs.  Its
+host-only ``generate``, ``checkpoints``, ``memplan``, ``postmortem``,
+``telemetry`` and ``watch`` verbs, which import no torch.  Its
 global ``--device {cuda,cpu}`` takes the place of JAX's
 ``JAX_PLATFORMS``: the default is the card, and without one the CLI
 exits nonzero unless ``--device cpu`` is given; it never falls back to
@@ -33,6 +33,8 @@ from .commands import (
     postmortem,
     serve,
     solve,
+    telemetry,
+    watch,
 )
 
 __all__ = ["main"]
@@ -42,7 +44,8 @@ __all__ = ["main"]
 TIMEOUT_SLACK = 20
 
 # verbs that only read or write files on the host: they run without a card
-_HOST_ONLY = ("checkpoints", "generate", "memplan", "postmortem")
+_HOST_ONLY = ("checkpoints", "generate", "memplan", "postmortem",
+              "telemetry", "watch")
 
 # global options of the JAX CLI that the port does not run yet
 _NOT_PORTED = (
@@ -109,6 +112,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     checkpoints.set_parser(subparsers)
     memplan.set_parser(subparsers)
     postmortem.set_parser(subparsers)
+    telemetry.set_parser(subparsers)
+    watch.set_parser(subparsers)
 
     args = parser.parse_args(argv)
     _setup_logging(args.verbosity, args.log)

@@ -11,8 +11,9 @@ Counterpart of ``pydcop_tpu/serve/`` (its router is not ported):
   bits of its solo ``solve_one``; and the fused mode, K problems as one
   block-diagonal union (``serve.union``);
 - ``serve.server``: ``ServeServer``, a request queue with a
-  micro-batching window in front of the engine, and its HTTP front end
-  behind ``python -m pydcop_tpu_torch serve``.
+  micro-batching window in front of the engine, its routes on the live
+  metrics surface (``/metrics``, ``/healthz``, ``/slo``, ...), trace ids
+  and request phases, behind ``python -m pydcop_tpu_torch serve``.
 """
 
 from .batch import (

@@ -37,6 +37,22 @@ fleet seed, not the tenants' own.
 A batch that fails degrades to sequential ``solve_one`` calls, tenant by
 tenant: each degraded group counts in ``solve_batched.degraded`` and puts
 its error into its tenants' extras (``"degraded"``).
+
+With the metrics registry on, every dispatched group counts in
+``serve.batches``, ``serve.solves``, ``serve.batch_size`` and
+``serve.pad_instances``, the JAX package's names.  An ``observer`` (the
+server's request lifecycle) gets one event a dispatched group with its
+phase boundaries: ``t_start`` (the dispatch begins), ``t_assembled``
+(the inputs stacked and uploaded), ``t_dispatched`` (every replay
+issued), ``t_solved`` (the device done: the batch synchronizes before
+its read-back, as the JAX package's ``block_until_ready``) and
+``t_done`` (the batch read back, before each tenant's result is decoded
+and costed on the host, as in the JAX package), on
+``time.perf_counter``'s clock;
+``k_real``, ``k_pad``, ``tenants``, and ``fresh_compiles``: the CUDA
+graphs captured inside the dispatch (``run_cycles.captures``), the
+stall the JAX package's XLA compiles are.  Without an observer the
+dispatch does what it does with none.
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ import numpy as np
 import torch
 
 from ..algorithms import SolveResult, load_algorithm_module
+from ..telemetry.metrics import metrics_registry
 from .bucket import BucketDims, bucket_dims_of, pad_dev_to_bucket, pow2
 
 logger = logging.getLogger(__name__)
@@ -67,6 +84,34 @@ __all__ = [
     "solve_batched",
     "solve_one",
 ]
+
+
+_m_batches = metrics_registry.counter(
+    "serve.batches", "vmapped batch dispatches"
+)
+_m_solves = metrics_registry.counter(
+    "serve.solves", "tenant solves completed through the batch engine"
+)
+_m_batch_size = metrics_registry.histogram(
+    "serve.batch_size", "real tenants per batch dispatch",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0),
+)
+_m_pad_instances = metrics_registry.counter(
+    "serve.pad_instances",
+    "replicated pad instances added to round batches to powers of two",
+)
+
+#: a dispatched group's event for an observer (see the module docstring)
+Observer = Callable[[Dict[str, Any]], None]
+
+
+def _count_batch(k_real: int, pad_n: int) -> None:
+    """One dispatched group in the serve.* metrics (registry on)."""
+    _m_batches.inc()
+    _m_solves.inc(k_real)
+    _m_batch_size.observe(float(k_real))
+    if pad_n:
+        _m_pad_instances.inc(pad_n)
 
 
 class ServeUnsupported(ValueError):
@@ -361,10 +406,12 @@ def _slot(key: BucketKey, k_pad: int, device: torch.device,
     return slot
 
 
-def _dispatch_group(key: BucketKey, reqs: List[SolveRequest],
-                    device) -> List[TenantResult]:
-    """One bucket's requests as one batch (``base.run_batch``)."""
-    from ..algorithms.base import run_batch
+def _dispatch_group(key: BucketKey, reqs: List[SolveRequest], device,
+                    observer: Optional[Observer] = None
+                    ) -> List[TenantResult]:
+    """One bucket's requests as one batch (``base.run_batch``), with one
+    event for ``observer``."""
+    from ..algorithms.base import run_batch, run_cycles
     from ..compile.kernels import resolve_device
 
     device = resolve_device(device)
@@ -389,6 +436,8 @@ def _dispatch_group(key: BucketKey, reqs: List[SolveRequest],
         for r, i in zip(reqs, instances)
     ] + [0] * pad_n
     t_filled = time.perf_counter()
+    captures = run_cycles.captures
+    times: Optional[Dict[str, float]] = {} if observer else None
     rows = run_batch(
         slot.home, dev, plan0.init, plan0.step, plan0.extract,
         n_limits=budgets,
@@ -403,8 +452,23 @@ def _dispatch_group(key: BucketKey, reqs: List[SolveRequest],
         has_noise=key.has_noise,
         noise_draw=key.dims.n_vars,
         health=plan0.health,
+        times=times,
     )
-    t_solved = time.perf_counter()
+    t_read = time.perf_counter()
+    if metrics_registry.enabled:
+        _count_batch(k_real, pad_n)
+    if observer:
+        # as the JAX package's: the read-back done, before each tenant's
+        # result is decoded and costed on the host
+        observer({
+            "kind": "vmap", "bucket": key,
+            "tenants": [r.tenant for r in reqs],
+            "k_real": k_real, "k_pad": k_pad,
+            "t_start": t0, "t_assembled": t_filled,
+            "t_dispatched": times["t_dispatched"],
+            "t_solved": times["t_solved"], "t_done": t_read,
+            "fresh_compiles": run_cycles.captures - captures,
+        })
     out = []
     for req, inst, row in zip(reqs, instances, rows):
         plan = inst.host_plan
@@ -419,7 +483,7 @@ def _dispatch_group(key: BucketKey, reqs: List[SolveRequest],
             "batch_size": k_real,
             "k_pad": k_pad,
             "assemble_s": t_filled - t0,
-            "solve_s": t_solved - t_filled,
+            "solve_s": t_read - t_filled,
         }
         if "health" in row:
             # pulse on: the tenant's rows and flip counters, cut to its
@@ -456,17 +520,23 @@ def _fused_key(req: SolveRequest):
     )
 
 
-def _dispatch_fused(reqs: List[SolveRequest], device) -> List[TenantResult]:
+def _dispatch_fused(reqs: List[SolveRequest], device,
+                    observer: Optional[Observer] = None
+                    ) -> List[TenantResult]:
     """One union solve for a fused group: the K problems block-diagonally
     concatenated (``serve.union``) and solved by the ordinary engine at K
     times the size, with one fleet seed.  Each tenant's result is its
     block of the union's values, costed on the host by its own problem;
-    the anytime best is the better of its final and union-best blocks."""
+    the anytime best is the better of its final and union-best blocks.
+    The union solve reads its result back itself: an ``observer``'s event
+    has one solve phase, from ``t_assembled`` to ``t_done``."""
     from ..algorithms.base import cached_const, finalize, run_cycles
     from ..compile.kernels import resolve_device, to_device
     from .union import fleet_seed, union_compiled
 
     device = resolve_device(device)
+    t_start = time.perf_counter()
+    captures = run_cycles.captures
     mod = _algo_module(reqs[0].algo)
     params = _prepared(mod, reqs[0].params)
     parts = [r.compiled for r in reqs]
@@ -482,6 +552,7 @@ def _dispatch_fused(reqs: List[SolveRequest], device) -> List[TenantResult]:
     while len(_union_cache) > _UNION_CACHE_CAP:
         _union_cache.popitem(last=False)
     _parts, union, blocks, dev, plan = hit
+    t_assembled = time.perf_counter()
     n_cycles = max(_effective_cycles(plan, r.n_cycles) for r in reqs)
     final, _curve, extras = run_cycles(
         union, dev, plan.init, plan.step, plan.extract,
@@ -518,6 +589,19 @@ def _dispatch_fused(reqs: List[SolveRequest], device) -> List[TenantResult]:
             "batch_size": len(reqs),
             "mode": "fused",
         }))
+    if metrics_registry.enabled:
+        _count_batch(len(reqs), 0)
+    if observer:
+        t_done = time.perf_counter()
+        observer({
+            "kind": "fused", "bucket": f"fused/{reqs[0].algo}",
+            "tenants": [r.tenant for r in reqs],
+            "k_real": len(reqs), "k_pad": len(reqs),
+            "t_start": t_start, "t_assembled": t_assembled,
+            "t_dispatched": t_assembled, "t_solved": t_done,
+            "t_done": t_done,
+            "fresh_compiles": run_cycles.captures - captures,
+        })
     return out
 
 
@@ -526,6 +610,7 @@ def solve_batched(
     max_batch: Optional[int] = None,
     mode: str = "vmap",
     device="cuda",
+    observer: Optional[Observer] = None,
 ) -> Dict[str, TenantResult]:
     """Solve many tenants, one batch a group, on ``device`` (the card
     unless the caller asks for the CPU).
@@ -540,7 +625,8 @@ def solve_batched(
     params) fails alone, its result None and its error in its extras.  A
     group whose batch raises degrades to ``solve_one`` tenant by tenant:
     counted in ``solve_batched.degraded``, logged, and its error in each
-    of its tenants' extras as ``"degraded"``."""
+    of its tenants' extras as ``"degraded"``.  ``observer`` gets one event
+    a dispatched group (the module docstring), none for a degraded one."""
     from ..compile.kernels import resolve_device
 
     if mode not in ("vmap", "fused"):
@@ -562,9 +648,9 @@ def solve_batched(
             chunk = reqs[lo:lo + cap]
             try:
                 if mode == "vmap":
-                    results = _dispatch_group(key, chunk, device)
+                    results = _dispatch_group(key, chunk, device, observer)
                 else:
-                    results = _dispatch_fused(chunk, device)
+                    results = _dispatch_fused(chunk, device, observer)
             except ServeUnsupported as exc:
                 for req in chunk:
                     out[req.tenant] = _failed(req, exc)

@@ -10,18 +10,42 @@ dropped before it ran, or its result discarded).  ``drain`` stops
 accepting, finishes the queue and stops the worker; terminal records
 past ``TENANT_RETAIN`` are evicted oldest first.
 
-With a ``port`` (0 picks a free one), a small HTTP front end of the
-standard library serves:
+With a ``port`` (0 picks a free one), the routes are mounted on the
+live metrics surface (``infrastructure.MetricsHttpServer``), beside its
+``GET /metrics`` (Prometheus text, OpenMetrics with exemplars on
+``?format=openmetrics``) and ``GET /metrics.json``:
 
 - ``POST /solve``: a JSON body ``{"dcop_yaml", "algo", "params",
-  "n_cycles", "seed", "tenant"?}``; the YAML goes through the port's
-  loader and ``compile_dcop``; answers ``{"tenant"}``, or 503 while
-  draining;
+  "n_cycles", "seed", "tenant"?, "trace"?}``; the YAML goes through the
+  port's loader and ``compile_dcop``; answers ``{"tenant", "trace"}``,
+  400 on a body it cannot read, or 503 while draining (with
+  ``retry_after_s`` and a ``Retry-After`` header);
 - ``GET /result/<tenant>``: the tenant's record (404 when unknown);
 - ``GET /status``: the server's state, counts, queue depth and queue
-  latency p50/p99, and the latest tenants' rows (with pulse on, each
-  done tenant's health block: ``telemetry.pulse.analyze`` of its rows);
+  latency p50/p99, the latest tenants' rows (with pulse on, each done
+  tenant's health block: ``telemetry.pulse.analyze`` of its rows), the
+  ``memory`` block and, with an SLO engine, the ``slo`` block;
+- ``GET /healthz``: 200 while serving, else 503, with ``{state,
+  queue_depth}``: a draining server is alive but takes no tenant;
+- ``POST /window``: ``{"window_ms"}``, clamped to [0, 10 s], the
+  micro-batching window of the next batch (400 on a bad body);
+- ``GET /slo`` (with an SLO engine): its report;
 - ``POST /shutdown``: answers, then drains in the background.
+
+Every tenant carries a trace id: the caller's (``submit(req,
+trace=)``, ``"trace"`` of ``POST /solve``; a resubmit may pass the id of
+an earlier attempt) or a fresh 16-hex one, echoed in the answer, in
+``/result`` and in the ``/status`` row.  With the metrics registry, the
+tracer or an SLO engine on, each dispatched batch reports its phases
+(``serve.batch``'s observer) and the server attributes them to every
+tenant that rode it: the ``serve.phase_seconds`` histogram by phase
+(``PHASES``) and bucket with the trace id as exemplar,
+``serve.request_seconds`` at the result, the spans ``serve.batch``,
+``serve.{assemble,dispatch,solve,readback}``, ``serve.cold_compile`` (a
+dispatch that captured graphs), ``serve.queued`` and ``serve.request``,
+the ``serve.result_ready`` instant and the request's flow points, and
+the SLO engine's ``record_request`` of each terminal tenant.  The
+``serve.*`` metrics carry the JAX package's names.
 
 With a ``checkpoint_dir``, a drain writes the fleet checkpoint
 ``fleet-manifest.json`` there: the tenant census with each terminal
@@ -37,15 +61,13 @@ rides a batch dispatched at or after ``at``: its solve still runs with
 the batch, its result is dropped (``killed``, a dead letter), and the
 batch's other tenants keep their own results.
 
-SLO objectives, memory admission, peer discovery from sibling fleet
-manifests, trace ids, ``/metrics`` and the HA router are not ported
-(ROADMAP).
+Peer discovery from sibling fleet manifests and the HA router are not
+ported (ROADMAP).
 """
 
 from __future__ import annotations
 
 import fnmatch
-import http.server
 import itertools
 import json
 import logging
@@ -57,15 +79,21 @@ from typing import Any, Dict, List, Optional
 
 from ..compile.kernels import resolve_device
 from ..telemetry.memplane import MemoryBudgetExceeded, memguard, memory_status
+from ..telemetry.metrics import metrics_registry
+from ..telemetry.metrics import percentile as _percentile
 from ..telemetry.pulse import analyze as analyze_pulse
+from ..telemetry.tracing import tracer
 from .batch import SolveRequest, TenantResult, solve_batched
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ServeServer", "TENANT_RETAIN", "TENANT_STATES"]
+__all__ = ["PHASES", "ServeServer", "TENANT_RETAIN", "TENANT_STATES"]
 
 TENANT_STATES = ("queued", "running", "done", "failed", "killed")
 _TERMINAL = ("done", "failed", "killed")
+
+#: the phases ``serve.phase_seconds`` splits a request's latency into
+PHASES = ("queue", "assemble", "dispatch", "solve", "readback")
 
 #: terminal tenant records kept; older ones are evicted and GET /result
 #: answers 'unknown' for them.  Queued and running tenants are never
@@ -78,13 +106,48 @@ LATENCY_SAMPLES = 2048
 #: the latest tenants listed by ``status()``
 STATUS_TENANTS = 256
 
-
-def _percentile(sorted_vals: List[float], q: float) -> Optional[float]:
-    if not sorted_vals:
-        return None
-    i = min(len(sorted_vals) - 1, max(0, int(round(q * (len(sorted_vals)
-                                                         - 1)))))
-    return sorted_vals[i]
+_m_queue_seconds = metrics_registry.histogram(
+    "serve.queue_seconds",
+    "tenant queue latency (submit to batch dispatch start)",
+)
+_m_dead_letters = metrics_registry.counter(
+    "serve.dead_letters",
+    "tenant results dropped (chaos kills, failed solves)",
+)
+_m_tenants = metrics_registry.gauge(
+    "serve.tenants", "tenants known to the serve loop, by state"
+)
+_m_fleet_ckpt = metrics_registry.counter(
+    "serve.fleet_checkpoints",
+    "fleet checkpoints written by graceful drains (graftdur)",
+)
+_m_request_seconds = metrics_registry.histogram(
+    "serve.request_seconds",
+    "end-to-end request latency (submit to result-ready)",
+)
+_m_phase_seconds = metrics_registry.histogram(
+    "serve.phase_seconds",
+    "request latency per lifecycle phase and shape bucket",
+)
+_m_queue_depth = metrics_registry.gauge(
+    "serve.queue_depth", "tenants waiting in the micro-batching queue"
+)
+_m_queue_hwm = metrics_registry.gauge(
+    "serve.queue_depth_watermark",
+    "high-water mark of the micro-batching queue this run",
+)
+_m_occupancy = metrics_registry.gauge(
+    "serve.batch_occupancy_pct",
+    "real (non-pad) fraction of the last dispatched batch, percent",
+)
+_m_bucket_census = metrics_registry.gauge(
+    "serve.bucket_cache_size",
+    "distinct shape buckets dispatched so far (executable-cache pressure)",
+)
+_m_chaos_delays = metrics_registry.counter(
+    "serve.chaos_delays",
+    "tenants held back by a chaos delay rule before dispatch",
+)
 
 
 def _bucket_str(key: Any) -> str:
@@ -97,8 +160,16 @@ def _bucket_str(key: Any) -> str:
     )
 
 
+
+
 class ServeServer:
-    """Micro-batching solve server: one worker thread, one device."""
+    """Micro-batching solve server: one worker thread, one device.
+
+    ``slo``: an ``telemetry.slo.SloEngine`` that classifies every
+    terminal tenant against its objectives; the server starts its
+    evaluator, stops it with a final tick at the drain, mounts ``GET
+    /slo`` and adds its block to ``/status``.  It counts into the metrics
+    registry, which the caller turns on (the ``serve`` verb does)."""
 
     def __init__(
         self,
@@ -110,6 +181,7 @@ class ServeServer:
         device="cuda",
         checkpoint_dir: Optional[str] = None,
         fault_schedule: Any = None,
+        slo: Any = None,
     ) -> None:
         if mode not in ("vmap", "fused"):
             raise ValueError(f"unknown serve batch mode {mode!r}")
@@ -125,6 +197,7 @@ class ServeServer:
         #: the chaos schedule: tenant holds (``delay`` rules) and timed
         #: tenant kills (``kill`` events), or None
         self.fault_schedule = fault_schedule
+        self.slo = slo
         self._queue: "queue.Queue[str]" = queue.Queue()
         self._tenants: Dict[str, Dict[str, Any]] = {}
         self._lock = threading.RLock()
@@ -137,21 +210,43 @@ class ServeServer:
         self._latencies: List[float] = []
         self._queue_hwm = 0
         self._buckets_seen: set = set()
+        self._batch_seq = itertools.count(1)
         self.batches = 0
         self.solves = 0
         self.dead_letters = 0
         self.degraded = 0  # batches with a group that fell back to solo
-        self.http: Optional[_HttpFront] = None
+        self.http = None
+        if self.slo is not None:
+            self.slo.start()
         self._worker = threading.Thread(
             target=self._run, name="serve-worker", daemon=True
         )
         self._worker.start()
         if port is not None:
-            self.http = _HttpFront(self, host, port)
+            from ..infrastructure.ui import MetricsHttpServer
+
+            routes = {
+                ("POST", "/solve"): self._http_solve,
+                ("GET", "/result"): self._http_result,
+                ("GET", "/healthz"): self._http_healthz,
+                ("POST", "/window"): self._http_window,
+                ("POST", "/shutdown"): self._http_shutdown,
+            }
+            if self.slo is not None:
+                routes[("GET", "/slo")] = self._http_slo
+            self.http = MetricsHttpServer(port=port, host=host,
+                                          status_cb=self.status,
+                                          routes=routes)
+
+    def _observing(self) -> bool:
+        """Whether the request lifecycle is recorded: the registry or the
+        tracer on, or an SLO engine (each dispatch checks anew)."""
+        return (tracer.enabled or metrics_registry.enabled
+                or self.slo is not None)
 
     # -- submission ----------------------------------------------------
 
-    def submit(self, req: SolveRequest) -> str:
+    def submit(self, req: SolveRequest, trace: Optional[str] = None) -> str:
         """Enqueue one tenant solve; returns the tenant id (the request's,
         or a generated ``t<n>`` that no tenant has).  Raises RuntimeError
         while draining: a drain promises that nothing new enters the queue
@@ -160,7 +255,8 @@ class ServeServer:
         bucket-padded solve cannot fit the device is refused first
         (``MemoryBudgetExceeded``, a RuntimeError) instead of entering a
         batch that would run the card out of memory for every tenant in
-        it."""
+        it.  ``trace``: the request's trace id (a fresh one when None)."""
+        rid = str(trace) if trace else os.urandom(8).hex()
         now = time.monotonic()
         if memguard.enabled:
             # outside the lock: the model is host arithmetic
@@ -188,16 +284,34 @@ class ServeServer:
                 "algo": req.algo,
                 "n_cycles": req.n_cycles,
                 "submitted_s": now,
+                # the tracer's clock, for the request's spans
+                "submitted_pc": time.perf_counter(),
+                "trace": rid,
             }
             if hold_s:
                 rec["hold_until_s"] = now + hold_s
+            if tracer.enabled:
+                rec["flow_id"] = tracer.new_flow_id()
             self._tenants[tenant] = rec
             self._queue.put(tenant)
-            self._queue_hwm = max(self._queue_hwm, self._queue.qsize())
+            depth = self._queue.qsize()
+            self._queue_hwm = max(self._queue_hwm, depth)
+            hwm = self._queue_hwm
         if hold_s:
+            _m_chaos_delays.inc()
             logger.info(
                 "chaos delay: tenant %s held %.3fs before dispatch",
                 tenant, hold_s,
+            )
+        if metrics_registry.enabled:
+            _m_queue_depth.set(depth)
+            _m_queue_hwm.set(hwm)
+        if tracer.enabled:
+            # the request's flow starts here; it goes through the batch it
+            # rides to its result
+            tracer.flow_point(
+                "s", "serve.submit", rec["flow_id"], cat="serve",
+                flow_name="serve.request", tenant=tenant, trace=rid,
             )
         return tenant
 
@@ -229,6 +343,7 @@ class ServeServer:
         a running one's result is discarded.  Its co-batched tenants are
         untouched.  False when the tenant is unknown or already
         terminal."""
+        finals = []
         with self._lock:
             rec = self._tenants.get(tenant)
             if rec is None or rec["status"] in _TERMINAL:
@@ -236,7 +351,11 @@ class ServeServer:
             rec["kill"] = True
             if rec["status"] == "queued":
                 self._finish_killed(rec, time.monotonic())
-            return True
+                if self._observing():
+                    rec["finished_pc"] = time.perf_counter()
+                    finals.append(self._final_row(tenant, rec))
+        self._finish_requests(finals)
+        return True
 
     def _finish_killed(self, rec: Dict[str, Any], now: float) -> None:
         rec["status"] = "killed"
@@ -244,6 +363,7 @@ class ServeServer:
         rec["finished_s"] = now
         rec.pop("request", None)
         self.dead_letters += 1
+        _m_dead_letters.inc()
 
     def result(self, tenant: str) -> Dict[str, Any]:
         """One tenant's public record (what GET /result/<id> answers)."""
@@ -255,7 +375,8 @@ class ServeServer:
                    "algo": rec["algo"]}
             for k in ("cost", "violations", "cycles", "best_cost",
                       "cycles_to_best", "assignment", "error", "bucket",
-                      "batch_size", "queue_ms", "pulse", "degraded"):
+                      "batch_size", "queue_ms", "pulse", "degraded",
+                      "trace", "phases", "batch_seq", "cold_compile"):
                 if k in rec:
                     out[k] = rec[k]
             return out
@@ -276,8 +397,9 @@ class ServeServer:
         (with a done tenant's pulse block when pulse was on), tenant
         counts by state, queue depth and its high-water mark, batches,
         solves, dead letters, degraded batches, the queue latency's p50
-        and p99 (ms, submit to dispatch) and the ``memory`` block (the
-        latest live sample, the guard's settings and refusals)."""
+        and p99 (ms, submit to dispatch), the ``memory`` block (the
+        latest live sample, the guard's settings and refusals) and, with
+        an SLO engine, its ``slo`` block."""
         with self._lock:
             lat = sorted(self._latencies[-LATENCY_SAMPLES:])
             rows = {}
@@ -285,14 +407,14 @@ class ServeServer:
                 row = {"status": rec["status"], "algo": rec["algo"]}
                 for k in ("cost", "best_cost", "cycles", "cycles_to_best",
                           "bucket", "batch_size", "queue_ms", "error",
-                          "pulse"):
+                          "trace", "pulse"):
                     if k in rec:
                         row[k] = rec[k]
                 rows[tid] = row
             counts: Dict[str, int] = {}
             for rec in self._tenants.values():
                 counts[rec["status"]] = counts.get(rec["status"], 0) + 1
-            return {
+            out = {
                 "status": "serve",
                 "mode": self.mode,
                 "device": str(self.device),
@@ -313,13 +435,19 @@ class ServeServer:
                 # the latest live memory sample and the guard's settings
                 "memory": memory_status(),
             }
+        if self.slo is not None:
+            # outside the server's lock: the engine reads its own state
+            # under its own lock
+            out["slo"] = self.slo.status_block()
+        return out
 
     # -- lifecycle -----------------------------------------------------
 
     def drain(self, timeout: float = 120.0) -> bool:
         """Graceful stop: accept nothing more, finish every queued tenant,
-        stop the worker, and (with ``checkpoint_dir``) write the fleet
-        checkpoint.  True when the queue drained in time."""
+        stop the worker, run the SLO engine's last tick and (with
+        ``checkpoint_dir``) write the fleet checkpoint.  True when the
+        queue drained in time."""
         with self._lock:
             if self._state == "serving":
                 self._state = "draining"
@@ -327,6 +455,10 @@ class ServeServer:
         ok = self._drained.wait(timeout)
         with self._lock:
             self._state = "drained" if ok else "drain-timeout"
+        if self.slo is not None:
+            # after the queue drained: the requests that finished since
+            # the last periodic tick reach the burn rates too
+            self.slo.stop(final_tick=True)
         if self.checkpoint_dir:
             try:
                 self.fleet_checkpoint_path = self._write_fleet_checkpoint()
@@ -372,6 +504,7 @@ class ServeServer:
         path = os.path.join(self.checkpoint_dir, "fleet-manifest.json")
         atomic_write_json(path, manifest, indent=2, sort_keys=True,
                           default=str)
+        _m_fleet_ckpt.inc()
         logger.info("fleet checkpoint: %d tenant(s) -> %s", len(tenants),
                     path)
         return path
@@ -383,8 +516,10 @@ class ServeServer:
             with self._lock:
                 self._state = "stopped"
             self._stop.set()
+            if self.slo is not None:
+                self.slo.stop(final_tick=True)
         if self.http is not None:
-            self.http.close()
+            self.http.shutdown()
         return ok
 
     def wait_drained(self, timeout: float = 120.0) -> bool:
@@ -425,7 +560,10 @@ class ServeServer:
                     break
                 continue
             batch = [first]
-            deadline = time.monotonic() + self.window_s
+            # POST /window's new value applies from the next batch on
+            with self._lock:
+                window_s = self.window_s
+            deadline = time.monotonic() + window_s
             while len(batch) < self.max_batch:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 and not self._stop.is_set():
@@ -439,6 +577,7 @@ class ServeServer:
             except Exception:  # noqa: BLE001 (the loop must survive)
                 logger.exception("serve batch dispatch failed")
                 now = time.monotonic()
+                finals = []
                 with self._lock:
                     for tid in batch:
                         rec = self._tenants.get(tid)
@@ -448,6 +587,9 @@ class ServeServer:
                             rec["finished_s"] = now
                             rec.pop("request", None)
                             self.dead_letters += 1
+                            _m_dead_letters.inc()
+                            finals.append(self._final_row(tid, rec))
+                self._finish_requests(finals)
         self._drained.set()
 
     def _fired_kills(self) -> List[str]:
@@ -466,6 +608,9 @@ class ServeServer:
 
     def _dispatch(self, tenant_ids: List[str]) -> None:
         now = time.monotonic()
+        # the request lifecycle is recorded only while something reads it:
+        # otherwise the dispatch costs these flag checks
+        observing = self._observing()
         reqs, running = [], []
         with self._lock:
             for tid in tenant_ids:
@@ -473,11 +618,13 @@ class ServeServer:
                 if rec["status"] != "queued":
                     continue  # killed while it waited
                 rec["status"] = "running"
+                rec["started_s"] = now
                 q_ms = (now - rec["submitted_s"]) * 1e3
                 rec["queue_ms"] = round(q_ms, 3)
                 self._latencies.append(q_ms)
                 if len(self._latencies) > 2 * LATENCY_SAMPLES:
                     del self._latencies[:-LATENCY_SAMPLES]
+                _m_queue_seconds.observe(q_ms / 1e3)
                 reqs.append(rec["request"])
                 running.append(tid)
         if not reqs:
@@ -487,9 +634,13 @@ class ServeServer:
         # victims' solves still run (the batch is one program), their
         # results are dropped, and only theirs
         kill_patterns = self._fired_kills()
-        results = solve_batched(reqs, max_batch=self.max_batch,
-                                mode=self.mode, device=self.device)
+        results = solve_batched(
+            reqs, max_batch=self.max_batch, mode=self.mode,
+            device=self.device,
+            observer=self._on_batch_event if observing else None,
+        )
         kill_patterns += self._fired_kills()
+        finals: List[Dict[str, Any]] = []
         with self._lock:
             if solve_batched.degraded != degraded:
                 self.degraded += 1
@@ -498,6 +649,8 @@ class ServeServer:
                 rec = self._tenants[tid]
                 tr: Optional[TenantResult] = results.get(tid)
                 rec["finished_s"] = done
+                if observing:
+                    rec["finished_pc"] = time.perf_counter()
                 # a terminal record never runs again: drop the request,
                 # which pins the compiled problem and its cached tensors
                 rec.pop("request", None)
@@ -513,11 +666,22 @@ class ServeServer:
                         "error", "no result"
                     )
                     self.dead_letters += 1
+                    _m_dead_letters.inc()
                 else:
                     self._record_done(rec, tr)
                     self.solves += 1
+                if observing:
+                    finals.append(self._final_row(tid, rec))
             self.batches += 1
             self._evict_terminal()
+            if metrics_registry.enabled:
+                for state in TENANT_STATES:
+                    _m_tenants.set(
+                        sum(1 for r in self._tenants.values()
+                            if r["status"] == state),
+                        state=state,
+                    )
+        self._finish_requests(finals)
 
     def _record_done(self, rec: Dict[str, Any], tr: TenantResult) -> None:
         rec["status"] = "done"
@@ -555,102 +719,208 @@ class ServeServer:
                     if r["status"] in _TERMINAL][:excess]:
             del self._tenants[tid]
 
-    # -- HTTP routes ---------------------------------------------------
+    # -- the request lifecycle -------------------------------------------
 
-    def http_solve(self, body: bytes):
+    def _on_batch_event(self, ev: Dict[str, Any]) -> None:
+        """One dispatched group's phases (``serve.batch``'s observer),
+        given to every tenant that rode it: the phase histograms (the
+        tenants' trace ids as exemplars), the saturation gauges, the
+        batch's spans and each tenant's queued span and flow step."""
+        bucket = _bucket_str(ev["bucket"])
+        seq = next(self._batch_seq)
+        occupancy = 100.0 * ev["k_real"] / max(1, ev["k_pad"])
+        t_solved = ev["t_solved"] or ev["t_dispatched"]
+        segments = (
+            ("assemble", ev["t_start"], ev["t_assembled"]),
+            ("dispatch", ev["t_assembled"], ev["t_dispatched"]),
+            ("solve", ev["t_dispatched"], t_solved),
+            ("readback", t_solved, ev["t_done"]),
+        )
+        rows = []
+        with self._lock:
+            self._buckets_seen.add(bucket)
+            n_buckets = len(self._buckets_seen)
+            for tid in ev["tenants"]:
+                rec = self._tenants.get(tid)
+                if rec is None:
+                    continue
+                sub_pc = rec.get("submitted_pc")
+                phases = {name: max(0.0, b - a) for name, a, b in segments}
+                phases["queue"] = (max(0.0, ev["t_start"] - sub_pc)
+                                   if sub_pc is not None else 0.0)
+                rec["phases"] = {k: round(v, 6) for k, v in phases.items()}
+                rec["batch_seq"] = seq
+                rec.setdefault("bucket", bucket)
+                if ev["fresh_compiles"]:
+                    # the capture's stall belongs to the tenants that rode
+                    # the batch that paid it
+                    rec["cold_compile"] = True
+                rows.append((tid, rec.get("trace"), rec.get("flow_id"),
+                             sub_pc, phases))
+        if metrics_registry.enabled:
+            _m_occupancy.set(occupancy)
+            _m_bucket_census.set(n_buckets)
+            _m_queue_depth.set(self._queue.qsize())
+            for _tid, trace, _flow, _sub, phases in rows:
+                for name, v in phases.items():
+                    _m_phase_seconds.observe(v, exemplar_=trace, phase=name,
+                                             bucket=bucket)
+        if tracer.enabled:
+            tenants = list(ev["tenants"])
+            tracer.complete(
+                "serve.batch", ev["t_start"], ev["t_done"] - ev["t_start"],
+                cat="serve", batch=seq, bucket=bucket, k_real=ev["k_real"],
+                k_pad=ev["k_pad"], occupancy_pct=round(occupancy, 1),
+                fresh_compiles=ev["fresh_compiles"], tenants=tenants,
+            )
+            for name, a, b in segments:
+                tracer.complete(f"serve.{name}", a, b - a, cat="serve",
+                                batch=seq, bucket=bucket, tenants=tenants)
+            if ev["fresh_compiles"]:
+                # the graphs captured inside this dispatch, and who paid
+                tracer.complete(
+                    "serve.cold_compile", ev["t_assembled"],
+                    ev["t_dispatched"] - ev["t_assembled"], cat="serve",
+                    batch=seq, bucket=bucket,
+                    fresh_compiles=ev["fresh_compiles"], paid_by=tenants,
+                )
+            for tid, trace, flow_id, sub_pc, _phases in rows:
+                if sub_pc is not None:
+                    tracer.complete(
+                        "serve.queued", sub_pc,
+                        max(0.0, ev["t_start"] - sub_pc), cat="serve",
+                        tenant=tid, trace=trace, batch=seq, bucket=bucket,
+                    )
+                if flow_id is not None:
+                    tracer.flow_point(
+                        "t", "serve.batch.enter", flow_id, cat="serve",
+                        flow_name="serve.request", tenant=tid, trace=trace,
+                        batch=seq, bucket=bucket,
+                    )
+
+    def _final_row(self, tid: str, rec: Dict[str, Any]) -> Dict[str, Any]:
+        """What ``_finish_requests`` needs of a terminal tenant, taken
+        under the lock (the caller holds it)."""
+        return {
+            "tenant": tid,
+            "trace": rec.get("trace"),
+            "flow_id": rec.get("flow_id"),
+            "submitted_s": rec.get("submitted_s", 0.0),
+            "finished_s": rec.get("finished_s", 0.0),
+            "submitted_pc": rec.get("submitted_pc"),
+            "finished_pc": rec.get("finished_pc"),
+            "status": rec["status"],
+            "bucket": rec.get("bucket"),
+            "batch_seq": rec.get("batch_seq"),
+            "cold_compile": rec.get("cold_compile", False),
+            "phases": rec.get("phases"),
+        }
+
+    def _finish_requests(self, rows: List[Dict[str, Any]]) -> None:
+        """The result side of each terminal tenant's lifecycle, outside
+        the lock: the end-to-end latency (its trace id the exemplar), the
+        ``serve.request`` span over its whole life, the result instant and
+        the flow's end, and the SLO engine's classification."""
+        for r in rows:
+            latency = max(0.0, r["finished_s"] - r["submitted_s"])
+            dead = r["status"] in ("failed", "killed")
+            if metrics_registry.enabled:
+                _m_request_seconds.observe(latency, exemplar_=r["trace"])
+            if tracer.enabled:
+                if r["submitted_pc"] is not None and r["finished_pc"]:
+                    tracer.complete(
+                        "serve.request", r["submitted_pc"],
+                        max(0.0, r["finished_pc"] - r["submitted_pc"]),
+                        cat="serve", tenant=r["tenant"], trace=r["trace"],
+                        status=r["status"], bucket=r["bucket"],
+                        batch=r["batch_seq"],
+                        cold_compile=r["cold_compile"],
+                    )
+                tracer.instant("serve.result_ready", cat="serve",
+                               tenant=r["tenant"], trace=r["trace"],
+                               status=r["status"])
+                if r["flow_id"] is not None:
+                    tracer.flow_point(
+                        "f", "serve.result", r["flow_id"], cat="serve",
+                        flow_name="serve.request", tenant=r["tenant"],
+                        trace=r["trace"], status=r["status"],
+                    )
+            if self.slo is not None:
+                self.slo.record_request(
+                    r["tenant"], r["status"], latency, dead_letter=dead,
+                    trace=r["trace"], phases=r["phases"],
+                )
+
+    # -- HTTP routes (on the metrics surface) ----------------------------
+
+    def _http_solve(self, path: str, body: bytes):
         from ..compile.core import compile_dcop
         from ..dcop.yamldcop import load_dcop
 
-        spec = json.loads(body.decode("utf-8"))
-        req = SolveRequest(
-            tenant=spec.get("tenant") or "",
-            compiled=compile_dcop(load_dcop(spec["dcop_yaml"])),
-            algo=spec.get("algo", "dsa"),
-            params=spec.get("params") or {},
-            n_cycles=int(spec.get("n_cycles", 100)),
-            seed=int(spec.get("seed", 0)),
-        )
         try:
-            tenant = self.submit(req)
+            spec = json.loads(body.decode("utf-8"))
+            req = SolveRequest(
+                tenant=spec.get("tenant") or "",
+                compiled=compile_dcop(load_dcop(spec["dcop_yaml"])),
+                algo=spec.get("algo", "dsa"),
+                params=spec.get("params") or {},
+                n_cycles=int(spec.get("n_cycles", 100)),
+                seed=int(spec.get("seed", 0)),
+            )
+        except Exception as e:  # noqa: BLE001 (a body it cannot read)
+            return 400, {"error": f"{type(e).__name__}: {e}"}
+        # a resubmit passing its first attempt's trace id keeps both on
+        # one timeline
+        rid = str(spec.get("trace") or "") or os.urandom(8).hex()
+        try:
+            tenant = self.submit(req, trace=rid)
+        except ValueError as e:  # a known tenant id
+            return 400, {"error": str(e)}
         except RuntimeError as e:
             with self._lock:
                 state = self._state
-            doc = {"error": str(e), "state": state}
+            retry_after = 2
+            doc = {"error": str(e), "state": state,
+                   "retry_after_s": retry_after}
             if isinstance(e, MemoryBudgetExceeded):
                 # "never fits here", not "busy now": the breach's numbers
                 doc["mem"] = e.breach
-            return 503, doc
-        return 200, {"tenant": tenant}
+            return 503, doc, {"Retry-After": str(retry_after)}
+        return 200, {"tenant": tenant, "trace": rid}
 
-    def http_result(self, tenant: str):
-        rec = self.result(tenant)
+    def _http_result(self, path: str, body: bytes):
+        rec = self.result(path.rsplit("/", 1)[-1])
         return (404 if rec["status"] == "unknown" else 200), rec
 
-    def http_shutdown(self):
+    def _http_healthz(self, path: str, body: bytes):
+        """Readiness: 200 only while taking tenants.  A draining server is
+        alive but answers 503, so a router leaves it out while its queue
+        empties."""
+        with self._lock:
+            state = self._state
+            depth = self._queue.qsize()
+        return (200 if state == "serving" else 503), {
+            "state": state, "queue_depth": depth}
+
+    def _http_window(self, path: str, body: bytes):
+        """The micro-batching window, retuned live: clamped to [0, 10 s],
+        from the next batch on."""
+        try:
+            spec = json.loads(body.decode("utf-8")) if body else {}
+            window_ms = float(spec["window_ms"])
+        except (KeyError, TypeError, ValueError):
+            return 400, {"error": "expected {'window_ms': <float>}"}
+        window_ms = min(10_000.0, max(0.0, window_ms))
+        with self._lock:
+            self.window_s = window_ms / 1e3
+        return 200, {"window_ms": window_ms}
+
+    def _http_slo(self, path: str, body: bytes):
+        return 200, self.slo.report()
+
+    def _http_shutdown(self, path: str, body: bytes):
         # answer first, drain in the background: the reply must not wait
         # behind the queue
         threading.Thread(target=self.shutdown, kwargs={"drain": True},
                          daemon=True).start()
         return 200, {"state": "draining"}
-
-
-class _HttpFront:
-    """The server's HTTP routes on a threading ``http.server``."""
-
-    def __init__(self, server: ServeServer, host: str, port: int) -> None:
-        class Handler(http.server.BaseHTTPRequestHandler):
-            def log_message(self, fmt, *args):  # quiet: the log has it
-                logger.debug("http: " + fmt, *args)
-
-            def _reply(self, code: int, doc: Dict[str, Any]) -> None:
-                data = json.dumps(doc, default=str).encode("utf-8")
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
-
-            def _body(self) -> bytes:
-                n = int(self.headers.get("Content-Length") or 0)
-                return self.rfile.read(n) if n else b""
-
-            def do_GET(self):
-                if self.path == "/status":
-                    return self._reply(200, server.status())
-                if self.path.startswith("/result/"):
-                    return self._reply(
-                        *server.http_result(self.path.rsplit("/", 1)[-1])
-                    )
-                return self._reply(404, {"error": f"no route {self.path}"})
-
-            def do_POST(self):
-                body = self._body()
-                try:
-                    if self.path == "/solve":
-                        return self._reply(*server.http_solve(body))
-                    if self.path == "/shutdown":
-                        return self._reply(*server.http_shutdown())
-                except Exception as e:  # noqa: BLE001 (a bad request)
-                    return self._reply(
-                        400, {"error": f"{type(e).__name__}: {e}"}
-                    )
-                return self._reply(404, {"error": f"no route {self.path}"})
-
-        self.httpd = http.server.ThreadingHTTPServer((host, port), Handler)
-        self.httpd.daemon_threads = True
-        self.host = host
-        self.port = self.httpd.server_address[1]
-        self._thread = threading.Thread(
-            target=self.httpd.serve_forever, name="serve-http", daemon=True
-        )
-        self._lock = threading.Lock()
-        self._closed = False
-        self._thread.start()
-
-    def close(self) -> None:
-        with self._lock:
-            if self._closed:
-                return
-            self._closed = True
-        self.httpd.shutdown()
-        self.httpd.server_close()

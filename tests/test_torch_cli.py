@@ -7,7 +7,10 @@ within rel 1e-5, a cost curve within rel 1e-6, every other field equal).
 Without a card and without ``--device cpu`` it refuses; the options of
 the JAX CLI's other modes are refused as not ported.  ``--pulse-out``,
 ``--checkpoint``/``--resume``, ``--fault-schedule`` (on ``solve`` and
-``serve``) and the CSV metrics run, and the host-only
+``serve``), ``serve``'s SLO options, ``solve --metrics-port`` and the
+CSV metrics run; ``--metrics-out`` holds the JAX package's anytime
+series (``solve.best_cost``, ``solve.cycles_to_best``,
+``solve.upload_bytes``) with its values; the host-only
 ``checkpoints`` and ``postmortem`` verbs read the files either package
 writes.
 """
@@ -86,7 +89,7 @@ def test_cli_without_a_card_exits_nonzero():
 @pytest.mark.parametrize("option", [
     ["-m", "thread"], ["--profile", "p"], ["--uiport", "9"],
     ["--dump-hlo", "h"],
-    ["--profile-out", "prof"], ["--metrics-port", "9"], ["--delay", "0.1"],
+    ["--profile-out", "prof"], ["-c", "period"], ["--delay", "0.1"],
 ])
 def test_cli_refuses_options_not_ported(option, capsys):
     rc = dcop_cli.main(["--device", "cpu", "solve", "-a", "dsa", *option,
@@ -103,14 +106,52 @@ def test_cli_refuses_global_options_not_ported(capsys):
 
 
 @pytest.mark.parametrize("option", [
-    ["--slo-interval", "5"], ["--peer", "http://x", "--peer", "http://y"],
-    ["--slo", "p99<250ms"], ["--slo-file", "s.yaml"], ["--peer", "http://x"],
-    ["--slo", "p50<10ms", "--slo-interval", "1"],
+    ["--peer", "http://x", "--slo-interval", "5"],
+    ["--peer", "http://x", "--peer", "http://y"],
+    ["--slo", "p99<250ms", "--peer", "http://x"],
+    ["--slo-file", "s.yaml", "--peer", "http://x"], ["--peer", "http://x"],
+    ["--slo", "p50<10ms", "--slo-interval", "1", "--peer", "http://z"],
 ])
 def test_serve_refuses_options_not_ported(option, capsys):
+    # --peer (the HA fleet) is refused, beside the SLO options too
     rc = dcop_cli.main(["--device", "cpu", "serve", "--port", "0", *option])
     assert rc == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("option", [
+    ["--slo-interval", "5"], ["--slo", "p99<250ms"],
+    ["--slo-file", "{slo_file}"],
+    ["--slo", "p50<10ms", "--slo-interval", "1"],
+])
+def test_serve_verb_runs_with_slo_options(option, tmp_path, monkeypatch,
+                                          capsys):
+    # the JAX verb's SLO options: objectives from specs and a file, the
+    # evaluator's interval; the drain's summary carries the slo block
+    # (--slo-interval alone declares no objective: no block)
+    from pydcop_tpu_torch.telemetry import metrics_registry
+
+    slo_file = tmp_path / "s.yaml"
+    slo_file.write_text("objectives:\n  - availability>=99.9%\n"
+                        "fast_burn: 10\n")
+    monkeypatch.setenv("PYDCOP_TPU_STATE_DIR", str(tmp_path / "state"))
+    out = tmp_path / "serve.json"
+    option = [o.format(slo_file=slo_file) for o in option]
+    rc = dcop_cli.main(["--device", "cpu", "--output", str(out), "serve",
+                        "--port", "0", "--duration", "0.5", *option])
+    assert rc == 0
+    assert "SERVE_PORT=" in capsys.readouterr().out
+    assert not metrics_registry.enabled  # the verb turns it off again
+    summary = json.loads(out.read_text())
+    assert summary["drained"] is True
+    if option == ["--slo-interval", "5"]:
+        assert "slo" not in summary
+        return
+    block = summary["slo"]
+    assert block["alert_transitions"] == [] and block["postmortem"] is None
+    names = {"p99<250ms": ["p99_latency"], "p50<10ms": ["p50_latency"]}
+    assert sorted(block["objectives"]) == names.get(option[1],
+                                                    ["availability"])
 
 
 def test_serve_verb_serves_then_drains(tmp_path):
@@ -137,7 +178,8 @@ def test_serve_verb_serves_then_drains(tmp_path):
         req = urllib.request.Request(base + "/solve", data=body,
                                      method="POST")
         with urllib.request.urlopen(req, timeout=60) as resp:
-            assert json.loads(resp.read()) == {"tenant": "cli"}
+            doc = json.loads(resp.read())
+            assert doc["tenant"] == "cli" and set(doc) == {"tenant", "trace"}
         deadline = time.monotonic() + 60
         while time.monotonic() < deadline:
             with urllib.request.urlopen(base + "/result/cli") as resp:
@@ -199,7 +241,7 @@ def test_serve_verb_runs_with_a_fault_schedule(tmp_path):
             req = urllib.request.Request(base + "/solve", data=body,
                                          method="POST")
             with urllib.request.urlopen(req, timeout=60) as resp:
-                assert json.loads(resp.read()) == {"tenant": tenant}
+                assert json.loads(resp.read())["tenant"] == tenant
         rows = {}
         deadline = time.monotonic() + 60
         while time.monotonic() < deadline and len(rows) < 2:
@@ -223,6 +265,75 @@ def test_serve_verb_runs_with_a_fault_schedule(tmp_path):
     summary = json.loads(out.read_text())
     assert (summary["solves"], summary["dead_letters"]) == (1, 1)
     assert summary["tenant_counts"] == {"done": 1, "killed": 1}
+
+
+def test_serve_verb_slo_alert_fires_on_killed_tenants(tmp_path):
+    # serve --slo availability>=99% with a schedule killing "dead*": the
+    # killed tenant burns the budget, the alert fires, its postmortem is
+    # written under $PYDCOP_TPU_STATE_DIR and named in the summary, and
+    # /slo, /healthz, /metrics and the exemplars answer while serving
+    import time
+    import urllib.request
+
+    sched = tmp_path / "f.yaml"
+    sched.write_text("events:\n  - kill: 'dead*'\n    at: 0.0\n")
+    out = tmp_path / "serve.json"
+    state = tmp_path / "state"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pydcop_tpu_torch", "--device", "cpu",
+         "--output", str(out), "serve", "--port", "0", "--window-ms",
+         "200", "--duration", "60", "--fault-schedule", str(sched),
+         "--slo", "availability>=99%", "--slo-interval", "0.1"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYDCOP_TPU_STATE_DIR=str(state)),
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("SERVE_PORT="), proc.stderr.read()
+        base = f"http://127.0.0.1:{int(line.split('=')[1])}"
+        with open(_path("graph_coloring")) as f:
+            text = f.read()
+        for tenant in ("dead-1", "alive"):
+            body = json.dumps({"dcop_yaml": text, "algo": "dsa",
+                               "n_cycles": 10, "tenant": tenant,
+                               "trace": f"{len(tenant):016x}"}).encode()
+            req = urllib.request.Request(base + "/solve", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                assert json.loads(resp.read())["tenant"] == tenant
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(base + "/slo") as r:
+                report = json.loads(r.read())
+            if report["transitions"]:
+                break
+            time.sleep(0.1)
+        assert report["transitions"][0]["state"] == "firing"
+        with urllib.request.urlopen(base + "/healthz") as r:
+            assert json.loads(r.read())["state"] == "serving"
+        with urllib.request.urlopen(base + "/status") as r:
+            block = json.loads(r.read())["slo"]["objectives"]
+        assert block["availability"]["alert"] == "fast"
+        with urllib.request.urlopen(base + "/metrics?format=openmetrics"
+                                    ) as r:
+            text = r.read().decode()
+        assert 'trace_id="0000000000000005"' in text
+        assert text.endswith("# EOF\n")
+        stop = urllib.request.Request(base + "/shutdown", data=b"{}",
+                                      method="POST")
+        urllib.request.urlopen(stop, timeout=60).close()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        proc.kill()
+        proc.communicate()
+    summary = json.loads(out.read_text())
+    block = summary["slo"]
+    assert block["objectives"]["availability"]["bad"] == 1
+    assert block["alert_transitions"][0]["objective"] == "availability"
+    assert block["postmortem"] == str(state / "slo_postmortem.json")
+    doc = json.loads((state / "slo_postmortem.json").read_text())
+    assert doc["reason"] == "slo-alert:availability"
+    assert doc["slo"]["bad_requests"][0]["trace"] == "0000000000000006"
 
 
 def test_serve_verb_needs_the_card_unless_asked(capsys):
@@ -361,3 +472,63 @@ def test_postmortem_verb_renders_a_timeout_dump(tmp_path):
     assert rendered.returncode == 0, rendered.stderr[-2000:]
     assert rendered.stdout == jax_render(doc) + "\n"
     assert "solve-timeout" in rendered.stdout
+
+
+# ---------------------------------------------------------------------------
+# solve --metrics-out's anytime series, solve --metrics-port
+# ---------------------------------------------------------------------------
+
+ANYTIME_SERIES = ("solve.best_cost", "solve.cycles_to_best",
+                  "solve.upload_bytes")
+
+
+@pytest.mark.parametrize("algo, opts", [
+    ("maxsum", ["-p", "damping:0.7", "-n", "40"]),
+    ("dsa", ["-n", "30", "--seed", "4"]),
+    ("mgm", ["-n", "20"]),
+])
+def test_metrics_out_has_jaxs_anytime_series(algo, opts, tmp_path):
+    from pydcop_tpu import dcop_cli as jax_cli
+
+    snaps = []
+    for tag, main, pre in (("port", dcop_cli.main, ["--device", "cpu"]),
+                           ("jax", jax_cli.main, ["--platform", "cpu"])):
+        path = tmp_path / f"{tag}.json"
+        rc = main([*pre, "--output", str(tmp_path / f"{tag}.out"), "solve",
+                   "-a", algo, *opts, "--metrics-out", str(path),
+                   _path("graph_coloring")])
+        assert rc == 0
+        snaps.append(json.loads(path.read_text())["metrics"])
+    port, jax = snaps
+    for name in ANYTIME_SERIES:
+        assert port[name]["values"] == jax[name]["values"], name
+        assert port[name]["kind"] == jax[name]["kind"]
+        assert port[name]["help"] == jax[name]["help"]
+    assert port["solve.upload_bytes"]["values"][0]["value"] > 0
+
+
+def test_metrics_port_warns_and_keeps_the_result(tmp_path, caplog):
+    # --metrics-port: JAX's direct-mode warning, the registry and pulse on
+    # for the run and off after, no server, the plain solve's JSON
+    from pydcop_tpu import dcop_cli as jax_cli
+    from pydcop_tpu_torch.telemetry import metrics_registry
+    from pydcop_tpu_torch.telemetry.pulse import pulse
+
+    want = _solve(tmp_path, "ref", algo="maxsum")
+    caplog.clear()
+    got = _solve(tmp_path, "watched", "--metrics-port", "0", algo="maxsum")
+    assert got == want
+    ours = [r.getMessage() for r in caplog.records
+            if "--metrics-port" in r.getMessage()]
+    assert not metrics_registry.enabled and not pulse.enabled
+    caplog.clear()
+    rc = jax_cli.main(["--platform", "cpu", "--output",
+                       str(tmp_path / "jax.json"), "solve", "-a", "maxsum",
+                       "-n", "30", "--metrics-port", "0",
+                       _path("graph_coloring")])
+    assert rc == 0
+    theirs = [r.getMessage() for r in caplog.records
+              if "--metrics-port" in r.getMessage()]
+    assert len(ours) == len(theirs) == 1
+    assert "direct mode has no orchestrator" in ours[0]
+    assert "direct mode has no orchestrator" in theirs[0]

@@ -42,6 +42,13 @@ def test_port_files_found():
     "pydcop_tpu_torch/commands/generate.py",
     "pydcop_tpu_torch/telemetry/memplane.py",
     "pydcop_tpu_torch/commands/memplan.py",
+    "pydcop_tpu_torch/infrastructure/ui.py",
+    "pydcop_tpu_torch/telemetry/prom.py",
+    "pydcop_tpu_torch/telemetry/slo.py",
+    "pydcop_tpu_torch/telemetry/summary.py",
+    "pydcop_tpu_torch/telemetry/stitch.py",
+    "pydcop_tpu_torch/commands/watch.py",
+    "pydcop_tpu_torch/commands/telemetry.py",
 ])
 def test_subpackages_are_scanned(path):
     assert path in PORT_FILES
@@ -50,9 +57,18 @@ def test_subpackages_are_scanned(path):
 @pytest.mark.parametrize("module", [
     "pydcop_tpu_torch.telemetry.memplane",
     "pydcop_tpu_torch.commands.memplan",
+    "pydcop_tpu_torch.telemetry.prom",
+    "pydcop_tpu_torch.telemetry.slo",
+    "pydcop_tpu_torch.telemetry.summary",
+    "pydcop_tpu_torch.telemetry.stitch",
+    "pydcop_tpu_torch.infrastructure.ui",
+    "pydcop_tpu_torch.infrastructure",
+    "pydcop_tpu_torch.commands.watch",
+    "pydcop_tpu_torch.commands.telemetry",
 ])
 def test_host_only_modules_import_no_torch(module):
-    # the memplan verb plans without a card: importing it pulls in
+    # the host-only verbs (memplan, telemetry, watch) and the live
+    # surface run without a card, beside a solve: importing them pulls in
     # neither torch nor numpy
     import subprocess
     import sys

@@ -23,6 +23,7 @@ Bars:
 import contextlib
 import dataclasses
 import json
+import os
 import urllib.error
 import urllib.request
 
@@ -522,7 +523,9 @@ def test_http_solve_result_status_shutdown():
             "dcop_yaml": yaml_text, "algo": "dsa", "n_cycles": 30,
             "seed": 3, "tenant": "http-1",
         })
-        assert (code, doc) == (200, {"tenant": "http-1"})
+        # the answer echoes the tenant and its fresh trace id
+        assert code == 200 and set(doc) == {"tenant", "trace"}
+        assert doc["tenant"] == "http-1" and len(doc["trace"]) == 16
         assert srv.wait("http-1")["status"] == "done"
         code, row = _http(port, "/result/http-1")
         want = solve_result(load_dcop_from_file([path]), "dsa",
@@ -719,3 +722,169 @@ def test_chaos_hold_decisions_are_jaxs(p, seed):
     finally:
         port.shutdown()
         ref.shutdown()
+
+
+# -- the live surface: metrics, health, window, trace ids, SLOs -------------
+
+
+def _serve_surface(pkg, make_server, reqs):
+    """``reqs`` through a server with a kill schedule for "dead*", an SLO
+    engine and the registry on, all in one batch window; then the
+    /healthz and /window sequence, a drain, /healthz again and
+    /metrics.json.  Returns
+    the serve.* and slo.* part of /metrics.json, the HTTP answers and the
+    tenants' records."""
+    reg, engine_mod = pkg
+    reg.reset()
+    reg.enabled = True
+    engine = engine_mod.SloEngine(
+        [engine_mod.parse_objective("availability>=99%")],
+        eval_interval_s=0.05, postmortem_path=os.devnull)
+    srv = make_server(engine)
+    try:
+        port = srv.http.port
+        for i, r in enumerate(reqs):
+            srv.submit(r, trace=f"{i:016x}")
+        rows = {r.tenant: srv.wait(r.tenant, timeout=300) for r in reqs}
+        answers = [_http(port, "/healthz")]
+        for body in ({"window_ms": 5}, {"window_ms": 99999},
+                     {"window_ms": -3}, {}, {"window_ms": "x"},
+                     {"window_ms": None}):
+            answers.append(_http(port, "/window", body))
+        assert srv.drain(timeout=120)
+        answers.append(_http(port, "/healthz"))
+        # after the drain's last SLO tick: no evaluator runs any more
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics.json", timeout=60) as resp:
+            snap = json.loads(resp.read())["metrics"]
+        slo = _http(port, "/slo")
+    finally:
+        srv.shutdown()
+        reg.enabled = False
+    live = {k: v for k, v in snap.items() if k.startswith(("serve.",
+                                                           "slo."))}
+    return live, answers, rows, slo
+
+
+def _values(live, name):
+    return {tuple(sorted(v["labels"].items())): v["value"]
+            for v in live[name]["values"]}
+
+
+def test_live_surface_counts_what_jaxs_counts():
+    # bench config 8's DSA tenants of two buckets and two killed ones, one
+    # batch a bucket: the same serve.* and slo.* series, label sets and
+    # counts as the JAX server's, the same /healthz and /window answers
+    from pydcop_tpu import chaos as jax_chaos
+    from pydcop_tpu.serve import ServeServer as JaxServer
+    from pydcop_tpu.telemetry import metrics_registry as jax_registry
+    from pydcop_tpu.telemetry import slo as jax_slo
+    from pydcop_tpu_torch import chaos
+    from pydcop_tpu_torch.telemetry import metrics_registry
+    from pydcop_tpu_torch.telemetry import slo
+
+    def tenants(jax=False):
+        reqs = (_reqs("dsa", {}, (9, 9, 9, 9, 9), 16, seed0=300, jax=jax)
+                + [r._replace(tenant=f"s{i}") for i, r in enumerate(
+                    _reqs("dsa", {}, (16, 16), 16, seed0=400, jax=jax))]
+                + [r._replace(tenant=f"dead{i}") for i, r in enumerate(
+                    _reqs("dsa", {}, (9, 16), 16, seed0=500, jax=jax))])
+        return reqs
+
+    reqs = tenants()
+    port = _serve_surface((metrics_registry, slo), lambda eng: ServeServer(
+        port=0, window_ms=1500, max_batch=len(reqs), device="cpu",
+        fault_schedule=_kill_schedule(chaos, "dead*"), slo=eng), reqs)
+    jreqs = tenants(jax=True)
+    jax = _serve_surface((jax_registry, jax_slo), lambda eng: JaxServer(
+        port=0, window_ms=1500, max_batch=len(jreqs),
+        fault_schedule=_kill_schedule(jax_chaos, "dead*"), slo=eng), jreqs)
+    (live, answers, rows, slo_doc), (jlive, janswers, jrows, jslo) = port, jax
+    assert sorted(live) == sorted(jlive)
+    for name in live:
+        assert sorted(_values(live, name)) == sorted(_values(jlive, name)), \
+            name
+    for name in ("serve.batches", "serve.solves", "serve.pad_instances",
+                 "serve.dead_letters", "serve.tenants", "slo.events"):
+        assert _values(live, name) == _values(jlive, name), name
+    (size,) = _values(live, "serve.batch_size").values()
+    (jsize,) = _values(jlive, "serve.batch_size").values()
+    assert (size["count"], size["sum"]) == (jsize["count"], jsize["sum"])
+    assert (size["count"], size["sum"]) == (2, 9)
+    assert _values(live, "serve.dead_letters") == {(): 2.0}
+    assert _values(live, "slo.events") == {
+        (("objective", "availability"), ("outcome", "bad")): 2.0,
+        (("objective", "availability"), ("outcome", "good")): 7.0}
+    assert answers == janswers
+    assert answers[0] == (200, {"state": "serving", "queue_depth": 0})
+    assert [a[1].get("window_ms") for a in answers[1:4]] == [5, 10000, 0]
+    assert [a[0] for a in answers[4:7]] == [400] * 3
+    assert answers[-1] == (503, {"state": "drained", "queue_depth": 0})
+    assert slo_doc[0] == jslo[0] == 200
+    assert slo_doc[1]["objectives"][0]["bad"] == 2
+    for t, row in rows.items():
+        assert row["status"] == jrows[t]["status"]
+        assert row["trace"] == jrows[t]["trace"]
+        assert set(row["phases"]) == set(jrows[t]["phases"]) == {
+            "queue", "assemble", "dispatch", "solve", "readback"}
+        assert row["batch_seq"] in (1, 2)
+
+
+def test_trace_ids_are_echoed_and_accepted_on_resubmit():
+    from test_torch_api import _path
+
+    from pydcop_tpu_torch import chaos
+
+    srv = ServeServer(port=0, window_ms=5, device="cpu",
+                      fault_schedule=_kill_schedule(chaos, "dead*"))
+    port = srv.http.port
+    try:
+        with open(_path("graph_coloring")) as f:
+            yaml_text = f.read()
+        body = {"dcop_yaml": yaml_text, "algo": "dsa", "n_cycles": 8}
+        code, doc = _http(port, "/solve", dict(body, tenant="dead-1",
+                                               trace="feedbeef00000001"))
+        assert (code, doc) == (200, {"tenant": "dead-1",
+                                     "trace": "feedbeef00000001"})
+        assert srv.wait("dead-1")["status"] == "killed"
+        # the retry passes the first attempt's trace id
+        code, doc = _http(port, "/solve", dict(body, tenant="retry-1",
+                                               trace="feedbeef00000001"))
+        assert (code, doc) == (200, {"tenant": "retry-1",
+                                     "trace": "feedbeef00000001"})
+        row = srv.wait("retry-1")
+        assert row["status"] == "done" and row["trace"] == "feedbeef00000001"
+        assert _http(port, "/result/retry-1")[1]["trace"] == row["trace"]
+        code, st = _http(port, "/status")
+        assert st["tenants"]["dead-1"]["trace"] == "feedbeef00000001"
+        # a fresh id when none is given, and a known tenant is refused
+        fresh = srv.result(srv.submit(_reqs("dsa", {}, (9,), 4)[0]))
+        assert len(fresh["trace"]) == 16
+        int(fresh["trace"], 16)
+        assert _http(port, "/solve", dict(body, tenant="retry-1"))[0] == 400
+    finally:
+        srv.shutdown()
+
+
+def test_batch_observer_reports_each_group():
+    # one event a dispatched group, its phase boundaries in order; with
+    # no observer the results are the same
+    reqs = _reqs("dsa", {}, (9, 9, 16), 8, seed0=60)
+    events = []
+    got = solve_batched(reqs, device="cpu", observer=events.append)
+    plain = solve_batched(reqs, device="cpu")
+    assert len(events) == 2
+    for ev in events:
+        assert ev["kind"] == "vmap" and ev["k_pad"] >= ev["k_real"]
+        times = [ev[k] for k in ("t_start", "t_assembled", "t_dispatched",
+                                 "t_solved", "t_done")]
+        assert times == sorted(times)
+        assert ev["fresh_compiles"] == 0  # the CPU captures no graph
+    assert sorted(t for ev in events for t in ev["tenants"]) == sorted(
+        r.tenant for r in reqs)
+    for r in reqs:
+        assert_same_tenant(got[r.tenant], plain[r.tenant])
+    fused = []
+    solve_batched(reqs, device="cpu", mode="fused", observer=fused.append)
+    assert [ev["kind"] for ev in fused] == ["fused"]
+    assert fused[0]["t_dispatched"] == fused[0]["t_assembled"]

@@ -206,8 +206,8 @@ def test_server_pulse_blocks_and_fleet_manifest_are_jax_s(pulse_on,
     assert sorted(status["tenants"]) == sorted(jstatus["tenants"])
     for tenant, row in status["tenants"].items():
         assert row["pulse"] == jstatus["tenants"][tenant]["pulse"]
-        # JAX's rows also carry a trace id (request spans: not ported)
-        assert set(row) == set(jstatus["tenants"][tenant]) - {"trace"}
+        # both rows carry the tenant's trace id
+        assert set(row) == set(jstatus["tenants"][tenant])
     assert os.path.basename(manifest.pop("endpoint") or "x") == "x"
     manifest.pop("wrote_unix_s")
     jmanifest.pop("endpoint")
@@ -224,7 +224,8 @@ def _post_and_wait(base_url, tenant):
     req = urllib.request.Request(base_url + "/solve", data=body,
                                  method="POST")
     with urllib.request.urlopen(req, timeout=60) as resp:
-        assert json.loads(resp.read()) == {"tenant": tenant}
+        doc = json.loads(resp.read())
+        assert doc["tenant"] == tenant and set(doc) == {"tenant", "trace"}
     deadline = time.monotonic() + 60
     while time.monotonic() < deadline:
         with urllib.request.urlopen(f"{base_url}/result/{tenant}") as resp:
