@@ -139,7 +139,20 @@ captured CUDA graphs:
   one does, the counts add up, exemplars carry submitted trace ids, the
   availability alert fires with its postmortem, ``watch --once --json``
   reads the server without importing torch, and the ``telemetry`` verb
-  validates the trace and reads the registry.
+  validates the trace and reads the registry;
+- the HA serve fleet (``serve_fleet_ha``): ``python -m pydcop_tpu_torch
+  router --spawn 2 --placement affinity`` with two ``serve`` workers on
+  the card, 16 of the serve grid's problems (MaxSum and DSA, two affinity
+  buckets) POSTed as YAML: the placement is ``tpu_part``'s and each
+  bucket ran on one worker; the same problems again with the MaxSum
+  worker SIGKILLed while its tenants wait in its window, every tenant
+  done with its first result bit for bit after one failover; the
+  ``fleet`` verb's federated counters monotone through the kill and the
+  victim's restart on its port, a counter reset counted, ``watch
+  --fleet`` showing both workers; the router drained by SIGTERM.  It
+  prints the seconds from the kill to ``fleet.worker_up == 0`` and to
+  the last failed-over tenant done, the router's forward overhead, the
+  batches that captured graphs on each worker and its own wall.
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -311,10 +324,11 @@ DYNAMIC_CHANGE = ("cost_0", "10 if v00000 == v00002 else 0",
 BB_CELL = (24, 3, dict(graph="random", p_edge=0.25, soft=True, seed=3))
 BB_SMALL = (16, 3, dict(graph="random", p_edge=0.25, soft=True, seed=3))
 # the step caps of the kernel's checks against its plain version on the
-# chip cell's own searches: the plain step cannot run SyncBB's whole
-# 1,753,768-step search in the script's time, so it runs as far as
-# BB_SMALL's complete one
-BB_CELL_CHECK_CAPS = (5, 25_000)
+# chip cell's own searches: the plain step (~1.2 ms a step on the card)
+# cannot run SyncBB's whole 1,753,768-step search in the script's time;
+# 5,000 steps, past many backtracks, keep the script under 900 s with the
+# HA fleet's phase (25,000 until then: ~57 s of plain steps)
+BB_CELL_CHECK_CAPS = (5, 5_000)
 # the JAX package's (cost, violations, cycle, msg_count) on BB_CELL and
 # its assignment (value indices in variable order), on a CPU
 BB_JAX = {
@@ -564,6 +578,23 @@ SERVE_FAULT_TENANTS = [
 # 50% burns at 0.5) and availability
 SERVE_OBS_KILLED = 8
 SERVE_OBS_SLO = ("lat=p50<30s", "availability>=99%")
+# the HA fleet (serve_fleet_ha): the serve grid's first 16 problems, the
+# even ones as MaxSum at damping 0.7 and the odd ones as DSA, 30 cycles:
+# two affinity buckets, one a worker.  The workers hold a tenant up to
+# SERVE_FLEET_WINDOW_MS for company before they dispatch, so the MaxSum
+# tenants are still in flight when their worker is killed; the window is
+# not widened (--window-max-factor 1).  Scraped every 0.25 s, a worker
+# that missed 4 s of scrapes drops its series.  SERVE_FLEET_PROBES
+# rounds of direct and routed POSTs time the router's forward.
+SERVE_FLEET_TENANTS = 16
+SERVE_FLEET_RUNS = {"maxsum": {"damping": 0.7}, "dsa": {}}
+SERVE_FLEET_CYCLES = 30
+SERVE_FLEET_WINDOW_MS = 1000
+SERVE_FLEET_ROUTER = ["--spawn", "2", "--port", "0", "--placement",
+                      "affinity", "--interval", "0.25", "--stale-after",
+                      "4", "--window-ms", str(SERVE_FLEET_WINDOW_MS),
+                      "--window-max-factor", "1"]
+SERVE_FLEET_PROBES = 1
 
 
 # the memory phase: the solves whose rise in peak memory fits the model's
@@ -5002,6 +5033,411 @@ def phase_serve_observability():
     return counts
 
 
+
+def _lines_until(proc, prefix, seen, timeout=300):
+    """Read ``proc``'s stdout lines into ``seen`` on a thread of its own
+    (the wait stays bounded) until one starts with ``prefix``; the rest
+    of its output is drained there too, so the process never blocks on a
+    full pipe."""
+    import threading
+
+    found = threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            if not found.is_set():
+                seen.append(line.strip())
+                if line.startswith(prefix):
+                    found.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    found.wait(timeout)
+    return found.is_set()
+
+
+def _fleet_series(snapshot, name):
+    """{worker: value} of one ``worker``-labeled series of a federated
+    snapshot."""
+    return {v["labels"]["worker"]: v["value"]
+            for v in snapshot["metrics"].get(name, {}).get("values", [])
+            if "worker" in v["labels"]}
+
+
+class _FleetWatch:
+    """Scrapes a federated ``/metrics.json`` every 0.1 s on a thread of
+    its own: ``fleet.worker_solves_total``, ``fleet.counter_resets_total``
+    and ``fleet.worker_up`` by worker, with the host clock of each read."""
+
+    def __init__(self, base):
+        import threading
+
+        self.base, self.rows, self.errors = base, [], []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop.wait(0.1):
+            try:
+                _, snap = _http_json(self.base + "/metrics.json", timeout=30)
+            except Exception as e:  # noqa: BLE001 (checked after the run)
+                self.errors.append(f"{type(e).__name__}: {e}")
+                continue
+            self.rows.append((time.perf_counter(), {
+                name: _fleet_series(snap, name) for name in (
+                    "fleet.worker_solves_total",
+                    "fleet.counter_resets_total", "fleet.worker_up")}))
+
+    def finish(self):
+        self.stop.set()
+        self.thread.join(timeout=60)
+        check(not self.thread.is_alive() and not self.errors
+              and len(self.rows) >= 10,
+              f"serve_fleet_ha: the fleet verb's scrapes {len(self.rows)} "
+              f"rows, errors {self.errors[:3]}")
+        return self.rows
+
+
+def _tenant_result(doc):
+    """The fields of a ``/result`` document that a solve decides."""
+    return tuple(doc.get(k) for k in ("status", "assignment", "cost",
+                                      "violations", "cycles", "best_cost",
+                                      "cycles_to_best"))
+
+
+def phase_serve_fleet_ha():
+    """The HA serve fleet on the card (``serve_fleet_ha``): ``python -m
+    pydcop_tpu_torch router --spawn 2 --placement affinity`` with its two
+    ``serve`` workers on the card, the serve grid's first 16 problems
+    POSTed as the ``generate`` verb's YAML (``SERVE_FLEET_RUNS``: two
+    affinity buckets).  Warm batch: the placement map is the port's
+    ``tpu_part.distribute`` over the two buckets and each worker solved
+    one serve bucket only; ``SERVE_FLEET_PROBES`` DSA problems POSTed to
+    their worker and through the router, in turns, give the router's
+    forward overhead.  Failover: the same 16 problems as new tenants, the
+    MaxSum bucket's worker SIGKILLed as soon as its last tenant was
+    forwarded (its tenants wait in the worker's window); every tenant
+    ends ``done`` with its warm result bit for bit, the router failed
+    over once and solved each tenant once in its history.  Federation:
+    the ``fleet`` verb over both workers, scraped all along, keeps
+    ``fleet.worker_solves_total`` monotone through the kill and the
+    restart of the victim on its port (two more MaxSum tenants then land
+    on it, warm results again) and counts a counter reset; ``watch
+    --fleet --once --json`` shows both workers up.  SIGTERM drains the
+    router (rc 0, its report) and its workers.  Every process the phase
+    started is reaped, whether it passes or fails."""
+    import os
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pydcop_tpu_torch.computations_graph.objects import (
+        ComputationGraph,
+        ComputationNode,
+    )
+    from pydcop_tpu_torch.dcop.objects import AgentDef
+    from pydcop_tpu_torch.distribution import tpu_part
+    from pydcop_tpu_torch.serve.router import affinity_key
+
+    t_phase = time.perf_counter()
+    out = {"phase": "serve_fleet_ha"}
+    tmp = tempfile.TemporaryDirectory()
+    state = Path(tmp.name) / "state"
+    procs, pids = [], []
+    gen_pool = ThreadPoolExecutor(8)
+    problems = SERVE_GRID[:SERVE_FLEET_TENANTS]
+    texts = {g: gen_pool.submit(_generated_yaml, n, gen_seed)
+             for g, n, gen_seed, _ in problems}
+    algos = list(SERVE_FLEET_RUNS)
+
+    def spec(i, tenant):
+        g, _, _, seed = problems[i]
+        algo = algos[i % 2]
+        return {"dcop_yaml": texts[g].result(), "algo": algo,
+                "params": SERVE_FLEET_RUNS[algo],
+                "n_cycles": SERVE_FLEET_CYCLES, "seed": seed,
+                "tenant": tenant}
+
+    def timed_post(url, body):
+        t0 = time.perf_counter()
+        code, doc = _http_json(url, body)
+        return code, doc, time.perf_counter() - t0
+
+    def results(base, tenants, timeout=600):
+        """Wait until the router holds every tenant's terminal result
+        (its own cache: the record carries the tenant's history); the
+        host clock at which each one was first seen done."""
+        seen, deadline = {}, time.perf_counter() + timeout
+        while len(seen) < len(tenants) and time.perf_counter() < deadline:
+            _, st = _http_json(base + "/status")
+            now = time.perf_counter()
+            for t in tenants:
+                if st["tenants"].get(t, {}).get("status") == "done":
+                    seen.setdefault(t, now)
+            time.sleep(0.02)
+        check(len(seen) == len(tenants),
+              f"serve_fleet_ha: tenants not done: "
+              f"{sorted(set(tenants) - set(seen))[:4]}")
+        return {t: _http_json(f"{base}/result/{t}")[1] for t in tenants}, seen
+
+    router_err = open(Path(tmp.name) / "router.err", "w")
+    try:
+        router = subprocess.Popen(
+            [*PORT_CLI, "--output", str(Path(tmp.name) / "router.json"),
+             "router", *SERVE_FLEET_ROUTER, "--state-dir", str(state)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=router_err, text=True)
+        procs.append(router)
+        lines = []
+        t0 = time.perf_counter()
+        announced = _lines_until(router, "ROUTER_PORT=", lines)
+        workers = {}
+        for line in lines:
+            if line.startswith("ROUTER_WORKER "):
+                f = dict(kv.split("=", 1) for kv in line.split()[1:])
+                workers[f["name"]] = (int(f["pid"]), int(f["port"]))
+                pids.append(int(f["pid"]))
+        check(announced and sorted(workers) == ["w0", "w1"],
+              f"serve_fleet_ha: the router announced {lines}")
+        base = f"http://127.0.0.1:{lines[-1].split('=', 1)[1]}"
+        wurl = {w: f"http://127.0.0.1:{port}"
+                for w, (_, port) in workers.items()}
+        deadline = time.perf_counter() + 120
+        while (_http_json(base + "/status")[1]["workers_up"] != 2
+               and time.perf_counter() < deadline):
+            time.sleep(0.05)
+        out["router_up_s"] = time.perf_counter() - t0
+        for w, url in wurl.items():
+            _, st = _http_json(url + "/status")
+            check(st["device"].startswith("cuda"),
+                  f"serve_fleet_ha: {w} solves on {st['device']}")
+
+        # 1. the warm batch: the first DSA tenant alone (the placement of
+        # the first bucket), then the rest, four at a time
+        order = [1] + [i for i in range(len(problems)) if i != 1]
+        t0 = time.perf_counter()
+        warm_posts = {}
+        code, doc, _ = timed_post(base + "/solve", spec(1, "warm1"))
+        warm_posts["warm1"] = (code, doc)
+        with ThreadPoolExecutor(4) as pool:
+            for i, answer in zip(order[1:], pool.map(
+                    lambda i: timed_post(base + "/solve",
+                                         spec(i, f"warm{i}")), order[1:])):
+                warm_posts[f"warm{i}"] = answer[:2]
+        for t, (code, doc) in warm_posts.items():
+            check(code == 200 and doc["tenant"] == t,
+                  f"serve_fleet_ha: POST {t}: {code} {doc}")
+        warm_ids = [f"warm{i}" for i in range(len(problems))]
+        warm, _ = results(base, warm_ids)
+        out["warm_batch_s"] = time.perf_counter() - t0
+        _, st = _http_json(base + "/status")
+        buckets = st["placement"]["buckets"]
+        keys = sorted({affinity_key(spec(i, "k")) for i in range(2)})
+        graph = ComputationGraph(nodes=[ComputationNode(k, "bucket")
+                                        for k in keys])
+        dist = tpu_part.distribute(
+            graph, [AgentDef(w, capacity=100.0) for w in sorted(workers)],
+            communication_load=lambda _n, _m: 1.0)
+        check(buckets == {k: dist.agent_for(k) for k in keys},
+              f"serve_fleet_ha: placement {buckets}, tpu_part "
+              f"{dist.mapping}")
+        owner = {a: buckets[next(k for k in keys if k.startswith(a + "/"))]
+                 for a in algos}
+        served, cold = {}, {}
+        for i, t in enumerate(warm_ids):
+            check(warm_posts[t][1]["worker"] == owner[algos[i % 2]]
+                  and warm[t]["status"] == "done",
+                  f"serve_fleet_ha: {t} on {warm_posts[t][1]['worker']}, "
+                  f"{warm[t]['status']}")
+            _, row = _http_json(f"{wurl[owner[algos[i % 2]]]}/result/{t}")
+            served.setdefault(owner[algos[i % 2]], set()).add(row["bucket"])
+            if row.get("cold_compile"):
+                cold.setdefault(owner[algos[i % 2]], set()).add(
+                    row["batch_seq"])
+        for w, url in wurl.items():
+            _, st = _http_json(url + "/status")
+            check(st["buckets"] == 1 and len(served.get(w, ())) == 1,
+                  f"serve_fleet_ha: {w} solved buckets {served.get(w)}")
+        check(not set.intersection(*served.values()),
+              f"serve_fleet_ha: a bucket on both workers: {served}")
+        out["placement"] = buckets
+        out["graph_capturing_batches"] = {w: len(cold.get(w, ()))
+                                          for w in sorted(workers)}
+        out["batches"] = {w: _http_json(url + "/status")[1]["batches"]
+                          for w, url in wurl.items()}
+
+        # the router's forward: one DSA problem POSTed to its worker and
+        # through the router, in turns
+        walls = {"direct": [], "routed": []}
+        for k in range(SERVE_FLEET_PROBES):
+            for how, url in (("direct", wurl[owner["dsa"]]),
+                             ("routed", base), ("routed", base),
+                             ("direct", wurl[owner["dsa"]])):
+                tid = f"probe-{how}{k}-{len(walls[how])}"
+                code, _, wall = timed_post(url + "/solve", spec(1, tid))
+                check(code == 200, f"serve_fleet_ha: probe {tid}: {code}")
+                walls[how].append(wall)
+        out["forward_walls_s"] = walls
+        out["router_overhead_s"] = (statistics.median(walls["routed"])
+                                    - statistics.median(walls["direct"]))
+
+        # 2. the failover: the fleet verb and a scraper on it first
+        fleet = subprocess.Popen(
+            [*PORT_CLI, "fleet", "--port", "0", "--interval", "0.25",
+             "--stale-after", "60", *[f"{w}={u}" for w, u in wurl.items()]],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+        procs.append(fleet)
+        lines = []
+        check(_lines_until(fleet, "FLEET_PORT=", lines, timeout=120),
+              f"serve_fleet_ha: the fleet verb announced {lines}")
+        fleet_base = f"http://127.0.0.1:{lines[-1].split('=', 1)[1]}"
+        watch = _FleetWatch(fleet_base)
+        victim = owner["maxsum"]
+        again = [f"again{i}" for i in range(len(problems))]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            posts = list(pool.map(
+                lambda i: timed_post(base + "/solve", spec(i, again[i])),
+                range(1, len(problems), 2)))
+            posts += list(pool.map(
+                lambda i: timed_post(base + "/solve", spec(i, again[i])),
+                range(0, len(problems), 2)))
+        os.kill(workers[victim][0], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        for code, doc, _ in posts:
+            check(code == 200, f"serve_fleet_ha: POST {code} {doc}")
+        # the kill seen by the router's federated scrape
+        down_s = None
+        while time.perf_counter() - t_kill < 60:
+            _, snap = _http_json(base + "/metrics.json")
+            if _fleet_series(snap, "fleet.worker_up").get(victim) == 0.0:
+                down_s = time.perf_counter() - t_kill
+                break
+            time.sleep(0.02)
+        check(down_s is not None, "serve_fleet_ha: the victim never went "
+              "down in the router's scrape")
+        again_res, seen = results(base, again)
+        histories = {t: [h["event"] for h in again_res[t]["history"]]
+                     for t in again}
+        victims = [t for t in again if "resolve-from-scratch" in
+                   histories[t]]
+        for i, t in enumerate(again):
+            check(_tenant_result(again_res[t])
+                  == _tenant_result(warm[f"warm{i}"]),
+                  f"serve_fleet_ha: {t} is not warm{i}'s result")
+            check(histories[t] in (["forward", "complete"],
+                                   ["forward", "resolve-from-scratch",
+                                    "forward", "complete"]),
+                  f"serve_fleet_ha: {t}'s history {histories[t]}")
+        _, st = _http_json(base + "/status")
+        adm = st["admission"]
+        check(victims and adm["failovers"] == 1 and adm["adopted"] == 0
+              and adm["from_scratch"] == len(victims)
+              and all(algos[int(t[5:]) % 2] == "maxsum" for t in victims),
+              f"serve_fleet_ha: failover {adm}, victims {victims}")
+        out.update({
+            "again_batch_s": time.perf_counter() - t0,
+            "victims": len(victims),
+            "kill_to_worker_down_s": down_s,
+            "kill_to_last_victim_done_s": max(seen[t] for t in victims)
+            - t_kill,
+            "admission": adm,
+        })
+
+        # 3. the victim restarted on its port; two more MaxSum tenants
+        # land on it
+        t0 = time.perf_counter()
+        revived = subprocess.Popen(
+            [*PORT_CLI, "serve", "--port", str(workers[victim][1]),
+             "--window-ms", str(SERVE_FLEET_WINDOW_MS), "--checkpoint",
+             str(state / victim)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+        procs.append(revived)
+        pids.append(revived.pid)
+        lines = []
+        check(_lines_until(revived, "SERVE_PORT=", lines, timeout=180),
+              f"serve_fleet_ha: the restarted worker announced {lines}")
+        while (_http_json(base + "/status")[1]["workers_up"] != 2
+               and time.perf_counter() - t0 < 120):
+            time.sleep(0.05)
+        out["restart_to_up_s"] = time.perf_counter() - t0
+        late = ["late0", "late2"]
+        for t in late:
+            code, doc, _ = timed_post(base + "/solve", spec(int(t[4:]), t))
+            check(code == 200 and doc["worker"] == victim,
+                  f"serve_fleet_ha: {t} {code} {doc}")
+        late_res, _ = results(base, late)
+        for t in late:
+            check(_tenant_result(late_res[t])
+                  == _tenant_result(warm[f"warm{t[4:]}"]),
+                  f"serve_fleet_ha: {t} is not warm{t[4:]}'s result")
+        # the fleet verb's counters stayed monotone and saw the reset
+        deadline = time.perf_counter() + 30
+        while (sum(watch.rows[-1][1]["fleet.counter_resets_total"].values())
+               < 1 and time.perf_counter() < deadline):
+            time.sleep(0.1)
+        rows = watch.finish()
+        for w in workers:
+            series = [r["fleet.worker_solves_total"][w] for _, r in rows
+                      if w in r["fleet.worker_solves_total"]]
+            check(series and all(a <= b for a, b in zip(series,
+                                                       series[1:])),
+                  f"serve_fleet_ha: {w}'s worker_solves_total not "
+                  f"monotone: {series[:3]}..{series[-3:]}")
+            out.setdefault("worker_solves_total", {})[w] = series[-1]
+        resets = rows[-1][1]["fleet.counter_resets_total"]
+        check(resets.get(victim, 0) >= 1,
+              f"serve_fleet_ha: counter resets {resets}")
+        out["counter_resets"] = resets
+        watch_run = subprocess.run(
+            [*PORT_CLI, "watch", "--fleet", fleet_base, "--once", "--json"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        check(watch_run.returncode == 0,
+              f"serve_fleet_ha: watch --fleet rc {watch_run.returncode}")
+        seen_fleet = json.loads(watch_run.stdout)["status"]
+        check(seen_fleet["workers_up"] == 2
+              and sorted(seen_fleet["workers"]) == sorted(workers),
+              f"serve_fleet_ha: watch --fleet {seen_fleet['workers_up']}")
+        fleet.send_signal(signal.SIGTERM)
+        check(fleet.wait(timeout=60) == 0, "serve_fleet_ha: fleet rc")
+
+        # 4. the drain: the router first, then its workers
+        t0 = time.perf_counter()
+        router.send_signal(signal.SIGTERM)
+        rc = router.wait(timeout=300)
+        report = json.loads((Path(tmp.name) / "router.json").read_text())
+        check(rc == 0 and report["drained"] and report["tenant_counts"]
+              == {"done": 2 * len(problems) + len(late)
+                  + SERVE_FLEET_PROBES * 2},
+              f"serve_fleet_ha: router rc {rc}, {report['tenant_counts']}")
+        check(revived.wait(timeout=120) == 0,
+              "serve_fleet_ha: the restarted worker's drain")
+        out["drain_s"] = time.perf_counter() - t0
+    except BaseException:
+        router_err.flush()
+        print("serve_fleet_ha: the router's stderr ends with:\n"
+              + (Path(tmp.name) / "router.err").read_text()[-3000:],
+              file=sys.stderr)
+        raise
+    finally:
+        gen_pool.shutdown()
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+        router_err.close()
+        tmp.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -5249,6 +5685,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t_new + fault_s})
     # serving's live surface: metrics, traces, SLOs, watch and telemetry
     observability = phase_serve_observability()
+    # the HA fleet: the router verb, its two card workers, a failover
+    phase_serve_fleet_ha()
     rows["ell_minplus_batched"]["launches"] = grid["f32"][
         "ell_minplus_batched"]
     rows["ell_minplus_bf16_batched"]["launches"] = grid["bf16"][

@@ -36,8 +36,10 @@ kills match tenant ids (a killed tenant is a dead letter, its batch's
 other tenants untouched) and ``delay`` rules hold the matching tenants
 alone.  ``--mem-guard`` (or ``--mem-reserve-pct``, ``--mem-limit-bytes``)
 arms the admission guard: a tenant predicted not to fit is answered 503
-with the breach under ``mem``.  The JAX verb's ``--peer`` (the HA fleet)
-is parsed and refused as not ported yet.
+with the breach under ``mem``.  ``--peer URL`` (repeatable) names a fellow
+worker of an HA fleet: a structured 503 hands the peers (and the
+endpoints that sibling fleet manifests record beside ``--checkpoint``'s
+directory) to the rejected client.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ from __future__ import annotations
 import logging
 import os
 import signal
-import sys
 import threading
 import time
 from typing import Any, Dict
@@ -57,12 +58,6 @@ from ._utils import (
 )
 
 logger = logging.getLogger("pydcop_tpu_torch.cli.serve")
-
-# (flags, argparse keywords, what the option belongs to): options of the
-# JAX package's ``serve`` that the port does not run yet
-_NOT_PORTED = (
-    (("--peer",), dict(action="append", default=[]), "the HA fleet"),
-)
 
 
 def set_parser(subparsers) -> None:
@@ -127,26 +122,17 @@ def set_parser(subparsers) -> None:
         "--slo-interval", type=float, default=None, metavar="SECONDS",
         help="burn-rate evaluator tick interval (default 1 s)",
     )
+    parser.add_argument(
+        "--peer", action="append", default=[], metavar="URL",
+        help="a fellow worker's base URL (repeatable): handed to rejected "
+        "clients in the structured 503 so they can fail over without "
+        "guessing; sibling fleet manifests under the checkpoint "
+        "directory's parent are discovered too",
+    )
     add_memguard_arguments(parser)
-    for flags, kwargs, _what in _NOT_PORTED:
-        parser.add_argument(*flags, help="not ported yet", **kwargs)
-
-
-def _refused_option(args):
-    for flags, kwargs, what in _NOT_PORTED:
-        dest = flags[-1].lstrip("-").replace("-", "_")
-        if getattr(args, dest) != kwargs.get("default", False):
-            return flags[-1], what
-    return None
 
 
 def run_cmd(args, timeout: float = None) -> int:
-    refused = _refused_option(args)
-    if refused is not None:
-        flag, what = refused
-        print(f"error: serve {flag} ({what}) is not ported yet",
-              file=sys.stderr)
-        return 2
     # the global -t timeout maps onto --duration: serve then drains
     # instead of being killed by the alarm mid-batch
     if timeout and not args.duration:
@@ -180,6 +166,7 @@ def run_cmd(args, timeout: float = None) -> int:
         port=args.port, host=args.host, window_ms=args.window_ms,
         max_batch=args.max_batch, mode=args.batch_mode, device=args.device,
         checkpoint_dir=checkpoint_dir, fault_schedule=schedule, slo=engine,
+        peers=args.peer,
     )
     if not args.no_pulse:
         pulse.reset()

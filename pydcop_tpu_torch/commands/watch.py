@@ -1,19 +1,25 @@
 """``watch``: a live terminal view of a running server or solve.
 
-Counterpart of ``pydcop_tpu/commands/watch.py``, its single-worker view:
-polls a live metrics surface (``/status`` and ``/metrics.json``: the
-``serve`` verb's port, or a JAX package orchestrator's) and renders, in
-place, the run status, the anytime cost (a ``cost_curve`` sparkline),
-the pulse, SLO, durability, replication and memory blocks, the device
-windows, per-agent queues and message rates (from counter deltas between
-polls) and the reliability counters.  Host-only: it imports no torch and
+Counterpart of ``pydcop_tpu/commands/watch.py``: polls a live metrics
+surface (``/status`` and ``/metrics.json``: the ``serve`` verb's port, or
+a JAX package orchestrator's) and renders, in place, the run status,
+the anytime cost (a ``cost_curve`` sparkline), the pulse, SLO,
+durability, replication and memory blocks, the device windows, per-agent
+queues and message rates (from counter deltas between polls) and the
+reliability counters.  Host-only: it imports no torch and
 needs no card, so it runs from a second terminal beside a solve.
 
 ``--once`` prints one frame and exits (non-zero when nothing answers);
 ``--json`` writes the merged status and metrics document instead of the
 view; ``--interval`` and ``--duration`` pace and end the polling.
-``--fleet URL`` (the JAX package's federation view) reads the ``fleet``
-verb's surface, which the port does not have yet: parsed and refused.
+
+``--fleet URL`` points the watch at a federation surface (the ``fleet``
+verb's, or the ``router``'s) instead of one worker: the frame becomes the
+live per-worker table — up/down, scrape age, queue depth + watermark,
+solves and solves/s (from ``fleet.worker_solves_total`` counter deltas
+between polls, clamped at 0 across worker restarts), batch occupancy,
+memory, pulse digest, burn rate — plus the fleet totals and fleet SLO
+lines.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import sys
 import time
 from typing import Any, Dict, Optional, Tuple
 
+from ..telemetry.federate import clamped_rate
 from ._utils import write_output
 
 logger = logging.getLogger("pydcop_tpu_torch.cli.watch")
@@ -70,19 +77,9 @@ def set_parser(subparsers) -> None:
     )
     parser.add_argument(
         "--fleet", default=None, metavar="URL",
-        help="not ported yet (the fleet verb's federation surface)",
+        help="watch a federation surface (the fleet or router verb's) "
+        "instead of a single worker: renders the per-worker table",
     )
-
-
-def clamped_rate(prev: float, cur: float, dt: float) -> float:
-    """Per-second rate from two cumulative counter samples, clamped at 0
-    when the counter went backwards (a restart): the reset sample gives
-    no rate and the next delta starts from the new origin.  The port's
-    copy of ``pydcop_tpu/telemetry/federate.py``'s, which the fleet
-    collector shares."""
-    if dt <= 0:
-        return 0.0
-    return max(0.0, cur - prev) / dt
 
 
 def _fetch_json(base: str, path: str) -> Optional[Dict[str, Any]]:
@@ -308,12 +305,77 @@ def _render_frame(
     return "\n".join(lines)
 
 
+def _render_fleet_frame(
+    status: Dict[str, Any],
+    rates: Dict[str, float],
+) -> str:
+    """The ``--fleet`` view: one row per worker + fleet totals + the
+    fleet SLO lines (per-worker engines summarized by their alerts)."""
+    lines = []
+    fl = status.get("fleet") or {}
+    lines.append(
+        f"fleet: {status.get('workers_up', 0)}/"
+        f"{status.get('workers_total', 0)} workers up  "
+        f"solves={fl.get('solves', 0)}  "
+        f"queue={fl.get('queue_depth', 0)}  "
+        f"dead_letters={fl.get('dead_letters', 0)}  "
+        f"solves/s={fl.get('solves_s', 0.0)}"
+    )
+    workers = status.get("workers") or {}
+    if workers:
+        lines.append("")
+        lines.append(
+            f"{'worker':<18} {'up':>4} {'age':>6} {'queue':>6} {'hwm':>5} "
+            f"{'solves':>8} {'sol/s':>7} {'occ%':>5} {'mem':>9} "
+            f"{'hdrm%':>6} {'pulse':<18} {'burn':>6} alert"
+        )
+        for name in sorted(workers):
+            w = workers[name]
+            age = w.get("age_s")
+            rate = rates.get(name, w.get("solves_s"))
+            burn = w.get("burn_fast")
+            mem_h = w.get("mem_headroom_pct")
+            lines.append(
+                f"{name:<18} {('UP' if w.get('up') else 'DOWN'):>4} "
+                f"{(f'{age:.1f}' if age is not None else '-'):>6} "
+                f"{w.get('queue_depth', '-'):>6} "
+                f"{w.get('queue_watermark', '-'):>5} "
+                f"{w.get('solves', '-'):>8} "
+                f"{(f'{rate:.1f}' if rate is not None else '-'):>7} "
+                f"{w.get('occupancy_pct', '-'):>5} "
+                f"{_fmt_bytes(w.get('mem_bytes_in_use')):>9} "
+                f"{(f'{mem_h:.1f}' if mem_h is not None else '-'):>6} "
+                f"{(w.get('pulse') or '-'):<18} "
+                f"{(f'{burn:.2f}' if burn is not None else '-'):>6} "
+                f"{w.get('alert', '')}"
+                + (
+                    f" mem_refused={w['mem_refusals']}"
+                    if w.get("mem_refusals") else ""
+                )
+                + ("  STALE" if w.get("stale") else "")
+            )
+    slo_b = (status.get("slo") or {}).get("fleet")
+    if slo_b:
+        lines.append("")
+        for name, ob in sorted((slo_b.get("objectives") or {}).items()):
+            alert = ob.get("alert")
+            worst = ob.get("worst_worker")
+            lines.append(
+                f"fleet slo: {name:<18} "
+                f"budget={100.0 * ob.get('budget_remaining', 1.0):6.1f}%  "
+                f"burn={ob.get('burn_fast', 0.0):6.2f}  "
+                f"good/bad={int(ob.get('good', 0))}/{int(ob.get('bad', 0))}"
+                + (f"  ALERT[{alert}] worst={worst}" if alert else "")
+            )
+    return "\n".join(lines)
+
+
 def run_cmd(args, timeout: float = None) -> int:
-    if getattr(args, "fleet", None) is not None:
-        print("error: watch --fleet (the fleet verb's surface) is not "
-              "ported yet", file=sys.stderr)
-        return 2
-    base = (args.url or f"http://{args.host}:{args.port}").rstrip("/")
+    # embedders call run_cmd with hand-built namespaces predating --fleet
+    fleet = getattr(args, "fleet", None)
+    base = fleet or args.url or f"http://{args.host}:{args.port}"
+    base = base.rstrip("/")
+    status_path = "/fleet/status" if fleet else "/status"
     deadline = (
         time.perf_counter() + args.duration if args.duration else None
     )
@@ -326,13 +388,14 @@ def run_cmd(args, timeout: float = None) -> int:
     seen_ok = False
     frames = 0
     while True:
-        status = _fetch_json(base, "/status")
+        status = _fetch_json(base, status_path)
         snapshot = _fetch_json(base, "/metrics.json")
         if status is None or snapshot is None:
             if args.once or not seen_ok:
                 print(
                     f"error: no metrics surface at {base} — start the "
-                    "serve verb (or a solve with a live surface) first",
+                    + ("fleet verb first" if fleet else
+                       "serve verb (or a solve with a live surface) first"),
                     file=sys.stderr,
                 )
                 return 1
@@ -345,22 +408,30 @@ def run_cmd(args, timeout: float = None) -> int:
 
         now = time.perf_counter()
         # rates from counter deltas between our polls, clamped at 0 and
-        # re-baselined when the scraped counter reset (a restart)
+        # re-baselined when the scraped counter reset (a worker restart):
+        # the federated collector's rule (telemetry/federate.py)
+        rate_metric, rate_label = (
+            ("fleet.worker_solves_total", "worker") if fleet
+            else ("comms.messages_sent", "agent")
+        )
         sent_now = {
-            dict(k).get("agent", "?"): v
-            for k, v in _metric_values(metrics, "comms.messages_sent").items()
+            dict(k).get(rate_label, "?"): v
+            for k, v in _metric_values(metrics, rate_metric).items()
         }
         rates: Dict[str, Any] = {}
         if prev_t is not None and now > prev_t:
             for name, v in sent_now.items():
                 r = clamped_rate(prev_sent.get(name, 0.0), v, now - prev_t)
-                rates[name] = {"msg_s": r}
+                rates[name] = {"msg_s": r} if not fleet else r
         prev_sent, prev_t = sent_now, now
 
         if args.as_json:
             write_output(args, {"status": status, "metrics": metrics})
         else:
-            frame = _render_frame(status, metrics, rates)
+            frame = (
+                _render_fleet_frame(status, rates) if fleet
+                else _render_frame(status, metrics, rates)
+            )
             if frames and sys.stdout.isatty():
                 # repaint in place; scrolling output otherwise
                 print("\x1b[2J\x1b[H", end="")

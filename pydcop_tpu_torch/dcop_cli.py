@@ -5,7 +5,9 @@ global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
 per verb.  The port has the ``solve`` and ``serve`` verbs, and the
 host-only ``generate``, ``checkpoints``, ``memplan``, ``postmortem``,
-``telemetry`` and ``watch`` verbs, which import no torch.  Its
+``telemetry``, ``watch``, ``fleet`` and ``router`` verbs, which import
+no torch (the router's spawned workers are ``serve`` processes, given
+the router's ``--device``).  Its
 global ``--device {cuda,cpu}`` takes the place of JAX's
 ``JAX_PLATFORMS``: the default is the card, and without one the CLI
 exits nonzero unless ``--device cpu`` is given; it never falls back to
@@ -28,9 +30,11 @@ from typing import List, Optional
 
 from .commands import (
     checkpoints,
+    fleet,
     generate,
     memplan,
     postmortem,
+    router,
     serve,
     solve,
     telemetry,
@@ -44,8 +48,8 @@ __all__ = ["main"]
 TIMEOUT_SLACK = 20
 
 # verbs that only read or write files on the host: they run without a card
-_HOST_ONLY = ("checkpoints", "generate", "memplan", "postmortem",
-              "telemetry", "watch")
+_HOST_ONLY = ("checkpoints", "fleet", "generate", "memplan", "postmortem",
+              "router", "telemetry", "watch")
 
 # global options of the JAX CLI that the port does not run yet
 _NOT_PORTED = (
@@ -114,6 +118,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     postmortem.set_parser(subparsers)
     telemetry.set_parser(subparsers)
     watch.set_parser(subparsers)
+    fleet.set_parser(subparsers)
+    router.set_parser(subparsers)
 
     args = parser.parse_args(argv)
     _setup_logging(args.verbosity, args.log)

@@ -1,6 +1,6 @@
 """Many-tenant batched solving on the card.
 
-Counterpart of ``pydcop_tpu/serve/`` (its router is not ported):
+Counterpart of ``pydcop_tpu/serve/``:
 
 - ``serve.bucket``: shape buckets, every padded ``DeviceDCOP`` dimension
   rounded up to a power of two, so problems of one size class share a
@@ -13,31 +13,45 @@ Counterpart of ``pydcop_tpu/serve/`` (its router is not ported):
 - ``serve.server``: ``ServeServer``, a request queue with a
   micro-batching window in front of the engine, its routes on the live
   metrics surface (``/metrics``, ``/healthz``, ``/slo``, ...), trace ids
-  and request phases, behind ``python -m pydcop_tpu_torch serve``.
+  and request phases, behind ``python -m pydcop_tpu_torch serve``;
+- ``serve.router``: ``Router``, the HA fleet behind ``python -m
+  pydcop_tpu_torch router``: affinity placement of tenants on serve
+  workers, SLO admission and failover.  Host-only: it imports no torch,
+  so this package resolves its names lazily.
 """
 
-from .batch import (
-    BatchPlan,
-    ServeUnsupported,
-    SolveRequest,
-    TenantResult,
-    bucket_key,
-    solve_batched,
-    solve_one,
-)
-from .bucket import BucketDims, bucket_dims_of, pad_dev_to_bucket
-from .server import ServeServer
+# Public names are resolved lazily (PEP 562): importing ``serve.router``
+# (the host-only router verb) must not import the batch engine's torch.
+_LAZY = {
+    "BatchPlan": "batch",
+    "ServeUnsupported": "batch",
+    "SolveRequest": "batch",
+    "TenantResult": "batch",
+    "bucket_key": "batch",
+    "solve_batched": "batch",
+    "solve_one": "batch",
+    "BucketDims": "bucket",
+    "bucket_dims_of": "bucket",
+    "pad_dev_to_bucket": "bucket",
+    "ServeServer": "server",
+}
 
-__all__ = [
-    "BatchPlan",
-    "BucketDims",
-    "ServeServer",
-    "ServeUnsupported",
-    "SolveRequest",
-    "TenantResult",
-    "bucket_dims_of",
-    "bucket_key",
-    "pad_dev_to_bucket",
-    "solve_batched",
-    "solve_one",
-]
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    import importlib
+
+    try:
+        module = _LAZY[name]
+    except KeyError:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}"
+        ) from None
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value  # cache: __getattr__ runs once per name
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

@@ -19,7 +19,7 @@ live metrics surface (``infrastructure.MetricsHttpServer``), beside its
   "n_cycles", "seed", "tenant"?, "trace"?}``; the YAML goes through the
   port's loader and ``compile_dcop``; answers ``{"tenant", "trace"}``,
   400 on a body it cannot read, or 503 while draining (with
-  ``retry_after_s`` and a ``Retry-After`` header);
+  ``retry_after_s``, a ``Retry-After`` header and the ``peers`` list);
 - ``GET /result/<tenant>``: the tenant's record (404 when unknown);
 - ``GET /status``: the server's state, counts, queue depth and queue
   latency p50/p99, the latest tenants' rows (with pulse on, each done
@@ -61,8 +61,11 @@ rides a batch dispatched at or after ``at``: its solve still runs with
 the batch, its result is dropped (``killed``, a dead letter), and the
 batch's other tenants keep their own results.
 
-Peer discovery from sibling fleet manifests and the HA router are not
-ported (ROADMAP).
+Behind the HA router (``serve.router``) a server is one worker of a
+fleet: ``peers`` are its fellow workers' base URLs (the verb's
+``--peer``), to which ``peers()`` adds the endpoints that sibling
+``fleet-manifest.json`` files record beside its ``checkpoint_dir``; a
+structured 503 hands that list to the rejected client.
 """
 
 from __future__ import annotations
@@ -75,7 +78,7 @@ import os
 import queue
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 from ..compile.kernels import resolve_device
 from ..telemetry.memplane import MemoryBudgetExceeded, memguard, memory_status
@@ -182,11 +185,16 @@ class ServeServer:
         checkpoint_dir: Optional[str] = None,
         fault_schedule: Any = None,
         slo: Any = None,
+        peers: Optional[Sequence[str]] = None,
     ) -> None:
         if mode not in ("vmap", "fused"):
             raise ValueError(f"unknown serve batch mode {mode!r}")
         self.device = resolve_device(device)
         self._host = host
+        #: fellow workers' base URLs, handed to rejected clients so they
+        #: can fail over without guessing (``--peer`` on the verb; sibling
+        #: fleet manifests fill in the rest: ``peers()``)
+        self._peers = [str(p).rstrip("/") for p in (peers or []) if p]
         #: a drain writes the fleet checkpoint here (``_write_fleet_
         #: checkpoint``); its path lands in ``fleet_checkpoint_path``
         self.checkpoint_dir = checkpoint_dir
@@ -439,6 +447,38 @@ class ServeServer:
             # outside the server's lock: the engine reads its own state
             # under its own lock
             out["slo"] = self.slo.status_block()
+        return out
+
+    def peers(self) -> List[str]:
+        """Fellow workers' base URLs: the configured ``peers`` plus the
+        endpoints that sibling fleet manifests record under the
+        checkpoint directory's parent (``fleet --manifest`` reads the
+        same files).  Own endpoint excluded; best effort, never raises."""
+        own = (f"http://{self._host}:{self.http.port}"
+               if self.http is not None else None)
+        out: List[str] = []
+        seen: set = set()
+        for url in self._peers:
+            if url != own and url not in seen:
+                seen.add(url)
+                out.append(url)
+        if self.checkpoint_dir:
+            parent = os.path.dirname(os.path.abspath(self.checkpoint_dir))
+            try:
+                entries = sorted(os.listdir(parent))
+            except OSError:
+                entries = []
+            for entry in entries:
+                path = os.path.join(parent, entry, "fleet-manifest.json")
+                try:
+                    with open(path, "r", encoding="utf-8") as f:
+                        doc = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                url = str(doc.get("endpoint") or "").rstrip("/")
+                if url and url != own and url not in seen:
+                    seen.add(url)
+                    out.append(url)
         return out
 
     # -- lifecycle -----------------------------------------------------
@@ -880,8 +920,9 @@ class ServeServer:
             with self._lock:
                 state = self._state
             retry_after = 2
+            # where to go (the peers) and when to come back
             doc = {"error": str(e), "state": state,
-                   "retry_after_s": retry_after}
+                   "retry_after_s": retry_after, "peers": self.peers()}
             if isinstance(e, MemoryBudgetExceeded):
                 # "never fits here", not "busy now": the breach's numbers
                 doc["mem"] = e.breach

@@ -109,14 +109,36 @@ def test_cli_refuses_global_options_not_ported(capsys):
     ["--peer", "http://x", "--slo-interval", "5"],
     ["--peer", "http://x", "--peer", "http://y"],
     ["--slo", "p99<250ms", "--peer", "http://x"],
-    ["--slo-file", "s.yaml", "--peer", "http://x"], ["--peer", "http://x"],
+    ["--slo-file", "{slo_file}", "--peer", "http://x"],
+    ["--peer", "http://x"],
     ["--slo", "p50<10ms", "--slo-interval", "1", "--peer", "http://z"],
 ])
-def test_serve_refuses_options_not_ported(option, capsys):
-    # --peer (the HA fleet) is refused, beside the SLO options too
-    rc = dcop_cli.main(["--device", "cpu", "serve", "--port", "0", *option])
-    assert rc == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_serve_refuses_options_not_ported(option, tmp_path, monkeypatch,
+                                          capsys):
+    # --peer (the HA fleet) is ported now: the verb runs with it, beside
+    # the SLO options too, and hands the peers to its server, whose
+    # peers() lists them; no serve option is refused any more
+    from pydcop_tpu_torch.serve import server as server_mod
+
+    slo_file = tmp_path / "s.yaml"
+    slo_file.write_text("objectives:\n  - availability>=99.9%\n")
+    monkeypatch.setenv("PYDCOP_TPU_STATE_DIR", str(tmp_path / "state"))
+    seen = []
+    init = server_mod.ServeServer.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        seen.append(self.peers())
+
+    monkeypatch.setattr(server_mod.ServeServer, "__init__", spy)
+    option = [o.format(slo_file=slo_file) for o in option]
+    rc = dcop_cli.main(["--device", "cpu", "--output",
+                        str(tmp_path / "serve.json"), "serve", "--port",
+                        "0", "--duration", "0.3", *option])
+    assert rc == 0
+    assert "not ported" not in capsys.readouterr().err
+    peers = [option[i + 1] for i, o in enumerate(option) if o == "--peer"]
+    assert seen == [peers]
 
 
 @pytest.mark.parametrize("option", [

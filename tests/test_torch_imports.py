@@ -49,6 +49,14 @@ def test_port_files_found():
     "pydcop_tpu_torch/telemetry/stitch.py",
     "pydcop_tpu_torch/commands/watch.py",
     "pydcop_tpu_torch/commands/telemetry.py",
+    "pydcop_tpu_torch/infrastructure/retry.py",
+    "pydcop_tpu_torch/telemetry/federate.py",
+    "pydcop_tpu_torch/serve/router.py",
+    "pydcop_tpu_torch/partition/multilevel.py",
+    "pydcop_tpu_torch/distribution/_costs.py",
+    "pydcop_tpu_torch/distribution/tpu_part.py",
+    "pydcop_tpu_torch/commands/fleet.py",
+    "pydcop_tpu_torch/commands/router.py",
 ])
 def test_subpackages_are_scanned(path):
     assert path in PORT_FILES
@@ -65,19 +73,76 @@ def test_subpackages_are_scanned(path):
     "pydcop_tpu_torch.infrastructure",
     "pydcop_tpu_torch.commands.watch",
     "pydcop_tpu_torch.commands.telemetry",
+    "pydcop_tpu_torch.infrastructure.retry",
+    "pydcop_tpu_torch.telemetry.federate",
+    "pydcop_tpu_torch.serve.router",
+    "pydcop_tpu_torch.serve",
+    "pydcop_tpu_torch.commands.fleet",
+    "pydcop_tpu_torch.commands.router",
 ])
 def test_host_only_modules_import_no_torch(module):
-    # the host-only verbs (memplan, telemetry, watch) and the live
-    # surface run without a card, beside a solve: importing them pulls in
-    # neither torch nor numpy
+    # the host-only verbs (memplan, telemetry, watch, fleet, router) and
+    # the live surface run without a card, beside a solve: importing them
+    # pulls in neither torch nor numpy
+    assert _imported(module) == []
+
+
+def _imported(module):
+    import json
     import subprocess
     import sys
 
-    code = (f"import sys, {module}; "
-            "print(sorted({'torch', 'numpy', 'jax'} & set(sys.modules)))")
+    code = (f"import json, sys, {module}; print(json.dumps(sorted("
+            "{'torch', 'numpy', 'jax'} & set(sys.modules))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == "[]"
+    return json.loads(out.stdout)
+
+
+@pytest.mark.parametrize("module", [
+    "pydcop_tpu_torch.partition",
+    "pydcop_tpu_torch.distribution.tpu_part",
+    "pydcop_tpu_torch.distribution._costs",
+])
+def test_placement_modules_import_numpy_but_no_torch(module):
+    # the router places its buckets through tpu_part: numpy, no torch
+    assert _imported(module) == ["numpy"]
+
+
+def test_router_spawns_workers_with_its_own_device(monkeypatch):
+    # router --spawn starts `python -m pydcop_tpu_torch --device D serve`
+    # with D the router's own --device; without a card and without
+    # --device cpu the worker exits before it announces
+    import io
+    import subprocess
+    import types
+
+    from pydcop_tpu_torch.commands import router
+
+    started = []
+
+    class Proc:
+        # a worker that exits at once, silent
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            self.stdout = io.StringIO("")
+
+        def poll(self):
+            return 2
+
+        def kill(self):
+            pass
+
+    monkeypatch.setattr(subprocess, "Popen", Proc)
+    for device in ("cuda", "cpu"):
+        args = types.SimpleNamespace(
+            spawn=1, host="127.0.0.1", window_ms=25.0, worker_slo=[],
+            device=device)
+        with pytest.raises(RuntimeError, match="never announced"):
+            router._spawn_workers(args, "/nonexistent-state")
+        cmd = started[-1]
+        assert cmd[1:5] == ["-m", "pydcop_tpu_torch", "--device", device]
+        assert cmd[5] == "serve"
 
 
 @pytest.mark.parametrize("path", PORT_FILES)

@@ -500,7 +500,9 @@ def test_serve_cli_accepts_mem_guard_flags():
     serve.set_parser(sub)
     args = parser.parse_args(["serve", "--mem-guard", "--mem-reserve-pct",
                               "5", "--mem-limit-bytes", "1000"])
-    assert serve._refused_option(args) is None
+    # the verb refuses no option since --peer was ported: the flags reach
+    # run_cmd as parsed
+    assert args.func is serve.run_cmd and args.peer == []
     assert (args.mem_guard, args.mem_reserve_pct,
             args.mem_limit_bytes) == (True, 5.0, 1000)
 

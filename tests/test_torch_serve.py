@@ -888,3 +888,71 @@ def test_batch_observer_reports_each_group():
     solve_batched(reqs, device="cpu", mode="fused", observer=fused.append)
     assert [ev["kind"] for ev in fused] == ["fused"]
     assert fused[0]["t_dispatched"] == fused[0]["t_assembled"]
+
+
+# -- the HA fleet's peers ------------------------------------------------
+
+
+def _sibling_manifests(parent, own_endpoint=None):
+    """A state directory of worker checkpoints, as the router's spawned
+    workers leave it: manifests with endpoints, one unreadable, one
+    without an endpoint, a directory without a manifest."""
+    docs = {
+        "w1": {"kind": "fleet", "endpoint": "http://127.0.0.1:9011"},
+        "w2": {"kind": "fleet", "endpoint": "http://127.0.0.1:9012/"},
+        "w3": None,
+        "w4": {"kind": "fleet", "endpoint": None},
+        "w5": {"kind": "fleet", "endpoint": "http://p:1"},
+        "w6": {"kind": "fleet", "endpoint": own_endpoint},
+    }
+    for name, doc in docs.items():
+        (parent / name).mkdir(parents=True)
+        (parent / name / "fleet-manifest.json").write_text(
+            "{torn" if doc is None else json.dumps(doc))
+    (parent / "w7").mkdir()
+
+
+def test_peers_are_jaxs(tmp_path):
+    from pydcop_tpu.serve import ServeServer as JaxServer
+
+    _sibling_manifests(tmp_path)
+    peers = ["http://p:1/", "", "http://q:2", "http://p:1"]
+    servers = [
+        ServeServer(device="cpu", checkpoint_dir=str(tmp_path / "w0"),
+                    peers=peers),
+        JaxServer(checkpoint_dir=str(tmp_path / "w0"), peers=peers),
+    ]
+    try:
+        got, want = (s.peers() for s in servers)
+        assert got == want == ["http://p:1", "http://q:2",
+                               "http://127.0.0.1:9011",
+                               "http://127.0.0.1:9012"]
+        # no checkpoint directory: the configured peers alone
+        assert ServeServer(device="cpu", peers=peers).peers() == \
+            JaxServer(peers=peers).peers()
+    finally:
+        for s in servers:
+            s.shutdown()
+
+
+def test_drained_servers_503_names_the_peers(tmp_path):
+    from test_torch_api import _path
+
+    srv = ServeServer(port=0, window_ms=5, device="cpu",
+                      checkpoint_dir=str(tmp_path / "w0"),
+                      peers=["http://q:2"])
+    own = f"http://127.0.0.1:{srv.http.port}"
+    _sibling_manifests(tmp_path, own_endpoint=own)
+    try:
+        assert srv.drain(timeout=60)
+        with open(_path("graph_coloring")) as f:
+            code, doc = _http(srv.http.port, "/solve",
+                              {"dcop_yaml": f.read()})
+        assert code == 503 and doc["state"] == "drained"
+        # its own endpoint is not a peer
+        assert doc["peers"] == srv.peers() == [
+            "http://q:2", "http://127.0.0.1:9011", "http://127.0.0.1:9012",
+            "http://p:1"]
+        assert doc["retry_after_s"] == 2
+    finally:
+        srv.shutdown()

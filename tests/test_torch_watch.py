@@ -3,10 +3,12 @@
 Bars: ``_render_frame``, ``sparkline`` and ``_fmt_bytes`` give the JAX
 verb's text on the same status and metrics documents (seeded, with the
 pulse, SLO, durability, replication and memory blocks, agents and
-reliability counters); ``watch --once --json`` against a port
-``ServeServer`` on the CPU returns its status and metrics in a process
-that never imports torch; an unreachable surface exits 1 and ``--fleet``
-is refused, as not ported.
+reliability counters), and ``_render_fleet_frame`` the JAX verb's
+``--fleet`` text on the same fleet status documents and rates;
+``watch --once --json`` against a port ``ServeServer`` on the CPU, and
+``watch --fleet --once [--json]`` against the port's ``fleet`` verb
+federating it, return their documents in a process that never imports
+torch; an unreachable surface exits 1, a single worker's or a fleet's.
 """
 
 import json
@@ -165,5 +167,102 @@ def test_watch_unreachable_and_fleet(capsys):
         port = s.getsockname()[1]
     rc = dcop_cli.main(["watch", f"http://127.0.0.1:{port}", "--once"])
     assert rc == 1 and "no metrics surface" in capsys.readouterr().err
-    rc = dcop_cli.main(["watch", "--fleet", "http://127.0.0.1:1"])
-    assert rc == 2 and "not ported yet" in capsys.readouterr().err
+    rc = dcop_cli.main(["watch", "--fleet", f"http://127.0.0.1:{port}",
+                        "--once"])
+    assert rc == 1 and "fleet verb first" in capsys.readouterr().err
+
+
+def _fleet_status(rng, n_workers):
+    workers = {}
+    for i in range(n_workers):
+        row = {"url": f"http://127.0.0.1:{9000 + i}",
+               "up": bool(rng.integers(2)), "stale": bool(i % 3 == 2),
+               "age_s": None if i == 0 else float(rng.uniform(0, 30)),
+               "scrapes": int(rng.integers(100)), "failures": 0,
+               "retries": 0, "resets": int(rng.integers(3))}
+        if i % 2:
+            row.update(state="serving", queue_depth=int(rng.integers(9)),
+                       queue_watermark=int(rng.integers(9, 20)),
+                       solves=int(rng.integers(1000)),
+                       occupancy_pct=round(float(rng.uniform(0, 100)), 1),
+                       mem_bytes_in_use=int(rng.integers(1 << 34)),
+                       mem_headroom_pct=round(float(rng.uniform(0, 99)), 1),
+                       pulse=["healthy", "oscillating"][i % 4 == 1],
+                       burn_fast=round(float(rng.uniform(0, 30)), 3),
+                       solves_s=round(float(rng.uniform(0, 50)), 2))
+            if row["burn_fast"] > 14.4:
+                row["alert"] = "availability:fast"
+            if i % 4 == 3:
+                row["mem_refusals"] = int(rng.integers(1, 5))
+        workers[f"w{i}"] = row
+    status = {"status": "fleet", "workers": workers,
+              "workers_total": n_workers,
+              "workers_up": sum(r["up"] for r in workers.values()),
+              "fleet": {"solves": int(rng.integers(5000)),
+                        "queue_depth": int(rng.integers(30)),
+                        "dead_letters": int(rng.integers(3)),
+                        "solves_s": round(float(rng.uniform(0, 99)), 2)}}
+    if n_workers % 2:
+        status["slo"] = {"fleet": {"objectives": {
+            "availability": {"budget_remaining": float(rng.uniform()),
+                             "burn_fast": float(rng.uniform(0, 40)),
+                             "good": 970, "bad": 30, "alert": "fast",
+                             "worst_worker": "w1"},
+            "lat": {"budget_remaining": 1.0, "burn_fast": 0.0,
+                    "good": 1000, "bad": 0, "alert": None,
+                    "worst_worker": "w0"}}}}
+    return status
+
+
+@pytest.mark.parametrize("n_workers", [0, 1, 2, 5, 8])
+def test_fleet_frame_is_jaxs(n_workers):
+    rng = np.random.default_rng(n_workers)
+    status = _fleet_status(rng, n_workers)
+    for rates in ({}, {f"w{i}": float(rng.uniform(0, 9))
+                       for i in range(0, n_workers, 2)}):
+        frame = watch._render_fleet_frame(status, rates)
+        assert frame == jax_watch._render_fleet_frame(status, rates)
+        assert frame.startswith(f"fleet: {status['workers_up']}/"
+                                f"{n_workers} workers up")
+
+
+def test_watch_fleet_reads_the_fleet_verb():
+    from test_torch_serve import _reqs
+
+    from pydcop_tpu_torch.serve import ServeServer
+    from pydcop_tpu_torch.telemetry import metrics_registry
+
+    metrics_registry.reset()
+    metrics_registry.enabled = True
+    srv = ServeServer(port=0, window_ms=5, device="cpu")
+    fleet = None
+    try:
+        (req,) = _reqs("dsa", {}, (9,), 6, seed0=3)
+        srv.wait(srv.submit(req), timeout=120)
+        fleet = subprocess.Popen(
+            [sys.executable, "-m", "pydcop_tpu_torch", "fleet", "--port",
+             "0", "--interval", "0.2", "--duration", "60",
+             f"w0=http://127.0.0.1:{srv.http.port}"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+        line = fleet.stdout.readline()
+        assert line.startswith("FLEET_PORT="), line
+        url = f"http://127.0.0.1:{line.strip().split('=', 1)[1]}"
+        out = _watch("--fleet", url, "--once", "--json")
+        frame = _watch("--fleet", url, "--once")
+    finally:
+        if fleet is not None:
+            fleet.terminate()
+            fleet.wait(timeout=60)
+        srv.shutdown()
+        metrics_registry.enabled = False
+        metrics_registry.reset()
+    assert out.returncode == 0, out.stderr
+    assert "TORCH_IMPORTED=False" in out.stderr
+    doc = json.loads(out.stdout)
+    assert doc["status"]["workers_up"] == 1
+    assert doc["status"]["workers"]["w0"]["solves"] == 1
+    assert doc["metrics"]["fleet.worker_up"]["values"] == [
+        {"labels": {"worker": "w0"}, "value": 1.0}]
+    assert frame.returncode == 0
+    assert frame.stdout.startswith("fleet: 1/1 workers up  solves=1")
