@@ -142,7 +142,7 @@ captured CUDA graphs:
   validates the trace and reads the registry;
 - the HA serve fleet (``serve_fleet_ha``): ``python -m pydcop_tpu_torch
   router --spawn 2 --placement affinity`` with two ``serve`` workers on
-  the card, 16 of the serve grid's problems (MaxSum and DSA, two affinity
+  the card, 8 of the serve grid's problems (MaxSum and DSA, two affinity
   buckets) POSTed as YAML: the placement is ``tpu_part``'s and each
   bucket ran on one worker; the same problems again with the MaxSum
   worker SIGKILLed while its tenants wait in its window, every tenant
@@ -152,7 +152,18 @@ captured CUDA graphs:
   --fleet`` showing both workers; the router drained by SIGTERM.  It
   prints the seconds from the kill to ``fleet.worker_up == 0`` and to
   the last failed-over tenant done, the router's forward overhead, the
-  batches that captured graphs on each worker and its own wall.
+  batches that captured graphs on each worker and its own wall;
+- profiling and capture (``profile_capture``): the README's
+  1,000-variable YAML solved by ``python -m pydcop_tpu_torch solve
+  --profile-out --dump-hlo`` (a subprocess), whose JSON must equal the
+  front door's run without the flags, whose ``torch.profiler`` trace must
+  show ``ell_minplus``, ``xla_tree_sum``'s and ``damp_fma``'s kernels
+  inside the ``solve.maxsum.*`` ranges, with one DOT file a captured
+  graph; then ``capture -o DIR --configs 2 3 4 --no-profiler`` on the
+  card (a subprocess): every kernel config's per-op attribution present, the
+  costs the pins held here (config 3's the CPU's), config 4's
+  attribution within 90-110% of its real step, its kernel block printed;
+  and ``capture diff DIR DIR`` exiting 0.
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -578,15 +589,17 @@ SERVE_FAULT_TENANTS = [
 # 50% burns at 0.5) and availability
 SERVE_OBS_KILLED = 8
 SERVE_OBS_SLO = ("lat=p50<30s", "availability>=99%")
-# the HA fleet (serve_fleet_ha): the serve grid's first 16 problems, the
-# even ones as MaxSum at damping 0.7 and the odd ones as DSA, 30 cycles:
+# the HA fleet (serve_fleet_ha): the serve grid's first 8 problems (16
+# until profile_capture joined the script: each body is parsed by the
+# router and again by its worker, most of the phase's wall), the even
+# ones as MaxSum at damping 0.7 and the odd ones as DSA, 30 cycles:
 # two affinity buckets, one a worker.  The workers hold a tenant up to
 # SERVE_FLEET_WINDOW_MS for company before they dispatch, so the MaxSum
 # tenants are still in flight when their worker is killed; the window is
 # not widened (--window-max-factor 1).  Scraped every 0.25 s, a worker
 # that missed 4 s of scrapes drops its series.  SERVE_FLEET_PROBES
 # rounds of direct and routed POSTs time the router's forward.
-SERVE_FLEET_TENANTS = 16
+SERVE_FLEET_TENANTS = 8
 SERVE_FLEET_RUNS = {"maxsum": {"damping": 0.7}, "dsa": {}}
 SERVE_FLEET_CYCLES = 30
 SERVE_FLEET_WINDOW_MS = 1000
@@ -616,6 +629,18 @@ MEMORY_HELD = ("maxsum_ell_config6", "config6", "maxsum",
                {"damping": 0.7, "layout": "ell"}, 30)
 # predicted over measured peak at config 6, left out of the fit
 MEMORY_HELD_RATIO = (0.9, 1.5)
+# the profiled solve's trace: the kernels a MaxSum ELL solve launches,
+# by wrapper, and the substrings of their CUDA symbols
+PROFILE_KERNELS = {
+    "ell_minplus": ("ell_minplus",),
+    "xla_tree_sum": ("tree_sum_kernel", "evaluate_kernel",
+                     "short_rows_kernel"),
+    "damp_fma": ("damp_fma",),
+}
+# the capture verb's configs in the smoke run, and config 4's bar on the
+# share of its real step its per-op composition attributes
+CAPTURE_CONFIGS = ("2", "3", "4")
+ATTRIBUTION_BAR = (90.0, 110.0)
 
 
 def emit(obj) -> None:
@@ -2052,8 +2077,20 @@ def phase_front_door_yaml():
     subprocess) and must print the CPU's in-process result; the library's
     card solve launches ``ell_minplus`` (``auto`` resolves to ELL on these
     binary problems), and one ``layout:pallas`` solve launches
-    ``factor_arity2_minplus``."""
+    ``factor_arity2_minplus``.  The three CLI subprocesses run at once
+    (each one's wall is mostly its own cold start), beside
+    the in-process solves; each ``cli_s`` is its own subprocess's wall.
+    Returns the README problem's YAML and the CLI's printed JSON."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run_cli(path):
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            PORT_CLI + ["solve", *FRONT_DOOR_ARGS, str(path)],
+            cwd=ROOT, capture_output=True, text=True, timeout=900,
+        )
+        return cli, time.perf_counter() - t0
 
     from pydcop_tpu_torch.algorithms import AlgorithmDef
     from pydcop_tpu_torch.api import solve_result
@@ -2062,21 +2099,20 @@ def phase_front_door_yaml():
     )
     from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, load_dcop_from_file
 
+    readme_out = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         n, d, kw = README_PROBLEM
         readme = Path(tmp) / "gc1000.yaml"
-        readme.write_text(dcop_yaml(generate_graph_coloring(n, d, **kw)))
+        readme_out["yaml"] = dcop_yaml(generate_graph_coloring(n, d, **kw))
+        readme.write_text(readme_out["yaml"])
         write_s = time.perf_counter() - t0
         files = [ROOT / f for f in FRONT_DOOR_YAML] + [readme]
-        for path in files:
-            t0 = time.perf_counter()
-            cli = subprocess.run(
-                [sys.executable, "-m", "pydcop_tpu_torch", "solve",
-                 *FRONT_DOOR_ARGS, str(path)],
-                cwd=ROOT, capture_output=True, text=True, timeout=900,
-            )
-            cli_s = time.perf_counter() - t0
+        pool = ThreadPoolExecutor(len(files))
+        runs = [pool.submit(run_cli, path) for path in files]
+        pool.shutdown(wait=False)
+        for path, run in zip(files, runs):
+            cli, cli_s = run.result()
             check(cli.returncode == 0,
                   f"{path.name}: the CLI exited {cli.returncode}: "
                   f"{cli.stderr[-2000:]}")
@@ -2110,6 +2146,7 @@ def phase_front_door_yaml():
                 "launches": launches,
             }
             if path == readme:
+                readme_out["printed"] = printed
                 out["dcop_yaml_s"] = write_s
                 algo = AlgorithmDef.build_with_default_param(
                     "maxsum", {"damping": 0.7, "layout": "pallas"},
@@ -2127,6 +2164,211 @@ def phase_front_door_yaml():
                     "layout:pallas",
                 )
             emit(out)
+    return readme_out
+
+
+def _trace_kernels(trace_path):
+    """The kernels of a ``torch.profiler`` Chrome trace by
+    ``PROFILE_KERNELS`` wrapper: ``(inside, outside, ranges)``, the
+    counts inside a ``solve.*`` device range (the GPU track of the
+    engine's ``record_function`` annotations) and outside one, and the
+    ranges' names."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = sorted(
+        (e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+        if e.get("cat") == "gpu_user_annotation"
+        and str(e.get("name", "")).startswith("solve.")
+    )
+    inside = {name: 0 for name in PROFILE_KERNELS}
+    outside = dict(inside)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for name, parts in PROFILE_KERNELS.items():
+            if any(p in e["name"] for p in parts):
+                hit = any(a <= e["ts"] <= b for a, b, _ in ranges)
+                (inside if hit else outside)[name] += 1
+    return inside, outside, sorted({r[2] for r in ranges})
+
+
+def phase_profile_capture(readme):
+    """Profiling on the card: the README's problem (``readme``: its YAML
+    and the front door's printed JSON without the flags) through ``solve
+    --profile-out --dump-hlo``, while ``capture --configs 2 3 4`` runs
+    beside it (the solve's wall is its YAML and cold start on the host;
+    its device work, under a second, overlaps no timing of the capture's
+    that a check reads: the attribution bar is on CUDA-event times), then
+    the capture's self-diff, each a CLI subprocess.  Returns the profiled
+    solve's kernels in the trace by wrapper (its launches: the profiler's
+    count, inside the ``solve.maxsum.*`` ranges)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        try:
+            return _profile_capture(readme, tmp, t_phase)
+        finally:
+            for proc in _PROFILE_PROCS:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            _PROFILE_PROCS.clear()
+
+
+# the capture subprocess of profile_capture, reaped whatever happens
+_PROFILE_PROCS = []
+
+
+def _profile_capture(readme, tmp, t_phase):
+    import torch
+
+    from pydcop_tpu_torch.algorithms import mgm2
+    from pydcop_tpu_torch.commands.generators.ising import (
+        generate_ising_arrays,
+    )
+
+    yaml_path = tmp / "gc1000.yaml"
+    yaml_path.write_text(readme["yaml"])
+    prof_dir, hlo_dir = tmp / "profile", tmp / "hlo"
+    bundle = tmp / "bundle"
+    t_cap = time.perf_counter()
+    with open(tmp / "capture.out", "w") as out, \
+            open(tmp / "capture.err", "w") as err:
+        # no profiler session here: the profiled solve covers it, and
+        # the three configs' traces are ~270 MB
+        _PROFILE_PROCS.append(subprocess.Popen(
+            PORT_CLI + ["--output", str(tmp / "capture.json"),
+                        "capture", "-o", str(bundle), "--configs",
+                        *CAPTURE_CONFIGS, "--no-profiler"],
+            cwd=ROOT, stdout=out, stderr=err, text=True,
+        ))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        PORT_CLI + ["solve", *FRONT_DOOR_ARGS, "--profile-out",
+                    str(prof_dir), "--dump-hlo", str(hlo_dir),
+                    "--metrics-out", str(tmp / "metrics.json"),
+                    str(yaml_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    solve_s = time.perf_counter() - t0
+    check(cli.returncode == 0,
+          f"profile_capture: the profiled solve exited "
+          f"{cli.returncode}: {cli.stderr[-2000:]}")
+    printed = json.loads(cli.stdout)
+    want = dict(readme["printed"])
+    for doc in (printed, want):
+        doc.pop("time", None)
+    check(printed == want,
+          "profile_capture: the profiled solve's JSON differs from "
+          "the front door's")
+    traces = sorted(prof_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"profile_capture: traces {traces}")
+    trace_bytes = traces[0].stat().st_size
+    inside, outside, ranges = _trace_kernels(traces[0])
+    for name, n in inside.items():
+        check(n > 0, f"profile_capture: no {name} kernel inside a "
+              f"solve.* range of the trace ({ranges})")
+    check({"solve.maxsum.fused", "solve.maxsum.readback"} <= set(ranges),
+          f"profile_capture: ranges {ranges}")
+    dots = sorted(p.name for p in hlo_dir.glob("*.graph.dot"))
+    with open(tmp / "metrics.json") as f:
+        metrics = json.load(f)["metrics"]
+
+    def metric(name, **labels):
+        return sum(
+            e["value"] for e in metrics.get(name, {}).get("values", [])
+            if all(dict(e.get("labels") or {}).get(k) == v
+                   for k, v in labels.items())
+        )
+
+    compiles = metric("compile.jit_compiles", fn="solve.run_cycles")
+    check(compiles >= 1, "profile_capture: no capture counted")
+    # a build captures the prologue's and the chunk's graphs
+    check(len(dots) == metric("compile.hlo_dumps") == 2 * compiles,
+          f"profile_capture: DOT files {dots} for {compiles} builds")
+    emit({
+        "phase": "profile_capture_solve", "seconds": solve_s,
+        "json_equal": True, "trace_bytes": trace_bytes,
+        "kernels_in_solve_ranges": inside,
+        "kernels_outside_ranges": outside, "ranges": ranges,
+        "dot_files": dots, "captures_counted": compiles,
+        "capture_peak_bytes": metric("compile.memory_bytes",
+                                     fn="solve.run_cycles",
+                                     kind="peak"),
+    })
+
+    rc = _PROFILE_PROCS[0].wait(timeout=900)
+    capture_s = time.perf_counter() - t_cap
+    check(rc == 0,
+          f"profile_capture: capture exited {rc}: "
+          f"{(tmp / 'capture.err').read_text()[-3000:]}")
+    with open(bundle / "manifest.json") as f:
+        manifest = json.load(f)
+    records = {}
+    for key in CAPTURE_CONFIGS:
+        with open(bundle / "records" / f"config_{key}.json") as f:
+            records[key] = json.load(f)
+        check(manifest["configs"][key]["attribution"] == "ok",
+              f"profile_capture: config {key} attribution "
+              f"{manifest['configs'][key]['attribution']}")
+        jit = records[key]["census"]["jit"]
+        check(all(r["compiles"] == 0 for r in jit.values()),
+              f"profile_capture: config {key} rebuilt a runner in its "
+              f"timed run: {jit}")
+    for key, pin in (("2", MAXSUM_RECORDED["config2"]),
+                     ("4", MAXSUM_RECORDED["config4"])):
+        got = (records[key]["cost"], records[key]["violations"])
+        check(got == pin[:2],
+              f"profile_capture: config {key} gave {got}, pinned "
+              f"{pin[:2]}")
+    cpu3 = mgm2.solve(generate_ising_arrays(*CONFIG_3["gen"]),
+                      {}, n_cycles=CONFIG_3["n_cycles"],
+                      seed=CONFIG_3["seed"], device="cpu")
+    got = (records["3"]["cost"], records["3"]["violations"])
+    check(got == (cpu3.cost, cpu3.violations),
+          f"profile_capture: config 3 gave {got}, the CPU "
+          f"{(cpu3.cost, cpu3.violations)}")
+    kernel4 = records["4"]["kernel"]
+    lo, hi = ATTRIBUTION_BAR
+    check(lo <= kernel4["attributed_pct"] <= hi,
+          f"profile_capture: config 4 attributes "
+          f"{kernel4['attributed_pct']}% of its real step")
+    env = manifest["environment"]
+    check(env.get("backend") == torch.cuda.get_device_name(0)
+          and "power_limit" in env,
+          f"profile_capture: the manifest's environment {env}")
+    emit({"phase": "profile_capture_config4_kernel", **kernel4})
+    emit({"phase": "profile_capture_config3_phases",
+          **records["3"]["kernel"]})
+    emit({
+        "phase": "profile_capture", "seconds": capture_s,
+        "configs": {
+            key: {"value": r["value"], "cost": r["cost"],
+                  "census": r["census"],
+                  "compile": r["compile"],
+                  "roofline": r.get("roofline"),
+                  "memory": r["memory"]}
+            for key, r in records.items()
+        },
+        "environment": env,
+        "bundle_bytes": sum(p.stat().st_size
+                            for p in bundle.rglob("*") if p.is_file()),
+        "dot_files": sum(1 for _ in (bundle / "hlo").rglob("*.dot")),
+    })
+    t0 = time.perf_counter()
+    diff = subprocess.run(
+        PORT_CLI + ["capture", "diff", str(bundle), str(bundle)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    check(diff.returncode == 0,
+          f"profile_capture: the self-diff exited {diff.returncode}: "
+          f"{diff.stdout[-1000:]} {diff.stderr[-1000:]}")
+    emit({"phase": "profile_capture_diff",
+          "seconds": time.perf_counter() - t0,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return inside
 
 
 def phase_front_door_objects():
@@ -5108,15 +5350,16 @@ def _tenant_result(doc):
 def phase_serve_fleet_ha():
     """The HA serve fleet on the card (``serve_fleet_ha``): ``python -m
     pydcop_tpu_torch router --spawn 2 --placement affinity`` with its two
-    ``serve`` workers on the card, the serve grid's first 16 problems
-    POSTed as the ``generate`` verb's YAML (``SERVE_FLEET_RUNS``: two
-    affinity buckets).  Warm batch: the placement map is the port's
-    ``tpu_part.distribute`` over the two buckets and each worker solved
-    one serve bucket only; ``SERVE_FLEET_PROBES`` DSA problems POSTed to
-    their worker and through the router, in turns, give the router's
-    forward overhead.  Failover: the same 16 problems as new tenants, the
-    MaxSum bucket's worker SIGKILLed as soon as its last tenant was
-    forwarded (its tenants wait in the worker's window); every tenant
+    ``serve`` workers on the card, the serve grid's first
+    ``SERVE_FLEET_TENANTS`` problems POSTed as the ``generate`` verb's
+    YAML (``SERVE_FLEET_RUNS``: two affinity buckets).  Warm batch: the
+    placement map is the port's ``tpu_part.distribute`` over the two
+    buckets and each worker solved one serve bucket only;
+    ``SERVE_FLEET_PROBES`` DSA problems POSTed to their worker and
+    through the router, in turns, give the router's forward overhead.
+    Failover: the same problems as new tenants, the MaxSum bucket's
+    worker SIGKILLed as soon as its last tenant was forwarded (its
+    tenants wait in the worker's window); every tenant
     ends ``done`` with its warm result bit for bit, the router failed
     over once and solved each tenant once in its history.  Federation:
     the ``fleet`` verb over both workers, scraped all along, keeps
@@ -5650,10 +5893,13 @@ def main() -> int:
     except ImportError as e:
         emit({"phase": "front_door_yaml", "skipped": f"no PyYAML: {e}"})
     else:
-        phase_front_door_yaml()
+        readme = phase_front_door_yaml()
         t_new = time.perf_counter()
         phase_kill_resume_cli()
         new_phases_s += time.perf_counter() - t_new
+        profiled = phase_profile_capture(readme)
+        for name, n in profiled.items():
+            rows[name]["profile_launches"] = n
     emit({"phase": "pulse_durability_seconds", "seconds": new_phases_s})
     phase_front_door_objects()
     phase_dpop_config5()

@@ -8,7 +8,10 @@ the whole DFS on the device: on the card as one launch of the
 256 steps between looks at the depth.  Extending the path by one
 assignment reads binary cost tables oriented ahead of time towards the
 later variable of their scope.  Unary and binary constraints only, like
-the reference; the callers reject higher arities.
+the reference; the callers reject higher arities.  The capture census
+(``telemetry/profiling.py``) counts a search's operand build, the first
+search of an order and seed on a problem, as a ``bb.search`` compile,
+and each later search of the same key as a hit.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from ..compile import hopper_kernels
 from ..compile.core import CompiledDCOP
-from .base import cached_const
+from .base import _tensor_bytes, cached_runner
 
 __all__ = ["branch_and_bound", "check_binary_only"]
 
@@ -155,13 +158,14 @@ def branch_and_bound(
         initial = np.asarray(initial, dtype=np.int32)
     # every operand derives from the order and the seed: a warm solve
     # builds and uploads nothing
-    operands = cached_const(
+    operands = cached_runner(
         compiled,
         (
             "bb_operands", order.tobytes(),
             None if initial is None else initial.tobytes(), str(device),
         ),
-        lambda: _operands(compiled, order, initial, device),
+        "bb.search", lambda: _operands(compiled, order, initial, device),
+        device, _tensor_bytes,
     )
     packed = hopper_kernels.branch_bound(
         *operands, int(max_iters) or DEFAULT_MAX_ITERS

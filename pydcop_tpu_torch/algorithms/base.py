@@ -81,6 +81,15 @@ makes anyway, so the port's windows follow its own looks (after 16, 48,
 package's one fused window a solve; a batch is one window
 (``kind="batch"``).  The windows' ``cycles`` sum to the cycles run.
 
+Profiling (``telemetry/profiling.py``): each runner build is a compile
+of the capture census (``cached_runner``, labels ``solve.run_cycles`` and
+a batch's ``serve.run_batch``; on the CPU the first solve of a key) and
+each reuse a hit.  While a profiler session is live, a solve without
+timeout or durability replays under a ``solve.{algo}.fused`` annotation,
+the others' runs of replays under ``solve.{algo}.chunk``, and the
+read-back under ``solve.{algo}.readback``; with ``--dump-hlo`` on,
+``_capture`` writes each fresh graph as DOT.
+
 A resident session (``maxsum_dynamic.DynamicMaxSum``) runs the engine
 again and again on the same problem: it resumes from its own state, which
 it passes as a constant, and hands the same tensors in as ``state_into``,
@@ -117,6 +126,13 @@ from ..durability.manager import CheckpointManager, durability
 from ..random import PRNGKey, fold_in, uniform
 from ..telemetry.memplane import memguard, sample_device_memory
 from ..telemetry.metrics import metrics_registry
+from ..telemetry.profiling import (
+    count_hit,
+    device_annotation,
+    dump_graph,
+    profiled_build,
+    profiling,
+)
 from ..telemetry.pulse import HEALTH_FIELDS, HEALTH_WIDTH, pulse
 from ..telemetry.tracing import tracer
 from . import SolveResult
@@ -125,7 +141,7 @@ __all__ = [
     "TIMEOUT_CHUNK", "MAX_CHUNK", "apply_noise", "assign_", "cached_const",
     "run_batch", "run_cycles", "finalize", "extract_values",
     "neighbor_pairs_dev", "pad_rows_np", "PulseCarry", "gain_health",
-    "CarryIO", "field_io", "device_problem",
+    "CarryIO", "field_io", "device_problem", "cached_runner",
 ]
 
 # chunk schedule: start small for early clock granularity, grow
@@ -163,6 +179,10 @@ _m_chunk_ms = metrics_registry.histogram(
     buckets=(0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 50.0, 100.0, 500.0,
              1000.0, 5000.0, 10000.0),
 )
+
+
+# shared reentrant no-op for the annotation-off path
+_NO_ANN = contextlib.nullcontext()
 
 
 def _telemetry_on() -> bool:
@@ -211,6 +231,30 @@ def cached_const(compiled, key: Tuple, build: Callable[[], Any]):
     if key not in cache:
         cache[key] = build()
     return cache[key]
+
+
+def cached_runner(home, key: Tuple, label: str, build: Callable[[], Any],
+                  device=None,
+                  argument_bytes: Optional[Callable[[Any], int]] = None):
+    """``cached_const`` for an entry point's runner (captured graphs, or
+    the marker of a key the CPU has run), counted in the capture census
+    under ``label`` (``telemetry/profiling.py``): a build is a compile, a
+    reuse a hit."""
+    cache = home.__dict__.setdefault("_device_consts", {})
+    if key in cache:
+        count_hit(label)
+        return cache[key]
+    cache[key] = profiled_build(label, build, device, argument_bytes)
+    return cache[key]
+
+
+def _tensor_bytes(tensors) -> int:
+    """The bytes of the distinct tensors among ``tensors``."""
+    seen = {}
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            seen[id(t)] = t.numel() * t.element_size()
+    return sum(seen.values())
 
 
 def device_problem(
@@ -982,6 +1026,15 @@ class _Graphs(_Runner):
     def n_limit(self) -> torch.Tensor:
         return self.solve_in[..., 2]
 
+    def static_bytes(self) -> int:
+        """The bytes of the tensors the graphs read in place: the problem,
+        the constants, the solve's inputs and the carry buffers."""
+        return _tensor_bytes(
+            _flatten((self.dev, self.consts), [])
+            + [self.solve_in, self.level]
+            + [b for b in self.buffers if b is not None]
+        )
+
     def _run_chunk(self) -> None:
         carry, curve, rows = self._chunk(
             self.carry_in, self.n_limit(), self.solver.length
@@ -1048,16 +1101,41 @@ def _side_stream(device):
 
 
 def _capture(body: Callable[[], None], pool=None) -> torch.cuda.CUDAGraph:
-    """``body``'s device work captured into a CUDA graph (in ``pool``)."""
-    graph = torch.cuda.CUDAGraph()
+    """``body``'s device work captured into a CUDA graph (in ``pool``);
+    with ``--dump-hlo`` on, in debug mode, keeping its ``cudaGraph_t``
+    for the DOT dump (a graph not kept is destroyed once instantiated)."""
+    dump = profiling.hlo_dir is not None
+    graph = (torch.cuda.CUDAGraph(keep_graph=True) if dump
+             else torch.cuda.CUDAGraph())
+    if dump:
+        graph.enable_debug_mode()
     with torch.cuda.graph(graph, pool=pool):
         body()
+    if dump:
+        dump_graph(graph)
     return graph
+
+
+def _label(solver: _Solver) -> str:
+    """The capture census's label of a solver's runner."""
+    return "serve.run_batch" if solver.batched else "solve.run_cycles"
+
+
+def _tensor_ids(tree) -> Tuple[int, ...]:
+    return tuple(id(t) for t in _flatten(tree, [])
+                 if isinstance(t, torch.Tensor))
 
 
 def _runner(compiled, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
     device = dev.unary.device
     if device.type == "cpu":
+        # nothing to build: a compile on the CPU is the first solve of a
+        # key, recorded by a marker that keeps the key's tensors alive
+        cached_runner(
+            compiled, ("eager_seen", solver, _tensor_ids((dev, consts))),
+            _label(solver), lambda: (dev, consts), device,
+            lambda _: _tensor_bytes(_flatten((dev, consts), [])),
+        )
         return _Eager(solver, dev, consts)
     if device.type != "cuda":
         raise ValueError(f"run_cycles runs on cpu or cuda, not {device}")
@@ -1068,13 +1146,10 @@ def _graphs(compiled, solver: _Solver, dev: DeviceDCOP, consts: Tuple):
     """The cached ``_Graphs`` of this solver on this problem.  The graphs
     bake in the addresses of ``dev`` and the constants: their identities
     key the cache, and the cached graphs keep them alive."""
-    ids = tuple(
-        id(t) for t in _flatten((dev, consts), [])
-        if isinstance(t, torch.Tensor)
-    )
-    return cached_const(
-        compiled, ("cycle_graphs", solver, ids),
-        lambda: _Graphs(solver, dev, consts),
+    return cached_runner(
+        compiled, ("cycle_graphs", solver, _tensor_ids((dev, consts))),
+        _label(solver), lambda: _Graphs(solver, dev, consts),
+        dev.unary.device, _Graphs.static_bytes,
     )
 
 
@@ -1087,22 +1162,25 @@ def _chunk_length(n_cycles: int) -> int:
 
 def _drive(runner, solver: _Solver, n_limits: np.ndarray,
            deadline: Optional[float], start: int = 0,
-           look: Optional[Callable[[], np.ndarray]] = None) -> bool:
+           look: Optional[Callable[[], np.ndarray]] = None,
+           chunk_ann: Optional[str] = None) -> bool:
     """Replay chunks until every instance has stopped: its cycle budget
     ran out, or (with a stability test) ``same_count`` consecutive cycles
     were stable.  The host looks at the instances' (cycles run,
     stability) with ``look`` (default ``runner.status``) only between
     growing runs of chunks, after 16, 48, 112, ... cycles from ``start``
     (a resumed solve's first cycle).  Returns whether ``deadline`` (a
-    solo solve's) ran out first."""
+    solo solve's) ran out first.  ``chunk_ann``: the device annotation
+    of each run of replays (a live profiler session's timeout chunks)."""
     look = look or runner.status
     limit = int(n_limits.max()) if n_limits.size else 0
     issued = start  # iterations replayed, live or not, from cycle 0
     chunk = TIMEOUT_CHUNK
     while issued < limit:
         reps = -(-min(chunk, limit - issued) // solver.length)
-        for _ in range(reps):
-            runner.replay()
+        with device_annotation(chunk_ann) if chunk_ann else _NO_ANN:
+            for _ in range(reps):
+                runner.replay()
         run_cycles.replays += reps
         run_cycles.iterations += reps * solver.length
         issued += reps * solver.length
@@ -1143,7 +1221,9 @@ def _drive_durable(runner, solver: _Solver, n_cycles: int, start: int,
             # the masked iterations past the last boundary moved the
             # carry's cycle on: the next live one is cycle ``done``
             runner.set_cycle(done)
-        runner.replay()
+        with (device_annotation(f"solve.{_phase_of(solver.step)}.chunk")
+              if profiling.profiler_active else _NO_ANN):
+            runner.replay()
         run_cycles.replays += 1
         run_cycles.iterations += solver.length
         status = look().reshape(-1)
@@ -1428,43 +1508,56 @@ def run_cycles(
     deadline = None if timeout is None else time.perf_counter() + timeout
     key = PRNGKey(seed)
     n_real = dev.n_vars if noise_draw is None else compiled.n_vars
-    runner.start(
-        np.array([key[0], key[1], n_cycles, n_real]),
-        np.float32(noise or 0.0),
-    )
-    start = 0
-    if resume_path is not None:
-        start, manifest = _restore_solve_checkpoint(
-            runner, resume_path, compiled, carry_io, hook, seed, algo,
+    # a live profiler session names the device work (JAX's annotations):
+    # a solve without timeout or durability is one fused run, the others
+    # run in chunks; then the read-back
+    prof = profiling.profiler_active
+    fused = timeout is None and not durability.active
+    fused_ann = (device_annotation(f"solve.{algo}.fused")
+                 if prof and fused else _NO_ANN)
+    with fused_ann:
+        runner.start(
+            np.array([key[0], key[1], n_cycles, n_real]),
+            np.float32(noise or 0.0),
         )
-        ring = (manifest.get("extra") or {}).get("pulse_ring")
-        if hook is not None and ring:
-            # refill the flight recorder with the dead run's health ring
-            pulse.recorder.record(
-                ring, int(manifest["extra"].get("pulse_ring_start", 0))
+        start = 0
+        if resume_path is not None:
+            start, manifest = _restore_solve_checkpoint(
+                runner, resume_path, compiled, carry_io, hook, seed, algo,
             )
-        durability.note_resumed(manifest, resume_path)
-    # the rows are kept for extras where the JAX package's fused solve
-    # returns them: no timeout, no durability
-    looks = _Looks(
-        runner, start,
-        keep_rows=(hook is not None and timeout is None
-                   and ckpt is None and resume_path is None),
-        phase=algo if _telemetry_on() else None,
-    )
-    if ckpt is not None:
-        timed_out = _drive_durable(
-            runner, solver, n_cycles, start, ckpt, deadline, looks.look,
-            lambda done: _save_solve_checkpoint(ckpt, runner, carry_io,
-                                                done),
+            ring = (manifest.get("extra") or {}).get("pulse_ring")
+            if hook is not None and ring:
+                # refill the flight recorder with the dead run's health
+                # ring
+                pulse.recorder.record(
+                    ring, int(manifest["extra"].get("pulse_ring_start", 0))
+                )
+            durability.note_resumed(manifest, resume_path)
+        # the rows are kept for extras where the JAX package's fused solve
+        # returns them: no timeout, no durability
+        looks = _Looks(
+            runner, start,
+            keep_rows=(hook is not None and timeout is None
+                       and ckpt is None and resume_path is None),
+            phase=algo if _telemetry_on() else None,
         )
-    else:
-        timed_out = _drive(
-            runner, solver, np.array([n_cycles]), deadline, start,
-            looks.look,
-        )
+        if ckpt is not None:
+            timed_out = _drive_durable(
+                runner, solver, n_cycles, start, ckpt, deadline,
+                looks.look,
+                lambda done: _save_solve_checkpoint(ckpt, runner, carry_io,
+                                                    done),
+            )
+        else:
+            timed_out = _drive(
+                runner, solver, np.array([n_cycles]), deadline, start,
+                looks.look,
+                chunk_ann=(f"solve.{algo}.chunk" if prof and not fused
+                           else None),
+            )
     t_rb = time.perf_counter()
-    packed, rows, flips, nbytes = runner.result()
+    with device_annotation(f"solve.{algo}.readback") if prof else _NO_ANN:
+        packed, rows, flips, nbytes = runner.result()
     t_end = time.perf_counter()
     out = _unpack(packed, dev.n_vars)
     run_cycles.host_syncs += 1

@@ -41,7 +41,9 @@ host pass and an upload of D^m indices a row.
 The VALUE wave (root-to-leaf) indexes the per-node argmin tables on the
 host: O(n_vars) scalar lookups.  ``solve`` counts its graph captures and
 replays and the chunks it contracts (``solve.captures``,
-``solve.replays``, ``solve.chunks``).
+``solve.replays``, ``solve.chunks``); the capture census
+(``telemetry/profiling.py``) counts the fused wave's build as a
+``dpop.fused_wave`` compile and each reuse as a hit.
 """
 
 from __future__ import annotations
@@ -56,7 +58,14 @@ from ..compile.core import CompiledDCOP
 from ..compile.kernels import resolve_device, segment_offsets, segment_sum
 from ..telemetry.memplane import memguard
 from . import AlgoParameterDef, SolveResult, prepare_algo_params
-from .base import _capture, _side_stream, cached_const, finalize
+from .base import (
+    _capture,
+    _side_stream,
+    _tensor_bytes,
+    cached_const,
+    cached_runner,
+    finalize,
+)
 
 GRAPH_TYPE = "pseudotree"
 
@@ -282,9 +291,10 @@ def solve(
         lambda: _plan_fused_wave(compiled, tree, d),
     )
     if plan is not None:
-        wave = cached_const(
-            compiled, ("dpop_fused_wave", str(device)),
-            lambda: _FusedWave(plan, d, bucket_tables, unary),
+        wave = cached_runner(
+            compiled, ("dpop_fused_wave", str(device)), "dpop.fused_wave",
+            lambda: _FusedWave(plan, d, bucket_tables, unary), device,
+            _FusedWave.static_bytes,
         )
         flat_choice = wave.run()
         assert flat_choice.size == plan.total_out, (
@@ -870,6 +880,15 @@ class _FusedWave:
         self.graph = None
         if device.type == "cuda":
             self.capture()
+
+    def static_bytes(self) -> int:
+        """The bytes of the tensors the wave reads in place."""
+        return _tensor_bytes(
+            [t for op in self.ops for t in op[1:]
+             if isinstance(t, torch.Tensor)]
+            + [t for op in self.ops for part in op[2:4] for _, t in part]
+            + list(self.bucket_tables) + [self.unary]
+        )
 
     def capture(self) -> None:
         """Warm the wave up on a side stream, then capture it."""

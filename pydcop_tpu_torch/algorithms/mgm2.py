@@ -139,6 +139,8 @@ def _dst_segment_max(values, state: Mgm2State, n_segments):
 
 # The five protocol phases of one MGM-2 cycle.
 
+MGM2_PHASES = ("value", "offer", "response", "gain", "go")
+
 
 def _phase_value(dev: DeviceDCOP, values):
     """Value phase: everyone's local cost landscape under the current

@@ -4,8 +4,9 @@ Counterpart of ``pydcop_tpu/commands/_utils.py`` (the part the ``solve``
 and ``serve`` verbs use): parse ``--algo_params name:value`` pairs into
 a validated ``AlgorithmDef``, write the JSON result, the CSV, durability,
 pulse, trace and metrics flags with their start and finish around a
-solve, the ``--fault-schedule`` flag with its controller, and the memory
-guard's flags.
+solve (``--profile-out``/``--dump-hlo`` among them), the
+``--fault-schedule`` flag with its controller, and the memory guard's
+flags.
 """
 
 from __future__ import annotations
@@ -247,17 +248,29 @@ def start_telemetry(args) -> None:
     loop, streamed as JSONL, with the flight recorder armed.
     ``--metrics-port`` turns on the registry and pulse, as the JAX
     package's flag does for the live surface (which its direct mode, the
-    port's only mode, does not serve)."""
+    port's only mode, does not serve).  ``--profile-out DIR`` opens a
+    ``torch.profiler`` session and ``--dump-hlo DIR`` dumps every fresh
+    CUDA-graph capture (``telemetry/profiling.py``); either implies the
+    metrics registry, where the capture census lands."""
     from ..telemetry import metrics_registry, tracer
 
     watched = getattr(args, "metrics_port", None) is not None
+    profile_out = getattr(args, "profile_out", None)
+    dump_hlo = getattr(args, "dump_hlo", None)
     if getattr(args, "trace_out", None):
         tracer.service = "orchestrator"
         tracer.reset()
         tracer.enabled = True
-    if getattr(args, "metrics_out", None) or watched:
+    if (
+        getattr(args, "metrics_out", None) or watched or profile_out
+        or dump_hlo
+    ):
         metrics_registry.reset()
         metrics_registry.enabled = True
+    if profile_out or dump_hlo:
+        from ..telemetry import start_profiling
+
+        start_profiling(profile_dir=profile_out, hlo_dir=dump_hlo)
     pulse_out = getattr(args, "pulse_out", None)
     if pulse_out or watched:
         from ..telemetry.pulse import pulse
@@ -282,6 +295,26 @@ def finish_telemetry(args) -> None:
 
         pulse.enabled = False
         pulse.stream_close()
+    if getattr(args, "profile_out", None) or getattr(args, "dump_hlo", None):
+        from ..telemetry import profiling, stop_profiling
+
+        stop_profiling()
+        if profiling.profiler_error:
+            if profiling.profiler_error.startswith("stop_trace failed"):
+                # the profiler ran; only the trace export failed
+                print(
+                    f"warning: device profiler trace export failed "
+                    f"({profiling.profiler_error})",
+                    file=sys.stderr,
+                )
+            else:
+                print(
+                    f"warning: device profiler unavailable "
+                    f"({profiling.profiler_error}); the host-clock "
+                    f"device.chunk_ms fallback was recorded instead",
+                    file=sys.stderr,
+                )
+        metrics_registry.enabled = False
     if watched:
         metrics_registry.enabled = False
     if getattr(args, "metrics_out", None):

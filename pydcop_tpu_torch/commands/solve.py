@@ -14,6 +14,13 @@ direct mode does; ``--run_metrics``/``--end_metrics`` write the CSV
 metrics; ``--trace-out`` writes the engine's window and read-back spans
 as a Chrome trace (or JSONL for a ``.jsonl`` path) and ``--metrics-out``
 the metrics registry's snapshot as JSON, with the JAX package's names.
+``--profile-out DIR`` records a ``torch.profiler`` session of the solve
+(CUDA kernels and CPU ops, with ``solve.{phase}.fused``/``.chunk``/
+``.readback`` ranges) as a Chrome trace in ``DIR``, ``--dump-hlo DIR``
+writes each fresh CUDA-graph capture as DOT, and the legacy ``--profile
+DIR`` a bare session through TensorBoard's trace handler
+(``telemetry/profiling.py``); the result is the same with or without
+them.
 ``--metrics-port`` turns the registry and pulse on for the run, as the
 JAX package's direct mode does, and logs its warning: the live surface
 belongs to the agent runtime's orchestrator, and direct mode starts no
@@ -21,14 +28,14 @@ server.
 ``--mem-guard``, ``--mem-reserve-pct`` and ``--mem-limit-bytes`` arm the
 memory guard: a solve predicted not to fit is refused before anything is
 uploaded, with an ``ERROR`` result that carries the breach (``mem``).
-The options of its other modes (the thread/process agent runtime, the
-other telemetry flags) are parsed, so a command written for the JAX
-package gets a clear refusal naming the option instead of a usage
-error.
+The options of its other modes (the thread/process agent runtime) are
+parsed, so a command written for the JAX package gets a clear refusal
+naming the option instead of a usage error.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
 import os
@@ -66,9 +73,6 @@ _NOT_PORTED = (
     (("--period",), dict(type=float, default=None), "the agent runtime"),
     (("--delay",), dict(type=float, default=None), "the agent runtime"),
     (("--uiport",), dict(type=int, default=None), "the agent runtime"),
-    (("--profile",), dict(default=None), "telemetry"),
-    (("--profile-out",), dict(default=None), "telemetry"),
-    (("--dump-hlo",), dict(default=None), "telemetry"),
 )
 
 
@@ -123,6 +127,26 @@ def set_parser(subparsers) -> None:
         "--metrics-out", default=None, metavar="FILE",
         help="enable the metrics registry and write its JSON snapshot to "
         "FILE at exit",
+    )
+    parser.add_argument(
+        "--profile-out", default=None, metavar="DIR",
+        help="record a torch.profiler timeline of the solve into DIR (a "
+        "Chrome trace: Perfetto, TensorBoard), CUDA kernels and CPU ops, "
+        "with ranges per algorithm phase, chunk and read-back; implies "
+        "the metrics registry; a profiler that cannot start is counted "
+        "(device.profiler_unavailable) and the solve runs the same",
+    )
+    parser.add_argument(
+        "--dump-hlo", default=None, metavar="DIR",
+        help="save every fresh CUDA-graph capture as a DOT file in DIR "
+        "(<entry point>.<n>.graph.dot: what the card replays); implies "
+        "the metrics registry",
+    )
+    parser.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="legacy alias: bare torch.profiler trace of the solve to DIR "
+        "(TensorBoard's trace handler); prefer --profile-out, which adds "
+        "per-phase ranges and compile.* metrics",
     )
     parser.add_argument(
         "--metrics-port", type=int, default=None, metavar="PORT",
@@ -216,6 +240,26 @@ def _run_cmd(args, timeout: float = None) -> int:
     from ..api import solve_result
     from ..telemetry.memplane import MemoryBudgetExceeded
 
+    profile_ctx = contextlib.nullcontext()
+    if args.profile and args.profile_out:
+        # start_telemetry already opened a profiler session; a second
+        # one would fail mid-solve
+        logger.warning(
+            "--profile ignored: --profile-out is already recording a "
+            "device timeline to %s", args.profile_out,
+        )
+    elif args.profile:
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if args.device == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profile_ctx = torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                args.profile
+            ),
+        )
     chaos = _arm_process_kills(args)
     if args.metrics_port is not None:
         logger.warning(
@@ -224,17 +268,18 @@ def _run_cmd(args, timeout: float = None) -> int:
             "metrics are still collected and dumped via --metrics-out)"
         )
     try:
-        result = solve_result(
-            dcop,
-            algo_def,
-            distribution=args.distribution,
-            n_cycles=args.n_cycles,
-            seed=args.seed,
-            collect_curve=bool(args.collect_curve or args.run_metrics),
-            timeout=timeout,
-            infinity=args.infinity,
-            device=args.device,
-        )
+        with profile_ctx:
+            result = solve_result(
+                dcop,
+                algo_def,
+                distribution=args.distribution,
+                n_cycles=args.n_cycles,
+                seed=args.seed,
+                collect_curve=bool(args.collect_curve or args.run_metrics),
+                timeout=timeout,
+                infinity=args.infinity,
+                device=args.device,
+            )
     except MemoryBudgetExceeded as e:
         # the guard's refusal, before anything was uploaded: its numbers
         # in the result, as the JAX package's CLI writes them

@@ -23,6 +23,7 @@ arrays; array-level problems (``compile/direct.py``) carry no ``DCOP``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -31,6 +32,8 @@ import numpy as np
 from ..dcop.dcop import DCOP
 from ..dcop.objects import Domain
 from ..dcop.relations import Constraint
+from ..telemetry.metrics import metrics_registry
+from ..telemetry.tracing import tracer
 from .tabulate import tabulate_constraint
 
 __all__ = [
@@ -226,12 +229,94 @@ def table_bytes(compiled: "CompiledDCOP") -> int:
     )
 
 
+# the host-compile census: fingerprints of problems already lowered in
+# this process, so repeated compiles of an identical DCOP are countable.
+# Bounded: a telemetry census, not a result cache.
+_seen_fingerprints: set = set()
+_MAX_FINGERPRINTS = 4096
+
+
+def _fingerprint(compiled: "CompiledDCOP") -> Tuple:
+    """Cheap shape-level identity of a compiled problem: two compiles of
+    one DCOP always collide; distinct problems collide only when they
+    agree on every size below."""
+    return (
+        compiled.n_vars,
+        compiled.max_domain,
+        compiled.n_edges,
+        compiled.n_constraints,
+        compiled.objective,
+        str(np.dtype(compiled.float_dtype)),
+        tuple((b.arity, b.n_constraints) for b in compiled.buckets),
+        float(compiled.constant_cost),
+    )
+
+
+def _record_compile_stats(
+    compiled: "CompiledDCOP", span, wall_s: float = 0.0
+) -> None:
+    """Publish the compile's size profile to the telemetry sinks (called
+    only when tracing or metrics are on), the JAX package's span
+    arguments and ``compile.*`` metrics."""
+    tbytes = table_bytes(compiled)
+    span.set(
+        n_vars=compiled.n_vars,
+        n_edges=compiled.n_edges,
+        n_constraints=compiled.n_constraints,
+        n_buckets=len(compiled.buckets),
+        max_domain=compiled.max_domain,
+        table_bytes=tbytes,
+    )
+    reg = metrics_registry
+    reg.histogram(
+        "compile.host_seconds",
+        "host lowering wall (DCOP/arrays -> padded tensors)",
+    ).observe(wall_s)
+    fp = _fingerprint(compiled)
+    if fp in _seen_fingerprints:
+        reg.counter(
+            "compile.host_repeat_compiles",
+            "host lowerings of a problem already compiled this process",
+        ).inc()
+    elif len(_seen_fingerprints) < _MAX_FINGERPRINTS:
+        _seen_fingerprints.add(fp)
+    reg.counter("compile.runs", "compile_dcop invocations").inc()
+    reg.gauge("compile.n_vars", "variables in the last compile").set(
+        compiled.n_vars
+    )
+    reg.gauge("compile.n_edges", "factor-graph edges in the last compile").set(
+        compiled.n_edges
+    )
+    reg.gauge(
+        "compile.buckets", "arity buckets in the last compile"
+    ).set(len(compiled.buckets))
+    reg.gauge(
+        "compile.table_bytes",
+        "bytes of cost tables + unary plane in the last compile",
+    ).set(tbytes)
+
+
 def compile_dcop(
     dcop: DCOP,
     float_dtype=np.float32,
     big: float = BIG,
 ) -> CompiledDCOP:
-    """Lower a DCOP to the padded-tensor representation."""
+    """Lower a DCOP to the padded-tensor representation.  Publishes the
+    ``compile.compile_dcop`` span and the ``compile.*`` census while the
+    tracer or the metrics registry is on."""
+    with tracer.span("compile.compile_dcop", cat="compile") as sp:
+        t0 = time.perf_counter()
+        compiled = _compile_dcop(dcop, float_dtype, big)
+        if tracer.enabled or metrics_registry.enabled:
+            _record_compile_stats(compiled, sp, time.perf_counter() - t0)
+    return compiled
+
+
+def _compile_dcop(
+    dcop: DCOP,
+    float_dtype=np.float32,
+    big: float = BIG,
+) -> CompiledDCOP:
     var_names = sorted(dcop.variables)
     var_index = {n: i for i, n in enumerate(var_names)}
     domains = [dcop.variables[n].domain for n in var_names]
@@ -259,28 +344,29 @@ def compile_dcop(
     external_values = {
         n: ev.value for n, ev in dcop.external_variables.items()
     }
-    for cid, (cname, c) in enumerate(sorted(dcop.constraints.items())):
-        con_names.append(cname)
-        # fix external variables at their current value
-        ext_in_scope = [
-            v.name for v in c.dimensions if v.name in external_values
-        ]
-        if ext_in_scope:
-            c = c.slice({n: external_values[n] for n in ext_in_scope})
-        if c.arity == 0:
-            constant_cost += sign * c.get_value_for_assignment({})
-        elif c.arity == 1:
-            vi = var_index[c.dimensions[0].name]
-            table = _clamp(sign * tabulate_constraint(c), big)
-            unary[vi, : len(table)] += table
-        else:
-            if max_domain ** c.arity > MAX_TABLE_ELEMS:
-                raise NotImplementedError(
-                    f"constraint {cname} (arity {c.arity}) would need a "
-                    f"{max_domain}^{c.arity}-entry dense table "
-                    f"(> {MAX_TABLE_ELEMS})"
-                )
-            by_arity.setdefault(c.arity, []).append((cid, cname, c))
+    with tracer.span("compile.scan_constraints", cat="compile"):
+        for cid, (cname, c) in enumerate(sorted(dcop.constraints.items())):
+            con_names.append(cname)
+            # fix external variables at their current value
+            ext_in_scope = [
+                v.name for v in c.dimensions if v.name in external_values
+            ]
+            if ext_in_scope:
+                c = c.slice({n: external_values[n] for n in ext_in_scope})
+            if c.arity == 0:
+                constant_cost += sign * c.get_value_for_assignment({})
+            elif c.arity == 1:
+                vi = var_index[c.dimensions[0].name]
+                table = _clamp(sign * tabulate_constraint(c), big)
+                unary[vi, : len(table)] += table
+            else:
+                if max_domain ** c.arity > MAX_TABLE_ELEMS:
+                    raise NotImplementedError(
+                        f"constraint {cname} (arity {c.arity}) would need a "
+                        f"{max_domain}^{c.arity}-entry dense table "
+                        f"(> {MAX_TABLE_ELEMS})"
+                    )
+                by_arity.setdefault(c.arity, []).append((cid, cname, c))
 
     unary[~valid_mask] = big
 
@@ -289,45 +375,47 @@ def compile_dcop(
     edge_var: List[int] = []
     edge_con: List[int] = []
     next_edge = 0
-    for arity in sorted(by_arity):
-        entries = by_arity[arity]
-        n_c = len(entries)
-        tables = np.full(
-            (n_c,) + (max_domain,) * arity, big, dtype=np.float64
-        )
-        var_slots = np.zeros((n_c, arity), dtype=np.int32)
-        edge_ids = np.zeros((n_c, arity), dtype=np.int32)
-        con_ids = np.zeros(n_c, dtype=np.int32)
-        names = []
-        for k, (cid, cname, c) in enumerate(entries):
-            table = _clamp(sign * tabulate_constraint(c), big)
-            idx = tuple(slice(0, s) for s in table.shape)
-            tables[(k,) + idx] = table
-            for s, v in enumerate(c.dimensions):
-                vi = var_index[v.name]
-                var_slots[k, s] = vi
-                edge_ids[k, s] = next_edge
-                edge_var.append(vi)
-                edge_con.append(cid)
-                next_edge += 1
-            con_ids[k] = cid
-            names.append(cname)
-        buckets.append(
-            ArityBucket(
-                arity=arity,
-                tables=tables.astype(float_dtype),
-                var_slots=var_slots,
-                edge_ids=edge_ids,
-                con_ids=con_ids,
-                names=names,
+    with tracer.span("compile.build_buckets", cat="compile"):
+        for arity in sorted(by_arity):
+            entries = by_arity[arity]
+            n_c = len(entries)
+            tables = np.full(
+                (n_c,) + (max_domain,) * arity, big, dtype=np.float64
             )
-        )
+            var_slots = np.zeros((n_c, arity), dtype=np.int32)
+            edge_ids = np.zeros((n_c, arity), dtype=np.int32)
+            con_ids = np.zeros(n_c, dtype=np.int32)
+            names = []
+            for k, (cid, cname, c) in enumerate(entries):
+                table = _clamp(sign * tabulate_constraint(c), big)
+                idx = tuple(slice(0, s) for s in table.shape)
+                tables[(k,) + idx] = table
+                for s, v in enumerate(c.dimensions):
+                    vi = var_index[v.name]
+                    var_slots[k, s] = vi
+                    edge_ids[k, s] = next_edge
+                    edge_var.append(vi)
+                    edge_con.append(cid)
+                    next_edge += 1
+                con_ids[k] = cid
+                names.append(cname)
+            buckets.append(
+                ArityBucket(
+                    arity=arity,
+                    tables=tables.astype(float_dtype),
+                    var_slots=var_slots,
+                    edge_ids=edge_ids,
+                    con_ids=con_ids,
+                    names=names,
+                )
+            )
 
-    edge_var_arr = np.asarray(edge_var, dtype=np.int32)
-    edge_con_arr = np.asarray(edge_con, dtype=np.int32)
-    edge_var_arr, edge_con_arr = sort_edges_by_var(
-        edge_var_arr, edge_con_arr, buckets
-    )
+    with tracer.span("compile.sort_edges", cat="compile"):
+        edge_var_arr = np.asarray(edge_var, dtype=np.int32)
+        edge_con_arr = np.asarray(edge_con, dtype=np.int32)
+        edge_var_arr, edge_con_arr = sort_edges_by_var(
+            edge_var_arr, edge_con_arr, buckets
+        )
     var_degree = np.zeros(n_vars, dtype=np.int32)
     np.add.at(var_degree, edge_var_arr, 1)
 

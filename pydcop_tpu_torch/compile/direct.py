@@ -8,12 +8,21 @@ per-constraint python objects.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
 
 from ..dcop.objects import Domain
-from .core import ArityBucket, CompiledDCOP, _clamp, sort_edges_by_var
+from ..telemetry.metrics import metrics_registry
+from ..telemetry.tracing import tracer
+from .core import (
+    ArityBucket,
+    CompiledDCOP,
+    _clamp,
+    _record_compile_stats,
+    sort_edges_by_var,
+)
 
 __all__ = ["compile_from_edges"]
 
@@ -34,7 +43,31 @@ def compile_from_edges(
     - ``table``: either ``[D, D]`` (shared by all constraints) or
       ``[n_c, D, D]`` (per-constraint).
     - ``unary [n_vars, D]`` optional unary costs.
+
+    Publishes the same ``compile.*`` telemetry as ``compile_dcop`` (size
+    profile, host wall, repeat-compile census) when a sink is on.
     """
+    with tracer.span("compile.compile_from_edges", cat="compile") as sp:
+        t0 = time.perf_counter()
+        compiled = _compile_from_edges(
+            n_vars, domain_size, edges, table, unary, domain_values,
+            float_dtype, objective,
+        )
+        if tracer.enabled or metrics_registry.enabled:
+            _record_compile_stats(compiled, sp, time.perf_counter() - t0)
+    return compiled
+
+
+def _compile_from_edges(
+    n_vars: int,
+    domain_size: int,
+    edges: np.ndarray,
+    table: np.ndarray,
+    unary: Optional[np.ndarray] = None,
+    domain_values: Optional[List] = None,
+    float_dtype=np.float32,
+    objective: str = "min",
+) -> CompiledDCOP:
     edges = np.asarray(edges, dtype=np.int32)
     n_c = edges.shape[0]
     d = domain_size

@@ -3,11 +3,11 @@
 Counterpart of ``pydcop_tpu/dcop_cli.py``: argparse top level with the
 global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
-per verb.  The port has the ``solve`` and ``serve`` verbs, and the
-host-only ``generate``, ``checkpoints``, ``memplan``, ``postmortem``,
-``telemetry``, ``watch``, ``fleet`` and ``router`` verbs, which import
-no torch (the router's spawned workers are ``serve`` processes, given
-the router's ``--device``).  Its
+per verb.  The port has the ``solve``, ``serve`` and ``capture`` verbs,
+and the host-only ``generate``, ``checkpoints``, ``memplan``,
+``postmortem``, ``telemetry``, ``watch``, ``fleet`` and ``router``
+verbs and ``capture diff``, which import no torch (the router's spawned
+workers are ``serve`` processes, given the router's ``--device``).  Its
 global ``--device {cuda,cpu}`` takes the place of JAX's
 ``JAX_PLATFORMS``: the default is the card, and without one the CLI
 exits nonzero unless ``--device cpu`` is given; it never falls back to
@@ -29,6 +29,7 @@ import sys
 from typing import List, Optional
 
 from .commands import (
+    capture,
     checkpoints,
     fleet,
     generate,
@@ -120,6 +121,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     watch.set_parser(subparsers)
     fleet.set_parser(subparsers)
     router.set_parser(subparsers)
+    capture.set_parser(subparsers)
 
     args = parser.parse_args(argv)
     _setup_logging(args.verbosity, args.log)
@@ -131,7 +133,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
             print(f"error: {flag} is not ported yet", file=sys.stderr)
             return 2
-    if args.device == "cuda" and args.command not in _HOST_ONLY:
+    host_only = args.command in _HOST_ONLY or (
+        args.command == "capture" and capture.is_diff_invocation(args)
+    )
+    if args.device == "cuda" and not host_only:
         import torch
 
         if not torch.cuda.is_available():

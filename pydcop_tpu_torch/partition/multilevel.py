@@ -1,13 +1,13 @@
 """Multilevel k-way graph partitioning, vectorized numpy + boundary FM.
 
-The port's own copy of the partitioner of
-``pydcop_tpu/partition/multilevel.py``: ``multilevel_assign`` and its
-helpers, the same numpy calls in the same order, so both packages give
-the same parts for the same graph.  ``distribution.tpu_part`` places
-computations on agents with it, and the HA router places its affinity
-buckets on workers through ``tpu_part``.  The row orderings of a sharded
-ELL layout (``partition_order``, ``ell_shard_assignment``) are not
-ported.
+The port's own copy of ``pydcop_tpu/partition/multilevel.py``: the same
+numpy calls in the same order, so both packages give the same parts for
+the same graph.  ``distribution.tpu_part`` places computations on agents
+with ``multilevel_assign``, and the HA router places its affinity
+buckets on workers through ``tpu_part``; ``variable_graph``,
+``chunk_targets``, ``partition_order`` and ``ell_shard_assignment`` give
+the row orderings of a sharded ELL layout, which ``partition.icimodel``
+costs (the sharded solve itself is not ported).
 
 The classic multilevel recipe (coarsen / initial partition /
 uncoarsen+refine) restated as array programs, so a large graph
@@ -47,7 +47,13 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["multilevel_assign"]
+__all__ = [
+    "variable_graph",
+    "chunk_targets",
+    "multilevel_assign",
+    "partition_order",
+    "ell_shard_assignment",
+]
 
 # stop coarsening when the graph is this small (enough vertices that the
 # greedy initial partition has room to balance the parts)...
@@ -68,6 +74,85 @@ _FM_LIMIT = 150_000
 _FM_MOVE_CAP = 30_000
 _FM_PLATEAU = 2_000
 _FM_PASSES = 6
+
+
+# ---------------------------------------------------------------------------
+# graph extraction
+# ---------------------------------------------------------------------------
+
+
+def variable_graph(
+    compiled, plane_itemsize: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(indptr, nbr, wgt) CSR of the variable adjacency with edge weights
+    in message-plane BYTES PER CYCLE between the pair.
+
+    Every arity-``a`` constraint contributes a slot pair per ordered pair
+    of distinct scope variables; each pair slot of the sharded ELL cycle
+    gathers its partner's ``[D]`` message column once per cycle, so one
+    binary constraint between ``(u, v)`` costs ``D * itemsize`` bytes in
+    each direction when the pair straddles shards.  Multi-edges (several
+    constraints over one pair) accumulate."""
+    n = compiled.n_vars
+    itemsize = (
+        int(plane_itemsize)
+        if plane_itemsize is not None
+        else int(np.dtype(compiled.float_dtype).itemsize)
+    )
+    unit = float(compiled.max_domain * itemsize)
+    srcs: List[np.ndarray] = []
+    dsts: List[np.ndarray] = []
+    for b in compiled.buckets:
+        a = b.arity
+        if a < 2 or b.n_constraints == 0:
+            continue
+        ii, jj = np.meshgrid(np.arange(a), np.arange(a), indexing="ij")
+        off = (ii != jj).reshape(-1)
+        s = b.var_slots[:, ii.reshape(-1)[off]].reshape(-1)
+        t = b.var_slots[:, jj.reshape(-1)[off]].reshape(-1)
+        keep = s != t  # a variable repeated in one scope is not a pair
+        srcs.append(s[keep].astype(np.int64))
+        dsts.append(t[keep].astype(np.int64))
+    if not srcs or not sum(len(s) for s in srcs):
+        return (
+            np.zeros(n + 1, dtype=np.int64),
+            np.zeros(0, dtype=np.int64),
+            np.zeros(0, dtype=np.float64),
+        )
+    src = np.concatenate(srcs)
+    dst = np.concatenate(dsts)
+    # merge duplicate directed pairs, summing multiplicity
+    key = src * n + dst
+    uniq, counts = np.unique(key, return_counts=True)
+    m_src = uniq // n
+    m_dst = uniq % n
+    wgt = counts.astype(np.float64) * unit
+    indptr = np.searchsorted(m_src, np.arange(n + 1))
+    return indptr, m_dst, wgt
+
+
+def chunk_targets(
+    n: int, k: int, row_chunk: Optional[int] = None
+) -> np.ndarray:
+    """Per-part vertex-count targets matching the equal contiguous row
+    blocks the padded DeviceDCOP shards into: ``pad_device_dcop`` pads
+    the variable axis to ``ceil_to(n + 1, k)`` (it always reserves a dead
+    row), so the GSPMD chunk is ``ceil((n + 1) / k)`` and the last
+    block(s) absorb the remainder.  Identical blocking to ``build_ell``
+    and ``cross_shard_incidence``; callers that know the actual padded
+    row count pass ``row_chunk`` explicitly."""
+    if k <= 0:
+        raise ValueError(f"need k >= 1 parts, got {k}")
+    if row_chunk is None:
+        row_chunk = (n + k) // k  # ceil((n + 1) / k)
+    if row_chunk * k < n:
+        raise ValueError(
+            f"row_chunk {row_chunk} x {k} parts does not cover {n} rows"
+        )
+    return np.array(
+        [min(row_chunk, max(0, n - p * row_chunk)) for p in range(k)],
+        dtype=np.int64,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -877,3 +962,104 @@ def multilevel_assign(
             sweeps=polish_sweeps, fm_limit=fm_limit, balanced=True,
         )
     return _exact_fill(indptr, nbr, wgt, assign, targets)
+
+
+def partition_order(
+    compiled,
+    n_shards: int,
+    row_chunk: Optional[int] = None,
+    effort: str = "auto",
+) -> Tuple[np.ndarray, np.ndarray, dict]:
+    """Multilevel placement of a compiled DCOP for ``n_shards`` row-block
+    shards: (order, assign, info).
+
+    ``order`` is a [n_vars] permutation (new position -> old variable id)
+    laying each part out as one contiguous block whose span is EXACTLY
+    the padded DeviceDCOP's GSPMD row chunk (``chunk_targets``), so
+    ``reorder_compiled(compiled, order)`` + ``build_ell`` gives a sharded
+    layout whose pair gather crosses shards exactly where the partition
+    cut does.  ``assign`` is the per-variable part id in the ORIGINAL
+    numbering; ``info`` carries cut statistics.
+
+    ``effort``: "fast" skips the pairwise-polish stages (about half the
+    wall at ~1% worse cut), "quality" runs them, "auto" picks quality up
+    to 200k variables."""
+    import time
+
+    if effort not in ("auto", "fast", "quality"):
+        raise ValueError(f"unknown effort {effort!r}")
+    if effort == "auto":
+        effort = "quality" if compiled.n_vars <= 200_000 else "fast"
+    t0 = time.perf_counter()
+    n = compiled.n_vars
+    targets = chunk_targets(n, n_shards, row_chunk)
+    indptr, nbr, wgt = variable_graph(compiled)
+    assign = multilevel_assign(
+        indptr, nbr, wgt, targets,
+        polish_sweeps=2 if effort == "quality" else 0,
+    )
+    # stable within parts: prior locality (generator / BFS order) is kept
+    order = np.lexsort((np.arange(n), assign))
+    deg = np.diff(indptr)
+    src = np.repeat(np.arange(n), deg)
+    cross = assign[src] != assign[nbr]
+    info = {
+        "n_shards": int(n_shards),
+        "effort": effort,
+        "targets": targets.tolist(),
+        "cut_weight": float(wgt[cross].sum()),
+        "total_weight": float(wgt.sum()),
+        "incidence": (
+            float(cross.sum() / len(nbr)) if len(nbr) else 0.0
+        ),
+        "order_wall_s": round(time.perf_counter() - t0, 4),
+    }
+    return order, assign, info
+
+
+def ell_shard_assignment(
+    compiled,
+    n_shards: int,
+    row_chunk: Optional[int],
+    strategy: str = "auto",
+) -> Tuple[Optional[np.ndarray], str]:
+    """Resolve a maxsum ``ordering`` strategy to a per-variable ELL shard
+    assignment: (shard_of, resolved_tag).
+
+    ``shard_of=None`` means "use the contiguous row chunks of the current
+    numbering" (``build_ell``'s default).  ``auto`` resolves to the
+    multilevel partitioner on sharded meshes — unless the compiled
+    problem was already laid out by ``partition_compiled`` for this
+    shard count, in which case the contiguous chunks ARE the partition
+    and recomputing would be wasted work.  The resolved tag must ride
+    every cache key derived from the layout (maxsum's ``ell_host`` /
+    ``ell_frac`` consts): two strategies on one compiled problem are two
+    different layouts, and a warm plan must never serve a stale
+    ordering."""
+    if strategy not in ("auto", "none", "bfs", "multilevel"):
+        raise ValueError(f"unknown ordering strategy {strategy!r}")
+    if n_shards <= 1 or strategy == "none" or compiled.n_edges == 0:
+        return None, "none"
+    if strategy == "auto":
+        meta = getattr(compiled, "_partition_meta", None)
+        if (
+            isinstance(meta, dict)
+            and meta.get("n_shards") == n_shards
+        ):
+            # already block-laid-out for this mesh: contiguous chunks
+            return None, f"pre:{meta.get('strategy', 'multilevel')}"
+        strategy = "multilevel"
+    n = compiled.n_vars
+    if row_chunk is None:
+        row_chunk = (n + n_shards) // n_shards
+    if strategy == "bfs":
+        from ..parallel.placement import bfs_order
+
+        order = bfs_order(compiled)
+        assign = np.empty(n, dtype=np.int64)
+        assign[order] = np.minimum(
+            np.arange(n) // row_chunk, n_shards - 1
+        )
+        return assign, "bfs"
+    _, assign, _ = partition_order(compiled, n_shards, row_chunk)
+    return assign, "multilevel"

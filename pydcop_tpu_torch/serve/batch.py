@@ -49,9 +49,10 @@ its read-back, as the JAX package's ``block_until_ready``) and
 ``t_done`` (the batch read back, before each tenant's result is decoded
 and costed on the host, as in the JAX package), on
 ``time.perf_counter``'s clock;
-``k_real``, ``k_pad``, ``tenants``, and ``fresh_compiles``: the CUDA
-graphs captured inside the dispatch (``run_cycles.captures``), the
-stall the JAX package's XLA compiles are.  Without an observer the
+``k_real``, ``k_pad``, ``tenants``, and ``fresh_compiles``: the runners
+built inside the dispatch, as the capture census counts them
+(``telemetry/profiling.py``: on the card a graph capture, the stall the
+JAX package's XLA compiles are; on the CPU the first batch of a key).  Without an observer the
 dispatch does what it does with none.
 """
 
@@ -69,6 +70,7 @@ import torch
 
 from ..algorithms import SolveResult, load_algorithm_module
 from ..telemetry.metrics import metrics_registry
+from ..telemetry.profiling import profiling
 from .bucket import BucketDims, bucket_dims_of, pad_dev_to_bucket, pow2
 
 logger = logging.getLogger(__name__)
@@ -411,7 +413,7 @@ def _dispatch_group(key: BucketKey, reqs: List[SolveRequest], device,
                     ) -> List[TenantResult]:
     """One bucket's requests as one batch (``base.run_batch``), with one
     event for ``observer``."""
-    from ..algorithms.base import run_batch, run_cycles
+    from ..algorithms.base import run_batch
     from ..compile.kernels import resolve_device
 
     device = resolve_device(device)
@@ -436,7 +438,7 @@ def _dispatch_group(key: BucketKey, reqs: List[SolveRequest], device,
         for r, i in zip(reqs, instances)
     ] + [0] * pad_n
     t_filled = time.perf_counter()
-    captures = run_cycles.captures
+    builds = profiling.builds
     times: Optional[Dict[str, float]] = {} if observer else None
     rows = run_batch(
         slot.home, dev, plan0.init, plan0.step, plan0.extract,
@@ -467,7 +469,7 @@ def _dispatch_group(key: BucketKey, reqs: List[SolveRequest], device,
             "t_start": t0, "t_assembled": t_filled,
             "t_dispatched": times["t_dispatched"],
             "t_solved": times["t_solved"], "t_done": t_read,
-            "fresh_compiles": run_cycles.captures - captures,
+            "fresh_compiles": profiling.builds - builds,
         })
     out = []
     for req, inst, row in zip(reqs, instances, rows):
@@ -536,7 +538,7 @@ def _dispatch_fused(reqs: List[SolveRequest], device,
 
     device = resolve_device(device)
     t_start = time.perf_counter()
-    captures = run_cycles.captures
+    builds = profiling.builds
     mod = _algo_module(reqs[0].algo)
     params = _prepared(mod, reqs[0].params)
     parts = [r.compiled for r in reqs]
@@ -600,7 +602,7 @@ def _dispatch_fused(reqs: List[SolveRequest], device,
             "t_start": t_start, "t_assembled": t_assembled,
             "t_dispatched": t_assembled, "t_solved": t_done,
             "t_done": t_done,
-            "fresh_compiles": run_cycles.captures - captures,
+            "fresh_compiles": profiling.builds - builds,
         })
     return out
 

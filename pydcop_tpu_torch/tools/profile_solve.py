@@ -4,6 +4,7 @@
         [--config 4|6|3|2|5|7|hard10k|iot|small_world|secp] [--reps N]
         [--layout LAYOUT]
         [--precision f32|bf16] [--trace FILE] [--resources N]
+        [--session]
 
 ``--algo`` is ``maxsum`` (default), ``amaxsum``, ``dsa``, ``adsa``,
 ``dsatuto``, ``mgm``, ``mgm2``, ``mixeddsa``, ``dba``, ``gdba`` or
@@ -47,6 +48,13 @@ The tool solves once cold, then:
   the device's busy share as the tracer sees it;
 - profiles one warm solve's host side with ``cProfile``: the functions
   with the most cumulative time (waits on the device included).
+
+``--session`` adds what a ``--profile-out`` session costs a warm solve:
+five rounds of warm solves with the session off, on, on, off (each on,
+the port's ``start_profiling``/``stop_profiling`` around the solve
+alone, its trace exported to a temporary directory): each one's wall,
+launches by kernel and host syncs (the launches and syncs must not
+change), the trace's bytes, and the export's seconds.
 
 Prints one JSON object.  Needs a CUDA device; it raises without one.
 """
@@ -199,6 +207,40 @@ def _traced(solve, trace=None) -> dict:
     }
 
 
+def _session_cost(solve, rounds: int = 5) -> list:
+    """``rounds`` rounds of warm solves with the profiler session off,
+    on, on, off: wall, engine and kernel counts, and with the session on
+    the trace's bytes and the export's seconds (``stop_profiling``)."""
+    import os
+    import tempfile
+
+    from ..telemetry.profiling import (
+        profiling,
+        start_profiling,
+        stop_profiling,
+    )
+
+    rows = []
+    for on in (False, True, True, False) * rounds:
+        with tempfile.TemporaryDirectory() as tmp:
+            if on:
+                start_profiling(profile_dir=tmp)
+            _, wall, counts = _counted(solve)
+            row = {"session": on, "wall_s": wall, "counts": counts}
+            if on:
+                row["profiler_active"] = profiling.profiler_active
+                t0 = time.perf_counter()
+                stop_profiling()
+                row["export_s"] = time.perf_counter() - t0
+                row["profiler_error"] = profiling.profiler_error
+                row["trace_bytes"] = sum(
+                    os.path.getsize(os.path.join(tmp, f))
+                    for f in os.listdir(tmp)
+                )
+            rows.append(row)
+    return rows
+
+
 def _host_profile(solve) -> list:
     """The functions with the most cumulative host time in one solve
     (waits on the device included)."""
@@ -275,6 +317,9 @@ def main(argv=None) -> dict:
     )
     ap.add_argument("--precision", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--trace", help="write the chrome trace here")
+    ap.add_argument("--session", action="store_true",
+                    help="also time warm solves under a --profile-out "
+                    "session (off, on, on, off, five rounds)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
@@ -352,6 +397,8 @@ def main(argv=None) -> dict:
     )
     out.update(traced)
     out["host_profile"] = _host_profile(solve)
+    if args.session:
+        out["session"] = _session_cost(solve)
     print(json.dumps(out))
     return out
 

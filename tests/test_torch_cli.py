@@ -87,9 +87,9 @@ def test_cli_without_a_card_exits_nonzero():
 
 
 @pytest.mark.parametrize("option", [
-    ["-m", "thread"], ["--profile", "p"], ["--uiport", "9"],
-    ["--dump-hlo", "h"],
-    ["--profile-out", "prof"], ["-c", "period"], ["--delay", "0.1"],
+    ["-m", "thread"], ["--period", "1.0"], ["--uiport", "9"],
+    ["-m", "process"],
+    ["-c", "cycle_change"], ["-c", "period"], ["--delay", "0.1"],
 ])
 def test_cli_refuses_options_not_ported(option, capsys):
     rc = dcop_cli.main(["--device", "cpu", "solve", "-a", "dsa", *option,

@@ -26,7 +26,7 @@ def _imported_modules(tree: ast.AST):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top == "jax" or top == "jaxlib" or top == "pydcop_tpu"
+    return top in ("jax", "jaxlib", "pydcop_tpu", "bench_all")
 
 
 def test_port_files_found():
@@ -57,6 +57,13 @@ def test_port_files_found():
     "pydcop_tpu_torch/distribution/tpu_part.py",
     "pydcop_tpu_torch/commands/fleet.py",
     "pydcop_tpu_torch/commands/router.py",
+    "pydcop_tpu_torch/telemetry/profiling.py",
+    "pydcop_tpu_torch/telemetry/kernelprof.py",
+    "pydcop_tpu_torch/telemetry/perfdiff.py",
+    "pydcop_tpu_torch/commands/capture.py",
+    "pydcop_tpu_torch/tools/capture_configs.py",
+    "pydcop_tpu_torch/parallel/placement.py",
+    "pydcop_tpu_torch/partition/icimodel.py",
 ])
 def test_subpackages_are_scanned(path):
     assert path in PORT_FILES
@@ -79,6 +86,12 @@ def test_subpackages_are_scanned(path):
     "pydcop_tpu_torch.serve",
     "pydcop_tpu_torch.commands.fleet",
     "pydcop_tpu_torch.commands.router",
+    "pydcop_tpu_torch.telemetry",
+    "pydcop_tpu_torch.telemetry.profiling",
+    "pydcop_tpu_torch.telemetry.kernelprof",
+    "pydcop_tpu_torch.telemetry.perfdiff",
+    "pydcop_tpu_torch.commands.capture",
+    "pydcop_tpu_torch.tools.capture_configs",
 ])
 def test_host_only_modules_import_no_torch(module):
     # the host-only verbs (memplan, telemetry, watch, fleet, router) and
@@ -101,12 +114,50 @@ def _imported(module):
 
 @pytest.mark.parametrize("module", [
     "pydcop_tpu_torch.partition",
+    "pydcop_tpu_torch.partition.icimodel",
+    "pydcop_tpu_torch.parallel.placement",
     "pydcop_tpu_torch.distribution.tpu_part",
     "pydcop_tpu_torch.distribution._costs",
 ])
 def test_placement_modules_import_numpy_but_no_torch(module):
     # the router places its buckets through tpu_part: numpy, no torch
     assert _imported(module) == ["numpy"]
+
+
+def test_the_new_modules_name_no_jax_module():
+    # the profiling layer, the capture verb and its configs' records, the
+    # placement and ICI model: none imports jax, the JAX package or the
+    # JAX package's bench_all.py
+    for path in ("pydcop_tpu_torch/telemetry/profiling.py",
+                 "pydcop_tpu_torch/telemetry/kernelprof.py",
+                 "pydcop_tpu_torch/telemetry/perfdiff.py",
+                 "pydcop_tpu_torch/commands/capture.py",
+                 "pydcop_tpu_torch/tools/capture_configs.py",
+                 "pydcop_tpu_torch/parallel/placement.py",
+                 "pydcop_tpu_torch/partition/icimodel.py",
+                 "pydcop_tpu_torch/partition/multilevel.py"):
+        tree = ast.parse((ROOT / path).read_text(), filename=path)
+        assert not [m for m in _imported_modules(tree) if _forbidden(m)]
+    assert _forbidden("bench_all") and _forbidden("pydcop_tpu.telemetry")
+
+
+def test_capture_diff_runs_without_torch(tmp_path):
+    # `capture diff` is host only: the CLI imports no torch for it
+    import json
+    import subprocess
+    import sys
+
+    bundle = tmp_path / "b"
+    (bundle / "records").mkdir(parents=True)
+    (bundle / "manifest.json").write_text(json.dumps(
+        {"format": "pydcop_tpu.capture/1", "configs": {}, "warnings": []}))
+    code = ("import json, sys; from pydcop_tpu_torch.dcop_cli import main; "
+            f"rc = main(['capture', 'diff', {str(bundle)!r}, "
+            f"{str(bundle)!r}]); "
+            "print(json.dumps([rc, 'torch' in sys.modules]))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [0, False]
 
 
 def test_router_spawns_workers_with_its_own_device(monkeypatch):

@@ -228,3 +228,191 @@ def test_router_bucket_placement_is_jaxs(n_workers, n_buckets, caplog):
         assert got == {b: dist.agent_for(b) for b in buckets}
     router.collector.stop()
     jax_router.collector.stop()
+
+
+# -- the sharded ELL's row orderings and the cross-shard model ----------
+
+
+def _clique_pair(n=24, d=3, seed=0):
+    """One seeded clique with per-constraint tables, compiled by each
+    package from the same arrays."""
+    from pydcop_tpu.compile.direct import (
+        compile_from_edges as jax_compile_from_edges,
+    )
+    from pydcop_tpu_torch.compile.direct import compile_from_edges
+
+    rng = np.random.default_rng(seed)
+    ii, jj = np.triu_indices(n, k=1)
+    edges = np.stack([ii, jj], axis=1)
+    tables = rng.uniform(0, 10, size=(len(edges), d, d)).astype(np.float32)
+    return (compile_from_edges(n, d, edges, tables),
+            jax_compile_from_edges(n, d, edges, tables))
+
+
+def _problem_pair(kind):
+    """The same problem compiled by both packages (the JAX partition
+    tests' corpus, smaller, and a ternary one)."""
+    from pydcop_tpu.commands.generators.graphcoloring import (
+        generate_coloring_arrays as jax_coloring,
+    )
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_coloring_arrays,
+    )
+
+    if kind == "clique":
+        return _clique_pair()
+    if kind == "ternary":
+        from pydcop_tpu.commands.generators.mixedproblem import (
+            generate_mixed_problem as jax_mixed,
+        )
+        from pydcop_tpu.compile.core import compile_dcop as jax_compile
+        from pydcop_tpu_torch.commands.generators.mixedproblem import (
+            generate_mixed_problem,
+        )
+        from pydcop_tpu_torch.compile.core import compile_dcop
+
+        args = (40, 30, 0.3)
+        kw = dict(arity=3, domain_range=3, density=0.1, seed=5)
+        return (compile_dcop(generate_mixed_problem(*args, **kw)),
+                jax_compile(jax_mixed(*args, **kw)))
+    kw = {
+        "scalefree": dict(graph="scalefree", m_edge=2, seed=11),
+        "grid": dict(graph="grid", seed=12),
+        "random": dict(graph="random", p_edge=0.02, seed=13),
+    }[kind]
+    n = 256 if kind == "grid" else 400
+    return generate_coloring_arrays(n, 3, **kw), jax_coloring(n, 3, **kw)
+
+
+KINDS = ["scalefree", "grid", "random", "clique", "ternary"]
+
+
+def _equal(got, want):
+    assert type(got) is type(want)
+    if isinstance(got, np.ndarray):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    elif isinstance(got, (tuple, list)):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            _equal(a, b)
+    elif isinstance(got, dict):
+        assert set(got) == set(want)
+        for k in got:
+            _equal(got[k], want[k])
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_variable_graph_and_bfs_order_are_jaxs(kind):
+    from pydcop_tpu.parallel.placement import bfs_order as jax_bfs
+    from pydcop_tpu.partition import variable_graph as jax_variable_graph
+    from pydcop_tpu_torch.parallel.placement import bfs_order
+    from pydcop_tpu_torch.partition import variable_graph
+
+    port, jax = _problem_pair(kind)
+    _equal(variable_graph(port), jax_variable_graph(jax))
+    _equal(variable_graph(port, 2), jax_variable_graph(jax, 2))
+    _equal(bfs_order(port), jax_bfs(jax))
+
+
+@pytest.mark.parametrize("n, k, row_chunk", [
+    (10, 1, None), (100, 8, None), (17, 4, None), (30, 4, 8), (1, 3, None),
+])
+def test_chunk_targets_are_jaxs(n, k, row_chunk):
+    from pydcop_tpu.partition import chunk_targets as jax_chunk_targets
+    from pydcop_tpu_torch.partition import chunk_targets
+
+    _equal(chunk_targets(n, k, row_chunk), jax_chunk_targets(n, k, row_chunk))
+    for bad in ((5, 0, None), (100, 4, 10)):
+        with pytest.raises(ValueError):
+            chunk_targets(*bad)
+        with pytest.raises(ValueError):
+            jax_chunk_targets(*bad)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_partition_order_is_jaxs(kind, k):
+    from pydcop_tpu.partition import partition_order as jax_partition_order
+    from pydcop_tpu_torch.partition import partition_order
+
+    port, jax = _problem_pair(kind)
+    for effort in ("fast", "quality"):
+        order, assign, info = partition_order(port, k, effort=effort)
+        j_order, j_assign, j_info = jax_partition_order(jax, k,
+                                                       effort=effort)
+        _equal((order, assign), (j_order, j_assign))
+        info.pop("order_wall_s")
+        j_info.pop("order_wall_s")
+        _equal(info, j_info)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("strategy", ["auto", "none", "bfs", "multilevel"])
+def test_ell_shard_assignment_is_jaxs(kind, strategy):
+    from pydcop_tpu.partition import (
+        ell_shard_assignment as jax_ell_shard_assignment,
+    )
+    from pydcop_tpu_torch.partition import ell_shard_assignment
+
+    port, jax = _problem_pair(kind)
+    for n_shards, row_chunk in ((1, None), (4, None), (3, 200)):
+        _equal(ell_shard_assignment(port, n_shards, row_chunk, strategy),
+               jax_ell_shard_assignment(jax, n_shards, row_chunk, strategy))
+    with pytest.raises(ValueError):
+        ell_shard_assignment(port, 4, None, "nope")
+
+
+def test_partitioned_layout_is_jaxs():
+    # partition_compiled stamps the meta that ell_shard_assignment's auto
+    # resolution reads; reorder_compiled and the incidence diagnostics
+    from pydcop_tpu.parallel import placement as jax_placement
+    from pydcop_tpu.partition import (
+        ell_shard_assignment as jax_ell_shard_assignment,
+    )
+    from pydcop_tpu_torch.parallel import placement
+    from pydcop_tpu_torch.partition import ell_shard_assignment
+
+    port, jax = _problem_pair("scalefree")
+    for strategy, k in (("bfs", None), ("multilevel", 4), ("auto", 4)):
+        got = placement.partition_compiled(port, strategy, k)
+        want = jax_placement.partition_compiled(jax, strategy, k)
+        for field in ("var_names", "domain_size", "unary", "edge_var",
+                      "edge_con", "var_degree"):
+            _equal(getattr(got, field), getattr(want, field))
+        for b, jb in zip(got.buckets, want.buckets):
+            _equal((b.var_slots, b.edge_ids, b.con_ids, b.tables),
+                   (jb.var_slots, jb.edge_ids, jb.con_ids, jb.tables))
+        for shards in (2, 4, 8):
+            assert placement.cross_shard_edges(got, shards) == (
+                jax_placement.cross_shard_edges(want, shards))
+            assert placement.cross_shard_incidence(got, shards) == (
+                jax_placement.cross_shard_incidence(want, shards))
+        if k:
+            _equal(ell_shard_assignment(got, k, None, "auto"),
+                   jax_ell_shard_assignment(want, k, None, "auto"))
+    with pytest.raises(ValueError):
+        placement.partition_compiled(port, "multilevel", 1)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("plane_dtype", ["f32", "bf16"])
+def test_ici_model_and_block_are_jaxs(kind, plane_dtype):
+    from pydcop_tpu.partition import ici_block as jax_ici_block
+    from pydcop_tpu.partition import ici_model as jax_ici_model
+    from pydcop_tpu_torch.partition import ici_block, ici_model
+
+    port, jax = _problem_pair(kind)
+    for n_shards in (1, 4, 8):
+        _equal(ici_model(port, None, n_shards, plane_dtype),
+               jax_ici_model(jax, None, n_shards, plane_dtype))
+    got = ici_block(port, 4, plane_dtype)
+    want = jax_ici_block(jax, 4, plane_dtype)
+    for block in (got, want):  # the walls left out
+        for strategy in ("bfs", "multilevel"):
+            block[strategy].pop("order_wall_s")
+    _equal(got, want)
+    with pytest.raises(ValueError):
+        ici_model(port, np.zeros(3, dtype=np.int64), 4)

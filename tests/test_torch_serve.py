@@ -870,16 +870,16 @@ def test_batch_observer_reports_each_group():
     # one event a dispatched group, its phase boundaries in order; with
     # no observer the results are the same
     reqs = _reqs("dsa", {}, (9, 9, 16), 8, seed0=60)
+    plain = solve_batched(reqs, device="cpu")
     events = []
     got = solve_batched(reqs, device="cpu", observer=events.append)
-    plain = solve_batched(reqs, device="cpu")
     assert len(events) == 2
     for ev in events:
         assert ev["kind"] == "vmap" and ev["k_pad"] >= ev["k_real"]
         times = [ev[k] for k in ("t_start", "t_assembled", "t_dispatched",
                                  "t_solved", "t_done")]
         assert times == sorted(times)
-        assert ev["fresh_compiles"] == 0  # the CPU captures no graph
+        assert ev["fresh_compiles"] == 0  # warm buckets build nothing
     assert sorted(t for ev in events for t in ev["tenants"]) == sorted(
         r.tenant for r in reqs)
     for r in reqs:

@@ -82,7 +82,15 @@ def test_spans_and_metrics_are_jax_s(jax_run, tmp_path, n_cycles):
     # the port looks after 16, 48, 112 and 240 cycles, then reads back
     assert len(windows) == (5 if n_cycles == "300" else 1)
     assert set(WINDOW_METRICS) <= set(metrics["metrics"])
-    assert set(metrics["metrics"]) <= set(jmetrics["metrics"])
+    # JAX's names: those of JAX's run, and three its compile census
+    # publishes in other runs: compile.analysis_unavailable on a backend
+    # without XLA's analyses, compile.memory_bytes from memory_analysis
+    # (the port has no cost analysis and sizes its graphs' inputs itself),
+    # and compile.host_repeat_compiles in a process that compiled the
+    # problem before (this one solves it once a case)
+    extra = set(metrics["metrics"]) - set(jmetrics["metrics"])
+    assert extra <= {"compile.analysis_unavailable", "compile.memory_bytes",
+                     "compile.host_repeat_compiles"}
     m = metrics["metrics"]
     for name in WINDOW_METRICS:
         assert m[name]["kind"] == jmetrics["metrics"][name]["kind"]
