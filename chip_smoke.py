@@ -163,7 +163,20 @@ captured CUDA graphs:
   card (a subprocess): every kernel config's per-op attribution present, the
   costs the pins held here (config 3's the CPU's), config 4's
   attribution within 90-110% of its real step, its kernel block printed;
-  and ``capture diff DIR DIR`` exiting 0.
+  and ``capture diff DIR DIR`` exiting 0;
+- the agent runtime (``agent_runtime``): thread mode at 100,000
+  variables (JAX's ``TestControlPlaneScale`` shape, MaxSum on ``ell``
+  through ``run_local_thread_dcop`` with 8 agents and ``adhoc``),
+  warm on the direct solve's compiled problem (the orchestrator's
+  ``device-solve`` thread launching 32 ``ell_minplus``, 97
+  ``xla_tree_sum``, 64 ``damp_fma``) and cold on a fresh copy with every
+  agent's websocket UI and the orchestrator's ``/metrics`` and
+  ``/status`` polled through the capture, each equal to the direct
+  solve on the card; registration, device-solve and read-back seconds;
+  then the HTTP path at 1,000 variables: ``solve --mode process`` (4
+  spawned agents) and the ``orchestrator`` verb with 2 ``agent`` verb
+  processes, each equal to ``--mode direct``, no agent process
+  importing torch (``-X importtime``).
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -177,7 +190,7 @@ kernels with a float32 and with a bf16 plane, ``xla_tree_sum``, the DFS
 kernel ``branch_bound``, held equal to its plain version at 16
 variables, and ``damp_fma``; and the six batched variants' rows; each
 row with its ``batched_launches``, ``memory_launches`` and
-``observability_launches``), the card's
+``observability_launches`` and ``runtime_launches``), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
 exits nonzero, with no result, when no CUDA device is present or the
@@ -643,7 +656,33 @@ CAPTURE_CONFIGS = ("2", "3", "4")
 ATTRIBUTION_BAR = (90.0, 110.0)
 
 
+# the agent runtime (agent_runtime): JAX's TestControlPlaneScale shape,
+# MaxSum through run_local_thread_dcop; a warm device solve launches what
+# maxsum_100k's warm solve does
+AGENT_RUNTIME_PROBLEM = (100_000, 3, dict(graph="scalefree", m_edge=2,
+                                          seed=7))
+AGENT_RUNTIME_AGENTS = 8
+AGENT_RUNTIME_PARAMS = {"damping": 0.7, "layout": "ell"}
+AGENT_RUNTIME_CYCLES = 30
+AGENT_RUNTIME_SEED = 7
+AGENT_RUNTIME_WARM_LAUNCHES = {"ell_minplus": 32, "xla_tree_sum": 97,
+                               "damp_fma": 64}
+# its HTTP path: a 1,000-variable soft coloring (999 binary and 1,000
+# unary constraints; one HTTP deploy and one ack each, so the README
+# problem's 51,084 would cost minutes), 4 agents, MaxSum on ell
+AGENT_HTTP_PROBLEM = (1000, 3, dict(graph="scalefree", m_edge=1, soft=True,
+                                    seed=7))
+AGENT_HTTP_AGENTS = 4
+AGENT_HTTP_ARGS = ["-a", "maxsum", "-p", "damping:0.7", "-p", "layout:ell",
+                   "-n", "30", "-d", "adhoc"]
+
+_T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        # the script's clock at the line: where the script's time goes
+        obj = {**obj, "t_script": time.perf_counter() - _T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -5681,6 +5720,460 @@ def phase_serve_fleet_ha():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the agent runtime (agent_runtime)
+# ---------------------------------------------------------------------------
+
+
+def _ws_query(port, cmd="agent", timeout=10.0):
+    """One websocket round trip to a UiServer: the handshake, one masked
+    text frame ``{"cmd": cmd}``, and the first reply frame that answers
+    it (pushed bus events before it are skipped).  Returns the reply."""
+    import base64
+    import os
+    import socket
+    import struct
+
+    conn = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    try:
+        key = base64.b64encode(os.urandom(16)).decode()
+        conn.sendall((
+            f"GET / HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+            "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+            f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n"
+        ).encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            chunk = conn.recv(1024)
+            check(chunk, f"ui {port}: the handshake closed")
+            head += chunk
+        check(b" 101 " in head.split(b"\r\n")[0],
+              f"ui {port}: no 101 switching protocols")
+        rest = head.split(b"\r\n\r\n", 1)[1]
+        data = json.dumps({"cmd": cmd}).encode()
+        mask = os.urandom(4)
+        conn.sendall(b"\x81" + struct.pack("!B", 0x80 | len(data)) + mask
+                     + bytes(b ^ mask[i % 4] for i, b in enumerate(data)))
+
+        def recv(n):
+            nonlocal rest
+            while len(rest) < n:
+                chunk = conn.recv(65536)
+                check(chunk, f"ui {port}: closed mid-frame")
+                rest += chunk
+            out, rest = rest[:n], rest[n:]
+            return out
+
+        while True:
+            b0, b1 = recv(2)
+            n = b1 & 0x7F
+            if n == 126:
+                n = struct.unpack("!H", recv(2))[0]
+            elif n == 127:
+                n = struct.unpack("!Q", recv(8))[0]
+            frame = json.loads(recv(n).decode())
+            if frame.get("cmd") == cmd:
+                return frame
+    finally:
+        conn.close()
+
+
+class _RuntimePoller:
+    """Polls a thread-mode run's live surfaces from its own thread while
+    the orchestrator solves: ``/metrics`` and ``/status`` of its metrics
+    server and one websocket query to every agent's UiServer, each round,
+    and counts the rounds that fell inside the device solve (the
+    ``device-solve`` thread alive and the solve not done): the scrapes
+    and queries that could have broken a capture had they touched the
+    card."""
+
+    def __init__(self, orchestrator, ui_ports):
+        import threading
+
+        self.orchestrator = orchestrator
+        self.ui_ports = ui_ports
+        self.rounds = []
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _solving(self):
+        thread = self.orchestrator._solve_thread
+        return (thread is not None and thread.is_alive()
+                and not self.orchestrator._solve_done.is_set())
+
+    def _run(self):
+        import urllib.request
+
+        port = self.orchestrator.metrics_server.port
+        while not self._stop.is_set():
+            busy = self._solving()
+            try:
+                for path in ("/metrics", "/status"):
+                    with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=30
+                    ) as r:
+                        check(r.status == 200, f"{path}: {r.status}")
+                        r.read()
+                for ui in self.ui_ports:
+                    _ws_query(ui)
+                self.rounds.append(busy and self._solving())
+            except Exception as e:  # noqa: BLE001 (reported as a check)
+                self.errors.append(repr(e))
+            self._stop.wait(0.05)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(60)
+        return self.rounds, self.errors
+
+
+def _runtime_run(dcop, algo, compiled, ui_port=None, metrics_port=None):
+    """One thread-mode run of ``dcop`` (``run_local_thread_dcop`` with the
+    ``adhoc`` distribution, MaxSum, ``cycle_change`` collection) on the
+    card, kernels and engine counted from zero; with ``ui_port`` and
+    ``metrics_port`` its live surfaces are polled through the whole run.
+    Returns (end_metrics, timings, counts, polls)."""
+    import threading
+
+    from pydcop_tpu_torch.infrastructure.run import run_local_thread_dcop
+
+    n_vars = len(dcop.variables)
+    values = []
+    last_value = [None]
+    all_values = threading.Event()
+
+    def collect(row):
+        if row["event"] == "value_change":
+            values.append(row["computation"])
+            if len(values) == n_vars:
+                last_value[0] = time.perf_counter()
+                all_values.set()
+
+    _zero_launches()
+    engine = _engine_counts()
+    t0 = time.perf_counter()
+    orchestrator = run_local_thread_dcop(
+        algo, dcop, "adhoc", n_cycles=AGENT_RUNTIME_CYCLES,
+        seed=AGENT_RUNTIME_SEED, collector=collect,
+        collect_moment="cycle_change", ui_port=ui_port,
+        metrics_port=metrics_port, device="cuda", compiled=compiled,
+    )
+    timings = {"build_start_s": time.perf_counter() - t0}
+    poller = None
+    try:
+        if metrics_port is not None:
+            poller = _RuntimePoller(
+                orchestrator,
+                [ui_port + i for i in range(AGENT_RUNTIME_AGENTS)],
+            )
+        t0 = time.perf_counter()
+        orchestrator.deploy_computations(timeout=300)
+        check(orchestrator.mgt.ready_to_run.wait(300),
+              "agent_runtime: deployment did not complete")
+        timings["registration_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        orchestrator.run(timeout=600)
+        timings["run_wall_s"] = time.perf_counter() - t0
+        check(all_values.wait(300),
+              f"agent_runtime: {len(values)} of {n_vars} value read-backs "
+              f"reached the orchestrator")
+        timings["readback_delivered_s"] = last_value[0] - t0
+        timings["device_solve_s"] = orchestrator.device_solve_s
+        timings["readback_post_s"] = orchestrator.readback_s
+        counts = {k: v - engine[k] for k, v in _engine_counts().items()}
+        counts.update(_launch_counts())
+        metrics = orchestrator.end_metrics()
+        polls = None
+        if poller is not None:
+            rounds, errors = poller.stop()
+            poller = None
+            polls = {"rounds": len(rounds), "inside_solve": sum(rounds),
+                     "errors": errors}
+    finally:
+        if poller is not None:
+            poller.stop()
+        t0 = time.perf_counter()
+        orchestrator.stop_agents(timeout=60)
+        orchestrator.stop()
+        timings["stop_s"] = time.perf_counter() - t0
+    check(sorted(values) == sorted(dcop.variables),
+          "agent_runtime: a computation's read-back is missing or doubled")
+    return metrics, timings, counts, polls
+
+
+def _runtime_same(got, direct, name):
+    """Thread mode against the direct solve on the card: the same
+    assignment, cost, violation, cycle, curve and message counts (exact:
+    the same solve of the same compiled problem)."""
+    check(got["status"] == "FINISHED", f"{name}: status {got['status']}")
+    for key in ("assignment", "cost", "violation", "cycle", "cost_curve",
+                "msg_count", "msg_size"):
+        check(got[key] == direct[key],
+              f"{name}: {key} differs from the direct solve's")
+
+
+def _agent_http(yaml_text):
+    """The HTTP path on a 1,000-variable coloring (4 agents): ``solve`` in
+    direct mode, ``solve --mode process`` (4 spawned agent processes) and
+    the ``orchestrator`` verb with 2 ``agent`` verb processes, all three
+    at once, each a subprocess on the card.  Process mode runs under ``-X
+    importtime``, which its spawned agents inherit: its stderr names
+    ``torch`` once (the orchestrator) and the runtime's agent module five
+    times (the orchestrator and the 4 agents).  The agent verbs' own
+    stderr must name no torch."""
+    import socket
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def timed(cmd, **kw):
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600, **kw)
+        return run, time.perf_counter() - t0
+
+    xtime = [PORT_CLI[0], "-X", "importtime", *PORT_CLI[1:]]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "coloring1000.yaml"
+        path.write_text(yaml_text)
+        pool = ThreadPoolExecutor(2)
+        direct_run = pool.submit(
+            timed, PORT_CLI + ["solve", *AGENT_HTTP_ARGS, str(path)])
+        process_run = pool.submit(
+            timed, xtime + ["solve", *AGENT_HTTP_ARGS, "-m", "process",
+                            "--port", "0", str(path)])
+        pool.shutdown(wait=False)
+        orch_port = free_port()
+        t0 = time.perf_counter()
+        orch = subprocess.Popen(
+            PORT_CLI + ["orchestrator", *AGENT_HTTP_ARGS, "--port",
+                        str(orch_port), "--address", "127.0.0.1",
+                        "--register_timeout", "300", str(path)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        agents, logs = [], []
+        try:
+            deadline = time.perf_counter() + 300
+            while orch.poll() is None and time.perf_counter() < deadline:
+                try:
+                    socket.create_connection(("127.0.0.1", orch_port),
+                                             timeout=1).close()
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            check(orch.poll() is None,
+                  "agent_http: the orchestrator verb exited early")
+            names = [f"a{i}" for i in range(AGENT_HTTP_AGENTS)]
+            half = len(names) // 2
+            for i, group in enumerate((names[:half], names[half:])):
+                logs.append(Path(tmp) / f"agent{i}.err")
+                with open(logs[-1], "w") as err:
+                    agents.append(subprocess.Popen(
+                        xtime + ["agent", "-n", *group, "-p", "0",
+                                 "--address", "127.0.0.1",
+                                 "--orchestrator",
+                                 f"127.0.0.1:{orch_port}"],
+                        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
+                    ))
+            orch_out, orch_err = orch.communicate(timeout=600)
+            out["orchestrator_verb_s"] = time.perf_counter() - t0
+            check(orch.returncode == 0,
+                  f"agent_http: the orchestrator verb exited "
+                  f"{orch.returncode}: {orch_err[-2000:]}")
+            for a in agents:
+                check(a.wait(120) == 0, "agent_http: an agent verb failed")
+        finally:
+            for p in [orch, *agents]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        verb = json.loads(orch_out)
+        direct, out["direct_s"] = direct_run.result()
+        process, out["process_s"] = process_run.result()
+        for run, what in ((direct, "direct"), (process, "process")):
+            check(run.returncode == 0,
+                  f"agent_http: solve --mode {what} exited "
+                  f"{run.returncode}: {run.stderr[-2000:]}")
+        direct, process_err = json.loads(direct.stdout), process.stderr
+        process = json.loads(process.stdout)
+        for got, what in ((process, "process mode"),
+                          (verb, "the orchestrator verb")):
+            check(got["status"] == "FINISHED",
+                  f"agent_http: {what}: {got['status']}")
+            for key in ("assignment", "cost", "violation", "cycle"):
+                check(got[key] == direct[key],
+                      f"agent_http: {what}'s {key} is not direct mode's")
+        imported = [line.rsplit("|", 1)[-1].strip()
+                    for line in process_err.splitlines()
+                    if line.startswith("import time:")]
+        out["process_torch_imports"] = imported.count("torch")
+        out["process_agent_module_imports"] = imported.count(
+            "pydcop_tpu_torch.infrastructure.orchestratedagents")
+        check(out["process_torch_imports"] == 1,
+              f"agent_http: torch imported {out['process_torch_imports']} "
+              f"times in process mode (the orchestrator's only)")
+        check(out["process_agent_module_imports"] == 1 + AGENT_HTTP_AGENTS,
+              "agent_http: the spawned agents' imports were not traced")
+        out["agent_verb_imports_torch"] = [
+            _imports_torch(log.read_text()) for log in logs]
+        check(not any(out["agent_verb_imports_torch"]),
+              "agent_http: an agent verb process imported torch")
+    out.update(cost=direct["cost"], violation=direct["violation"],
+               cycle=direct["cycle"], same_as_direct=True)
+    return out
+
+
+def phase_agent_runtime():
+    """The agent runtime on the card (``agent_runtime``): thread mode at
+    100,000 variables, the HTTP path at 1,000 beside it (its subprocesses
+    start first and run on other cores while this process deploys).
+
+    (a) TestControlPlaneScale's shape: ``generate_graph_coloring(100_000,
+    3, graph="scalefree", m_edge=2, seed=7)`` as DCOP objects, 8 agents
+    of large capacity, ``adhoc``; MaxSum (damping 0.7, ``ell``), 30
+    cycles, seed 7, ``cycle_change`` collection.  A direct
+    ``solve_result`` of the compiled problem on the card first (it
+    captures the graphs); then ``run_local_thread_dcop`` handed the same
+    compiled problem: the orchestrator's device solve is warm and
+    launches what ``maxsum_100k``'s warm solve does (32 ``ell_minplus``,
+    97 ``xla_tree_sum``, 64 ``damp_fma``) on its ``device-solve`` thread;
+    its end metrics are the direct solve's, curve included.  Then once
+    more on a fresh copy of the compiled problem (a cold solve that
+    captures on the ``device-solve`` thread) with every agent's UiServer
+    and the orchestrator's metrics server up (the UIs turn the event bus
+    on; the registry stays off: its counters' locks, taken by every
+    message of every agent, would slow the deployment several times
+    over), polled from another thread the whole run: the same result,
+    no failed poll, polls inside the device solve.  Registration, the
+    device solve, the read-back (posted, and delivered to the
+    orchestrator), the run's wall and its host syncs, for each, each run
+    a line of its own as it ends.
+
+    (b) the HTTP path (``_agent_http``).  Returns the warm run's kernel
+    launches."""
+    import math
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+    from pydcop_tpu_torch.api import solve_result
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+    from pydcop_tpu_torch.compile.core import compile_dcop
+    from pydcop_tpu_torch.dcop.objects import AgentDef
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml
+    from pydcop_tpu_torch.infrastructure.events import event_bus
+
+    t_phase = time.perf_counter()
+    n, d, kw = AGENT_HTTP_PROBLEM
+    small = generate_graph_coloring(n, d, **kw)
+    small._agents_def.clear()
+    small.add_agents([AgentDef(f"a{i}", capacity=10**9)
+                      for i in range(AGENT_HTTP_AGENTS)])
+    pool = ThreadPoolExecutor(1)
+    http_run = pool.submit(_agent_http, dcop_yaml(small))
+    pool.shutdown(wait=False)
+
+    n, d, kw = AGENT_RUNTIME_PROBLEM
+    t0 = time.perf_counter()
+    dcop = generate_graph_coloring(n, d, **kw)
+    dcop._agents_def.clear()
+    dcop.add_agents([AgentDef(f"a{i}", capacity=10**9)
+                     for i in range(AGENT_RUNTIME_AGENTS)])
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compiled = compile_dcop(dcop)
+    compile_s = time.perf_counter() - t0
+    algo = AlgorithmDef.build_with_default_param(
+        "maxsum", AGENT_RUNTIME_PARAMS, mode=dcop.objective)
+    t0 = time.perf_counter()
+    direct = solve_result(dcop, algo, n_cycles=AGENT_RUNTIME_CYCLES,
+                          seed=AGENT_RUNTIME_SEED, collect_curve=True,
+                          compiled=compiled, device="cuda")
+    direct_s = time.perf_counter() - t0
+    emit({"phase": "agent_runtime_setup", "n_vars": compiled.n_vars,
+          "n_constraints": compiled.n_constraints,
+          "agents": AGENT_RUNTIME_AGENTS, "generate_s": generate_s,
+          "compile_dcop_s": compile_s, "direct_s": direct_s,
+          "direct_time_s": direct["time"], "cost": direct["cost"],
+          "violation": direct["violation"], "cycle": direct["cycle"]})
+
+    warm, warm_t, warm_counts, _ = _runtime_run(dcop, algo, compiled)
+    _runtime_same(warm, direct, "agent_runtime (warm)")
+    launches = {k: warm_counts[k] for k in AGENT_RUNTIME_WARM_LAUNCHES}
+    emit({"phase": "agent_runtime_warm", **warm_t,
+          "engine_counts": warm_counts, "same_as_direct": True})
+    check(warm_counts["captures"] == 0,
+          "agent_runtime: the warm thread-mode solve captured")
+    check(launches == AGENT_RUNTIME_WARM_LAUNCHES,
+          f"agent_runtime: warm launches {launches}, want "
+          f"{AGENT_RUNTIME_WARM_LAUNCHES}")
+    chunks = max(1, math.ceil(math.log2(AGENT_RUNTIME_CYCLES / 16 + 1)))
+    check(warm_counts["host_syncs"] <= chunks,
+          f"agent_runtime: {warm_counts['host_syncs']} host syncs")
+
+    # the UIs' run of ports below the kernel's ephemeral range, where the
+    # HTTP path's processes bind theirs meanwhile
+    import random
+
+    ui_base = None
+    for _ in range(50):
+        base = random.randrange(20_000, 32_000)
+        held = []
+        try:
+            for p in range(base, base + AGENT_RUNTIME_AGENTS):
+                held.append(socket.socket())
+                held[-1].bind(("127.0.0.1", p))
+            ui_base = base
+        except OSError:
+            pass
+        finally:
+            for s in held:
+                s.close()
+        if ui_base:
+            break
+    check(ui_base, "agent_runtime: no run of free ports for the UIs")
+    try:
+        cold, cold_t, cold_counts, polls = _runtime_run(
+            dcop, algo, _fresh(compiled), ui_port=ui_base, metrics_port=0)
+    finally:
+        event_bus.enabled = False
+        event_bus.reset()
+    emit({"phase": "agent_runtime_cold_polled", **cold_t,
+          "engine_counts": cold_counts, "polls": polls})
+    _runtime_same(cold, direct, "agent_runtime (cold, polled)")
+    check(cold_counts["captures"] > 0,
+          "agent_runtime: the polled solve was not cold")
+    # a cold solve runs one warm-up iteration and its prologue twice
+    iterations = cold_counts["iterations"] + 1
+    want = {"ell_minplus": iterations, "xla_tree_sum": 3 * iterations + 2,
+            "damp_fma": 2 * iterations}
+    got = {k: cold_counts[k] for k in want}
+    check(got == want, f"agent_runtime: cold launches {got}, want {want}")
+    check(not polls["errors"], f"agent_runtime: polls failed: "
+          f"{polls['errors'][:3]}")
+    check(polls["inside_solve"] > 0,
+          f"agent_runtime: no poll inside the device solve ({polls})")
+    thread_s = time.perf_counter() - t_phase
+
+    http = http_run.result()
+    emit({
+        "phase": "agent_runtime", "n_vars": compiled.n_vars,
+        "thread_same_as_direct": True, "launches": launches,
+        "cold_launches": got, "thread_s": thread_s, "http": http,
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return launches
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -5902,6 +6395,7 @@ def main() -> int:
             rows[name]["profile_launches"] = n
     emit({"phase": "pulse_durability_seconds", "seconds": new_phases_s})
     phase_front_door_objects()
+    runtime = phase_agent_runtime()
     phase_dpop_config5()
     phase_dpop_wide()
     # the serving path: bench config 8, the kernels batched under load,
@@ -5955,6 +6449,8 @@ def main() -> int:
             "xla_tree_sum_batched" if name in BATCHED_ROWS[2:5]
             else name if name in BATCHED_ROWS else f"{name}_batched", 0)
         row["generated_launches"] = generated.get(name, 0)
+        row["runtime_launches"] = (
+            0 if name in BATCHED_ROWS else runtime.get(name, 0))
         row["memory_launches"] = memory.get(name, 0)
         row["batched_launches"] = (
             row["launches"] if name in BATCHED_ROWS

@@ -16,7 +16,9 @@ model, the YAML loader, ``compile_dcop``, ``api.solve_result`` and
 (``algorithms.dsa``, ``.mgm``, ``.mgm2``) on one cycle engine
 (``algorithms.base.run_cycles``) that runs each solve on the card as
 replays of captured CUDA graphs, and DPOP (``algorithms.dpop``), whose
-UTIL wave is one captured graph where it fits.  Entry points run on
+UTIL wave is one captured graph where it fits; serving, telemetry and
+durability; and the agent runtime (``infrastructure``: the orchestrator
+that solves on the card, agents in threads or processes).  Entry points run on
 ``device="cuda"`` unless the caller asks for the CPU, and raise when no
 card is present.
 """

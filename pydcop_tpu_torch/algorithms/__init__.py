@@ -2,7 +2,7 @@
 
 Counterpart of ``pydcop_tpu/algorithms/__init__.py`` (``AlgoParameterDef``,
 ``check_param_value``, ``prepare_algo_params``, ``AlgorithmDef``,
-``SolveResult``, ``load_algorithm_module``).  An algorithm module exports ``GRAPH_TYPE``,
+``ComputationDef``, ``SolveResult``, ``load_algorithm_module``).  An algorithm module exports ``GRAPH_TYPE``,
 ``algo_params`` and ``solve(compiled, params, n_cycles, seed, ...,
 device=...)``.
 """
@@ -17,6 +17,7 @@ from ..utils.simple_repr import SimpleRepr
 __all__ = [
     "AlgoParameterDef",
     "AlgorithmDef",
+    "ComputationDef",
     "SolveResult",
     "check_param_value",
     "load_algorithm_module",
@@ -151,6 +152,44 @@ class AlgorithmDef(SimpleRepr):
 
     def __repr__(self) -> str:
         return f"AlgorithmDef({self._algo}, {self._mode}, {self._params})"
+
+
+class ComputationDef(SimpleRepr):
+    """The deployable unit: a computation-graph node + the algorithm to run
+    on it.  The agent runtime serializes it and ships it to the hosting
+    agent at deploy time."""
+
+    _repr_fields = ("node", "algo")
+
+    def __init__(self, node, algo: AlgorithmDef) -> None:
+        self._node = node
+        self._algo = algo
+
+    @property
+    def node(self):
+        return self._node
+
+    @property
+    def algo(self) -> AlgorithmDef:
+        return self._algo
+
+    @property
+    def name(self) -> str:
+        return self._node.name
+
+    @classmethod
+    def _from_repr(cls, node, algo):
+        return cls(node, algo)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, ComputationDef)
+            and other.node == self.node
+            and other.algo == self.algo
+        )
+
+    def __repr__(self) -> str:
+        return f"ComputationDef({self.name}, {self._algo.algo})"
 
 
 class SolveResult(NamedTuple):

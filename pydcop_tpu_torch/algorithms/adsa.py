@@ -148,3 +148,15 @@ def solve(
         compiled, values, cycles, msg_count, msg_count * UNIT_SIZE, curve,
         status="TIMEOUT" if extras["timed_out"] else "FINISHED",
     )
+
+
+# the footprint models the agent runtime's distributions read (the JAX
+# package's, host only)
+
+
+def computation_memory(computation) -> float:
+    return float(len(computation.neighbors))
+
+
+def communication_load(src, target: str) -> float:
+    return UNIT_SIZE + HEADER_SIZE

@@ -48,6 +48,9 @@ carry_io = field_io("v2f", "f2v", "values", "v2f_cand", "f2v_cand")
 
 UNIT_SIZE = 1
 
+# the agent runtime's footprint models: MaxSum's
+from .maxsum import communication_load, computation_memory  # noqa: E402,F401
+
 # the chance that a computation wakes in a cycle
 ACTIVATION = 0.5
 

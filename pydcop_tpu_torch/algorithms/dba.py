@@ -228,3 +228,17 @@ def solve(
         msg_count * (UNIT_SIZE + HEADER_SIZE), curve,
         status="TIMEOUT" if extras["timed_out"] else "FINISHED",
     )
+
+
+# the footprint models the agent runtime's distributions read (the JAX
+# package's, host only)
+
+
+def computation_memory(computation) -> float:
+    """DBA stores one value per neighbor."""
+    return float(len(computation.neighbors)) * UNIT_SIZE
+
+
+def communication_load(src, target: str) -> float:
+    """ok?/improve messages carry a value and an improvement."""
+    return UNIT_SIZE + HEADER_SIZE

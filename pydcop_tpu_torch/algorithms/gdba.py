@@ -309,3 +309,16 @@ def solve(
         msg_count * (UNIT_SIZE + HEADER_SIZE), curve,
         status="TIMEOUT" if extras["timed_out"] else "FINISHED",
     )
+
+
+# the footprint models the agent runtime's distributions read (the JAX
+# package's, host only)
+
+
+def computation_memory(computation) -> float:
+    """GDBA stores one value per neighbor plus modifier tables."""
+    return float(len(computation.neighbors)) * UNIT_SIZE
+
+
+def communication_load(src, target: str) -> float:
+    return UNIT_SIZE + HEADER_SIZE

@@ -53,6 +53,9 @@ from .maxsum import PLANE_DTYPES, MaxSumState, _make_init, _make_step
 
 GRAPH_TYPE = "factor_graph"
 
+# the agent runtime's footprint models: MaxSum's
+from .maxsum import communication_load, computation_memory  # noqa: E402,F401
+
 algo_params: List[AlgoParameterDef] = list(_maxsum.algo_params)
 
 

@@ -244,3 +244,17 @@ def solve(
         compiled, values, cycles, msg_count, msg_count * UNIT_SIZE, curve,
         status="TIMEOUT" if extras["timed_out"] else "FINISHED",
     )
+
+
+# the footprint models the agent runtime's distributions read (the JAX
+# package's, host only)
+
+
+def computation_memory(computation) -> float:
+    """MGM stores one value + one gain per neighbor."""
+    return float(len(computation.neighbors)) * 2
+
+
+def communication_load(src, target: str) -> float:
+    """Value + gain messages per cycle."""
+    return 2 * UNIT_SIZE + HEADER_SIZE

@@ -669,3 +669,18 @@ def solve(
         compiled, values, cycles, msg_count, msg_count * UNIT_SIZE, curve,
         status="TIMEOUT" if extras["timed_out"] else "FINISHED",
     )
+
+
+# the footprint models the agent runtime's distributions read (the JAX
+# package's, host only)
+
+
+def computation_memory(computation) -> float:
+    """Value + gain + offer state per neighbor."""
+    return float(len(computation.neighbors)) * 3
+
+
+def communication_load(src, target: str) -> float:
+    """Worst case: an offer enumerates all value pairs with their gains."""
+    domain = len(src.variable.domain)
+    return domain * domain * UNIT_SIZE * 3 + HEADER_SIZE

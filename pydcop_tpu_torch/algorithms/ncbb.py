@@ -90,3 +90,18 @@ def solve(
     if not complete:
         result = result._replace(status="TIMEOUT")
     return result
+
+
+# the footprint models the agent runtime's distributions read (the JAX
+# package's, host only)
+
+
+def computation_memory(node) -> float:
+    """NCBB is polynomial-space: each computation stores one bound and one
+    value per neighbor."""
+    return float(len(node.links) + 1)
+
+
+def communication_load(node, target: str) -> float:
+    """VALUE/COST/SEARCH messages are scalars."""
+    return 1.0

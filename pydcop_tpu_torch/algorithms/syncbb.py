@@ -58,3 +58,18 @@ def solve(
         # the cap stopped the search: the incumbent is not proven optimal
         result = result._replace(status="TIMEOUT")
     return result
+
+
+# the footprint models the agent runtime's distributions read (the JAX
+# package's, host only)
+
+
+def computation_memory(node) -> float:
+    """A SyncBB computation only holds the CPA path: one (var, value, cost)
+    triple per variable before it in the chain."""
+    return float(node.position + 1)
+
+
+def communication_load(node, target: str) -> float:
+    """CPA token size: the full path in the worst case."""
+    return float(node.position + 1)

@@ -1,12 +1,13 @@
 """Shared helpers for CLI commands.
 
-Counterpart of ``pydcop_tpu/commands/_utils.py`` (the part the ``solve``
-and ``serve`` verbs use): parse ``--algo_params name:value`` pairs into
-a validated ``AlgorithmDef``, write the JSON result, the CSV, durability,
-pulse, trace and metrics flags with their start and finish around a
-solve (``--profile-out``/``--dump-hlo`` among them), the
-``--fault-schedule`` flag with its controller, and the memory guard's
-flags.
+Counterpart of ``pydcop_tpu/commands/_utils.py`` (the part the ``solve``,
+``serve`` and ``orchestrator`` verbs use): parse ``--algo_params
+name:value`` pairs into a validated ``AlgorithmDef``, write the JSON
+result, the CSV, durability, pulse, trace and metrics flags with their
+start and finish around a solve (``--profile-out``/``--dump-hlo`` among
+them; with the registry on, the event-bus bridge is attached, as the JAX
+package's ``start_telemetry`` does), the ``--fault-schedule`` flag with
+its controller and its report, and the memory guard's flags.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..algorithms import AlgorithmDef
 __all__ = [
     "add_chaos_arguments", "add_csvio_arguments", "add_durability_arguments",
     "add_memguard_arguments", "build_algo_def", "build_chaos_controller",
-    "configure_memguard", "finish_durability", "finish_telemetry",
+    "chaos_report", "configure_memguard", "finish_durability", "finish_telemetry",
     "parse_params", "start_durability", "start_telemetry", "write_output",
 ]
 
@@ -225,9 +226,10 @@ def add_chaos_arguments(parser) -> None:
     parser.add_argument(
         "--fault-schedule", default=None, metavar="FILE",
         help="YAML fault schedule (seeded kills / message faults / device "
-        "faults) injected into the run; the port's direct solve runs its "
-        "process kills (kill_process) and ignores the others, which need "
-        "the agent runtime",
+        "faults) injected into the run; the port runs its process kills "
+        "(kill_process) in direct and thread mode; agent kills, message "
+        "rules and device faults are ignored in direct mode and refused "
+        "in thread mode (not ported yet)",
     )
 
 
@@ -241,18 +243,33 @@ def build_chaos_controller(args):
     return ChaosController(load_fault_schedule(path))
 
 
-def start_telemetry(args) -> None:
+def chaos_report(controller, orchestrator) -> Dict[str, Any]:
+    """The ``chaos`` block of a fault-injected runtime run's result: the
+    deterministic event log, per-action counts, and the dead-letter total
+    across the orchestrator and every local agent."""
+    return {
+        "seed": controller.seed,
+        "events": controller.event_log(),
+        "counts": controller.action_counts(),
+        "dead_letters": orchestrator.dead_letter_total(),
+    }
+
+
+def start_telemetry(args):
     """Turn on what the CLI flags ask for: ``--trace-out`` the span
     tracer, ``--metrics-out`` the metrics registry (both reset first),
     ``--pulse-out`` the per-cycle health vectors computed in the cycle
     loop, streamed as JSONL, with the flight recorder armed.
     ``--metrics-port`` turns on the registry and pulse, as the JAX
-    package's flag does for the live surface (which its direct mode, the
-    port's only mode, does not serve).  ``--profile-out DIR`` opens a
-    ``torch.profiler`` session and ``--dump-hlo DIR`` dumps every fresh
-    CUDA-graph capture (``telemetry/profiling.py``); either implies the
-    metrics registry, where the capture census lands."""
+    package's flag does for the orchestrator's live surface.
+    ``--profile-out DIR`` opens a ``torch.profiler`` session and
+    ``--dump-hlo DIR`` dumps every fresh CUDA-graph capture
+    (``telemetry/profiling.py``); either implies the metrics registry,
+    where the capture census lands.  With the registry on, the event-bus
+    bridge (``telemetry/bridge.py``) is attached and returned, for
+    ``finish_telemetry``; otherwise None."""
     from ..telemetry import metrics_registry, tracer
+    from ..telemetry.bridge import attach_event_bridge
 
     watched = getattr(args, "metrics_port", None) is not None
     profile_out = getattr(args, "profile_out", None)
@@ -261,12 +278,15 @@ def start_telemetry(args) -> None:
         tracer.service = "orchestrator"
         tracer.reset()
         tracer.enabled = True
+    bridge = None
     if (
         getattr(args, "metrics_out", None) or watched or profile_out
         or dump_hlo
     ):
         metrics_registry.reset()
         metrics_registry.enabled = True
+        # bus topics -> metrics: the runtime's per-computation counters
+        bridge = attach_event_bridge()
     if profile_out or dump_hlo:
         from ..telemetry import start_profiling
 
@@ -279,16 +299,19 @@ def start_telemetry(args) -> None:
         pulse.enabled = True
         if pulse_out:
             pulse.stream_open(pulse_out)
+    return bridge
 
 
-def finish_telemetry(args) -> None:
+def finish_telemetry(args, bridge=None) -> None:
     """Export what the flags asked for and switch telemetry back off (in a
     ``finally``, so a failed solve still writes what it gathered).  The
     exports are independent, and an export error is reported on stderr,
     not raised: a bad trace path neither loses the metrics nor changes
-    the command's exit code."""
+    the command's exit code.  ``bridge`` is ``start_telemetry``'s."""
     from ..telemetry import metrics_registry, tracer
 
+    if bridge is not None:
+        bridge.detach()
     watched = getattr(args, "metrics_port", None) is not None
     if getattr(args, "pulse_out", None) or watched:
         from ..telemetry.pulse import pulse

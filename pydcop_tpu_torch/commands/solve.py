@@ -1,9 +1,18 @@
 """``solve``: a static DCOP from YAML files, solved on the device.
 
-Counterpart of ``pydcop_tpu/commands/solve.py`` in its ``--mode direct``:
-load the problem, compile it, solve it on the card (or the CPU with the
-global ``--device cpu``) and print the result JSON, the same schema and
-the same text as the JAX package's.  ``--pulse-out`` streams the solve's
+Counterpart of ``pydcop_tpu/commands/solve.py``: load the problem,
+solve it on the card (or the CPU with the global ``--device cpu``) and
+print the result JSON, the same schema and the same text as the JAX
+package's.  ``--mode direct`` (the default) compiles and solves with no
+control plane; ``--mode thread`` and ``--mode process`` run the agent
+runtime (``infrastructure/``: an orchestrator that owns the card and
+solves the whole DCOP on it, agents in threads or in spawned processes
+over HTTP, deployed by ``-d``), with ``-c``/``--period`` (how the
+orchestrator collects), ``--delay`` and ``--uiport`` (thread mode's
+agents; process mode warns and ignores them, as the JAX package does),
+``--metrics-port`` (the orchestrator's live surface) and ``--port``
+(process mode's ports, 9000 and up as in the JAX package; 0 binds free
+ones).  ``--pulse-out`` streams the solve's
 per-cycle health rows as JSONL (and arms the flight recorder, which
 dumps ``postmortem.json`` when a ``--timeout`` runs out);
 ``--checkpoint``/``--resume`` and their cadence flags make the solve
@@ -21,16 +30,15 @@ writes each fresh CUDA-graph capture as DOT, and the legacy ``--profile
 DIR`` a bare session through TensorBoard's trace handler
 (``telemetry/profiling.py``); the result is the same with or without
 them.
-``--metrics-port`` turns the registry and pulse on for the run, as the
-JAX package's direct mode does, and logs its warning: the live surface
-belongs to the agent runtime's orchestrator, and direct mode starts no
-server.
+``--metrics-port`` turns the registry and pulse on for the run; in
+direct mode it logs the JAX package's warning (the live surface belongs
+to the runtime's orchestrator, and direct mode starts no server).
 ``--mem-guard``, ``--mem-reserve-pct`` and ``--mem-limit-bytes`` arm the
 memory guard: a solve predicted not to fit is refused before anything is
 uploaded, with an ``ERROR`` result that carries the breach (``mem``).
-The options of its other modes (the thread/process agent runtime) are
-parsed, so a command written for the JAX package gets a clear refusal
-naming the option instead of a usage error.
+A ``--fault-schedule`` with agent kills, message rules or device faults
+in thread mode is refused (exit 2): the runtime's resilience is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from ._utils import (
     add_memguard_arguments,
     build_algo_def,
     build_chaos_controller,
+    chaos_report,
     configure_memguard,
     finish_durability,
     finish_telemetry,
@@ -60,21 +69,6 @@ from ._utils import (
 )
 
 logger = logging.getLogger("pydcop_tpu_torch.cli.solve")
-
-# (flags, argparse keywords, what the option belongs to): options of the
-# JAX package's ``solve`` that the port does not run yet.  Each refuses
-# when given a value other than its default.
-_NOT_PORTED = (
-    (("-m", "--mode"), dict(choices=["direct", "thread", "process"],
-                            default="direct"), "the agent runtime"),
-    (("-c", "--collect_on"),
-     dict(choices=["value_change", "cycle_change", "period"],
-          default="value_change"), "the agent runtime"),
-    (("--period",), dict(type=float, default=None), "the agent runtime"),
-    (("--delay",), dict(type=float, default=None), "the agent runtime"),
-    (("--uiport",), dict(type=int, default=None), "the agent runtime"),
-)
-
 
 def set_parser(subparsers) -> None:
     parser = subparsers.add_parser(
@@ -96,7 +90,25 @@ def set_parser(subparsers) -> None:
         "-d",
         "--distribution",
         default="oneagent",
-        help="distribution method, reported in the result",
+        help="distribution method (oneagent, adhoc) of the thread and "
+        "process modes; reported in direct mode's result",
+    )
+    parser.add_argument(
+        "-m",
+        "--mode",
+        choices=["direct", "thread", "process"],
+        default="direct",
+        help="direct = compiled device solve (fastest); thread/process = "
+        "the agent runtime, its orchestrator solving on the device",
+    )
+    parser.add_argument(
+        "-c",
+        "--collect_on",
+        choices=["value_change", "cycle_change", "period"],
+        default="value_change",
+    )
+    parser.add_argument(
+        "--period", type=float, default=None, help="for --collect_on period"
     )
     parser.add_argument(
         "-n", "--n_cycles", type=int, default=100,
@@ -150,27 +162,30 @@ def set_parser(subparsers) -> None:
     )
     parser.add_argument(
         "--metrics-port", type=int, default=None, metavar="PORT",
-        help="enable the metrics registry and pulse for the run; the live "
-        "surface (/metrics, /status) is the agent runtime orchestrator's, "
-        "so direct mode serves none (the serve verb's port does)",
+        help="enable the metrics registry and pulse and serve the live "
+        "surface from the orchestrator: /metrics (Prometheus text), "
+        "/metrics.json and /status, for the watch verb (0 = a free port; "
+        "thread/process modes; direct mode serves none)",
+    )
+    parser.add_argument(
+        "--delay", type=float, default=None,
+        help="artificial delay (seconds) between message deliveries, to "
+        "observe a run through the UI; thread mode only",
+    )
+    parser.add_argument(
+        "--uiport", type=int, default=None,
+        help="base port of the per-agent websocket UI servers; thread "
+        "mode only (agents get uiport, uiport+1, ...)",
+    )
+    parser.add_argument(
+        "--port", type=int, default=9000,
+        help="process mode: the orchestrator's HTTP port, the agents on "
+        "the next ones (default 9000); 0 binds free ports",
     )
     add_csvio_arguments(parser)
     add_chaos_arguments(parser)
     add_durability_arguments(parser)
     add_memguard_arguments(parser)
-    for flags, kwargs, _what in _NOT_PORTED:
-        parser.add_argument(*flags, help="not ported yet", **kwargs)
-
-
-def _refused_option(args):
-    """(flag, what it belongs to) of the first option given that the port
-    does not run, or None."""
-    for flags, kwargs, what in _NOT_PORTED:
-        dest = flags[-1].lstrip("-").replace("-", "_")
-        default = kwargs.get("default", False)
-        if getattr(args, dest) != default:
-            return flags[-1], what
-    return None
 
 
 def _dump_run_metrics(path: str, curve, offset: int = 0) -> None:
@@ -185,24 +200,32 @@ def _dump_run_metrics(path: str, curve, offset: int = 0) -> None:
 
 
 def run_cmd(args, timeout: float = None) -> int:
-    refused = _refused_option(args)
-    if refused is not None:
-        flag, what = refused
-        print(
-            f"error: solve {flag} ({what}) is not ported yet; the port runs "
-            f"--mode direct only",
-            file=sys.stderr,
-        )
-        return 2
-    start_telemetry(args)
+    chaos = None
+    if args.mode == "thread":
+        # load the schedule before anything starts: a refused one exits
+        # 2 with no telemetry or checkpoint side effects
+        chaos = build_chaos_controller(args)
+        if chaos is not None and (
+            chaos.schedule.kills or chaos.schedule.rules
+            or chaos.schedule.device_faults
+        ):
+            print(
+                "error: solve --fault-schedule: agent kills, message rules "
+                "and device faults in thread mode are not ported yet (they "
+                "need the runtime's resilience); a schedule of process "
+                "kills runs",
+                file=sys.stderr,
+            )
+            return 2
+    bridge = start_telemetry(args)
     manager = start_durability(args)
     configure_memguard(args)
     try:
-        return _run_cmd(args, timeout)
+        return _run_cmd(args, timeout, chaos)
     finally:
         # a failed or timed-out solve keeps the checkpoints it wrote
         finish_durability(args, manager)
-        finish_telemetry(args)
+        finish_telemetry(args, bridge)
 
 
 def _arm_process_kills(args):
@@ -216,8 +239,7 @@ def _arm_process_kills(args):
     if sched.kills or sched.rules or sched.device_faults:
         logger.warning(
             "--fault-schedule: agent kills / message rules / device "
-            "faults need the agent runtime; direct mode ignores them "
-            "(the port runs --mode direct only)"
+            "faults need the agent runtime; direct mode ignores them"
         )
     if not sched.process_kills:
         return None
@@ -227,7 +249,7 @@ def _arm_process_kills(args):
     return chaos
 
 
-def _run_cmd(args, timeout: float = None) -> int:
+def _run_cmd(args, timeout: float = None, chaos=None) -> int:
     t_load = time.perf_counter()
     dcop = load_dcop_from_file(args.dcop_files)
     logger.info(
@@ -241,6 +263,13 @@ def _run_cmd(args, timeout: float = None) -> int:
     from ..telemetry.memplane import MemoryBudgetExceeded
 
     profile_ctx = contextlib.nullcontext()
+    if args.mode == "process" and (args.profile_out or args.dump_hlo):
+        logger.warning(
+            "--profile-out/--dump-hlo instrument this process; --mode "
+            "process runs its agents in child processes, which never "
+            "solve: the device timeline is this process's, the "
+            "orchestrator's"
+        )
     if args.profile and args.profile_out:
         # start_telemetry already opened a profiler session; a second
         # one would fail mid-solve
@@ -251,6 +280,12 @@ def _run_cmd(args, timeout: float = None) -> int:
     elif args.profile:
         import torch
 
+        if args.mode == "process":
+            logger.warning(
+                "--profile instruments this process only; --mode process "
+                "runs its agents in child processes (the solve is this "
+                "process's, the orchestrator's)"
+            )
         acts = [torch.profiler.ProfilerActivity.CPU]
         if args.device == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -260,12 +295,21 @@ def _run_cmd(args, timeout: float = None) -> int:
                 args.profile
             ),
         )
+    if args.mode != "direct":
+        with profile_ctx:
+            result = _runtime_solve(args, dcop, algo_def, timeout, chaos)
+        return _report(args, result)
+    if args.delay is not None or args.uiport is not None:
+        logger.warning(
+            "--delay/--uiport shape the agent runtime; direct mode has no "
+            "agents: use --mode thread to observe a run through the UI"
+        )
     chaos = _arm_process_kills(args)
     if args.metrics_port is not None:
         logger.warning(
             "--metrics-port serves the orchestrator's live surface; direct "
-            "mode has no orchestrator (the port runs --mode direct only; "
-            "metrics are still collected and dumped via --metrics-out)"
+            "mode has no orchestrator: use --mode thread (metrics are "
+            "still collected and dumped via --metrics-out)"
         )
     try:
         with profile_ctx:
@@ -294,6 +338,11 @@ def _run_cmd(args, timeout: float = None) -> int:
         )
         chaos.wait_timeline(timeout=pending + 10.0)
         chaos.stop()
+    return _report(args, result)
+
+
+def _report(args, result) -> int:
+    """Write the CSV metrics and the result JSON; the exit code."""
     if args.run_metrics:
         offset = 0
         if getattr(args, "resume", None):
@@ -326,3 +375,112 @@ def _run_cmd(args, timeout: float = None) -> int:
     write_output(args, result)
     # TIMEOUT exits 0: the anytime incumbent is a usable result
     return 0 if result.get("status") in ("FINISHED", "TIMEOUT") else 1
+
+
+def _runtime_solve(args, dcop, algo_def, timeout, chaos):
+    """The thread and process modes: the agent runtime, its orchestrator
+    solving on ``args.device``; the result is ``end_metrics()``."""
+    from ..infrastructure.run import (
+        run_local_process_dcop,
+        run_local_thread_dcop,
+    )
+
+    extra = {}
+    if args.metrics_port is not None:
+        extra["metrics_port"] = args.metrics_port
+    if args.mode == "thread":
+        runner = run_local_thread_dcop
+        if args.uiport is not None:
+            extra["ui_port"] = args.uiport
+        if args.delay is not None:
+            extra["delay"] = args.delay
+        if chaos is not None:
+            extra["chaos"] = chaos
+    else:
+        runner = run_local_process_dcop
+        extra["port"] = args.port
+        if args.delay is not None or args.uiport is not None:
+            logger.warning(
+                "--delay/--uiport are thread-mode options; process-mode "
+                "agents ignore them"
+            )
+        if args.fault_schedule:
+            logger.warning(
+                "--fault-schedule requires in-process agents; "
+                "process-mode runs ignore it (use --mode thread)"
+            )
+        if args.trace_out:
+            # one trace per process: the parent keeps --trace-out, each
+            # agent process writes <trace_out>.<agent>.json; merge them
+            # with the telemetry stitch verb
+            extra["trace_out"] = args.trace_out
+    orchestrator = runner(
+        algo_def,
+        dcop,
+        args.distribution,
+        n_cycles=args.n_cycles,
+        seed=args.seed,
+        collect_moment=args.collect_on,
+        collect_period=args.period,
+        infinity=args.infinity,
+        device=args.device,
+        **extra,
+    )
+    try:
+        # process-mode agents are spawned interpreters that import the
+        # runtime before their loop runs (no torch: about a second each,
+        # concurrently), so the registration wait scales with the agent
+        # count as the JAX package's does
+        register_s = 10.0
+        if args.mode == "process":
+            register_s = max(60.0, 5.0 * len(dcop.agents))
+            if timeout:
+                register_s = min(register_s, timeout)
+        t_reg = time.perf_counter()
+        orchestrator.deploy_computations(timeout=register_s)
+        # --timeout is a wall-clock bound on the whole command:
+        # registration spends from the same budget the run gets
+        remaining = (
+            None if timeout is None
+            else max(1.0, timeout - (time.perf_counter() - t_reg))
+        )
+        orchestrator.run(timeout=remaining)
+        metrics = orchestrator.end_metrics()
+        metrics.pop("repair_metrics", None)
+        if chaos is not None:
+            metrics["chaos"] = chaos_report(chaos, orchestrator)
+        agent_traces = getattr(orchestrator, "_agent_trace_files", None)
+        if agent_traces:
+            # the per-process trace files, so the stitch step is
+            # discoverable from the result itself
+            metrics["agent_trace_files"] = agent_traces
+        return metrics
+    finally:
+        try:
+            orchestrator.stop_agents()
+        finally:
+            orchestrator.stop()
+            # process mode: wait for the (daemon) agent processes to
+            # flush their per-agent trace files before this process
+            # exits; name a straggler, whose trace may be truncated
+            stragglers = []
+            for p in getattr(orchestrator, "_agent_processes", []):
+                p.join(timeout=5.0)
+                if p.is_alive():
+                    stragglers.append(p.name)
+            if stragglers:
+                logger.warning(
+                    "agent process(es) %s still running at exit; their "
+                    "per-agent trace files may be truncated or missing",
+                    stragglers,
+                )
+            agent_traces = getattr(
+                orchestrator, "_agent_trace_files", None
+            )
+            if agent_traces:
+                logger.info(
+                    "per-agent traces written; merge with: "
+                    "python -m pydcop_tpu_torch telemetry stitch %s %s "
+                    "-o merged.json",
+                    args.trace_out, " ".join(agent_traces),
+                )

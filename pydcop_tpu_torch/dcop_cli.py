@@ -3,11 +3,14 @@
 Counterpart of ``pydcop_tpu/dcop_cli.py``: argparse top level with the
 global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
-per verb.  The port has the ``solve``, ``serve`` and ``capture`` verbs,
-and the host-only ``generate``, ``checkpoints``, ``memplan``,
-``postmortem``, ``telemetry``, ``watch``, ``fleet`` and ``router``
-verbs and ``capture diff``, which import no torch (the router's spawned
-workers are ``serve`` processes, given the router's ``--device``).  Its
+per verb.  The port has the ``solve`` (direct, thread and process
+modes), ``serve``, ``orchestrator`` and ``capture`` verbs, and the
+host-only ``generate``, ``checkpoints``, ``memplan``, ``postmortem``,
+``telemetry``, ``watch``, ``fleet``, ``router`` and ``agent`` verbs and
+``capture diff``, which import no torch (the router's spawned workers
+are ``serve`` processes, given the router's ``--device``; an agent keeps
+the books of an orchestrator's computations, which solves on its own
+``--device``).  Its
 global ``--device {cuda,cpu}`` takes the place of JAX's
 ``JAX_PLATFORMS``: the default is the card, and without one the CLI
 exits nonzero unless ``--device cpu`` is given; it never falls back to
@@ -29,11 +32,13 @@ import sys
 from typing import List, Optional
 
 from .commands import (
+    agent,
     capture,
     checkpoints,
     fleet,
     generate,
     memplan,
+    orchestrator,
     postmortem,
     router,
     serve,
@@ -49,8 +54,8 @@ __all__ = ["main"]
 TIMEOUT_SLACK = 20
 
 # verbs that only read or write files on the host: they run without a card
-_HOST_ONLY = ("checkpoints", "fleet", "generate", "memplan", "postmortem",
-              "router", "telemetry", "watch")
+_HOST_ONLY = ("agent", "checkpoints", "fleet", "generate", "memplan",
+              "postmortem", "router", "telemetry", "watch")
 
 # global options of the JAX CLI that the port does not run yet
 _NOT_PORTED = (
@@ -122,6 +127,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     fleet.set_parser(subparsers)
     router.set_parser(subparsers)
     capture.set_parser(subparsers)
+    orchestrator.set_parser(subparsers)
+    agent.set_parser(subparsers)
 
     args = parser.parse_args(argv)
     _setup_logging(args.verbosity, args.log)

@@ -6,9 +6,8 @@ plane (``memplane``), each the port's own copy of the JAX package's
 module of the same name; and profiling: the capture census, the
 ``torch.profiler`` session and its device annotations (``profiling``),
 the per-op kernel blocks (``kernelprof``) and the capture bundles with
-their regression diff (``perfdiff``).  The JAX package's ``bridge`` (its
-event bus to metrics) belongs to the agent runtime, which is not ported.
-Stdlib only at import: the host-only verbs (``checkpoints``,
+their regression diff (``perfdiff``); and the agent runtime's event bus
+to metrics (``bridge``).  Stdlib only at import: the host-only verbs (``checkpoints``,
 ``postmortem``, ``telemetry``, ``watch``, ``capture diff``) import it
 without touching torch."""
 
@@ -77,6 +76,7 @@ from .memplane import (
     synthetic_shape,
 )
 from .stitch import flow_stats, stitch_traces
+from .bridge import EventBusBridge, attach_event_bridge
 from .profiling import (
     device_annotation,
     profiling,
@@ -85,6 +85,8 @@ from .profiling import (
 )
 
 __all__ = [
+    "EventBusBridge",
+    "attach_event_bridge",
     "Counter",
     "Gauge",
     "Histogram",

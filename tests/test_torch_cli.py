@@ -4,8 +4,10 @@
 CLI's JSON (``python -m pydcop_tpu solve`` under ``JAX_PLATFORMS=cpu``),
 ``time`` excepted, under the bar of ``test_torch_api.py`` (MaxSum's cost
 within rel 1e-5, a cost curve within rel 1e-6, every other field equal).
-Without a card and without ``--device cpu`` it refuses; the options of
-the JAX CLI's other modes are refused as not ported.  ``--pulse-out``,
+Without a card and without ``--device cpu`` it refuses.  The agent
+runtime's modes (``-m thread|process`` with ``-c``, ``--period``,
+``--delay``, ``--uiport``) print the JAX CLI's JSON and ``--run_metrics``
+CSV; thread mode refuses the fault schedules it cannot run yet.  ``--pulse-out``,
 ``--checkpoint``/``--resume``, ``--fault-schedule`` (on ``solve`` and
 ``serve``), ``serve``'s SLO options, ``solve --metrics-port`` and the
 CSV metrics run; ``--metrics-out`` holds the JAX package's anytime
@@ -86,13 +88,120 @@ def test_cli_without_a_card_exits_nonzero():
     assert port.stdout == ""
 
 
+def _free_ports(n):
+    """A base port with ``n`` consecutive ports free on 127.0.0.1."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        held = []
+        try:
+            for p in range(base, base + n):
+                held.append(socket.socket())
+                held[-1].bind(("127.0.0.1", p))
+        except OSError:
+            continue
+        finally:
+            for s in held:
+                s.close()
+        return base
+    raise RuntimeError("no run of free ports")
+
+
 @pytest.mark.parametrize("option", [
-    ["-m", "thread"], ["--period", "1.0"], ["--uiport", "9"],
-    ["-m", "process"],
-    ["-c", "cycle_change"], ["-c", "period"], ["--delay", "0.1"],
+    ["-m", "thread"],
+    ["-m", "thread", "-c", "period", "--period", "0.05"],
+    ["-m", "thread", "--uiport", "{uiport}"],
+    ["-m", "process", "--port", "0"],
+    ["-m", "thread", "-c", "cycle_change"],
+    ["-m", "thread", "-c", "period"],
+    ["-m", "thread", "--delay", "0.01"],
 ])
-def test_cli_refuses_options_not_ported(option, capsys):
-    rc = dcop_cli.main(["--device", "cpu", "solve", "-a", "dsa", *option,
+def test_cli_refuses_options_not_ported(option, tmp_path, capsys):
+    # the agent runtime's options were refused here until the runtime
+    # was ported; each now runs its mode and prints the JAX CLI's JSON,
+    # time excepted (exact: the orchestrator runs the same DSA solve).
+    # The JAX reference of process mode is its thread mode: the JSON is
+    # the orchestrator's either way (the JAX process mode binds the fixed
+    # ports 9000 and up, which a parallel test run cannot hold)
+    problem = _path("graph_coloring")
+    port_opt = [o.format(uiport=_free_ports(10)) for o in option]
+    ref_opt = [o.format(uiport=_free_ports(10)) for o in option]
+    if "process" in ref_opt:
+        ref_opt = ["-m", "thread"]
+    args = ["-a", "dsa", "-n", "20", "--seed", "2"]
+    ref = subprocess.Popen(
+        [sys.executable, "-m", "pydcop_tpu", "solve", *args, *ref_opt,
+         problem],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
+    )
+    if "process" in port_opt:
+        # spawned agents: a process of its own, as a user runs it
+        port = _run([sys.executable, "-m", "pydcop_tpu_torch", "--device",
+                     "cpu", "solve", *args, *port_opt, problem])
+        assert port.returncode == 0, port.stderr[-2000:]
+        got = json.loads(port.stdout)
+    else:
+        out = tmp_path / "port.json"
+        rc = dcop_cli.main(["--device", "cpu", "--output", str(out),
+                            "solve", *args, *port_opt, problem])
+        assert rc == 0
+        assert "not ported" not in capsys.readouterr().err
+        got = json.loads(out.read_text())
+    out, err = ref.communicate(timeout=300)
+    assert ref.returncode == 0, err[-2000:]
+    want = json.loads(out)
+    assert got["status"] == "FINISHED"
+    assert_same_result(got, want, "dsa")
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_runtime_modes_json_and_run_metrics_like_jax(mode, tmp_path):
+    # MaxSum through the runtime: the JSON (cost curve included) and the
+    # --run_metrics CSV are the JAX CLI's (exact: the same solve, damped
+    # as XLA's FMA), time excepted; the JAX reference is its thread mode
+    # (see above), its CSV written by the same orchestrator's curve
+    problem = _path("graph_coloring")
+    args = ["-a", "maxsum", "-p", "damping:0.7", "-p", "layout:ell",
+            "-n", "30", "-d", "adhoc", "--collect_curve"]
+    ref = subprocess.Popen(
+        [sys.executable, "-m", "pydcop_tpu", "solve", *args, "-m",
+         "thread", "--run_metrics", str(tmp_path / "ref.csv"), problem],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
+    )
+    extra = ["--port", "0"] if mode == "process" else []
+    port = _run([sys.executable, "-m", "pydcop_tpu_torch", "--device", "cpu",
+                 "solve", *args, "-m", mode, *extra, "--run_metrics",
+                 str(tmp_path / "port.csv"), problem])
+    out, err = ref.communicate(timeout=300)
+    assert ref.returncode == 0, err[-2000:]
+    assert port.returncode == 0, port.stderr[-2000:]
+    got, want = json.loads(port.stdout), json.loads(out)
+    got.pop("time"), want.pop("time")
+    assert got == want
+    assert len(got["cost_curve"]) == 30
+    assert (tmp_path / "port.csv").read_text() == (
+        tmp_path / "ref.csv").read_text()
+
+
+@pytest.mark.parametrize("event", [
+    "  - kill: a00001\n    at: 0.1\n",
+    "  - drop: '*'\n    p: 0.5\n",
+    "  - device_fault: 1\n",
+])
+def test_thread_mode_refuses_fault_schedules_not_ported(event, tmp_path,
+                                                        capsys):
+    # agent kills, message rules and device faults need the runtime's
+    # resilience, which is not ported: thread mode refuses them (exit 2)
+    # before anything starts
+    sched = tmp_path / "faults.yaml"
+    sched.write_text("seed: 1\nevents:\n" + event)
+    rc = dcop_cli.main(["--device", "cpu", "solve", "-a", "dsa", "-m",
+                        "thread", "--fault-schedule", str(sched),
                         _path("graph_coloring")])
     assert rc == 2
     assert "not ported yet" in capsys.readouterr().err

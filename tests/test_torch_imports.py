@@ -64,6 +64,14 @@ def test_port_files_found():
     "pydcop_tpu_torch/tools/capture_configs.py",
     "pydcop_tpu_torch/parallel/placement.py",
     "pydcop_tpu_torch/partition/icimodel.py",
+    "pydcop_tpu_torch/infrastructure/orchestrator.py",
+    "pydcop_tpu_torch/infrastructure/agents.py",
+    "pydcop_tpu_torch/infrastructure/run.py",
+    "pydcop_tpu_torch/computations_graph/pseudotree.py",
+    "pydcop_tpu_torch/distribution/adhoc.py",
+    "pydcop_tpu_torch/telemetry/bridge.py",
+    "pydcop_tpu_torch/commands/agent.py",
+    "pydcop_tpu_torch/commands/orchestrator.py",
 ])
 def test_subpackages_are_scanned(path):
     assert path in PORT_FILES
@@ -92,6 +100,14 @@ def test_subpackages_are_scanned(path):
     "pydcop_tpu_torch.telemetry.perfdiff",
     "pydcop_tpu_torch.commands.capture",
     "pydcop_tpu_torch.tools.capture_configs",
+    "pydcop_tpu_torch.infrastructure.events",
+    "pydcop_tpu_torch.infrastructure.stats",
+    "pydcop_tpu_torch.infrastructure.computations",
+    "pydcop_tpu_torch.infrastructure.communication",
+    "pydcop_tpu_torch.infrastructure.discovery",
+    "pydcop_tpu_torch.infrastructure.agents",
+    "pydcop_tpu_torch.telemetry.bridge",
+    "pydcop_tpu_torch.commands.agent",
 ])
 def test_host_only_modules_import_no_torch(module):
     # the host-only verbs (memplan, telemetry, watch, fleet, router) and
@@ -122,6 +138,109 @@ def _imported(module):
 def test_placement_modules_import_numpy_but_no_torch(module):
     # the router places its buckets through tpu_part: numpy, no torch
     assert _imported(module) == ["numpy"]
+
+
+@pytest.mark.parametrize("module", [
+    "pydcop_tpu_torch.infrastructure.orchestratedagents",
+    "pydcop_tpu_torch.infrastructure.orchestrator",
+    "pydcop_tpu_torch.infrastructure.run",
+    "pydcop_tpu_torch.commands.orchestrator",
+    "pydcop_tpu_torch.computations_graph.constraints_hypergraph",
+    "pydcop_tpu_torch.computations_graph.ordered_graph",
+    "pydcop_tpu_torch.computations_graph.pseudotree",
+    "pydcop_tpu_torch.distribution.adhoc",
+])
+def test_runtime_modules_import_no_torch(module):
+    # an agent process imports the runtime (run, orchestratedagents and
+    # through it the orchestrator's message taxonomy) and the graph
+    # modules its deploys name: numpy for the DCOP model, never torch
+    assert "torch" not in _imported(module)
+
+
+def test_agent_verb_imports_no_torch():
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "pydcop_tpu_torch",
+         "agent", "--help"],
+        cwd=ROOT, capture_output=True, text=True, check=True,
+    )
+    assert "usage:" in out.stdout
+    assert _imported_names(out.stderr) >= {
+        "pydcop_tpu_torch.commands.agent"}
+    assert not {"torch", "jax"} & _imported_names(out.stderr)
+
+
+def _imported_names(importtime_stderr):
+    return {line.rsplit("|", 1)[-1].strip()
+            for line in importtime_stderr.splitlines()
+            if line.startswith("import time:")}
+
+
+def test_agent_process_import_tree_has_no_torch(tmp_path):
+    # an agent process as process mode spawns it (run._run_process_agent
+    # in a fresh interpreter) joins an orchestrator over HTTP, takes its
+    # deploys (ComputationDefs of maxsum's factor graph), the
+    # run, the value read-backs and the stop: its import tree, the whole
+    # run long, holds no torch (the orchestrator, in this process, solves
+    # on the CPU)
+    import subprocess
+    import sys
+
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
+    from pydcop_tpu_torch.infrastructure.communication import (
+        HttpCommunicationLayer,
+    )
+    from pydcop_tpu_torch.infrastructure.orchestrator import Orchestrator
+    from pydcop_tpu_torch.infrastructure.run import _build
+    from pydcop_tpu_torch.utils.simple_repr import simple_repr
+
+    dcop = load_dcop_from_file(
+        str(ROOT / "tests" / "instances" / "graph_coloring.yaml"))
+    algo, cg, dist = _build(dcop, "maxsum", "adhoc")
+    orchestrator = Orchestrator(
+        algo, cg, list(dcop.agents.values()), dcop, distribution=dist,
+        comm=HttpCommunicationLayer(("127.0.0.1", 0)), n_cycles=10,
+        device="cpu",
+    )
+    orchestrator.start()
+    names = list(dcop.agents)
+    code = (
+        "import json, sys; "
+        "from pydcop_tpu_torch.infrastructure.run import "
+        "_run_process_agent; "
+        f"_run_process_agent({names!r}, {[0] * len(names)!r}, "
+        f"'127.0.0.1', {orchestrator.address[1]}, "
+        f"json.loads(sys.argv[1]))"
+    )
+    with open(tmp_path / "agent.err", "w") as err:
+        agent = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-c", code,
+             json_dumps([simple_repr(dcop.agents[n]) for n in names])],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
+        )
+    try:
+        orchestrator.deploy_computations(timeout=120)
+        orchestrator.run(timeout=120)
+        assert orchestrator.status == "FINISHED"
+        orchestrator.stop_agents(timeout=30)
+        assert agent.wait(60) == 0
+    finally:
+        orchestrator.stop()
+        if agent.poll() is None:
+            agent.kill()
+            agent.wait()
+    imported = _imported_names((tmp_path / "agent.err").read_text())
+    assert {"pydcop_tpu_torch.computations_graph.objects",
+            "pydcop_tpu_torch.infrastructure.orchestratedagents"} <= imported
+    assert not {"torch", "jax"} & imported
+
+
+def json_dumps(obj):
+    import json
+
+    return json.dumps(obj)
 
 
 def test_the_new_modules_name_no_jax_module():
