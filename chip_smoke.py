@@ -176,7 +176,16 @@ captured CUDA graphs:
   then the HTTP path at 1,000 variables: ``solve --mode process`` (4
   spawned agents) and the ``orchestrator`` verb with 2 ``agent`` verb
   processes, each equal to ``--mode direct``, no agent process
-  importing torch (``-X importtime``).
+  importing torch (``-X importtime``);
+- the run verb's path (``run_scenario``): a 300-variable soft coloring
+  with one agent per variable, MaxSum on ``ell`` through
+  ``run_local_thread_dcop``, replicas negotiated (k = 2, distributed)
+  and equal to ``ucs_replica_hosts``, then ``run(scenario=...)`` with
+  three removals of two agents, an arrival, an agent kill and a device
+  fault: every repair solved by MGM-2 on the card (``evaluate_kernel``
+  launched), equal to the same run's on the CPU, the first inside the
+  main solve, whose result is the direct solve's; and ``run -t 20`` of
+  a 3,000,000-cycle DSA on the card exiting 0 with ``TIMEOUT``.
 
 Each solve of the cycle engine runs cold (it captures its graphs) and warm (it must capture
 nothing), is checked against the same solve on the CPU, and counts from
@@ -189,8 +198,9 @@ one JSON object per phase, then the kernel table (seven rows: both TPU
 kernels with a float32 and with a bf16 plane, ``xla_tree_sum``, the DFS
 kernel ``branch_bound``, held equal to its plain version at 16
 variables, and ``damp_fma``; and the six batched variants' rows; each
-row with its ``batched_launches``, ``memory_launches`` and
-``observability_launches`` and ``runtime_launches``), the card's
+row with its ``batched_launches``, ``memory_launches``,
+``observability_launches``, ``runtime_launches``,
+``run_scenario_launches`` and ``repair_launches``), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed check raises, so the script exits nonzero; it also
 exits nonzero, with no result, when no CUDA device is present or the
@@ -204,12 +214,14 @@ sets, in turns: theirs, ours, ours, theirs.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -667,6 +679,11 @@ AGENT_RUNTIME_CYCLES = 30
 AGENT_RUNTIME_SEED = 7
 AGENT_RUNTIME_WARM_LAUNCHES = {"ell_minplus": 32, "xla_tree_sum": 97,
                                "damp_fma": 64}
+# the cold rerun with its UIs and /metrics polled: the same shape at
+# 20,000 variables (100,000 until the run_scenario phase came: ~55 s
+# more of registration and _build)
+AGENT_RUNTIME_POLLED_PROBLEM = (20_000, 3, dict(graph="scalefree", m_edge=2,
+                                                seed=7))
 # its HTTP path: a 1,000-variable soft coloring (999 binary and 1,000
 # unary constraints; one HTTP deploy and one ack each, so the README
 # problem's 51,084 would cost minutes), 4 agents, MaxSum on ell
@@ -675,6 +692,69 @@ AGENT_HTTP_PROBLEM = (1000, 3, dict(graph="scalefree", m_edge=1, soft=True,
 AGENT_HTTP_AGENTS = 4
 AGENT_HTTP_ARGS = ["-a", "maxsum", "-p", "damping:0.7", "-p", "layout:ell",
                    "-n", "30", "-d", "adhoc"]
+
+# the run verb's path (run_scenario): a 300-variable soft coloring with
+# one agent per variable (pyDCOP's resilience topology: every device an
+# agent), each of capacity 1,000 (room for its own computations and k = 2
+# replicas of others'), hosting costs 0 (``name_mapping``: 0 for its own
+# variable, the default 0 elsewhere) and routes drawn in [0, 100) to two
+# decimals.  Not pyDCOP's 1,000 agents: in the thread runtime each
+# agent starts its replication round on its own thread, under the
+# interpreter's lock, and a visit to an agent that has not started yet
+# waits for it; 1,000 starts spread over ~6 s, past the visits' 2 s
+# timeout (hundreds timed out, each a refusal, so the placement is not
+# the oracle's; the JAX package's runtime does worse), where 300 spread
+# over ~1 s (``tests/negotiation_scale.py``).  MaxSum on ell through the orchestrator,
+# replicas negotiated (k = 2, distributed), a scenario of three removals
+# of two agents and one arrival, and a fault schedule's agent kill and
+# device fault.  The card's main solve runs 40,000 cycles (~4 s); the
+# CPU's run of the same scenario (the repairs' reference) solves 30
+RUN_SCENARIO_PROBLEM = (300, 3, dict(graph="scalefree", m_edge=2, soft=True,
+                                     seed=7))
+RUN_SCENARIO_AGENTS = dict(capacity=1000, hosting_mode="name_mapping",
+                           default_hosting_cost=0, default_route=1,
+                           routes_range=100, seed=7)
+RUN_SCENARIO_PARAMS = {"damping": 0.7, "layout": "ell"}
+RUN_SCENARIO_CYCLES = 40_000
+RUN_SCENARIO_CPU_CYCLES = 30
+RUN_SCENARIO_SEED = 7
+RUN_SCENARIO_K = 2
+# the fault schedule: one device fault (the main solve's first attempt
+# fails and is retried) and one agent kill RUN_SCENARIO_KILL_AT s into
+# the run: the first repair, whose solve falls inside the main solve's
+# cold start; generate_scenario(evts_count, actions_count, delay,
+# initial_delay, end_delay, seed) then removes two agents at
+# RUN_SCENARIO_FIRST_S (after the kill: the repairs come in one order on
+# every run) and two more twice, RUN_SCENARIO_GAPS_S apart, the arrival
+# of RUN_SCENARIO_NEWCOMER right after the second removal; the main solve
+# has ended before the second
+RUN_SCENARIO_KILL = "a00150"
+RUN_SCENARIO_KILL_AT = 0.2
+RUN_SCENARIO_FIRST_S = 2.0
+RUN_SCENARIO_GAPS_S = (6.0, 0.5)
+RUN_SCENARIO_EVENTS = (3, 2, RUN_SCENARIO_GAPS_S[1], RUN_SCENARIO_FIRST_S,
+                       0.5, 7)
+RUN_SCENARIO_NEWCOMER = "a00300"
+# the overlap by construction: the main solve, RUN_SCENARIO_GATE_CYCLES
+# cycles before its end, waits (at most RUN_SCENARIO_GATE_S) for the
+# first repair to have ended, and the removals after the scenario's
+# first event wait for the main solve to have ended (``_pin_the_overlap``)
+RUN_SCENARIO_GATE_CYCLES = 256
+RUN_SCENARIO_GATE_S = 120.0
+# the timeout case of the run verb: DSA for 3,000,000 cycles on a
+# 30-variable soft coloring with its agents, k = 2 and two removals
+# 0.2 s apart, under -t 20: status TIMEOUT and exit 0.  As in the JAX
+# package, the timeout bounds the wait after the scenario and the CLI's
+# alarm fires 20 s after it: the process's start (~8 s of imports on the
+# card's host, which keeps no bytecode), registration, replication and
+# the scenario's repairs must fit in those 20 s (with removals 1 s apart
+# they did not, beside the phase: exit 124)
+RUN_TIMEOUT_PROBLEM = (30, 3, dict(graph="scalefree", m_edge=2, soft=True,
+                                   seed=3))
+RUN_TIMEOUT_S = 20
+# generate_scenario(evts_count, actions_count, delay, initial_delay,
+# end_delay)
+RUN_TIMEOUT_EVENTS = (2, 1, 0.2, 0.2, 0.2)
 
 _T_START = time.perf_counter()
 
@@ -6045,9 +6125,11 @@ def phase_agent_runtime():
     compiled problem: the orchestrator's device solve is warm and
     launches what ``maxsum_100k``'s warm solve does (32 ``ell_minplus``,
     97 ``xla_tree_sum``, 64 ``damp_fma``) on its ``device-solve`` thread;
-    its end metrics are the direct solve's, curve included.  Then once
-    more on a fresh copy of the compiled problem (a cold solve that
-    captures on the ``device-solve`` thread) with every agent's UiServer
+    its end metrics are the direct solve's, curve included.  Then the
+    same shape at 20,000 variables (``AGENT_RUNTIME_POLLED_PROBLEM``),
+    solved directly on the card and then through the runtime on a fresh
+    copy of its compiled problem (a cold solve that captures on the
+    ``device-solve`` thread) with every agent's UiServer
     and the orchestrator's metrics server up (the UIs turn the event bus
     on; the registry stays off: its counters' locks, taken by every
     message of every agent, would slow the deployment several times
@@ -6142,15 +6224,26 @@ def phase_agent_runtime():
         if ui_base:
             break
     check(ui_base, "agent_runtime: no run of free ports for the UIs")
+    n, d, kw = AGENT_RUNTIME_POLLED_PROBLEM
+    polled = generate_graph_coloring(n, d, **kw)
+    polled._agents_def.clear()
+    polled.add_agents([AgentDef(f"a{i}", capacity=10**9)
+                       for i in range(AGENT_RUNTIME_AGENTS)])
+    polled_compiled = compile_dcop(polled)
+    polled_direct = solve_result(
+        polled, algo, n_cycles=AGENT_RUNTIME_CYCLES,
+        seed=AGENT_RUNTIME_SEED, collect_curve=True,
+        compiled=polled_compiled, device="cuda")
     try:
         cold, cold_t, cold_counts, polls = _runtime_run(
-            dcop, algo, _fresh(compiled), ui_port=ui_base, metrics_port=0)
+            polled, algo, _fresh(polled_compiled), ui_port=ui_base,
+            metrics_port=0)
     finally:
         event_bus.enabled = False
         event_bus.reset()
-    emit({"phase": "agent_runtime_cold_polled", **cold_t,
+    emit({"phase": "agent_runtime_cold_polled", "n_vars": n, **cold_t,
           "engine_counts": cold_counts, "polls": polls})
-    _runtime_same(cold, direct, "agent_runtime (cold, polled)")
+    _runtime_same(cold, polled_direct, "agent_runtime (cold, polled)")
     check(cold_counts["captures"] > 0,
           "agent_runtime: the polled solve was not cold")
     # a cold solve runs one warm-up iteration and its prologue twice
@@ -6173,6 +6266,451 @@ def phase_agent_runtime():
         "seconds": time.perf_counter() - t_phase,
     })
     return launches
+
+def _scenario_problem(spec=None):
+    """The run_scenario problem: ``generate_graph_coloring`` with one
+    agent per variable from ``generate_agent_defs`` (what ``generate
+    agents --dcop_files`` makes, with the routes its YAML dump leaves
+    out), through ``dcop_yaml`` and ``load_dcop`` as a file would go:
+    the loader makes each drawn route both ways."""
+    from pydcop_tpu_torch.commands.generators.agents import (
+        generate_agent_defs,
+        generate_agents_from_variables,
+    )
+    from pydcop_tpu_torch.commands.generators.graphcoloring import (
+        generate_graph_coloring,
+    )
+
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, load_dcop
+
+    n, d, kw = spec or RUN_SCENARIO_PROBLEM
+    dcop = generate_graph_coloring(n, d, **kw)
+    computations = sorted(dcop.variables)
+    dcop._agents_def.clear()
+    dcop.add_agents(generate_agent_defs(
+        generate_agents_from_variables(computations),
+        computations=computations, **RUN_SCENARIO_AGENTS))
+    return load_dcop(dcop_yaml(dcop))
+
+
+def _scenario(agents):
+    """``generate_scenario``'s three removals of two agents (never the
+    killed one), the first gap stretched to ``RUN_SCENARIO_GAPS_S[0]``,
+    and the arrival of ``RUN_SCENARIO_NEWCOMER`` after the second."""
+    from pydcop_tpu_torch.commands.generators.scenario import (
+        generate_scenario,
+    )
+    from pydcop_tpu_torch.dcop.scenario import DcopEvent, EventAction, Scenario
+
+    evts, actions, delay, initial, end, seed = RUN_SCENARIO_EVENTS
+    pool = [a for a in agents if a != RUN_SCENARIO_KILL]
+    events = [
+        DcopEvent("d0", delay=RUN_SCENARIO_GAPS_S[0]) if e.id == "d0" else e
+        for e in generate_scenario(evts, actions, delay, initial, end, pool,
+                                   seed=seed).events
+    ]
+    at = [e.id for e in events].index("e1") + 1
+    events.insert(at, DcopEvent("add", actions=[
+        EventAction("add_agent", agent=RUN_SCENARIO_NEWCOMER)]))
+    return Scenario(events)
+
+
+def _scenario_run(dcop, algo, device, n_cycles, compiled=None):
+    """One ``run_local_thread_dcop`` of the run_scenario problem on
+    ``device`` (``adhoc``), replicated k = 2 in ``distributed`` mode,
+    then ``run(scenario=...)`` under the fault schedule.  Returns the
+    end metrics, the placement right after replication, the repairs
+    (``orchestrator.repair_runs``), the main solve's span and launches by
+    kernel, and the stages' seconds."""
+    from pydcop_tpu_torch.chaos import ChaosController, FaultSchedule
+    from pydcop_tpu_torch.chaos.schedule import DeviceFault, KillEvent
+    from pydcop_tpu_torch.infrastructure.run import run_local_thread_dcop
+
+    chaos = ChaosController(FaultSchedule(seed=RUN_SCENARIO_SEED, events=[
+        KillEvent(agent=RUN_SCENARIO_KILL, at=RUN_SCENARIO_KILL_AT),
+        DeviceFault(1),
+    ]))
+    timings = {}
+    t0 = time.perf_counter()
+    orchestrator = run_local_thread_dcop(
+        algo, dcop, "adhoc", n_cycles=n_cycles, seed=RUN_SCENARIO_SEED,
+        chaos=chaos, replication_mode="distributed", device=device,
+        compiled=compiled,
+    )
+    timings["build_start_s"] = time.perf_counter() - t0
+    scenario = _scenario(sorted(dcop.agents))
+    try:
+        t0 = time.perf_counter()
+        orchestrator.deploy_computations(timeout=120)
+        check(orchestrator.mgt.ready_to_run.wait(120),
+              "run_scenario: deployment did not complete")
+        timings["deploy_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _visit_replies() as visits:
+            levels = orchestrator.start_replication(RUN_SCENARIO_K,
+                                                    timeout=120)
+        timings["replication_s"] = time.perf_counter() - t0
+        placement = {c: list(h)
+                     for c, h in orchestrator.mgt.replica_hosts.items()}
+        t0 = time.perf_counter()
+        with _pin_the_overlap(orchestrator, n_cycles, scenario) as waits:
+            orchestrator.run(scenario=scenario, timeout=300)
+        timings["run_s"] = time.perf_counter() - t0
+        metrics = orchestrator.end_metrics()
+        record = {
+            "metrics": metrics, "placement": placement, "levels": levels,
+            "repairs": list(orchestrator.repair_runs),
+            "main_span": orchestrator.device_solve_span,
+            "main_launches": dict(orchestrator.device_solve_launches),
+            "chaos": chaos.action_counts(),
+            "registered": sorted(orchestrator.mgt.registered_agents),
+            "visits": visits, "waits": waits,
+        }
+    finally:
+        t0 = time.perf_counter()
+        orchestrator.stop_agents(timeout=60)
+        orchestrator.stop()
+        timings["stop_s"] = time.perf_counter() - t0
+    record["timings"] = timings
+    return record
+
+
+@contextlib.contextmanager
+def _visit_replies():
+    """The negotiation's visits while the block runs: how many were
+    answered, the seconds from a visit to its answer's handling (the
+    largest, the 99th percentile), and how many timed out (each a
+    refusal after ``ReplicationComputation.visit_timeout``).  Wraps the
+    owner's two reply handlers and listens to the negotiation's log."""
+    import logging
+
+    from pydcop_tpu_torch.resilience import negotiation
+
+    rc = negotiation.ReplicationComputation
+    seconds, timed_out = [], []
+    lock = threading.Lock()
+
+    def timed(handler):
+        def wrapped(self, sender, msg, t):
+            neg = self._neg
+            if (neg is not None and neg["outstanding"] is not None
+                    and neg["comp"] == msg.comp
+                    and neg["outstanding"][0] == msg.host):
+                with lock:
+                    seconds.append(
+                        time.monotonic() - neg["outstanding"][1])
+            return handler(self, sender, msg, t)
+        return wrapped
+
+    class Timeouts(logging.Handler):
+        def emit(self, record):
+            if "timed out after" in record.getMessage():
+                timed_out.append(record.getMessage())
+
+    handlers = {t: rc._msg_handlers[t] for t in ("ucs_accept", "ucs_refuse")}
+    log, listener = logging.getLogger(negotiation.__name__), Timeouts()
+    out = {}
+    try:
+        for name, handler in handlers.items():
+            rc._msg_handlers[name] = timed(handler)
+        log.addHandler(listener)
+        yield out
+    finally:
+        rc._msg_handlers.update(handlers)
+        log.removeHandler(listener)
+        seconds.sort()
+        out.update(
+            answered=len(seconds), timed_out=len(timed_out),
+            visit_timeout_s=_visit_timeout(),
+            max_s=seconds[-1] if seconds else None,
+            p99_s=seconds[int(0.99 * (len(seconds) - 1))]
+            if seconds else None,
+        )
+
+
+def _visit_timeout():
+    import inspect
+
+    from pydcop_tpu_torch.resilience.negotiation import (
+        ReplicationComputation,
+    )
+
+    return inspect.signature(ReplicationComputation.__init__).parameters[
+        "visit_timeout"].default
+
+
+@contextlib.contextmanager
+def _pin_the_overlap(orchestrator, n_cycles, scenario):
+    """Make the card's two solves overlap as ``phase_run_scenario``
+    checks, whatever the host's speed: the main solve (its chunk graphs'
+    replays on the ``device-solve`` thread), RUN_SCENARIO_GATE_CYCLES
+    cycles before its end, waits for the first repair to have ended, so
+    that repair lies inside it (it began after the main solve's thread
+    started: the fault schedule starts after it); and the removals after
+    the scenario's first wait for the main solve to have ended.  Yields
+    the seconds each waited (0 when the other was done already)."""
+    from pydcop_tpu_torch.algorithms import base
+
+    waits = {"main_gate_s": None, "later_removals_s": 0.0}
+    first = next(e for e in scenario.events if not e.is_delay)
+    held = {a.args["agent"] for e in scenario.events
+            if not e.is_delay and e is not first
+            for a in e.actions if a.type == "remove_agent"}
+    replay, remove = base._Graphs.replay, orchestrator._remove_agent
+    replays = [0]
+
+    def gated_replay(graphs):
+        if threading.current_thread().name == "device-solve":
+            replays[0] += 1
+            if (waits["main_gate_s"] is None
+                    and replays[0] * graphs.solver.length
+                    >= n_cycles - RUN_SCENARIO_GATE_CYCLES):
+                t0 = time.perf_counter()
+                while (not orchestrator.repair_runs
+                       and time.perf_counter() - t0 < RUN_SCENARIO_GATE_S):
+                    time.sleep(0.005)
+                waits["main_gate_s"] = time.perf_counter() - t0
+        return replay(graphs)
+
+    def held_remove(agent, *args, **kwargs):
+        if agent in held:
+            t0 = time.perf_counter()
+            orchestrator._solve_done.wait(RUN_SCENARIO_GATE_S)
+            waits["later_removals_s"] += time.perf_counter() - t0
+        return remove(agent, *args, **kwargs)
+
+    base._Graphs.replay = gated_replay
+    orchestrator._remove_agent = held_remove
+    try:
+        yield waits
+    finally:
+        base._Graphs.replay = replay
+        orchestrator._remove_agent = remove
+
+
+def _oracle_placement(dcop, distribution):
+    """``ucs_replica_hosts`` of every computation from its owner, with
+    the owner's knowledge (its own routes, 1.0 for other hops) and the
+    agents' hosting costs, as JAX's ``TestQuietNetworkEquivalence``
+    computes it: ``ucs_paths``, the search, once an owner, ranked by
+    ``rank_hosts`` for each of its computations."""
+    from pydcop_tpu_torch.replication import rank_hosts
+    from pydcop_tpu_torch.replication.path_utils import ucs_paths
+
+    names = list(dcop.agents)
+    paths, out = {}, {}
+
+    def hosting_cost(a, c):
+        return float(dcop.agents[a].hosting_cost(c))
+
+    for comp in distribution.computations:
+        owner = distribution.agent_for(comp)
+        if owner not in paths:
+            owner_def = dcop.agents[owner]
+
+            def route_cost(a, b, _o=owner, _od=owner_def):
+                return float(_od.route(b)) if a == _o else 1.0
+
+            paths[owner] = ucs_paths(owner, route_cost, names)
+        out[comp] = rank_hosts(owner, comp, RUN_SCENARIO_K, names,
+                               paths[owner], hosting_cost)
+    return out
+
+
+def _run_timeout_cli(tmp):
+    """``python -m pydcop_tpu_torch -t 20 run -a dsa -n 3000000 -s SCEN
+    -k 2 FILE`` on the card, started; its problem's agents and scenario
+    written to ``tmp``.  Returns the process."""
+    from pydcop_tpu_torch.commands.generators.scenario import (
+        generate_scenario,
+    )
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, yaml_scenario
+
+    dcop = _scenario_problem(RUN_TIMEOUT_PROBLEM)
+    problem = tmp / "timeout.yaml"
+    problem.write_text(dcop_yaml(dcop))
+    scenario = tmp / "timeout_scenario.yaml"
+    scenario.write_text(yaml_scenario(generate_scenario(
+        *RUN_TIMEOUT_EVENTS, sorted(dcop.agents), seed=7)))
+    # its log (-v 2: each stage with its time) to a file, read when it ends
+    log = open(tmp / "timeout.log", "w")
+    proc = subprocess.Popen(
+        PORT_CLI + ["-v", "2", "-t", str(RUN_TIMEOUT_S), "run", "-a", "dsa",
+                    "-n", "3000000", "-s", str(scenario), "-k", "2",
+                    str(problem)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=log, text=True,
+    )
+    log.close()
+    proc.t_start = time.perf_counter()
+    proc.log = tmp / "timeout.log"
+    return proc
+
+
+def _overlaps(inner, outer):
+    return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+
+def phase_run_scenario():
+    """The run verb's path on the card (``run_scenario``): the scenario
+    run of ``_scenario_run`` on the card and on the CPU, the direct solve
+    of the same problem on the card, and the run verb's timeout case in
+    a subprocess beside them.
+
+    Checks: the negotiated placement is the oracle's
+    (``ucs_replica_hosts``); every repair is MGM-2's (not ``GREEDY``),
+    solved on the card with ``evaluate_kernel`` launched, and its
+    ``migrated`` map, cost and status are the CPU run's; the first
+    repair's solve lies inside the main solve's span (two solves on the
+    card at once, on two threads); the device fault and the kill fired;
+    the run's end metrics are the direct solve's (assignment, cost,
+    curve); the main solve launched each kernel of MaxSum's path; the
+    timeout case exits 0 with status TIMEOUT.  Prints each repair's
+    card and CPU seconds, launches by kernel, and the spans."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="run_scenario_"))
+    timeout_proc = _run_timeout_cli(tmp)
+    try:
+        return _run_scenario_checks(t_phase, timeout_proc)
+    finally:
+        if timeout_proc.poll() is None:
+            timeout_proc.kill()
+            timeout_proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_scenario_checks(t_phase, timeout_proc):
+    """``phase_run_scenario``'s runs and checks, its timeout case
+    started."""
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+    from pydcop_tpu_torch.api import solve_result
+    from pydcop_tpu_torch.compile.core import compile_dcop
+
+    t0 = time.perf_counter()
+    dcop = _scenario_problem()
+    compiled = compile_dcop(dcop)
+    setup_s = time.perf_counter() - t0
+    algo = AlgorithmDef.build_with_default_param(
+        "maxsum", RUN_SCENARIO_PARAMS, mode=dcop.objective)
+    card = _scenario_run(dcop, algo, "cuda", RUN_SCENARIO_CYCLES,
+                         compiled=compiled)
+    t0 = time.perf_counter()
+    direct = solve_result(dcop, algo, n_cycles=RUN_SCENARIO_CYCLES,
+                          seed=RUN_SCENARIO_SEED, collect_curve=True,
+                          compiled=compiled, device="cuda")
+    direct_s = time.perf_counter() - t0
+    # the timeout case ends before the CPU run, whose torch threads would
+    # take the host's cores from it
+    out, _ = timeout_proc.communicate(timeout=RUN_TIMEOUT_S + 120)
+    wall = time.perf_counter() - timeout_proc.t_start
+    stages = [line[11:23] + line[line.index(" ", 24):][:100]
+              for line in timeout_proc.log.read_text().splitlines()
+              if " INFO " in line or " WARNING " in line
+              or " ERROR " in line]
+    check(timeout_proc.returncode == 0,
+          f"run_scenario: the timeout case exited "
+          f"{timeout_proc.returncode} after {wall:.1f} s: "
+          + " | ".join(stages[:12] + ["..."] + stages[-12:]))
+    timeout_result = json.loads(out)
+    check(timeout_result["status"] == "TIMEOUT",
+          f"run_scenario: the timeout case's status "
+          f"{timeout_result['status']}")
+    emit({"phase": "run_scenario_timeout", "rc": timeout_proc.returncode,
+          "status": timeout_result["status"],
+          "repairs": len(timeout_result["repair_metrics"]),
+          "time": timeout_result["time"], "seconds": wall})
+    cpu = _scenario_run(dcop, algo, "cpu", RUN_SCENARIO_CPU_CYCLES)
+
+    def by_removed(record):
+        return {r["removed"]: r for r in record["repairs"]}
+
+    from pydcop_tpu_torch.infrastructure.run import _build
+
+    _, _, distribution = _build(dcop, algo, "adhoc")
+    oracle = _oracle_placement(dcop, distribution)
+    check(card["placement"] == oracle,
+          "run_scenario: the negotiated placement is not the oracle's")
+    check(cpu["placement"] == oracle,
+          "run_scenario: the CPU run's placement is not the oracle's")
+    check(card["chaos"] == {"kill": 1, "device_fault": 1},
+          f"run_scenario: faults fired {card['chaos']}")
+    removed = [RUN_SCENARIO_KILL] + [
+        a.args["agent"] for e in _scenario(sorted(dcop.agents)).events
+        if not e.is_delay for a in e.actions if a.type == "remove_agent"]
+    card_repairs, cpu_repairs = by_removed(card), by_removed(cpu)
+    order = ([r["removed"] for r in card["repairs"]],
+             [r["removed"] for r in cpu["repairs"]])
+    check(order[0] == removed == order[1],
+          f"run_scenario: repairs of {order[0]} on the card, {order[1]} "
+          f"on the CPU, want {removed}")
+    repairs = []
+    for name in removed:
+        got, want = card_repairs[name], cpu_repairs[name]
+        m, w = got["metrics"], want["metrics"]
+        check(m["repair_status"] == "FINISHED",
+              f"run_scenario: the repair of {name} is {m['repair_status']}")
+        for key in ("migrated", "repair_cost", "repair_status",
+                    "repair_violation", "repair_cycles"):
+            check(m[key] == w[key],
+                  f"run_scenario: the repair of {name}'s {key} {m[key]} "
+                  f"is not the CPU's {w[key]}")
+        check(got["launches"].get("xla_tree_sum.tree_evaluate", 0) > 0,
+              f"run_scenario: the repair of {name} launched no "
+              f"evaluate_kernel ({got['launches']})")
+        repairs.append({
+            "removed": name, "orphans": len(m["migrated"]),
+            "repair_cost": m["repair_cost"],
+            "card_s": got["span"][1] - got["span"][0],
+            "cpu_s": want["span"][1] - want["span"][0],
+            "launches": got["launches"],
+            "greedy": got["greedy"], "repicked": got["repicked"],
+            "span": [got["span"][0] - t_phase, got["span"][1] - t_phase],
+        })
+    main = card["main_span"]
+    first = card_repairs[removed[0]]["span"]
+    check(card["waits"]["main_gate_s"] is not None,
+          "run_scenario: the main solve's replays never reached the gate "
+          f"{RUN_SCENARIO_GATE_CYCLES} cycles before its end")
+    check(_overlaps(first, main),
+          f"run_scenario: the first repair's solve {first} is not inside "
+          f"the main solve {main}")
+    later = [card_repairs[name]["span"][0] for name in removed[3:]]
+    check(min(later) > main[1],
+          f"run_scenario: a repair of the second or third removal began "
+          f"at {min(later)}, before the main solve ended at {main[1]}")
+    metrics = card["metrics"]
+    check(metrics["status"] == "FINISHED",
+          f"run_scenario: status {metrics['status']}")
+    for key in ("assignment", "cost", "violation", "cycle", "cost_curve"):
+        check(metrics[key] == direct[key],
+              f"run_scenario: {key} differs from the direct solve's")
+    for kernel in ("ell_minplus", "xla_tree_sum", "damp_fma",
+                   "xla_tree_sum.tree_evaluate"):
+        check(card["main_launches"].get(kernel, 0) > 0,
+              f"run_scenario: the main solve launched no {kernel} "
+              f"({card['main_launches']})")
+    check(RUN_SCENARIO_NEWCOMER in card["registered"],
+          "run_scenario: the newcomer is not registered")
+    emit({
+        "phase": "run_scenario", "n_vars": len(dcop.variables),
+        "agents": len(dcop.agents), "k": RUN_SCENARIO_K,
+        "replicas": sum(len(h) for h in card["placement"].values()),
+        "placement_is_oracle": True, "setup_s": setup_s,
+        "card_timings": card["timings"], "cpu_timings": cpu["timings"],
+        "direct_s": direct_s, "cost": metrics["cost"],
+        "cycle": metrics["cycle"], "same_as_direct": True,
+        "main_span": [main[0] - t_phase, main[1] - t_phase],
+        "main_launches": card["main_launches"], "repairs": repairs,
+        "first_repair_inside_main": True,
+        "first_repair_ended_before_main_s": main[1] - first[1],
+        "waits": card["waits"], "visits": card["visits"],
+        "cpu_visits": cpu["visits"], "chaos": card["chaos"],
+        "seconds": time.perf_counter() - t_phase,
+    })
+    return card["main_launches"], repairs
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6396,6 +6934,7 @@ def main() -> int:
     emit({"phase": "pulse_durability_seconds", "seconds": new_phases_s})
     phase_front_door_objects()
     runtime = phase_agent_runtime()
+    scenario_main, scenario_repairs = phase_run_scenario()
     phase_dpop_config5()
     phase_dpop_wide()
     # the serving path: bench config 8, the kernels batched under load,
@@ -6451,6 +6990,12 @@ def main() -> int:
         row["generated_launches"] = generated.get(name, 0)
         row["runtime_launches"] = (
             0 if name in BATCHED_ROWS else runtime.get(name, 0))
+        # the run verb's path: its main solve's launches and its repairs'
+        row["run_scenario_launches"] = (
+            0 if name in BATCHED_ROWS else scenario_main.get(name, 0))
+        row["repair_launches"] = (
+            0 if name in BATCHED_ROWS else sum(
+                r["launches"].get(name, 0) for r in scenario_repairs))
         row["memory_launches"] = memory.get(name, 0)
         row["batched_launches"] = (
             row["launches"] if name in BATCHED_ROWS

@@ -23,6 +23,7 @@ import torch
 
 from ..compile import hopper_kernels
 from ..compile.core import CompiledDCOP
+from ..utils.solve_control import stop_requested
 from .base import _tensor_bytes, cached_runner
 
 __all__ = ["branch_and_bound", "check_binary_only"]
@@ -167,8 +168,10 @@ def branch_and_bound(
         "bb.search", lambda: _operands(compiled, order, initial, device),
         device, _tensor_bytes,
     )
+    # the plain search (CPU) also ends once the thread's solve is asked
+    # to stop (``solve_control.stop_on``)
     packed = hopper_kernels.branch_bound(
-        *operands, int(max_iters) or DEFAULT_MAX_ITERS
+        *operands, int(max_iters) or DEFAULT_MAX_ITERS, stop_requested
     ).cpu().numpy()
     if packed[n + 1] < 0:
         raise RuntimeError(

@@ -105,6 +105,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import threading
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -112,6 +113,11 @@ import numpy as np
 import torch
 
 from ..compile import hopper_kernels
+from ..utils.solve_control import (
+    is_auxiliary,
+    second_solve_live,
+    stop_requested,
+)
 from ..compile.core import CompiledDCOP
 from ..compile.kernels import (
     DeviceDCOP,
@@ -148,6 +154,16 @@ __all__ = [
 # geometrically so a long run pays O(log n) host syncs
 TIMEOUT_CHUNK = 16
 MAX_CHUNK = 1024
+#: chunk replays a solve keeps queued on the card while a second solve
+#: runs beside it (``solve_control.second_solve``: the agent runtime's
+#: repairs).  A run of chunks between looks is up to MAX_CHUNK cycles;
+#: queued whole, it keeps the solve's thread inside its graph launches
+#: and the repair's thread stalled behind it for seconds.  Past this
+#: many, a replay first waits for the oldest to finish, in
+#: ``Event.synchronize``, which lets go of the interpreter's lock; the
+#: replays still queued keep the card busy meanwhile.  A solve alone is
+#: not paced.
+REPLAYS_IN_FLIGHT = 4
 
 # the telemetry handles, created once at import (the JAX package's names)
 _m_windows = metrics_registry.counter(
@@ -976,9 +992,16 @@ class _Graphs(_Runner):
         self.solve_in = torch.zeros(lead + (4,), dtype=torch.int64,
                                     device=device)
         self.level = torch.zeros(lead, dtype=torch.float32, device=device)
+        # the pacing's events (made at its first use) and its replays
+        self._in_flight: Optional[List[torch.cuda.Event]] = None
+        self._n_paced = 0
+        with capture_lock:
+            self._build(solver, device, lead)
+
+    def _build(self, solver: _Solver, device, lead: Tuple) -> None:
+        dev, consts = self.dev, self.consts
         fixed = {id(t) for t in _flatten((dev, consts), [])
                  if isinstance(t, torch.Tensor)}
-
         # warm-up off the capturing stream: lazy kernel builds, library
         # handles and the allocator's first blocks happen here, and one
         # iteration shows which state leaves the step rewrites
@@ -1061,12 +1084,31 @@ class _Graphs(_Runner):
         self._begin()
 
     def replay(self) -> None:
+        self._pace()
         self.chunk.replay()
         hopper_kernels.count_replay(self.launches_per_replay)
         self._took(
             self.curve_buf.clone() if self.solver.collect_curve else None,
             None if self.health_buf is None else self.health_buf.clone(),
         )
+
+    def _pace(self) -> None:
+        """While a second solve runs, wait (the interpreter's lock free,
+        the thread asleep) until fewer than ``REPLAYS_IN_FLIGHT`` replays
+        are queued, then mark this one."""
+        if (self.solve_in.device.type != "cuda"
+                or not second_solve_live()):
+            self._n_paced = 0
+            return
+        if self._in_flight is None:
+            self._in_flight = [torch.cuda.Event(blocking=True)
+                               for _ in range(REPLAYS_IN_FLIGHT)]
+        event = self._in_flight[self._n_paced % REPLAYS_IN_FLIGHT]
+        if self._n_paced >= REPLAYS_IN_FLIGHT:
+            event.synchronize()
+        self._n_paced += 1
+        # recorded before the replay it paces, after the ones before it
+        event.record()
 
     def packed(self) -> torch.Tensor:
         return self.packed_buf
@@ -1093,23 +1135,39 @@ def _side_stream(device):
     """Run the block on a fresh stream and wait for it: work before a
     capture that must not land on the capturing stream."""
     side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
+    current = torch.cuda.current_stream(device)
+    side.wait_stream(current)
     with torch.cuda.stream(side):
         yield
-    torch.cuda.current_stream(device).wait_stream(side)
-    torch.cuda.synchronize(device)
+    current.wait_stream(side)
+    # the current stream, not the device: another thread's solve may keep
+    # the device busy on its own stream meanwhile
+    current.synchronize()
+
+
+#: held by a thread while it warms up and captures graphs: the agent
+#: runtime solves on two threads at once (the main solve, a repair's), and
+#: one capture at a time keeps the captures' shared side stream, their
+#: launch tallies and their warm-ups to one thread.  Captures run in
+#: ``thread_local`` mode, so the other thread's uploads, replays and syncs
+#: go on meanwhile (in ``global`` mode they would fail, or break the
+#: capture); its kernels run on its own streams, and the ticket pools of
+#: ``xla_tree_sum`` are a stream's own (``hopper_kernels._tickets``).
+capture_lock = threading.RLock()
 
 
 def _capture(body: Callable[[], None], pool=None) -> torch.cuda.CUDAGraph:
     """``body``'s device work captured into a CUDA graph (in ``pool``);
     with ``--dump-hlo`` on, in debug mode, keeping its ``cudaGraph_t``
-    for the DOT dump (a graph not kept is destroyed once instantiated)."""
+    for the DOT dump (a graph not kept is destroyed once instantiated).
+    The caller holds ``capture_lock``."""
     dump = profiling.hlo_dir is not None
     graph = (torch.cuda.CUDAGraph(keep_graph=True) if dump
              else torch.cuda.CUDAGraph())
     if dump:
         graph.enable_debug_mode()
-    with torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
         body()
     if dump:
         dump_graph(graph)
@@ -1195,7 +1253,8 @@ def _drive(runner, solver: _Solver, n_limits: np.ndarray,
             done |= stable >= solver.same_count
         if done.all():
             break
-        if deadline is not None and time.perf_counter() >= deadline:
+        if (deadline is not None and time.perf_counter() >= deadline
+                or stop_requested()):
             return bool((ran < n_limits).any())
     return False
 
@@ -1234,7 +1293,8 @@ def _drive_durable(runner, solver: _Solver, n_cycles: int, start: int,
             save(done)
         if solver.use_stability and stable >= solver.same_count:
             break
-        if deadline is not None and time.perf_counter() >= deadline:
+        if (deadline is not None and time.perf_counter() >= deadline
+                or stop_requested()):
             return done < n_cycles
     return False
 
@@ -1474,7 +1534,7 @@ def run_cycles(
     n_cycles = int(n_cycles)
     algo = _phase_of(step)
     ckpt = resume_path = None
-    if durability.active and carry_io is not None:
+    if durability.active and carry_io is not None and not is_auxiliary():
         ckpt = durability.manager
         if ckpt is not None and not ckpt.bind(
             compiled, algo, int(seed), float(noise or 0.0), n_cycles,

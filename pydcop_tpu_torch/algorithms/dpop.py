@@ -61,6 +61,7 @@ from . import AlgoParameterDef, SolveResult, prepare_algo_params
 from .base import (
     _capture,
     _side_stream,
+    capture_lock,
     _tensor_bytes,
     cached_const,
     cached_runner,
@@ -892,9 +893,10 @@ class _FusedWave:
 
     def capture(self) -> None:
         """Warm the wave up on a side stream, then capture it."""
-        with _side_stream(self.unary.device):
-            self._wave()
-        self.graph = _capture(self._store)
+        with capture_lock:
+            with _side_stream(self.unary.device):
+                self._wave()
+            self.graph = _capture(self._store)
         solve.captures += 1
 
     def _wave(self) -> torch.Tensor:

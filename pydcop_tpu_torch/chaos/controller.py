@@ -8,9 +8,12 @@ outbound message (``on_send``), a device solve whether to fail a step
 (``start``): agent kills through a callback, whole-process kills with
 ``os._exit``.  All decisions are keyed-hash draws (``schedule.unit_draw``),
 so the log, sorted canonically, is the same for the same seed and
-schedule.  The port has no agent runtime: its ``solve`` arms only the
-process kills (``start(None)``), and ``serve`` reads the schedule's
-tenant kills and delays itself.
+schedule.  Direct-mode ``solve`` arms only the process kills
+(``start(None)``); thread-mode ``solve`` and ``run`` give the
+orchestrator's ``kill_agent`` as the callback and its device solve asks
+``device_fault``; ``serve`` reads the schedule's tenant kills and
+delays itself.  No message layer asks ``on_send`` yet: the chaos layer
+is not ported.
 """
 
 from __future__ import annotations

@@ -21,7 +21,8 @@ from ..algorithms import AlgorithmDef
 
 __all__ = [
     "add_chaos_arguments", "add_csvio_arguments", "add_durability_arguments",
-    "add_memguard_arguments", "build_algo_def", "build_chaos_controller",
+    "add_memguard_arguments", "add_runtime_arguments",
+    "add_telemetry_arguments", "build_algo_def", "build_chaos_controller",
     "chaos_report", "configure_memguard", "finish_durability", "finish_telemetry",
     "parse_params", "start_durability", "start_telemetry", "write_output",
 ]
@@ -72,6 +73,71 @@ def add_csvio_arguments(parser) -> None:
         "--end_metrics",
         default=None,
         help="CSV file to append end-of-run metrics to",
+    )
+
+
+def add_runtime_arguments(parser) -> None:
+    """-i/--infinity, --delay and --uiport: the options of ``solve`` and
+    ``run`` that shape the agent runtime and the cost reporting."""
+    from ..constants import INFINITY
+
+    parser.add_argument(
+        "-i", "--infinity", type=float, default=INFINITY,
+        help="value standing in for symbolic infinity when reporting "
+        f"hard-constraint costs (default {INFINITY})",
+    )
+    parser.add_argument(
+        "--delay", type=float, default=None,
+        help="artificial delay (seconds) between message deliveries, to "
+        "observe a run through the UI; thread mode only",
+    )
+    parser.add_argument(
+        "--uiport", type=int, default=None,
+        help="base port of the per-agent websocket UI servers; thread "
+        "mode only (agents get uiport, uiport+1, ...)",
+    )
+
+
+def add_telemetry_arguments(parser) -> None:
+    """--pulse-out, --trace-out, --metrics-out, --profile-out,
+    --dump-hlo and --metrics-port: the telemetry flags of ``solve`` and
+    ``run``, turned on by ``start_telemetry``."""
+    parser.add_argument(
+        "--pulse-out", default=None, metavar="FILE",
+        help="compute per-cycle health vectors in the cycle loop and "
+        "stream them to FILE as JSONL; arms the flight recorder "
+        "(postmortem.json on a timeout)",
+    )
+    parser.add_argument(
+        "--trace-out", default=None, metavar="FILE",
+        help="record spans (the engine's readback windows and read-backs) "
+        "and write a Chrome trace to FILE (JSONL for a .jsonl path)",
+    )
+    parser.add_argument(
+        "--metrics-out", default=None, metavar="FILE",
+        help="enable the metrics registry and write its JSON snapshot to "
+        "FILE at exit",
+    )
+    parser.add_argument(
+        "--profile-out", default=None, metavar="DIR",
+        help="record a torch.profiler timeline of the solve into DIR (a "
+        "Chrome trace: Perfetto, TensorBoard), CUDA kernels and CPU ops, "
+        "with ranges per algorithm phase, chunk and read-back; implies "
+        "the metrics registry; a profiler that cannot start is counted "
+        "(device.profiler_unavailable) and the solve runs the same",
+    )
+    parser.add_argument(
+        "--dump-hlo", default=None, metavar="DIR",
+        help="save every fresh CUDA-graph capture as a DOT file in DIR "
+        "(<entry point>.<n>.graph.dot: what the card replays); implies "
+        "the metrics registry",
+    )
+    parser.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="enable the metrics registry and pulse and serve the live "
+        "surface from the orchestrator: /metrics (Prometheus text), "
+        "/metrics.json and /status, for the watch verb (0 = a free port; "
+        "thread/process modes; direct mode serves none)",
     )
 
 
@@ -222,14 +288,14 @@ def finish_durability(args, manager) -> None:
 
 
 def add_chaos_arguments(parser) -> None:
-    """--fault-schedule: the chaos flag of ``solve``."""
+    """--fault-schedule: the chaos flag of ``solve`` and ``run``."""
     parser.add_argument(
         "--fault-schedule", default=None, metavar="FILE",
         help="YAML fault schedule (seeded kills / message faults / device "
-        "faults) injected into the run; the port runs its process kills "
-        "(kill_process) in direct and thread mode; agent kills, message "
-        "rules and device faults are ignored in direct mode and refused "
-        "in thread mode (not ported yet)",
+        "faults) injected into the run: process kills (kill_process) in "
+        "direct and thread mode and in run; agent kills and device faults "
+        "in thread mode and in run (ignored in direct mode); message rules "
+        "are refused (not ported yet)",
     )
 
 

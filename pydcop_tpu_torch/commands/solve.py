@@ -36,9 +36,11 @@ to the runtime's orchestrator, and direct mode starts no server).
 ``--mem-guard``, ``--mem-reserve-pct`` and ``--mem-limit-bytes`` arm the
 memory guard: a solve predicted not to fit is refused before anything is
 uploaded, with an ``ERROR`` result that carries the breach (``mem``).
-A ``--fault-schedule`` with agent kills, message rules or device faults
-in thread mode is refused (exit 2): the runtime's resilience is not
-ported yet.
+In thread mode a ``--fault-schedule``'s agent kills crash agents, whose
+computations are repaired as a scenario removal's, and its device
+faults fail a device-solve attempt; its message rules are refused (exit
+2, ROADMAP Queue 1 item 1), as is a ``-d`` method the port does not have
+yet in the thread and process modes (exit 2, Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -50,13 +52,14 @@ import os
 import sys
 import time
 
-from ..constants import INFINITY
 from ..dcop.yamldcop import load_dcop_from_file
 from ._utils import (
     add_chaos_arguments,
     add_csvio_arguments,
     add_durability_arguments,
     add_memguard_arguments,
+    add_runtime_arguments,
+    add_telemetry_arguments,
     build_algo_def,
     build_chaos_controller,
     chaos_report,
@@ -120,62 +123,10 @@ def set_parser(subparsers) -> None:
         help="include the per-cycle cost curve in the result",
     )
     parser.add_argument(
-        "-i", "--infinity", type=float, default=INFINITY,
-        help="value standing in for symbolic infinity when reporting "
-        f"hard-constraint costs (default {INFINITY})",
-    )
-    parser.add_argument(
-        "--pulse-out", default=None, metavar="FILE",
-        help="compute per-cycle health vectors in the cycle loop and "
-        "stream them to FILE as JSONL; arms the flight recorder "
-        "(postmortem.json on a timeout)",
-    )
-    parser.add_argument(
-        "--trace-out", default=None, metavar="FILE",
-        help="record spans (the engine's readback windows and read-backs) "
-        "and write a Chrome trace to FILE (JSONL for a .jsonl path)",
-    )
-    parser.add_argument(
-        "--metrics-out", default=None, metavar="FILE",
-        help="enable the metrics registry and write its JSON snapshot to "
-        "FILE at exit",
-    )
-    parser.add_argument(
-        "--profile-out", default=None, metavar="DIR",
-        help="record a torch.profiler timeline of the solve into DIR (a "
-        "Chrome trace: Perfetto, TensorBoard), CUDA kernels and CPU ops, "
-        "with ranges per algorithm phase, chunk and read-back; implies "
-        "the metrics registry; a profiler that cannot start is counted "
-        "(device.profiler_unavailable) and the solve runs the same",
-    )
-    parser.add_argument(
-        "--dump-hlo", default=None, metavar="DIR",
-        help="save every fresh CUDA-graph capture as a DOT file in DIR "
-        "(<entry point>.<n>.graph.dot: what the card replays); implies "
-        "the metrics registry",
-    )
-    parser.add_argument(
         "--profile", default=None, metavar="DIR",
         help="legacy alias: bare torch.profiler trace of the solve to DIR "
         "(TensorBoard's trace handler); prefer --profile-out, which adds "
         "per-phase ranges and compile.* metrics",
-    )
-    parser.add_argument(
-        "--metrics-port", type=int, default=None, metavar="PORT",
-        help="enable the metrics registry and pulse and serve the live "
-        "surface from the orchestrator: /metrics (Prometheus text), "
-        "/metrics.json and /status, for the watch verb (0 = a free port; "
-        "thread/process modes; direct mode serves none)",
-    )
-    parser.add_argument(
-        "--delay", type=float, default=None,
-        help="artificial delay (seconds) between message deliveries, to "
-        "observe a run through the UI; thread mode only",
-    )
-    parser.add_argument(
-        "--uiport", type=int, default=None,
-        help="base port of the per-agent websocket UI servers; thread "
-        "mode only (agents get uiport, uiport+1, ...)",
     )
     parser.add_argument(
         "--port", type=int, default=9000,
@@ -183,6 +134,8 @@ def set_parser(subparsers) -> None:
         "the next ones (default 9000); 0 binds free ports",
     )
     add_csvio_arguments(parser)
+    add_runtime_arguments(parser)
+    add_telemetry_arguments(parser)
     add_chaos_arguments(parser)
     add_durability_arguments(parser)
     add_memguard_arguments(parser)
@@ -200,23 +153,20 @@ def _dump_run_metrics(path: str, curve, offset: int = 0) -> None:
 
 
 def run_cmd(args, timeout: float = None) -> int:
+    from ..infrastructure.run import distribution_refusal, fault_refusal
+
     chaos = None
-    if args.mode == "thread":
+    refusal = None
+    if args.mode != "direct":
+        refusal = distribution_refusal(args.distribution)
+    if args.mode == "thread" and refusal is None:
         # load the schedule before anything starts: a refused one exits
         # 2 with no telemetry or checkpoint side effects
         chaos = build_chaos_controller(args)
-        if chaos is not None and (
-            chaos.schedule.kills or chaos.schedule.rules
-            or chaos.schedule.device_faults
-        ):
-            print(
-                "error: solve --fault-schedule: agent kills, message rules "
-                "and device faults in thread mode are not ported yet (they "
-                "need the runtime's resilience); a schedule of process "
-                "kills runs",
-                file=sys.stderr,
-            )
-            return 2
+        refusal = fault_refusal(chaos)
+    if refusal is not None:
+        print(f"error: solve: {refusal}", file=sys.stderr)
+        return 2
     bridge = start_telemetry(args)
     manager = start_durability(args)
     configure_memguard(args)

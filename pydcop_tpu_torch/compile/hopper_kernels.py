@@ -90,7 +90,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Callable, Dict, List, Sequence, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +117,7 @@ __all__ = [
     "factor_arity2_minplus",
     "factor_arity2_minplus_plain",
     "minplus_marginals_plain",
+    "own_stream",
     "tree_evaluate",
     "tree_evaluate_batched",
     "tree_evaluate_plain",
@@ -126,10 +128,17 @@ __all__ = [
 ]
 
 
+#: one build at a time: two threads that solve at once (the agent
+#: runtime's main solve and a repair's) may both reach a first use, and
+#: a build's temporary file is named by the process only
+_build_lock = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built at first use."""
-    return ctypes.CDLL(str(_build.build_all((name,))[name]))
+    with _build_lock:
+        return ctypes.CDLL(str(_build.build_all((name,))[name]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,22 +177,55 @@ def count_replay(tally: Dict) -> None:
     the wrappers' ``launches`` counts."""
     for wrapper, n in tally.items():
         wrapper.launches += n
+    for mine in _thread_tallies():
+        for wrapper, n in tally.items():
+            if getattr(wrapper, "__name__", None):
+                mine[wrapper] = mine.get(wrapper, 0) + n
+
+
+_local = threading.local()
+
+
+def _thread_tallies() -> List[Dict]:
+    return getattr(_local, "tallies", ())
+
+
+@contextlib.contextmanager
+def thread_tally():
+    """A dict that counts, by wrapper, the launches made on the card by
+    the current thread inside the ``with`` block (replays included): the
+    share of the ``launches`` counts of one of the solves that several
+    threads run at once (the agent runtime's main solve and a repair's).
+    Its keys are the wrappers and ``xla_tree_sum.entries``' counts (each
+    with a ``__name__``), not the batched counts."""
+    tally: Dict = {}
+    tallies = list(_thread_tallies())
+    _local.tallies = tallies + [tally]
+    try:
+        yield tally
+    finally:
+        _local.tallies = tallies
 
 
 class _Count:
     """A count of launches of its own: a wrapper's ``batched``, the
-    launches it made for a whole batch of instances (counted in its
-    ``launches`` too)."""
+    launches it made for a whole batch of instances, or one of
+    ``xla_tree_sum.entries``, the launches of one of its entry points
+    (counted in the wrapper's ``launches`` too).  An entry's count has a
+    ``__name__``, for the thread tallies."""
 
-    def __init__(self) -> None:
+    def __init__(self, name: str = None) -> None:
         self.launches = 0
+        self.__name__ = name
 
 
-def _count_launch(wrapper, batched: bool = False) -> None:
+def _count_launch(wrapper, batched: bool = False, entry=None) -> None:
     """One call of ``wrapper`` on the card: a launch now, or one recorded
     into the graph being captured on the current stream.  A launch for a
-    batch counts in ``wrapper.batched`` too."""
-    counts = (wrapper, wrapper.batched) if batched else (wrapper,)
+    batch counts in ``wrapper.batched`` too, and one of an entry point
+    in ``entry``."""
+    counts = (wrapper,) + ((wrapper.batched,) if batched else ()) + (
+        (entry,) if entry is not None else ())
     if torch.cuda.is_current_stream_capturing():
         for tally in _tallies:
             for c in counts:
@@ -191,6 +233,10 @@ def _count_launch(wrapper, batched: bool = False) -> None:
     else:
         for c in counts:
             c.launches += 1
+        for mine in _thread_tallies():
+            for c in counts:
+                if getattr(c, "__name__", None):
+                    mine[c] = mine.get(c, 0) + 1
 
 
 # Each wrapper is reached through a torch.library custom op, whose vmap
@@ -684,18 +730,70 @@ def _tree_needs(segments) -> Tuple[int, int]:
 
 
 # the zeroed int32 ticket pools of each device; each launch leaves its
-# tickets at zero.  A pool never goes: a captured graph keeps its address.
-_ticket_pools: Dict[torch.device, List[torch.Tensor]] = {}
+# tickets at zero.  Launches on one stream run in order, so a stream's
+# eager launches and the graphs that replay on it share one pool: the
+# default stream's (key None) for a solve on it, a stream's own for a
+# solve on ``own_stream`` (the agent runtime's repairs, beside the main
+# solve on the default stream).  A graph takes the pool of the stream it
+# will replay on, the thread's home stream; a warm-up on a side stream,
+# which may run beside another thread's work, takes that stream's pool
+# and sizes the home pool for the capture that follows.  A pool never
+# goes: a captured graph keeps its address.
+_ticket_pools: Dict[Tuple[torch.device, object], List[torch.Tensor]] = {}
+# each device's stream of its own (the high-priority pool's, which no
+# fresh ``torch.cuda.Stream()`` of the default priority hands out)
+_own_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+@contextlib.contextmanager
+def own_stream(device):
+    """The block's device work on ``device``'s stream of its own, which
+    runs beside the default stream's instead of queueing behind it; its
+    graphs replay on it.  A null context off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield
+        return
+    stream = _own_streams.get(device)
+    if stream is None:
+        stream = _own_streams.setdefault(
+            device, torch.cuda.Stream(device, priority=-1))
+    prev = getattr(_local, "home", None)
+    _local.home = stream
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        _local.home = prev
+
+
+def _stream_key(stream, device: torch.device):
+    if stream is None or stream == torch.cuda.default_stream(device):
+        return None
+    return stream.cuda_stream
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 pool of at least ``n`` tickets on ``device``, made
-    (outside any graph capture) the first time one this large is asked
-    for."""
-    pools = _ticket_pools.setdefault(device, [])
+    """A zeroed int32 pool of at least ``n`` tickets on ``device`` for
+    the launches of the current stream (inside a capture: of the stream
+    the graph will replay on), made (outside any graph capture) the
+    first time one this large is asked for."""
+    home = _stream_key(getattr(_local, "home", None), device)
+    if torch.cuda.is_current_stream_capturing():
+        return _ticket_pool(device, home, n, True)
+    key = _stream_key(torch.cuda.current_stream(device), device)
+    pool = _ticket_pool(device, key, n, False)
+    if key != home:
+        _ticket_pool(device, home, n, False)
+    return pool
+
+
+def _ticket_pool(device: torch.device, key, n: int,
+                 capturing: bool) -> torch.Tensor:
+    pools = _ticket_pools.setdefault((device, key), [])
     if pools and pools[-1].numel() >= n:
         return pools[-1]
-    if torch.cuda.is_current_stream_capturing():
+    if capturing:
         raise RuntimeError(
             f"xla_tree_sum needs {n} tickets on {device}, more than any "
             "pool made so far, inside a graph capture: call it once "
@@ -735,7 +833,7 @@ def _run(fn, device, what: str, *args, batched: bool = False,
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: error {rc}")
     if count:
-        _count_launch(xla_tree_sum, batched)
+        _count_launch(xla_tree_sum, batched, xla_tree_sum.entries[what])
 
 
 def _scratch_args(scratch: torch.Tensor, tickets: torch.Tensor):
@@ -794,6 +892,12 @@ def xla_tree_sum(x: torch.Tensor) -> torch.Tensor:
 
 xla_tree_sum.launches = 0
 xla_tree_sum.batched = _Count()
+#: the launches of each entry point of ``csrc/xla_tree_sum.cu`` (the
+#: rows sum, ``evaluate_kernel``, the ELL fan-in), batched ones included
+xla_tree_sum.entries = {
+    what: _Count(f"xla_tree_sum.{what}")
+    for what in ("xla_tree_sum", "tree_evaluate", "ell_fan_in")
+}
 
 
 @torch.library.custom_op(f"{_OPS}::xla_tree_sum", mutates_args=())
@@ -1225,11 +1329,13 @@ def branch_bound_plain(
     ub0: torch.Tensor,  # float32 scalar: the initial upper bound
     best0: torch.Tensor,  # [n] int32 assignment achieving ub0 (or zeros)
     max_iters: int,
+    should_stop: Optional[Callable[[], bool]] = None,
 ) -> torch.Tensor:
     """The DFS of ``_bb_loop`` as PyTorch ops: steps in chunks of
-    ``BB_CHUNK``, the depth read by the host between chunks.  Returns the
-    int32 vector ``[best by position | ub's float32 bits | steps |
-    complete]``."""
+    ``BB_CHUNK``, the depth read by the host between chunks, where a
+    true ``should_stop()`` also ends the search, incomplete, as a step
+    cap leaves it.  Returns the int32 vector ``[best by position | ub's
+    float32 bits | steps | complete]``."""
     n = unary.shape[0]
     dev = unary.device
     ops = (unary, dsize, att_table, att_other, att_mask, lb_suffix)
@@ -1246,6 +1352,8 @@ def branch_bound_plain(
         for _ in range(BB_CHUNK):
             s = _bb_step_plain(ops, s, max_iters)
         if not (int(s[0]) >= 0 and int(s[6]) < max_iters):
+            break
+        if should_stop is not None and should_stop():
             break
     depth, _, _, _, ub, best, iters = s
     return torch.cat([
@@ -1315,11 +1423,13 @@ def branch_bound(
     ub0: torch.Tensor,
     best0: torch.Tensor,
     max_iters: int,
+    should_stop: Optional[Callable[[], bool]] = None,
 ) -> torch.Tensor:
     """The whole depth-first branch and bound over variables in a fixed
     order: the steps of ``_bb_loop`` until the search is complete or
     ``max_iters`` steps ran.  On CPU tensors this is
-    :func:`branch_bound_plain`; on CUDA tensors one launch of
+    :func:`branch_bound_plain` (``should_stop`` as its); on CUDA tensors
+    one launch of
     ``csrc/branch_bound.cu`` (one warp searching, a position's candidate
     row computed once a visit; the attachment tables in shared memory
     when they fit) on the current stream.  Returns the int32 vector
@@ -1334,7 +1444,7 @@ def branch_bound(
     tensors = (unary, dsize, att_table, att_other, att_mask, lb_suffix,
                ub0, best0)
     if all(t.device.type == "cpu" for t in tensors):
-        return branch_bound_plain(*tensors, max_iters)
+        return branch_bound_plain(*tensors, max_iters, should_stop)
     device = _on_cuda(tensors, "branch_bound")
     n, d = unary.shape
     k = att_table.shape[1]

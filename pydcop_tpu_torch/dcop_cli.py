@@ -4,7 +4,8 @@ Counterpart of ``pydcop_tpu/dcop_cli.py``: argparse top level with the
 global ``-t/--timeout`` (plus a grace slack), ``--strict_timeout``,
 ``-v`` verbosity, ``--log`` and ``--output``, and one sub-command module
 per verb.  The port has the ``solve`` (direct, thread and process
-modes), ``serve``, ``orchestrator`` and ``capture`` verbs, and the
+modes), ``run`` (scenarios, replication and repair), ``serve``,
+``orchestrator`` and ``capture`` verbs, and the
 host-only ``generate``, ``checkpoints``, ``memplan``, ``postmortem``,
 ``telemetry``, ``watch``, ``fleet``, ``router`` and ``agent`` verbs and
 ``capture diff``, which import no torch (the router's spawned workers
@@ -41,6 +42,7 @@ from .commands import (
     orchestrator,
     postmortem,
     router,
+    run,
     serve,
     solve,
     telemetry,
@@ -128,6 +130,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     router.set_parser(subparsers)
     capture.set_parser(subparsers)
     orchestrator.set_parser(subparsers)
+    run.set_parser(subparsers)
     agent.set_parser(subparsers)
 
     args = parser.parse_args(argv)

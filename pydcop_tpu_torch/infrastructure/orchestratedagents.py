@@ -3,17 +3,20 @@
 The port's copy of ``pydcop_tpu/infrastructure/orchestratedagents.py``:
 ``OrchestratedAgent`` (an agent pre-wired to the orchestrator's
 directory) and ``OrchestrationComputation`` (the worker-side management
-endpoint ``_mgt_<agent>`` handling deploy / run / pause / resume / stop
-and the repair handshake, and pushing ValueChange / Metrics / Stopped
+endpoint ``_mgt_<agent>`` handling deploy / run / pause / resume /
+replication / repair / stop, and pushing ValueChange / Metrics / Stopped
 messages up).
 
 A deployment instantiates host-side bookkeeping computations
 (``DeviceShardComputation``): the algorithm runs on the card under the
-orchestrator.  The replication handlers (``replication``,
-``store_replica``, ``replicate``) are not ported yet and raise
-``NotImplementedError``; an agent hosts no replication computation.
-Nothing here imports torch: an agent process (the ``agent`` verb,
-process mode's spawned agents) keeps its books on the host only.
+orchestrator.  Every agent hosts a ``ReplicationComputation``
+(``resilience/negotiation.py``), both halves of the replica negotiation,
+and keeps the replicas it holds in ``replica_store``.  Nothing here
+imports torch: an agent process (the ``agent`` verb, process mode's
+spawned agents) keeps its books on the host only.  Pricing a replica
+reads the algorithm's footprint model (its module, which imports torch),
+so an agent process that takes part in a replication round imports it
+then, and not before.
 """
 
 from __future__ import annotations
@@ -33,9 +36,9 @@ from .computations import (
 from .orchestrator import (
     AgentStoppedMessage,
     ComputationFinishedMessage,
+    ComputationReplicatedMessage,
     DeployedMessage,
     MetricsMessage,
-    NOT_PORTED,
     ORCHESTRATOR,
     ORCHESTRATOR_MGT,
     RegisterAgentMessage,
@@ -46,7 +49,7 @@ from .orchestrator import (
 
 __all__ = ["OrchestratedAgent", "OrchestrationComputation"]
 
-logger = logging.getLogger("pydcop_tpu.orchestratedagents")
+logger = logging.getLogger("pydcop_tpu_torch.orchestratedagents")
 
 
 class OrchestrationComputation(MessagePassingComputation):
@@ -79,6 +82,9 @@ class OrchestrationComputation(MessagePassingComputation):
         logger.debug(
             "%s: deployed computation %s", self.agent.name, comp_def.name
         )
+        # a deployment consumes capacity: drop a now-shadowed
+        # own-computation replica (migration) and shed over-capacity ones
+        self.agent.replication.on_deployed(comp_def.name)
         # ack only the NEW computation: a cumulative list would make the
         # ack payloads (and the orchestrator's readiness scan) quadratic
         # in the computation count — measured 300+ s of deployment at
@@ -160,11 +166,36 @@ class OrchestrationComputation(MessagePassingComputation):
 
     @register("replication")
     def _on_replication(self, sender: str, msg, t: float) -> None:
-        raise NotImplementedError(f"replication: {NOT_PORTED}")
+        self.agent.known_agents = dict(msg.agents or {})
+        mode = getattr(msg, "mode", None) or "local"
+        round_id = getattr(msg, "round", None)
+        if mode == "distributed":
+            # the negotiation round acks asynchronously (the round posts
+            # ComputationReplicatedMessage when it finishes, possibly at
+            # partial k)
+            self.agent.replication.start_round(
+                msg.k, dict(msg.agents or {}), round_id=round_id
+            )
+            return
+        hosts = self.agent.replicate(
+            msg.k, agent_defs=getattr(msg, "agent_defs", None)
+        )
+        self.post_msg(
+            ORCHESTRATOR_MGT,
+            ComputationReplicatedMessage(
+                agent=self.agent.name, replica_hosts=hosts,
+                round=round_id,
+            ),
+            MSG_MGT,
+        )
 
     @register("store_replica")
     def _on_store_replica(self, sender: str, msg, t: float) -> None:
-        raise NotImplementedError(f"store_replica: {NOT_PORTED}")
+        comp_name, comp_def = msg.content
+        owner = sender[len("_mgt_"):] if sender.startswith("_mgt_") else sender
+        # through the same ledger as negotiated replicas, so retraction
+        # and capacity shedding treat both replication modes alike
+        self.agent.replication.adopt_replica(owner, comp_name, comp_def)
 
     @register("setup_repair")  # graftproto: replies=repair_ready
     def _on_setup_repair(self, sender: str, msg, t: float) -> None:
@@ -222,6 +253,12 @@ class OrchestratedAgent(Agent):
         )
         self.orchestration = OrchestrationComputation(self)
         self.add_computation(self.orchestration, publish=False)
+        # both halves of the replication negotiation live here (owner walk
+        # and candidate capacity ledger, resilience/)
+        from ..resilience.negotiation import ReplicationComputation
+
+        self.replication = ReplicationComputation(self)
+        self.add_computation(self.replication, publish=False)
         if metrics_period:
             self.add_periodic_action(
                 metrics_period, self._periodic_metrics
@@ -230,6 +267,7 @@ class OrchestratedAgent(Agent):
     def _on_start(self) -> None:
         super()._on_start()
         self.orchestration.start()
+        self.replication.start()
 
     def _periodic_metrics(self) -> None:
         self.orchestration.post_msg(
@@ -265,8 +303,14 @@ class OrchestratedAgent(Agent):
     def replicate(
         self, k: int, agent_defs: Optional[Dict[str, Any]] = None
     ) -> Dict[str, List[str]]:
-        """Centralized replica placement: not ported yet."""
-        raise NotImplementedError(f"replicate: {NOT_PORTED}")
+        """Centralized (``replication_mode="local"``) replica placement:
+        k replicas of every hosted computation def on other agents
+        (pyDCOP ResilientAgent.replicate, via replication/'s UCS).  The
+        distributed protocol goes through ``self.replication``
+        instead."""
+        from ..replication import replicate_computations
+
+        return replicate_computations(self, k, agent_defs=agent_defs)
 
     def setup_repair(self, repair_info: Any) -> List[str]:
         """Accept repair responsibility for orphaned computations this agent

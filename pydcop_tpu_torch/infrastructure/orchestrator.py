@@ -1,12 +1,15 @@
-"""Orchestrator: bootstrap, deployment, run control, metrics sink.
+"""Orchestrator: bootstrap, deployment, run control, metrics sink,
+scenario player and repair coordinator.
 
 The port's copy of ``pydcop_tpu/infrastructure/orchestrator.py``:
 ``Orchestrator`` (an Agent named "orchestrator" hosting the Directory and
 an ``AgentsMgt`` management computation; ``start``,
 ``deploy_computations``, ``run``, ``stop_agents``, ``current_solution``,
-``end_metrics``, ``watch_status``) and ``AgentsMgt`` (registration
-barriers, deploy fan-out, value/cycle/metric collection and the repair
-handshake's acks), with pyDCOP's management message taxonomy.
+``end_metrics``, ``watch_status``, ``start_replication``,
+``set_agent_capacity``, ``kill_agent``, scenario play) and ``AgentsMgt``
+(registration barriers, deploy fan-out, value/cycle/metric collection,
+the replication barrier and the repair handshake), with pyDCOP's
+management message taxonomy.
 
 pyDCOP's agents compute and its orchestrator coordinates.  Here the
 orchestrator also owns the card: ``run()`` starts a ``device-solve``
@@ -18,10 +21,18 @@ would.  Every CUDA call of a run is on that thread: the agents, the UI,
 a ``/metrics`` scrape and the ``--period`` poll read host state only, so
 nothing touches the card while the solve captures its graphs.
 
-Scenarios, agent kills and arrivals, replication and repair
-(``start_replication``, ``set_agent_capacity``, ``kill_agent``,
-``repair_orphans``, scenario play) are not ported yet: they raise
-``NotImplementedError`` naming the ROADMAP's queue item.
+A removal's repair (``AgentsMgt.repair_orphans``) solves its repair
+DCOP with MGM-2 on the same ``device``, on the thread that plays the
+scenario, while the main solve may still run on ``device-solve``: the
+engine keeps the two solves' captures apart (``base.capture_lock``) and
+the repair away from the run's checkpoints.  ``run``'s timeout stops
+the device solve at its next look (``utils/solve_control.py``) and
+joins its thread, so no solve is left inside torch when the process
+exits.  The device solve's and each repair's launches (by kernel,
+counted on their own threads) and wall spans are kept
+(``device_solve_launches``, ``device_solve_span``, ``repair_runs``).
+Message rules (the JAX package's ``ChaosCommunicationLayer``) are not
+ported yet: ``run.py`` refuses them, naming ``NOT_PORTED``'s item.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from .computations import (
 )
 from ..telemetry.tracing import tracer
 from .discovery import DirectoryComputation
+from .events import event_bus
 
 __all__ = ["Orchestrator", "AgentsMgt", "ORCHESTRATOR", "NOT_PORTED"]
 
@@ -63,9 +75,9 @@ REPLICATION_MODES = ("distributed", "local")
 
 #: what the parts of the runtime that are not ported yet say when called
 NOT_PORTED = (
-    "not ported yet: scenarios, agent kills and arrivals, replication and "
-    "repair come with the run verb (ROADMAP, Queue 1: the run verb with "
-    "scenarios, resilience/, replication/, reparation/ and chaos/layer.py)"
+    "not ported yet: message rules (chaos/layer.py's "
+    "ChaosCommunicationLayer) and the chaos verb come next (ROADMAP, "
+    "Queue 1, item 1)"
 )
 
 # -- management message taxonomy (pyDCOP orchestrator.py:385-438) --------
@@ -114,6 +126,30 @@ RepairDoneMessage = message_type(
     "repair_done", ["agent", "selected", "round"]
 )
 MetricsRequestMessage = message_type("metrics_request", [])
+
+
+def replication_timeout_detail(
+    timeout: float,
+    expected: set,
+    acked: set,
+    levels: Dict[str, int],
+    k: int,
+) -> str:
+    """The replication-barrier diagnostic: WHO never acked and WHICH
+    computations sit below the k-target."""
+    missing = sorted(expected - acked)
+    below = {c: n for c, n in sorted(levels.items()) if n < k}
+    detail = (
+        f"replication did not complete within {timeout}s: no "
+        f"ReplicateComputations ack from {len(missing)} agent(s) "
+        f"{missing} (acked: {sorted(acked)})"
+    )
+    if below:
+        detail += (
+            f"; {len(below)} computation(s) below the k-target "
+            f"{k}: {below}"
+        )
+    return detail
 
 
 class Orchestrator:
@@ -168,19 +204,21 @@ class Orchestrator:
         # it, proceeds with what arrived and still returns the best-known
         # assignment (fault-injected runs set this)
         self.degrade_on_timeout = degrade_on_timeout
-        # how start_replication would place replicas, validated as in the
-        # JAX package (replication itself is not ported yet)
+        # how start_replication places replicas: "distributed" runs the
+        # visit/accept/refuse negotiation (resilience/), "local" keeps the
+        # centralized UCS as a verifiable oracle (replication/)
         if replication_mode not in REPLICATION_MODES:
             raise ValueError(
                 f"replication_mode must be one of {REPLICATION_MODES}, "
                 f"got {replication_mode!r}"
             )
         self.replication_mode = replication_mode
-        # the standing k-target: None while replication is not ported
+        # the standing k-target: set by start_replication, reused by the
+        # elasticity path (an agent ARRIVAL re-replicates onto the newcomer)
         self.ktarget: Optional[int] = None
-        # a ChaosController (chaos/controller.py) whose schedule holds
-        # process kills only (the faults that need no agent machinery)
-        # and, on thread topologies, the local agent objects
+        # a ChaosController (chaos/controller.py) driving kills and device
+        # faults and, on thread topologies, the local agent objects so
+        # kill events can crash them abruptly
         self.chaos = None
         self._local_agents: Dict[str, Any] = {}
 
@@ -194,6 +232,14 @@ class Orchestrator:
         self.start_time: Optional[float] = None
         self.status = "NOT_STARTED"
         self._result_lock = threading.Lock()
+        # serializes whole removals (pause -> repair -> resume): a fault
+        # kill fires on the timeline thread and may race a scenario
+        # removal on the caller's thread; concurrent repair_orphans would
+        # each rewrite self.distribution and lose the other's re-hosting
+        self._repair_lock = threading.Lock()
+        # set when run()'s timeout runs out: the device solve stops at its
+        # next look and its thread is joined
+        self._stop_solve = threading.Event()
         self._assignment: Dict[str, Any] = {}
         self._cost: Optional[float] = None
         self._violation: Optional[int] = None
@@ -209,6 +255,13 @@ class Orchestrator:
         # and value read-backs (orchestrator.readback)
         self.device_solve_s: Optional[float] = None
         self.readback_s: Optional[float] = None
+        # the device solve's launches by kernel and its wall span
+        # (perf_counter seconds), and one record a repair: its solve's
+        # span, launches by kernel and metrics (on the card's runs, what
+        # shows a repair's solve beside the main solve)
+        self.device_solve_launches: Dict[str, int] = {}
+        self.device_solve_span: Optional[tuple] = None
+        self.repair_runs: List[Dict[str, Any]] = []
         # graftwatch live surface: /metrics (Prometheus), /metrics.json,
         # /status — started with the orchestrator when a port is given
         # (0 = ephemeral; the bound port is on .metrics_server.port)
@@ -269,14 +322,89 @@ class Orchestrator:
     def start_replication(
         self, k: int, timeout: float = 10.0, mode: Optional[str] = None
     ) -> Dict[str, int]:
-        """Ask every agent to replicate its computations k times: not
-        ported yet."""
-        raise NotImplementedError(f"start_replication: {NOT_PORTED}")
+        """Ask every agent to replicate its computations k times (pyDCOP
+        :223); blocks until the replication barrier passes and returns
+        the achieved replication level per computation.
+
+        ``mode`` overrides the orchestrator's ``replication_mode`` for
+        this round.  When fewer than k hosts can accept (capacity, too few
+        agents), agents ack at *partial k*: the achieved level is
+        recorded in ``AgentsMgt.replication_levels`` instead of hanging
+        the barrier.  A missed barrier names the agents that never acked
+        and the computations below target; with ``degrade_on_timeout``
+        the run proceeds on the replicas that did land.  Re-invocations
+        re-negotiate: a larger candidate set (agent arrival) can move
+        replicas onto cheaper hosts and a smaller ``k`` retracts the
+        surplus."""
+        mode = mode or self.replication_mode
+        if mode not in REPLICATION_MODES:
+            raise ValueError(f"unknown replication mode {mode!r}")
+        self.ktarget = int(k)
+        targets = list(self.distribution.agents)
+        self.mgt.expect_replication(set(targets), k=int(k), mode=mode)
+        agent_defs = None
+        if mode == "local":
+            from ..utils.simple_repr import simple_repr
+
+            agent_defs = {
+                a.name: simple_repr(a) for a in self.agent_defs
+            }
+        known = dict(self.mgt.agent_addresses)
+        for agent_name in targets:
+            self.mgt.post_msg(
+                f"_mgt_{agent_name}",
+                ReplicateComputationsMessage(
+                    k=k, agents=known, mode=mode, agent_defs=agent_defs,
+                    round=self.mgt.replication_round,
+                ),
+                MSG_MGT,
+            )
+        if not self.mgt.all_replicated.wait(timeout):
+            detail = replication_timeout_detail(
+                timeout,
+                expected=self.mgt.expected_replication_agents,
+                acked=self.mgt.replicated_agents,
+                levels=self.mgt.replication_levels,
+                k=int(k),
+            )
+            if not self.degrade_on_timeout:
+                raise TimeoutError(detail)
+            logger.error(
+                "%s — proceeding with partial replication "
+                "(degrade_on_timeout)", detail,
+            )
+        else:
+            partial = {
+                c: n
+                for c, n in self.mgt.replication_levels.items()
+                if n < k
+            }
+            if partial:
+                logger.warning(
+                    "replication completed at partial k for %d "
+                    "computation(s): %s (k-target %d)",
+                    len(partial), partial, k,
+                )
+        return dict(self.mgt.replication_levels)
 
     def set_agent_capacity(self, agent_name: str, capacity: float) -> None:
-        """Tell an agent its capacity changed (replication's retraction
-        trigger): not ported yet."""
-        raise NotImplementedError(f"set_agent_capacity: {NOT_PORTED}")
+        """Tell ``agent_name`` its effective capacity changed (elastic
+        resize, operator action).  The agent's replication ledger re-checks
+        and sheds its most expensive replicas until it fits again: the
+        retraction's capacity-loss trigger."""
+        from ..resilience.messages import CapacityMessage
+        from ..resilience.negotiation import replication_name
+
+        addr = self.mgt.agent_addresses.get(agent_name)
+        if addr is not None:
+            self._agent.messaging.register_route(
+                replication_name(agent_name), agent_name, addr
+            )
+        self.mgt.post_msg(
+            replication_name(agent_name),
+            CapacityMessage(capacity=capacity),
+            MSG_MGT,
+        )
 
     def run(
         self,
@@ -285,17 +413,16 @@ class Orchestrator:
         repair_only: bool = False,
         ready_timeout: Optional[float] = None,
     ) -> None:
-        """Start the computations and drive the device solve to completion.
-        Blocks until finished / timeout.  A ``scenario`` is not ported
-        yet: it raises before anything runs.
+        """Start the computations, play ``scenario`` (its removals
+        repaired, its arrivals joined) and drive the device solve to
+        completion (pyDCOP :245).  Blocks until finished / timeout; at
+        the timeout the device solve is stopped and its thread joined.
 
         ``ready_timeout`` bounds the wait for deployment confirmations;
         the default scales with the number of computations (each is one
         round-trip through the management plane — measured ~1ms each, so
         10k computations need more than a fixed 10s).
         """
-        if scenario is not None:
-            raise NotImplementedError(f"scenario play: {NOT_PORTED}")
         if ready_timeout is None:
             ready_timeout = 10.0 + 0.005 * len(self.cg.nodes)
         if not self.mgt.ready_to_run.wait(ready_timeout):
@@ -352,10 +479,14 @@ class Orchestrator:
             self.chaos.start(self.kill_agent)
         t_run = time.perf_counter()
         try:
+            if scenario is not None:
+                self._play_scenario(scenario)
+
             budget = None if timeout is None else timeout
             finished = self._solve_done.wait(budget)
             if not finished:
                 self.status = "TIMEOUT"
+                self._stop_device_solve()
             elif self.status == "RUNNING":
                 self.status = "FINISHED"
         finally:
@@ -384,6 +515,32 @@ class Orchestrator:
                         "cancelling remaining events"
                     )
                 self.chaos.stop()
+
+    #: how long a timed-out run waits for its stopped device solve: a
+    #: solve stops at its next look, which comes after at most one run
+    #: of chunks (``base.MAX_CHUNK`` cycles) or one launch of a kernel
+    STOP_JOIN_S = 30.0
+
+    def _stop_device_solve(self) -> None:
+        """The run's timeout ran out: ask the device solve to stop and
+        join its thread, so no solve is left inside torch when the
+        process exits (the interpreter's teardown under a thread inside
+        torch aborts it).  The JAX package's run reports a timed-out
+        solve's result as unset; the stopped solve's partial result is
+        dropped the same way."""
+        self._stop_solve.set()
+        thread = self._solve_thread
+        if thread is None:
+            return
+        logger.info("stopping the device solve")
+        thread.join(self.STOP_JOIN_S)
+        if not thread.is_alive():
+            logger.info("the device solve stopped")
+        else:
+            logger.error(
+                "the device solve did not stop within %.0fs of the "
+                "timeout", self.STOP_JOIN_S,
+            )
 
     def current_solution(self):
         with self._result_lock:
@@ -414,6 +571,8 @@ class Orchestrator:
         if self.metrics_server is not None:
             self.metrics_server.shutdown()
             self.metrics_server = None
+        if self._solve_thread is not None and self._solve_thread.is_alive():
+            self._stop_device_solve()
         self._agent.clean_shutdown()
         self._agent.join()
         self.status = "STOPPED" if self.status != "FINISHED" else self.status
@@ -540,8 +699,16 @@ class Orchestrator:
         dura_block = durability.status_block()
         if dura_block is not None:
             out["durability"] = dura_block
-        # no replication block: the JAX package adds one only once a
-        # replication round was requested, which the port cannot do yet
+        # replication block (mode, k-target, achieved levels,
+        # visit/refusal/retraction counters) once a round was requested
+        from ..resilience import replication_status_block
+
+        rep_block = replication_status_block(
+            self.mgt, self.ktarget,
+            self.mgt.replication_mode_active or self.replication_mode,
+        )
+        if rep_block is not None:
+            out["replication"] = rep_block
         # graftmem: device-memory block (last live sample, guard config,
         # refusal counts) so watch/status sees the memory plane
         from ..telemetry.memplane import memory_status
@@ -556,53 +723,22 @@ class Orchestrator:
     # ------------------------------------------------------------------
 
     def _device_solve(self) -> None:
-        from ..api import solve_result
+        from ..compile.hopper_kernels import thread_tally
+        from ..utils.solve_control import stop_on
 
-        # one retry on the card: a transient device failure must not take
-        # down a run whose whole control plane is healthy; a deterministic
-        # error just fails twice.  Never on the CPU (its failures are
-        # deterministic), and not after a sticky CUDA error, which fails
-        # every later CUDA call of this process: reported, not masked
-        attempts = 2 if str(self.device).startswith("cuda") else 1
-        r = None
         t0 = time.perf_counter()
-        for attempt in range(attempts):
-            try:
-                with tracer.span(
-                    "orchestrator.device_solve", cat="solve",
-                    algo=self.algo.algo, n_cycles=self.n_cycles,
-                    device=str(self.device),
-                ):
-                    if self.chaos is not None and self.chaos.device_fault():
-                        raise RuntimeError(
-                            "chaos: injected device step fault"
-                        )
-                    r = solve_result(
-                        self.dcop,
-                        self.algo,
-                        n_cycles=self.n_cycles,
-                        seed=self.seed,
-                        collect_curve=True,
-                        infinity=self.infinity,
-                        compiled=self.compiled,
-                        device=self.device,
-                    )
-                break
-            except Exception:
-                if attempt + 1 < attempts and not _sticky_cuda_error(
-                    self.device
-                ):
-                    logger.warning(
-                        "device solve failed (attempt %d/%d), retrying",
-                        attempt + 1, attempts, exc_info=True,
-                    )
-                    continue
-                logger.exception("device solve failed")
-                self.status = "ERROR"
-                self.device_solve_s = time.perf_counter() - t0
-                self._solve_done.set()
-                return
-        self.device_solve_s = time.perf_counter() - t0
+        with thread_tally() as launches, stop_on(self._stop_solve):
+            r = self._solve_with_retry()
+        t1 = time.perf_counter()
+        self.device_solve_s = t1 - t0
+        self.device_solve_span = (t0, t1)
+        self.device_solve_launches = {
+            w.__name__: n for w, n in launches.items()
+        }
+        if r is None or self._stop_solve.is_set():
+            # failed, or stopped at the run's timeout: nothing to publish
+            self._solve_done.set()
+            return
         t0 = time.perf_counter()
         # everything below reads the solve RESULT, not the shared
         # attributes, so the publication holds no unguarded read of the
@@ -650,21 +786,213 @@ class Orchestrator:
         self.readback_s = time.perf_counter() - t0
         self._solve_done.set()
 
+    def _solve_with_retry(self) -> Optional[Dict[str, Any]]:
+        """The solve's result, or None when it failed (status ERROR).
+        One retry on the card: a transient device failure must not take
+        down a run whose whole control plane is healthy; a deterministic
+        error just fails twice.  On the CPU only for a fault the schedule
+        injected (transient by definition, retried as the JAX package
+        retries it), and never after a sticky CUDA error, which fails
+        every later CUDA call of this process: reported, not masked."""
+        from ..api import solve_result
+
+        attempts = 2 if (str(self.device).startswith("cuda")
+                         or self.chaos is not None) else 1
+        for attempt in range(attempts):
+            try:
+                with tracer.span(
+                    "orchestrator.device_solve", cat="solve",
+                    algo=self.algo.algo, n_cycles=self.n_cycles,
+                    device=str(self.device),
+                ):
+                    if self.chaos is not None and self.chaos.device_fault():
+                        raise RuntimeError(
+                            "chaos: injected device step fault"
+                        )
+                    return solve_result(
+                        self.dcop,
+                        self.algo,
+                        n_cycles=self.n_cycles,
+                        seed=self.seed,
+                        collect_curve=True,
+                        infinity=self.infinity,
+                        compiled=self.compiled,
+                        device=self.device,
+                    )
+            except Exception:
+                if attempt + 1 < attempts and not _sticky_cuda_error(
+                    self.device
+                ):
+                    logger.warning(
+                        "device solve failed (attempt %d/%d), retrying",
+                        attempt + 1, attempts, exc_info=True,
+                    )
+                    continue
+                logger.exception("device solve failed")
+                self.status = "ERROR"
+                return None
+        return None
+
     # ------------------------------------------------------------------
-    # scenarios, kills and repair: not ported yet
+    # scenario handling (pyDCOP :340,:955)
     # ------------------------------------------------------------------
 
     def _play_scenario(self, scenario) -> None:
-        raise NotImplementedError(f"scenario play: {NOT_PORTED}")
+        # the event cursor rides every checkpoint manifest, so a killed
+        # scenario run resumes AFTER the events it already played
+        # (--resume slices the scenario by the recorded cursor).  A
+        # RESUMED run plays an already-sliced scenario: the cursor base it
+        # seeded (commands/run.py) keeps the recorded cursor in
+        # full-scenario coordinates across repeated kill/resume cycles.
+        from ..durability import durability
+
+        base = int(
+            durability.runtime_extra().get("scenario_cursor", 0) or 0
+        )
+        for i, event in enumerate(scenario.events):
+            if event.is_delay:
+                time.sleep(event.delay)
+            else:
+                for action in event.actions:
+                    if action.type == "remove_agent":
+                        self._remove_agent(action.args["agent"])
+                    elif action.type == "add_agent":
+                        self._add_agent(action.args["agent"])
+            durability.note_extra(
+                scenario_cursor=base + i + 1, scenario_event=event.id
+            )
 
     def _add_agent(self, agent_name: str) -> None:
-        raise NotImplementedError(f"add_agent: {NOT_PORTED}")
+        """Agent ARRIVAL (pyDCOP's scenario handling is remove-only).
+        Thread topology: a fresh OrchestratedAgent joins in-process,
+        registers with the directory and becomes a host candidate for
+        later re-replications and repairs.  In a multi-machine run new
+        agents instead join by starting their own ``agent`` process:
+        arrival there IS registration, so this event only logs."""
+        from .orchestratedagents import OrchestratedAgent
+
+        if not isinstance(self._comm, InProcessCommunicationLayer):
+            logger.warning(
+                "scenario add_agent %s ignored on a networked topology: "
+                "start a standalone agent process to join", agent_name,
+            )
+            return
+        if agent_name in self.mgt.registered_agents:
+            # a duplicate would re-register the name and hijack the live
+            # agent's management route
+            logger.warning(
+                "scenario add_agent %s ignored: an agent with that name "
+                "is already registered", agent_name,
+            )
+            return
+        agent_def = self.dcop.agents.get(agent_name)
+        if agent_def is None:
+            from ..dcop.objects import AgentDef
+
+            agent_def = AgentDef(agent_name)
+        self.agent_defs.append(agent_def)
+        # a schedule's message rules are refused before a run starts
+        # (run.py), so the newcomer's transport is the plain one
+        agent = OrchestratedAgent(
+            agent_name,
+            InProcessCommunicationLayer(),
+            self.address,
+            agent_def=agent_def,
+        )
+        agent.start()
+        self._local_agents[agent_name] = agent
+        # block (bounded) until the newcomer has registered: the next
+        # scenario event may be a removal whose repair filters candidates
+        # by registered_agents
+        deadline = time.perf_counter() + 10.0
+        while (
+            agent_name not in self.mgt.registered_agents
+            and time.perf_counter() < deadline
+        ):
+            time.sleep(0.02)
+        if agent_name not in self.mgt.registered_agents:
+            logger.warning(
+                "scenario: added agent %s did not register within 10s",
+                agent_name,
+            )
+        else:
+            logger.info("scenario: added agent %s", agent_name)
+            if self.ktarget is not None:
+                # a newcomer immediately becomes a replication candidate:
+                # re-run the negotiation so cheap capacity is used NOW,
+                # and a later failure can repair onto it
+                logger.info(
+                    "re-replicating (k=%d) to include newcomer %s",
+                    self.ktarget, agent_name,
+                )
+                try:
+                    self.start_replication(self.ktarget, timeout=15.0)
+                except TimeoutError:
+                    logger.error(
+                        "re-replication after adding %s timed out; "
+                        "continuing with previous placements", agent_name,
+                    )
 
     def kill_agent(self, agent_name: str) -> None:
-        raise NotImplementedError(f"kill_agent: {NOT_PORTED}")
+        """Abrupt failure (a fault schedule's kill events): crash the
+        agent (no clean shutdown, its transport dies), then run the
+        repair a scenario removal gets.  On thread topologies the local
+        agent object is crashed directly; elsewhere the agent is simply
+        treated as gone (its process is presumed dead)."""
+        if agent_name not in self.mgt.registered_agents:
+            logger.warning(
+                "chaos: kill of %s ignored: not a registered agent "
+                "(registered: %s)",
+                agent_name, sorted(self.mgt.registered_agents),
+            )
+            return
+        agent = self._local_agents.get(agent_name)
+        if agent is not None:
+            agent.crash()
+        self._remove_agent(agent_name, crashed=True)
 
     def _remove_agent(self, agent_name: str, crashed: bool = False) -> None:
-        raise NotImplementedError(f"remove_agent: {NOT_PORTED}")
+        """Simulated failure + repair (pyDCOP :955-1124): pause, remove
+        the agent, rehost its computations, resume.  ``crashed`` skips the
+        polite AgentRemoved notification: a dead agent cannot read it,
+        and the message would only sit parked until dead-lettered."""
+        logger.info(
+            "%s: removing agent %s", "chaos" if crashed else "scenario",
+            agent_name,
+        )
+        event_bus.send("orchestrator.scenario.remove_agent", agent_name)
+        with self._repair_lock, tracer.span(
+            "orchestrator.repair", cat="lifecycle", agent=agent_name
+        ) as sp:
+            # pause all surviving agents' computations
+            for a in list(self.mgt.registered_agents):
+                if a == agent_name:
+                    continue
+                self.mgt.post_msg(
+                    f"_mgt_{a}", PauseMessage(computations=None), MSG_MGT
+                )
+            if not crashed:
+                self.mgt.post_msg(
+                    f"_mgt_{agent_name}",
+                    AgentRemovedMessage(reason="scenario"),
+                    MSG_MGT,
+                )
+            self.mgt.registered_agents.discard(agent_name)
+            # the dead agent can neither ack a replication round nor host
+            # replicas: prune it before repair picks candidates
+            self.mgt.note_agent_gone(agent_name)
+            try:
+                repair_metrics = self.mgt.repair_orphans(agent_name)
+                self._repair_metrics.append(repair_metrics)
+                sp.set(orphans=len(repair_metrics.get("orphans", [])))
+            except Exception:
+                logger.exception(
+                    "repair after removing %s failed", agent_name
+                )
+            for a in list(self.mgt.registered_agents):
+                self.mgt.post_msg(
+                    f"_mgt_{a}", ResumeMessage(computations=None), MSG_MGT
+                )
 
 
 def _sticky_cuda_error(device) -> bool:
@@ -698,15 +1026,33 @@ class AgentsMgt(MessagePassingComputation):
         # (the distribution may not exist yet at construction time)
         self._pending_deploy: Optional[set] = None
         self.agent_metrics: Dict[str, Dict[str, Any]] = {}
+        self.replica_hosts: Dict[str, List[str]] = {}
+        self.expected_replications = 0
+        self._n_replicated = 0
+        # agents whose ReplicateComputations ack arrived: a missed
+        # replication barrier reports exactly who stalled
+        self.replicated_agents: set = set()
+        # the agents the CURRENT replication round still expects (an
+        # agent dying mid-round is discarded via note_agent_gone so the
+        # barrier completes on the survivors), the achieved level per
+        # computation (partial k is a result, not a failure) and the
+        # round's mode, all surfaced in /status
+        self.expected_replication_agents: set = set()
+        self.replication_levels: Dict[str, int] = {}
+        self.replication_mode_active: Optional[str] = None
+        self._replication_armed = False
+        # barrier epoch: bumped per round; acks echo it (see the message
+        # taxonomy comment on ReplicateComputationsMessage)
+        self.replication_round = 0
         self.all_registered = threading.Event()
         self.ready_to_run = threading.Event()
+        self.all_replicated = threading.Event()
         self.all_stopped = threading.Event()
         self._stopped_agents: set = set()
         self._finished_computations: set = set()
-        # the repair handshake's state: agents that acked setup_repair
-        # with the computations they can host, and the selections
-        # repair_run produced (repair_orphans, which speaks the
-        # handshake, is not ported yet; the acks are recorded already)
+        # the repair handshake's state (pyDCOP AgentsMgt repair barriers):
+        # agents that acked setup_repair with the computations they can
+        # host, and the selections repair_run produced
         self.repair_ready_agents: Dict[str, List[str]] = {}
         self.repair_selected: Dict[str, List[str]] = {}
         self.all_repair_ready = threading.Event()
@@ -802,6 +1148,90 @@ class AgentsMgt(MessagePassingComputation):
         if self._stopped_agents >= self.registered_agents:
             self.all_stopped.set()
 
+    def expect_replication(self, agents: set, k: int, mode: str) -> None:
+        """Arm the replication barrier for one round: expect an ack from
+        every agent in ``agents`` and clear the previous round's ack set
+        (a stale ack must never release a new barrier).  Achieved levels
+        persist across rounds: a re-replication round overwrites them."""
+        self.expected_replication_agents = set(agents)
+        self.expected_replications = len(agents)
+        self.replicated_agents.clear()
+        self.all_replicated.clear()
+        self.replication_mode_active = mode
+        self.replication_round += 1
+        self._replication_armed = True
+
+    def note_agent_gone(self, agent_name: str) -> None:
+        """An agent died or was removed: the current replication round
+        must not wait for its ack, it is not routable (a later round must
+        not ship the corpse as a candidate), and it can no longer host
+        replicas: drop it everywhere placement decisions read.
+
+        Runs on the timeline or scenario thread while the mgt thread may
+        be inserting round reports: iterate over SNAPSHOTS."""
+        self.expected_replication_agents.discard(agent_name)
+        self._check_replication_barrier()
+        self.agent_addresses.pop(agent_name, None)
+        for comp, hosts in list(self.replica_hosts.items()):
+            if agent_name in hosts:
+                hosts.remove(agent_name)
+                self.replication_levels[comp] = len(hosts)
+        for holders in list(
+            self.orchestrator.directory.directory.replicas.values()
+        ):
+            holders.discard(agent_name)
+
+    def _check_replication_barrier(self) -> None:
+        self._n_replicated = len(self.replicated_agents)
+        if (
+            self._replication_armed
+            and self.replicated_agents >= self.expected_replication_agents
+        ):
+            self.all_replicated.set()
+
+    @register("replicated")
+    def _on_replicated(self, sender: str, msg, t: float) -> None:
+        # placements are real regardless of the round that produced them
+        # (the owner DID ship those replicas): always merge the view, but
+        # never re-admit a host that died since the owner committed it
+        for comp, hosts in (msg.replica_hosts or {}).items():
+            live = [h for h in hosts if h in self.registered_agents]
+            self.replica_hosts[comp] = live
+            self.replication_levels[comp] = len(live)
+            for h in live:
+                self.orchestrator.directory.directory.replicas.setdefault(
+                    comp, set()
+                ).add(h)
+        # ...but only an ack of the CURRENT round counts toward the
+        # barrier, and set-based, so a duplicated ack cannot release it
+        # while another agent is still replicating
+        ack_round = getattr(msg, "round", None)
+        if ack_round is not None and ack_round != self.replication_round:
+            logger.info(
+                "stale replication ack from %s (round %s, current %s)",
+                msg.agent, ack_round, self.replication_round,
+            )
+            return
+        self.replicated_agents.add(msg.agent)
+        self._check_replication_barrier()
+
+    @register("replica_retracted")
+    def _on_replica_retracted(self, sender: str, msg, t: float) -> None:
+        """A host removed a committed replica (released by its owner, shed
+        on capacity loss, dropped on migration): prune the placement view
+        so repair candidates and ``/status`` levels track reality."""
+        hosts = self.replica_hosts.get(msg.comp)
+        if hosts and msg.agent in hosts:
+            hosts.remove(msg.agent)
+            self.replication_levels[msg.comp] = len(hosts)
+        self.orchestrator.directory.directory.replicas.get(
+            msg.comp, set()
+        ).discard(msg.agent)
+        logger.debug(
+            "replica of %s retracted by %s (%s)",
+            msg.comp, msg.agent, msg.reason,
+        )
+
     # -- repair --------------------------------------------------------
 
     def expect_repair_acks(self, n: int) -> None:
@@ -865,6 +1295,114 @@ class AgentsMgt(MessagePassingComputation):
             # lost the race with a new episode arming: withdraw
             self.repair_selected.pop(msg.agent, None)
 
+    #: bound on the repair-ready barrier: the repair must never hang on
+    #: a silent survivor (it may itself be mid-crash); it proceeds on the
+    #: orchestrator's own knowledge after naming the stragglers
+    REPAIR_READY_TIMEOUT = 5.0
+
     def repair_orphans(self, removed_agent: str) -> Dict[str, Any]:
-        """Re-host the computations of a removed agent: not ported yet."""
-        raise NotImplementedError(f"repair_orphans: {NOT_PORTED}")
+        """Re-host the computations of a removed agent, with pyDCOP's
+        repair handshake: ``setup_repair`` fans out to every survivor,
+        which answers ``repair_ready`` naming the orphans it holds
+        replicas of; once the (bounded) ready barrier passes, the
+        placement is decided and the migrated computations deployed, and
+        ``repair_run`` tells the survivors to activate (their
+        ``repair_done`` selections land in :attr:`repair_selected`).
+
+        The placement is pyDCOP's repair DCOP (binary variables
+        x_(computation, agent) under hosted, capacity, hosting-cost and
+        communication-cost constraints, ``reparation/``), candidates the
+        replica holders when replication ran, solved with MGM-2 on the
+        orchestrator's device on this thread.  The solve's span and its
+        launches by kernel go into ``orchestrator.repair_runs``.  The
+        whole repair is a ``solve_control.second_solve``: the main solve
+        keeps few replays queued meanwhile."""
+        from ..utils.solve_control import second_solve
+
+        with second_solve():
+            return self._repair_orphans(removed_agent)
+
+    def _repair_orphans(self, removed_agent: str) -> Dict[str, Any]:
+        from ..compile.hopper_kernels import thread_tally
+        from ..reparation import repair_distribution
+
+        orc = self.orchestrator
+        dist = orc.distribution
+        orphans = list(dist.computations_hosted(removed_agent))
+        if not orphans:
+            return {"orphans": [], "migrated": {}}
+        # phase 1: setup_repair -> repair_ready (bounded barrier).
+        # Survivors' _mgt_ computations stay live through the repair
+        # freeze (blanket pauses skip control-plane computations), so
+        # the acks flow while the algorithm computations are paused.
+        survivors = sorted(self.registered_agents)
+        self.expect_repair_acks(len(survivors))
+        repair_info = {
+            "orphans": orphans,
+            "removed": removed_agent,
+            "round": self.repair_round,
+        }
+        for a in survivors:
+            self.post_msg(
+                f"_mgt_{a}",
+                SetupRepairMessage(repair_info=repair_info),
+                MSG_MGT,
+            )
+        if survivors and not self.all_repair_ready.wait(
+            self.REPAIR_READY_TIMEOUT
+        ):
+            acked = dict(self.repair_ready_agents)
+            missing = sorted(set(survivors) - set(acked))
+            logger.warning(
+                "repair-ready barrier missed %d/%d ack(s) within "
+                "%.1fs (no repair_ready from %s) — proceeding with "
+                "the orchestrator's own placement knowledge",
+                len(missing), len(survivors),
+                self.REPAIR_READY_TIMEOUT, missing,
+            )
+        t0 = time.perf_counter()
+        repicked = repair_distribution.repicked
+        with thread_tally() as launches:
+            new_dist, metrics = repair_distribution(
+                orc.cg,
+                [
+                    a
+                    for a in orc.agent_defs
+                    if a.name in self.registered_agents
+                ],
+                dist,
+                removed_agent,
+                orc.algo,
+                replica_hosts=self.replica_hosts or None,
+                device=orc.device,
+            )
+        orc.repair_runs.append({
+            "removed": removed_agent,
+            "span": (t0, time.perf_counter()),
+            "launches": {w.__name__: n for w, n in launches.items()},
+            "metrics": dict(metrics),
+            # the JAX package's two fallbacks, counted: a greedy placement
+            # (the tabulation guard) and the orphans MGM-2 gave no host
+            # or several
+            "greedy": metrics["repair_status"] == "GREEDY",
+            "repicked": repair_distribution.repicked - repicked,
+        })
+        orc.distribution = new_dist
+        # phase 2: deploy migrated computations on their new hosts
+        for comp in orphans:
+            new_agent = new_dist.agent_for(comp)
+            node = orc.cg.computation(comp)
+            self.post_msg(
+                f"_mgt_{new_agent}",
+                DeployMessage(comp_def=ComputationDef(node, orc.algo)),
+                MSG_MGT,
+            )
+        # phase 3: repair_run -> repair_done (fire-and-forget: the
+        # selections are bookkeeping, nothing blocks on them)
+        for a in survivors:
+            self.post_msg(f"_mgt_{a}", RepairRunMessage(), MSG_MGT)
+        metrics["orphans"] = orphans
+        metrics["repair_ready_agents"] = sorted(
+            dict(self.repair_ready_agents)
+        )
+        return metrics

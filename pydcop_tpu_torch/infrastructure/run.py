@@ -44,11 +44,40 @@ logger = logging.getLogger("pydcop_tpu_torch.run")
 
 _PACKAGE = __name__.rsplit(".", 2)[0]
 
+#: the distribution methods the port has (``-d``); the JAX package's
+#: others (gh_cgdp, the ILP methods, ...) are ROADMAP Queue 1, item 2
+DISTRIBUTIONS = ("adhoc", "oneagent", "tpu_part")
+
+
+def distribution_refusal(distribution) -> Optional[str]:
+    """The named refusal of a distribution method the port does not have
+    yet, or None (a ported method, or a Distribution object)."""
+    if not isinstance(distribution, str) or distribution in DISTRIBUTIONS:
+        return None
+    return (
+        f"distribution method {distribution!r} is not ported yet (the "
+        f"port has {', '.join(DISTRIBUTIONS)}; the JAX package's other "
+        f"methods are ROADMAP Queue 1, item 2)"
+    )
+
+
+def fault_refusal(chaos) -> Optional[str]:
+    """The named refusal of a fault schedule whose message rules need the
+    JAX package's ``ChaosCommunicationLayer``, or None: process and agent
+    kills and device faults run."""
+    if chaos is not None and chaos.schedule.rules:
+        return f"fault schedule message rules: {NOT_PORTED}"
+    return None
+
 
 def _build(dcop: DCOP, algo_def, distribution):
     """Graph + distribution from names.  Loading the algorithm module
     imports torch: this runs in the orchestrator's process, which owns
-    the card, never in an agent's."""
+    the card, never in an agent's.  A distribution method the port does
+    not have yet raises ``NotImplementedError`` naming its queue item."""
+    refusal = distribution_refusal(distribution)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     if isinstance(algo_def, str):
         algo_def = AlgorithmDef.build_with_default_param(
             algo_def, mode=dcop.objective
@@ -100,11 +129,13 @@ def run_local_thread_dcop(
     Returns the started orchestrator with all agents registered; call
     ``deploy_computations`` / ``run`` / ``stop_agents`` / ``stop`` on it.
 
-    ``chaos``: a ``ChaosController`` (chaos/controller.py) whose schedule
-    holds process kills only; the barriers then degrade instead of
-    raising on partial completion.  Agent kills, message rules and device
-    faults need the runtime's resilience, which is not ported yet: such a
-    schedule raises ``NotImplementedError`` before anything starts.
+    ``chaos``: a ``ChaosController`` (chaos/controller.py): its kill
+    events crash the in-process agents (then repaired as a removal), its
+    device faults fail a device-solve attempt, and the barriers degrade
+    gracefully instead of raising on partial completion.  Message rules
+    need the JAX package's ``ChaosCommunicationLayer``, which is not
+    ported yet: such a schedule raises ``NotImplementedError`` before
+    anything starts.
 
     ``metrics_port``: serve the live surface (``/metrics``,
     ``/metrics.json``, ``/status``) from the orchestrator on this port
@@ -113,13 +144,9 @@ def run_local_thread_dcop(
     ``device``: where the orchestrator's device solve runs (the card by
     default; refused when none is present); ``compiled``: the problem
     already compiled, whose captured graphs the solve reuses."""
-    if chaos is not None:
-        sched = chaos.schedule
-        if sched.kills or sched.rules or sched.device_faults:
-            raise NotImplementedError(
-                f"agent kills, message rules and device faults: "
-                f"{NOT_PORTED}"
-            )
+    refusal = fault_refusal(chaos)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     algo_def, cg, distribution = _build(dcop, algo_def, distribution)
     agent_defs = list(dcop.agents.values())
     orchestrator = Orchestrator(

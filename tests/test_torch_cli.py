@@ -7,7 +7,8 @@ within rel 1e-5, a cost curve within rel 1e-6, every other field equal).
 Without a card and without ``--device cpu`` it refuses.  The agent
 runtime's modes (``-m thread|process`` with ``-c``, ``--period``,
 ``--delay``, ``--uiport``) print the JAX CLI's JSON and ``--run_metrics``
-CSV; thread mode refuses the fault schedules it cannot run yet.  ``--pulse-out``,
+CSV; thread mode runs agent kills and device faults and refuses message
+rules.  ``--pulse-out``,
 ``--checkpoint``/``--resume``, ``--fault-schedule`` (on ``solve`` and
 ``serve``), ``serve``'s SLO options, ``solve --metrics-port`` and the
 CSV metrics run; ``--metrics-out`` holds the JAX package's anytime
@@ -195,16 +196,27 @@ def test_runtime_modes_json_and_run_metrics_like_jax(mode, tmp_path):
 ])
 def test_thread_mode_refuses_fault_schedules_not_ported(event, tmp_path,
                                                         capsys):
-    # agent kills, message rules and device faults need the runtime's
-    # resilience, which is not ported: thread mode refuses them (exit 2)
-    # before anything starts
+    # agent kills (repaired as a removal) and device faults (one failed
+    # device-solve attempt, retried) run in thread mode; message rules
+    # need the chaos layer, which is not ported: thread mode refuses them
+    # (exit 2) before anything starts
     sched = tmp_path / "faults.yaml"
     sched.write_text("seed: 1\nevents:\n" + event)
     rc = dcop_cli.main(["--device", "cpu", "solve", "-a", "dsa", "-m",
                         "thread", "--fault-schedule", str(sched),
                         _path("graph_coloring")])
-    assert rc == 2
-    assert "not ported yet" in capsys.readouterr().err
+    out, err = capsys.readouterr()
+    if "drop" in event:
+        assert rc == 2
+        assert "not ported yet" in err and "message rules" in err
+        assert "Queue 1, item 1" in err
+        return
+    assert rc == 0, err[-2000:]
+    result = json.loads(out)
+    assert result["status"] == "FINISHED"
+    assert len(result["assignment"]) == 10
+    action = "kill" if "kill" in event else "device_fault"
+    assert result["chaos"]["counts"] == {action: 1}
 
 
 def test_cli_refuses_global_options_not_ported(capsys):

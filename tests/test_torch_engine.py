@@ -206,6 +206,56 @@ class _ReplayedBody:
         return None
 
 
+class _Event:
+    """A stand-in for ``torch.cuda.Event``: a log of records and waits."""
+
+    log = []
+
+    def __init__(self, blocking=False):
+        self.id = len([e for e in self.log if e[0] == "new"])
+        self.log.append(("new", self.id))
+
+    def record(self):
+        self.log.append(("record", self.id))
+
+    def synchronize(self):
+        self.log.append(("wait", self.id))
+
+
+def test_replays_are_paced_only_beside_a_second_solve(monkeypatch):
+    # on the card a solve alone queues its replays freely; while a second
+    # solve runs (a repair), each replay past REPLAYS_IN_FLIGHT first
+    # waits for the event recorded REPLAYS_IN_FLIGHT replays earlier
+    from pydcop_tpu_torch.utils.solve_control import second_solve
+
+    class _Card:
+        type = "cuda"
+
+    graphs = object.__new__(base._Graphs)
+    graphs.solve_in = type("SolveIn", (), {"device": _Card()})()
+    graphs._in_flight, graphs._n_paced = None, 0
+    _Event.log = []
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    n = base.REPLAYS_IN_FLIGHT
+    for _ in range(3):
+        graphs._pace()
+    assert _Event.log == []
+    with second_solve():
+        for _ in range(n + 2):
+            graphs._pace()
+    assert [e for e in _Event.log if e[0] != "new"] == (
+        [("record", i) for i in range(n)]
+        + [("wait", 0), ("record", 0), ("wait", 1), ("record", 1)]
+    )
+    _Event.log = []
+    graphs._pace()
+    assert _Event.log == [] and graphs._n_paced == 0
+    with second_solve():
+        # a second solve again: the first replays queue without waiting
+        graphs._pace()
+    assert _Event.log == [("record", 0)]
+
+
 @pytest.mark.parametrize(
     "name, case",
     [("maxsum", "scalefree"), ("dsa", "isolated"), ("mgm", "ising")],

@@ -72,6 +72,18 @@ def test_port_files_found():
     "pydcop_tpu_torch/telemetry/bridge.py",
     "pydcop_tpu_torch/commands/agent.py",
     "pydcop_tpu_torch/commands/orchestrator.py",
+    "pydcop_tpu_torch/commands/run.py",
+    "pydcop_tpu_torch/replication/__init__.py",
+    "pydcop_tpu_torch/replication/path_utils.py",
+    "pydcop_tpu_torch/replication/objects.py",
+    "pydcop_tpu_torch/replication/yamlformat.py",
+    "pydcop_tpu_torch/resilience/__init__.py",
+    "pydcop_tpu_torch/resilience/messages.py",
+    "pydcop_tpu_torch/resilience/negotiation.py",
+    "pydcop_tpu_torch/reparation/__init__.py",
+    "pydcop_tpu_torch/reparation/removal.py",
+    "pydcop_tpu_torch/utils/solve_control.py",
+    "pydcop_tpu_torch/tools/ab_solo.py",
 ])
 def test_subpackages_are_scanned(path):
     assert path in PORT_FILES
@@ -108,6 +120,12 @@ def test_subpackages_are_scanned(path):
     "pydcop_tpu_torch.infrastructure.agents",
     "pydcop_tpu_torch.telemetry.bridge",
     "pydcop_tpu_torch.commands.agent",
+    "pydcop_tpu_torch.replication",
+    "pydcop_tpu_torch.replication.path_utils",
+    "pydcop_tpu_torch.replication.objects",
+    "pydcop_tpu_torch.replication.yamlformat",
+    "pydcop_tpu_torch.utils.solve_control",
+    "pydcop_tpu_torch.tools.ab_solo",
 ])
 def test_host_only_modules_import_no_torch(module):
     # the host-only verbs (memplan, telemetry, watch, fleet, router) and
@@ -149,11 +167,18 @@ def test_placement_modules_import_numpy_but_no_torch(module):
     "pydcop_tpu_torch.computations_graph.ordered_graph",
     "pydcop_tpu_torch.computations_graph.pseudotree",
     "pydcop_tpu_torch.distribution.adhoc",
+    "pydcop_tpu_torch.resilience",
+    "pydcop_tpu_torch.resilience.messages",
+    "pydcop_tpu_torch.resilience.negotiation",
+    "pydcop_tpu_torch.reparation",
+    "pydcop_tpu_torch.reparation.removal",
+    "pydcop_tpu_torch.commands.run",
 ])
 def test_runtime_modules_import_no_torch(module):
     # an agent process imports the runtime (run, orchestratedagents and
     # through it the orchestrator's message taxonomy) and the graph
-    # modules its deploys name: numpy for the DCOP model, never torch
+    # modules its deploys name, and the replica negotiation and repair
+    # model it hosts: numpy for the DCOP model, never torch
     assert "torch" not in _imported(module)
 
 

@@ -305,8 +305,10 @@ def _rehearse(monkeypatch):
     import torch
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g, pool=None: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "graph",
+        lambda g, pool=None, capture_error_mode=None: (
+            contextlib.nullcontext()))
     real_capture = base._capture
 
     def capture(body, pool=None):
